@@ -1,0 +1,90 @@
+"""Carry flax variables of ``edrl_tpu`` into the port's modules.
+
+The port names its modules and parameters as flax does, so a flax leaf
+``params/a/b/kernel`` lands on the torch tensor ``a.b.weight``:
+
+- Dense ``kernel [in, out]`` -> ``weight [out, in]`` (transposed);
+- LayerNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
+- BatchNorm ``mean`` / ``var`` (``batch_stats``) -> ``running_mean`` /
+  ``running_var``;
+- every other leaf (``rel_bias_table``, ``pos_embed``, ``proxies``,
+  ``alpha``, ``phi``, Dense ``bias``) keeps its name and layout.
+
+The mapping is strict: every flax leaf is used once, every parameter and
+persistent buffer of the module is filled, and shapes must agree.  Anything
+else raises with the path.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+_PARAM_RENAMES = {"kernel": "weight", "scale": "weight"}
+_STAT_RENAMES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], object]]:
+    for key, value in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(value, Mapping):
+            yield from _leaves(value, path)
+        else:
+            yield path, value
+
+
+def _mapped(model: nn.Module, params: Mapping, batch_stats: Optional[Mapping]):
+    """``(torch_name, flax_name, leaf, transpose)`` for every flax leaf, strictly."""
+    targets = model.state_dict(keep_vars=True)
+    filled: Dict[str, str] = {}
+    out = []
+    for collection, tree, renames in (
+        ("params", params, _PARAM_RENAMES),
+        ("batch_stats", batch_stats or {}, _STAT_RENAMES),
+    ):
+        for path, leaf in _leaves(tree):
+            flax_name = "/".join((collection,) + path)
+            transpose = collection == "params" and path[-1] == "kernel"
+            name = ".".join(path[:-1] + (renames.get(path[-1], path[-1]),))
+            if name not in targets:
+                raise KeyError(f"{flax_name}: no torch tensor {name!r} in {type(model).__name__}")
+            if name in filled:
+                raise KeyError(f"{flax_name}: torch tensor {name!r} already filled by {filled[name]}")
+            shape = tuple(np.shape(leaf))
+            if transpose:
+                if len(shape) != 2:
+                    raise ValueError(f"{flax_name}: Dense kernel must be 2-D, got {shape}")
+                shape = shape[::-1]
+            if shape != tuple(targets[name].shape):
+                raise ValueError(
+                    f"{flax_name}: shape {shape} (after layout change) != torch "
+                    f"{name} {tuple(targets[name].shape)}"
+                )
+            filled[name] = flax_name
+            out.append((name, flax_name, leaf, transpose))
+    missing = sorted(set(targets) - set(filled))
+    if missing:
+        raise KeyError(f"torch tensors with no flax leaf: {missing}")
+    return out
+
+
+def flax_key_map(model: nn.Module, params: Mapping, batch_stats: Optional[Mapping] = None) -> Dict[str, str]:
+    """Torch tensor name -> flax leaf path, checked as strictly as a load.
+
+    Works on trees of shapes (``jax.eval_shape`` output) as well as arrays.
+    """
+    return {name: flax_name for name, flax_name, _, _ in _mapped(model, params, batch_stats)}
+
+
+@torch.no_grad()
+def load_flax_variables(model: nn.Module, params: Mapping,
+                        batch_stats: Optional[Mapping] = None) -> nn.Module:
+    """Fill ``model`` from flax trees of numpy arrays (``params``, ``batch_stats``)."""
+    targets = model.state_dict(keep_vars=True)
+    for name, _, leaf, transpose in _mapped(model, params, batch_stats):
+        value = torch.from_numpy(np.array(leaf, dtype=np.float32))
+        targets[name].copy_(value.T if transpose else value)
+    return model
