@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU, and check it.
+"""Drive the PyTorch port's serving path and train step on one NVIDIA GPU, and check them.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -8,21 +8,46 @@ Run from the root of a checkout, on a machine with one CUDA card:
 Phases (any failed check raises, so the exit code is nonzero):
 
 1. Require CUDA; print the card's name and power limit; turn TF32 off.
-2. Build the CUDA kernels from ``edrl_tpu_torch/kernels/csrc`` and print the
-   build time and the compiler's register/shared-memory report.
-3. Check each kernel against its plain PyTorch version at every main-path
-   shape and at odd shapes, in bf16 (atol 3e-2) and f32 (atol 1e-4).
+2. Build the CUDA kernels from ``edrl_tpu_torch/kernels/csrc`` (one nvcc per
+   source, in parallel) and print the build time and the compiler's
+   register/shared-memory report.
+3. Check each forward kernel against its plain PyTorch version at every
+   serving shape (batch 16) and at odd shapes, in bf16 (atol 3e-2) and f32
+   (atol 1e-4).
 4. Serve three uint8 requests (16, 5 and 40 pairs) with a full-width
    ``Predictor`` (``EDRLConfig()`` defaults, seeded random weights) and
-   check the probabilities and that each kernel ran 12 times per batch.
-5. Compare the kernel path with the plain path (both fused flags off) on
-   the same weights, in bf16 (2e-2) and f32 (1e-4), and a small f32 model on
-   the card against the same model on the CPU (1e-4).
-6. Time each kernel against its plain version at the main-path shapes, and
-   the full-width forward at batch 16 on both paths (CUDA events, median).
+   check the probabilities and that each forward kernel ran 12 times per
+   batch.
+5. Compare the serving kernel path with the plain path (both fused flags
+   off) on the same weights, in bf16 (2e-2) and f32 (1e-4), and a small f32
+   model on the card against the same model on the CPU (1e-4).
+6. Time each forward kernel against its plain version at the serving
+   shapes, and the full-width forward at batch 16 on both paths.
+7. Check the backward kernels (B1, B2) and the MK-MMD kernel (B3) against
+   their plain versions at every train-step shape of batch 32 and at odd
+   shapes, in bf16 and f32.  Bars, relative to the largest magnitude of the
+   plain result: 1e-2 for bf16 results, 1e-4 for f32 results and dbias;
+   MK-MMD rtol 1e-4.
+8. Train three full-width steps (``EDRLConfig()``: bf16, both fused flags,
+   batch 32, seeded weights) on ready-made f32 views from numpy seed 0, and
+   check finite losses, changed parameters and BN statistics, and 24
+   launches per step of each attention kernel, forward and backward.  Then
+   one step with ``use_pallas_mmd`` against the same step with the plain
+   MMD: B3 launched once, and the two MMD values agree (rtol 1e-4).
+9. One step on the kernel path against one on the plain path, same weights,
+   batch and draws: in f32 loss (1e-5) and per-tensor gradients (median
+   1e-3, worst 1e-2 relative to the tensor's largest gradient, key biases
+   aside), in bf16 the loss (1e-2) with the gradient errors printed; and a
+   small f32 model's step on the card against the same step on the CPU
+   (loss 1e-4, gradients 1e-3).
+10. Time the train step on both paths (interleaved), its peak device
+    memory, and each kernel at batch 32 against its plain version, one
+    PyTorch call computing the same function (``library_ms``; timed only,
+    never called by the port) and its bound.
 
 The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX.
+last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX
+and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -37,15 +62,32 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 TIMING_REPS = 20
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
+BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor cores
+F32_FLOPS_PER_S = 67e12          # f32 outside the tensor cores
+BF16_ATOL, F32_ATOL = 3e-2, 1e-4
+BWD_BAR = {"bf16": 1e-2, "f32": 1e-4}
+MMD_RTOL = 1e-4
+TRAIN_STEPS = 3
+
+SA, V2, SA_BWD, V2_BWD, MMD = (
+    "self_attention_fused", "window_attention_fused_v2", "self_attention_fused_bwd",
+    "window_attention_fused_v2_bwd", "mk_mmd_fused",
+)
 KERNEL_SOURCE = {
-    "self_attention_fused": "edrl_tpu_torch/kernels/csrc/self_attention_fwd.cu",
-    "window_attention_fused_v2": "edrl_tpu_torch/kernels/csrc/window_attention_v2_fwd.cu",
+    SA: "edrl_tpu_torch/kernels/csrc/self_attention_fwd.cu",
+    V2: "edrl_tpu_torch/kernels/csrc/window_attention_v2_fwd.cu",
+    SA_BWD: "edrl_tpu_torch/kernels/csrc/self_attention_bwd.cu",
+    V2_BWD: "edrl_tpu_torch/kernels/csrc/window_attention_v2_bwd.cu",
+    MMD: "edrl_tpu_torch/kernels/csrc/mmd_fwd.cu",
 }
 KERNEL_REPLACES = {
-    "self_attention_fused": "edrl_tpu/kernels/window_attention.py:536",
-    "window_attention_fused_v2": "edrl_tpu/kernels/window_attention.py:328",
+    SA: "edrl_tpu/kernels/window_attention.py:571",
+    V2: "edrl_tpu/kernels/window_attention.py:363",
+    SA_BWD: "edrl_tpu/kernels/window_attention.py:592",
+    V2_BWD: "edrl_tpu/kernels/window_attention.py:390",
+    MMD: "edrl_tpu/kernels/mmd_pallas.py:68",
 }
-BF16_ATOL, F32_ATOL = 3e-2, 1e-4
 
 
 def check(ok: bool, what: str) -> None:
@@ -78,12 +120,19 @@ def time_ms(torch, fn, reps: int = TIMING_REPS) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, flops: float, flops_per_s: float):
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and ops over peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
+    return 1000.0 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def main() -> None:
-    if not (REPO / "edrl_tpu_torch").is_dir() or not (REPO / "edrl_tpu").is_dir():
+    if not (REPO / "edrl_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py: no edrl_tpu_torch/ beside this script; run it from a checkout")
     sys.path.insert(0, str(REPO))
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False; this needs a CUDA card")
@@ -93,11 +142,21 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
-    from edrl_tpu.config import EDRLConfig
+    from edrl_tpu_torch.config import EDRLConfig, tiny_test_config
     from edrl_tpu_torch.kernels import build
+    from edrl_tpu_torch.kernels import mmd as kmmd
     from edrl_tpu_torch.kernels import window_attention as wa
     from edrl_tpu_torch.models.swin2d import rel_bias_from_table, relative_position_index, shift_attn_mask
+    from edrl_tpu_torch.ops.mmd import mk_mmd
     from edrl_tpu_torch.serve.predictor import Predictor
+    from edrl_tpu_torch.train import trainer
+
+    def reset_counts():
+        wa.reset_launch_counts()
+        kmmd.reset_launch_counts()
+
+    def counts():
+        return {**wa.LAUNCHES, **kmmd.LAUNCHES}
 
     # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -110,8 +169,9 @@ def main() -> None:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}")
 
-    # -- 3. kernels against their plain versions ---------------------------
-    mc = EDRLConfig().model
+    # -- 3. forward kernels against their plain versions --------------------
+    cfg = EDRLConfig()
+    mc = cfg.model
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def normal(shape, dtype):
@@ -127,19 +187,22 @@ def main() -> None:
             full = full + torch.as_tensor(shift_attn_mask(grid, window, window // 2), device=dev)[:, None]
         return full.contiguous()
 
-    # Main-path shapes at eval batch 16, with how often one forward calls each.
-    b = EDRLConfig().data.eval_batch_size
-    c_vit, h_vit = mc.oct_embed_dim, mc.vit3d_heads
-    vit_shape = dict(b=b, n=mc.oct_tokens, c=c_vit, heads=h_vit, calls=mc.vit3d_depth)
-    swin_shapes = []
-    grid, dim = EDRLConfig().data.fundus_size // 4, mc.swin_embed_dim
-    for depth, heads in zip(mc.swin_depths, mc.swin_heads):
-        window = min(mc.swin_window, grid)
-        swin_shapes.append(dict(b=b, grid=grid, window=window, c=dim, heads=heads,
-                                shifted=window < grid, calls=depth))
-        grid, dim = grid // 2, dim * 2
+    def attention_shapes(b):
+        """(ViT shape, Swin shapes) of one forward at batch b, with calls per forward."""
+        vit = dict(b=b, n=mc.oct_tokens, c=mc.oct_embed_dim, heads=mc.vit3d_heads, calls=mc.vit3d_depth)
+        swin = []
+        grid, dim = cfg.data.fundus_size // 4, mc.swin_embed_dim
+        for depth, heads in zip(mc.swin_depths, mc.swin_heads):
+            window = min(mc.swin_window, grid)
+            swin.append(dict(b=b, grid=grid, window=window, c=dim, heads=heads,
+                             shifted=window < grid, calls=depth))
+            grid, dim = grid // 2, dim * 2
+        return vit, swin
 
-    max_err = {wa.SELF_ATTENTION: 0.0, wa.WINDOW_ATTENTION_V2: 0.0}
+    b = cfg.data.eval_batch_size
+    vit_shape, swin_shapes = attention_shapes(b)
+    c_vit, h_vit = mc.oct_embed_dim, mc.vit3d_heads
+    max_err = {name: 0.0 for name in KERNEL_SOURCE}
 
     def compare(name, label, dtype, got, want):
         err = (got.float() - want.float()).abs().max().item()
@@ -163,34 +226,32 @@ def main() -> None:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = vit_inputs(vit_shape, dtype)
             scale = (c_vit // h_vit) ** -0.5
-            compare(wa.SELF_ATTENTION, f"[{b},{mc.oct_tokens},{c_vit}]x{h_vit}", dtype,
+            compare(SA, f"[{b},{mc.oct_tokens},{c_vit}]x{h_vit}", dtype,
                     wa.self_attention_fused(q, k, v, h_vit, scale),
                     wa.self_attention_reference(q, k, v, h_vit, scale))
             for s in swin_shapes:
                 qkv, bias = swin_inputs(s, dtype)
                 scale = (s["c"] // s["heads"]) ** -0.5
-                compare(wa.WINDOW_ATTENTION_V2,
-                        f"{list(qkv.shape)} H={s['heads']} shifted={s['shifted']}", dtype,
+                compare(V2, f"{list(qkv.shape)} H={s['heads']} shifted={s['shifted']}", dtype,
                         wa.window_attention_fused_v2(qkv, bias, s["heads"], scale),
                         wa.window_attention_v2_reference(qkv, bias, s["heads"], scale))
             # Odd shapes: N=16 with head_dim 16 (the bf16 tensor-core kernel),
             # head_dim 8 and N=240 (the CUDA-core kernel in bf16 as well).
             for shape, heads in (((3, 16, 32), 2), ((2, 40, 16), 2), ((2, 240, 128), 1)):
                 q, k, v = (normal(shape, dtype) for _ in range(3))
-                compare(wa.SELF_ATTENTION, f"{list(shape)}x{heads} (odd)", dtype,
+                compare(SA, f"{list(shape)}x{heads} (odd)", dtype,
                         wa.self_attention_fused(q, k, v, heads, 0.25),
                         wa.self_attention_reference(q, k, v, heads, 0.25))
             for shape, heads in (((3, 2, 16, 96), 2), ((2, 1, 240, 48), 2)):
                 qkv = normal(shape, dtype)
                 bias = torch.randn((shape[1], heads, shape[2], shape[2]), generator=gen, device=dev)
-                compare(wa.WINDOW_ATTENTION_V2, f"{list(shape)} H={heads} (odd)", dtype,
+                compare(V2, f"{list(shape)} H={heads} (odd)", dtype,
                         wa.window_attention_fused_v2(qkv, bias, heads, 0.25),
                         wa.window_attention_v2_reference(qkv, bias, heads, 0.25))
     torch.cuda.synchronize()
 
     # -- 4. the serving path at full width ---------------------------------
-    cfg = EDRLConfig()
-    check(cfg.model.use_bfloat16 and cfg.model.use_fused_attention and cfg.model.vit_fused_attention,
+    check(mc.use_bfloat16 and mc.use_fused_attention and mc.vit_fused_attention,
           "shipped config has bf16 and both fused flags on")
     t0 = time.perf_counter()
     pred = Predictor(cfg, device=dev, seed=0)
@@ -204,29 +265,30 @@ def main() -> None:
          rng.integers(0, 256, (n, *d.oct_size, 1), dtype=np.uint8))
         for n in (16, 5, 40)
     ]
-    wa.reset_launch_counts()
+    reset_counts()
     outputs = [pred.predict_probs(f, o) for f, o in requests]
-    launches = dict(wa.LAUNCHES)
+    serve_launches = counts()
     batches = sum(-(-len(f) // cfg.data.eval_batch_size) for f, _ in requests)
     for (f, _), p in zip(requests, outputs):
-        check(p.shape == (len(f), cfg.model.num_classes), f"probs shape {p.shape}")
+        check(p.shape == (len(f), mc.num_classes), f"probs shape {p.shape}")
         check(bool(np.isfinite(p).all()), "probs finite")
         check(bool(np.allclose(p.sum(-1), 1.0, atol=1e-5)), "probs rows sum to 1")
         print(f"request {len(f)} pairs -> probs {p.shape}, first row {p[0].tolist()}", flush=True)
     expected = 12 * batches
-    print(f"launches over {batches} batches: {launches} (expected {expected} each)", flush=True)
-    for name, count in launches.items():
-        check(count == expected, f"{name} launched {count} times, expected {expected}")
+    print(f"serving launches over {batches} batches: {serve_launches} (expected {expected} "
+          f"for each forward kernel, 0 for the others)", flush=True)
+    for name, count in serve_launches.items():
+        check(count == (expected if name in (SA, V2) else 0),
+              f"{name} launched {count} times while serving")
 
-    # -- 5. kernel path against the plain path -----------------------------
+    # -- 5. serving kernel path against the plain path ----------------------
     def plain_cfg(c):
         return c.replace(model=dataclasses.replace(
             c.model, use_fused_attention=False, vit_fused_attention=False))
 
     f16, o16 = requests[0]
-    max_dprobs = {}
     for label, bf16 in (("bf16", True), ("f32", False)):
-        kcfg = cfg.replace(model=dataclasses.replace(cfg.model, use_bfloat16=bf16))
+        kcfg = cfg.replace(model=dataclasses.replace(mc, use_bfloat16=bf16))
         kpred = pred if bf16 else Predictor(kcfg, device=dev, seed=0)
         ppred = Predictor(plain_cfg(kcfg), device=dev, seed=0)
         ppred.model.load_state_dict(kpred.model.state_dict())
@@ -234,17 +296,14 @@ def main() -> None:
         limit = 2e-2 if bf16 else 1e-4
         print(f"full width {label}: max |dprobs| kernel vs plain path {delta:.3e} (limit {limit:g})", flush=True)
         check(delta <= limit, f"{label} kernel path vs plain path: {delta}")
-        max_dprobs[label] = delta
         if bf16:
             plain_pred = ppred
         else:
             del kpred, ppred
 
     # The port on the card against the same port on the CPU, small f32 model.
-    from edrl_tpu.config import tiny_test_config
-
-    tcfg = tiny_test_config(batch_size=4)
     # vit3d_heads 2: the kernels take head_dim % 8 == 0 (48 / 2 = 24).
+    tcfg = tiny_test_config(batch_size=4)
     tcfg = tcfg.replace(model=dataclasses.replace(
         tcfg.model, use_fused_attention=True, vit_fused_attention=True, vit3d_heads=2))
     gpu_small = Predictor(tcfg, device=dev, seed=0)
@@ -260,28 +319,23 @@ def main() -> None:
     delta = float(np.abs(gpu_small.predict_probs(sf, so) - cpu_small.predict_probs(sf, so)).max())
     print(f"small f32 model, card vs CPU: max |dprobs| {delta:.3e} (limit 1e-4)", flush=True)
     check(delta <= 1e-4, f"small model card vs CPU: {delta}")
+    del gpu_small, cpu_small
 
-    # -- 6. timings ---------------------------------------------------------
-    kernel_ms = {wa.SELF_ATTENTION: 0.0, wa.WINDOW_ATTENTION_V2: 0.0}
-    plain_ms = dict(kernel_ms)
+    # -- 6. serving timings ---------------------------------------------------
     with torch.inference_mode():
         q, k, v = vit_inputs(vit_shape, torch.bfloat16)
         scale = (c_vit // h_vit) ** -0.5
         tk = time_ms(torch, lambda: wa.self_attention_fused(q, k, v, h_vit, scale))
         tp = time_ms(torch, lambda: wa.self_attention_reference(q, k, v, h_vit, scale))
-        print(f"time {wa.SELF_ATTENTION} [{b},{mc.oct_tokens},{c_vit}]x{h_vit} bf16: kernel {tk:.4f} ms, "
+        print(f"time {SA} [{b},{mc.oct_tokens},{c_vit}]x{h_vit} bf16: kernel {tk:.4f} ms, "
               f"plain {tp:.4f} ms per call, x{vit_shape['calls']} per forward [{card}]", flush=True)
-        kernel_ms[wa.SELF_ATTENTION] += vit_shape["calls"] * tk
-        plain_ms[wa.SELF_ATTENTION] += vit_shape["calls"] * tp
         for s in swin_shapes:
             qkv, bias = swin_inputs(s, torch.bfloat16)
             scale = (s["c"] // s["heads"]) ** -0.5
             tk = time_ms(torch, lambda: wa.window_attention_fused_v2(qkv, bias, s["heads"], scale))
             tp = time_ms(torch, lambda: wa.window_attention_v2_reference(qkv, bias, s["heads"], scale))
-            print(f"time {wa.WINDOW_ATTENTION_V2} {list(qkv.shape)} H={s['heads']} bf16: kernel {tk:.4f} ms, "
+            print(f"time {V2} {list(qkv.shape)} H={s['heads']} bf16: kernel {tk:.4f} ms, "
                   f"plain {tp:.4f} ms per call, x{s['calls']} per forward [{card}]", flush=True)
-            kernel_ms[wa.WINDOW_ATTENTION_V2] += s["calls"] * tk
-            plain_ms[wa.WINDOW_ATTENTION_V2] += s["calls"] * tp
 
         f_dev = pred._to_device(f16)
         o_dev = pred._to_device(o16)
@@ -299,22 +353,377 @@ def main() -> None:
         t_req.append(1000.0 * (time.perf_counter() - t0))
     print(f"time predict_probs, 16-pair uint8 request, host clock: median {statistics.median(t_req):.3f} ms "
           f"[{card}]", flush=True)
+    del pred, plain_pred
+    torch.cuda.empty_cache()
 
-    kernels = [
-        {
+    # -- 7. backward and MK-MMD kernels against their plain versions ----------
+    bt = cfg.data.batch_size
+    train_vit, train_swin = attention_shapes(bt)
+
+    def rel_err(got, want):
+        return ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30)).item()
+
+    def compare_grads(name, label, dtype, got, want, dbias=None):
+        """got/want: tuples of gradients in dtype; dbias: optional (got, want) f32."""
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        pairs = [(g, w, BWD_BAR[kind]) for g, w in zip(got, want)]
+        if dbias is not None:
+            pairs.append((*dbias, BWD_BAR["f32"]))
+        for g, w, bar in pairs:
+            err, rel = (g.float() - w.float()).abs().max().item(), rel_err(g, w)
+            check(rel <= bar, f"{name} {label} {kind}: relative error {rel} over {bar}")
+            if dtype == torch.bfloat16:
+                max_err[name] = max(max_err[name], err)
+        worst = max(rel_err(g, w) for g, w, _ in pairs)
+        print(f"check {name} {label} {kind}: worst relative error {worst:.3e} "
+              f"(bars {BWD_BAR[kind]:g} / dbias {BWD_BAR['f32']:g})", flush=True)
+
+    def sa_bwd_case(shape, heads, dtype):
+        q, k, v, do = (normal(shape, dtype) for _ in range(4))
+        scale = (shape[2] // heads) ** -0.5
+        got = wa.self_attention_bwd_kernel(q, k, v, do, heads, scale)
+        want = wa.self_attention_bwd_reference(q, k, v, do, heads, scale)
+        compare_grads(SA_BWD, f"{list(shape)}x{heads}", dtype, got, want)
+
+    def v2_bwd_case(qkv, bias, heads, dtype, label):
+        do = normal((*qkv.shape[:3], qkv.shape[3] // 3), dtype)
+        scale = (qkv.shape[3] // 3 // heads) ** -0.5
+        dqkv, dbias = wa.window_attention_v2_bwd_kernel(qkv, bias, do, heads, scale)
+        want_dqkv, want_dbias = wa.window_attention_v2_bwd_reference(qkv, bias, do, heads, scale)
+        compare_grads(V2_BWD, label, dtype, (dqkv,), (want_dqkv,), (dbias, want_dbias))
+
+    for dtype in (torch.bfloat16, torch.float32):
+        sa_bwd_case((bt, mc.oct_tokens, c_vit), h_vit, dtype)
+        for s in train_swin:
+            qkv, bias = swin_inputs(s, dtype)
+            v2_bwd_case(qkv, bias, s["heads"], dtype, f"{list(qkv.shape)} H={s['heads']} shifted={s['shifted']}")
+        for shape, heads in (((3, 16, 32), 2), ((2, 40, 16), 2), ((2, 240, 128), 1)):
+            sa_bwd_case(shape, heads, dtype)
+        for shape, heads in (((3, 2, 16, 96), 2), ((2, 1, 240, 48), 2)):
+            bias = torch.randn((shape[1], heads, shape[2], shape[2]), generator=gen, device=dev)
+            bias[..., 1::3] = -1e9
+            v2_bwd_case(normal(shape, dtype), bias, heads, dtype, f"{list(shape)} H={heads} (odd)")
+    feat_dim = mc.fundus_embed_dim * 3
+    for n_s, n_t, dd in ((bt, bt, feat_dim), (3, 5, 7), (70, 70, 129)):
+        src = normal((n_s, dd), torch.float32)
+        tgt = normal((n_t, dd), torch.float32) * 1.1 + 0.05
+        got, want = kmmd.mk_mmd_kernel(src, tgt).item(), mk_mmd(src, tgt).item()
+        err = abs(got - want)
+        print(f"check {MMD} [{n_s},{dd}]+[{n_t},{dd}] f32: {got:.7g} vs plain {want:.7g}, "
+              f"abs err {err:.3e} (rtol {MMD_RTOL:g})", flush=True)
+        check(err <= MMD_RTOL * abs(want) + 1e-7, f"{MMD} [{n_s},{n_t},{dd}]: {got} vs {want}")
+        if (n_s, dd) == (bt, feat_dim):
+            max_err[MMD] = err
+    torch.cuda.synchronize()
+
+    # -- 8. the train step at full width ------------------------------------
+    check(cfg.data.batch_size == 32, "shipped train batch is 32")
+    brng = np.random.default_rng(0)
+    batch = {
+        "fundus_low": brng.uniform(size=(bt, d.fundus_size, d.fundus_size, 3)).astype(np.float32),
+        "fundus_high": brng.uniform(size=(bt, d.fundus_size, d.fundus_size, 3)).astype(np.float32),
+        "oct_low": brng.uniform(size=(bt, *d.oct_size, 1)).astype(np.float32),
+        "oct_high": brng.uniform(size=(bt, *d.oct_size, 1)).astype(np.float32),
+        "label": brng.integers(0, 2, size=bt).astype(np.int32),
+    }
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    t0 = time.perf_counter()
+    state = trainer.init_state(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"train state: {sum(p.numel() for p in state.model.parameters())} parameters, "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    train_step = trainer.make_train_step(cfg)
+
+    def seeded(seed):
+        """The step's noise generator; one seed gives both paths of a pair the same draws."""
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    gen_train = seeded(1)
+    reset_counts()
+    outs = [train_step(state, batch, gen_train) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    train_launches = counts()
+    for i, out in enumerate(outs):
+        loss, mmd_v = out["loss"].item(), out["mmd"].item()
+        print(f"train step {i}: loss {loss:.6f}, mmd {mmd_v:.6f}, ce {out['ce_loss'].item():.6f}, "
+              f"dilr {out['dilr_loss'].item():.6f}", flush=True)
+        check(np.isfinite(loss) and np.isfinite(mmd_v), f"step {i}: loss {loss}, mmd {mmd_v}")
+        check(tuple(out["probs"].shape) == (bt, mc.num_classes), "train probs shape")
+    after = state.model.state_dict()
+    changed = sum(not torch.equal(before[n], after[n]) for n, _ in state.model.named_parameters())
+    n_tensors = sum(1 for _ in state.model.parameters())
+    print(f"parameters changed: {changed} of {n_tensors} tensors", flush=True)
+    check(changed >= n_tensors - 4, f"only {changed} of {n_tensors} parameter tensors changed")
+    for bn in ("dilr.bn1", "dilr.bn2"):
+        for stat in ("running_mean", "running_var"):
+            check(not torch.equal(before[f"{bn}.{stat}"], after[f"{bn}.{stat}"]), f"{bn}.{stat} unchanged")
+    del before, after
+    per_step = 2 * 12
+    print(f"train launches over {TRAIN_STEPS} steps: {train_launches} (expected {per_step} per step "
+          f"for each attention kernel, 0 for {MMD})", flush=True)
+    for name in (SA, V2, SA_BWD, V2_BWD):
+        check(train_launches[name] == per_step * TRAIN_STEPS,
+              f"{name} launched {train_launches[name]} times in {TRAIN_STEPS} steps")
+    check(train_launches[MMD] == 0, "B3 is off in the shipped config")
+    del state
+    torch.cuda.empty_cache()
+
+    # One step through B3 against the same step with the plain MMD.
+    b3_cfg = cfg.replace(train=dataclasses.replace(cfg.train, use_pallas_mmd=True))
+    b3_state = trainer.init_state(b3_cfg, seed=1, device=dev)
+    reset_counts()
+    b3_out = trainer.make_train_step(b3_cfg)(b3_state, batch, seeded(2))
+    torch.cuda.synchronize()
+    b3_launches = counts()[MMD]
+    del b3_state
+    ref_state = trainer.init_state(cfg, seed=1, device=dev)
+    ref_out = train_step(ref_state, batch, seeded(2))
+    del ref_state
+    torch.cuda.empty_cache()
+    m_k, m_p = b3_out["mmd"].item(), ref_out["mmd"].item()
+    l_k, l_p = b3_out["loss"].item(), ref_out["loss"].item()
+    print(f"train step with B3: {b3_launches} launch(es); mmd {m_k:.7g} vs plain MMD {m_p:.7g}; "
+          f"loss {l_k:.7g} vs {l_p:.7g} (rtol {MMD_RTOL:g})", flush=True)
+    check(b3_launches == 1, f"B3 launched {b3_launches} times in one step")
+    check(abs(m_k - m_p) <= MMD_RTOL * abs(m_p) + 1e-7, f"B3 step mmd {m_k} vs {m_p}")
+    check(abs(l_k - l_p) <= MMD_RTOL * abs(l_p) + 1e-7, f"B3 step loss {l_k} vs {l_p}")
+    train_launches[MMD] = b3_launches
+
+    # -- 9. train kernel path against the plain path ----------------------
+    # In f32 the two paths must agree closely.  In bf16 (the shipped config)
+    # the gradients of this randomly initialised model carry rounding noise
+    # of the order of themselves on either path (printed below: each bf16
+    # path against the f32 plain path), so bf16 is held on the loss and its
+    # gradient errors are printed.  The key biases' exact gradient is zero
+    # (softmax ignores a per-row constant), so their computed values are
+    # rounding noise and are left out of the per-tensor bar.
+    def grad_errors(model_a, grads_b):
+        return sorted((rel_err(pa.grad, grads_b[name]), name) for name, pa in model_a.named_parameters()
+                      if grads_b[name].abs().max() > 0)
+
+    def median_err(errs):
+        return errs[len(errs) // 2][0]
+
+    f32_plain_grads = None
+    for label, bf16 in (("f32", False), ("bf16", True)):
+        c = cfg.replace(model=dataclasses.replace(mc, use_bfloat16=bf16))
+        ks, ps = trainer.init_state(c, seed=2, device=dev), trainer.init_state(plain_cfg(c), seed=2, device=dev)
+        lk = trainer.make_train_step(c)(ks, batch, seeded(3))["loss"].item()
+        lp = trainer.make_train_step(plain_cfg(c))(ps, batch, seeded(3))["loss"].item()
+        errs = grad_errors(ks.model, {n: q.grad for n, q in ps.model.named_parameters()})
+        scored = [(r, n) for r, n in errs if not n.endswith(".k.bias")]
+        print(f"train step {label}, kernel vs plain path: loss {lk:.7g} vs {lp:.7g} (relative "
+              f"{abs(lk - lp) / abs(lp):.3e}); per-tensor gradient error relative to the tensor's largest "
+              f"gradient over {len(errs)} tensors: median {median_err(errs):.3e}, worst outside the key "
+              f"biases {scored[-1][0]:.3e} ({scored[-1][1]}), worst key bias "
+              f"{max(r for r, n in errs if n.endswith('.k.bias')):.3e}", flush=True)
+        if bf16:
+            check(abs(lk - lp) <= 1e-2 * abs(lp), f"bf16 kernel vs plain loss {lk} vs {lp}")
+            print(f"bf16 gradients against the f32 plain path's, median per-tensor error: kernel path "
+                  f"{median_err(grad_errors(ks.model, f32_plain_grads)):.3e}, plain path "
+                  f"{median_err(grad_errors(ps.model, f32_plain_grads)):.3e}", flush=True)
+            k_state, p_state, p_step = ks, ps, trainer.make_train_step(plain_cfg(cfg))
+            del f32_plain_grads
+        else:
+            check(abs(lk - lp) <= 1e-5 * abs(lp), f"f32 kernel vs plain loss {lk} vs {lp}")
+            check(median_err(errs) <= 1e-3 and scored[-1][0] <= 1e-2,
+                  f"f32 kernel vs plain gradients: {median_err(errs)}, {scored[-1]}")
+            f32_plain_grads = {n: q.grad.clone() for n, q in ps.model.named_parameters()}
+            del ks, ps
+            torch.cuda.empty_cache()
+
+    # The small f32 model's step on the card against the same step on the CPU.
+    scfg = tiny_test_config(batch_size=4)
+    scfg = scfg.replace(model=dataclasses.replace(
+        scfg.model, use_fused_attention=True, vit_fused_attention=True, vit3d_heads=2))
+    s_cpu = trainer.init_state(scfg, seed=0, device="cpu")
+    s_gpu = trainer.init_state(scfg, seed=0, device=dev)
+    s_gpu.model.load_state_dict(s_cpu.model.state_dict())
+    sd, sm = scfg.data, scfg.model
+    srng = np.random.default_rng(5)
+    sbatch = {
+        "fundus_low": srng.uniform(size=(4, sd.fundus_size, sd.fundus_size, 3)).astype(np.float32),
+        "fundus_high": srng.uniform(size=(4, sd.fundus_size, sd.fundus_size, 3)).astype(np.float32),
+        "oct_low": srng.uniform(size=(4, *sd.oct_size, 1)).astype(np.float32),
+        "oct_high": srng.uniform(size=(4, *sd.oct_size, 1)).astype(np.float32),
+        "label": np.array([0, 1, 1, 0], np.int32),
+    }
+
+    def small_draws(device):
+        r = np.random.default_rng(6)
+        t = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
+        out = []
+        for _ in range(2):
+            masks = []
+            for tokens in (sm.fundus_tokens, sm.oct_tokens):
+                masks.append([t(r.uniform(size=(4, tokens, 2 * sm.z_dim)) < 0.8),
+                              t(r.uniform(size=(4, tokens, 2 * sm.z_dim)) < 0.8),
+                              t(r.uniform(size=(4, sm.num_classes)) < 0.8)])
+            out.append({
+                "guided_uniform": tuple(t(r.uniform(size=(4, sm.num_classes, sm.z_dim)).astype(np.float32))
+                                        for _ in range(2)),
+                "eprl_eps": tuple(t(r.normal(size=(sm.num_classes, sm.sample_num, sm.z_dim)).astype(np.float32))
+                                  for _ in range(2)),
+                "dropout_masks": tuple(masks),
+            })
+        return out
+
+    reset_counts()
+    g_out = trainer.make_train_step(scfg)(s_gpu, sbatch, seeded(4), draws=small_draws(dev))
+    small_launches = counts()
+    c_out = trainer.make_train_step(scfg)(s_cpu, sbatch, torch.Generator(), draws=small_draws("cpu"))
+    srels = sorted((rel_err(pg.grad.cpu(), pc.grad), name)
+                   for (name, pg), pc in zip(s_gpu.model.named_parameters(), s_cpu.model.parameters())
+                   if pc.grad.abs().max() > 0 and not name.endswith(".k.bias"))
+    dl = abs(g_out["loss"].item() - c_out["loss"].item())
+    print(f"small f32 train step, card vs CPU: loss {g_out['loss'].item():.7g} vs {c_out['loss'].item():.7g} "
+          f"(|d| {dl:.3e}, limit 1e-4 relative); per-tensor gradient error outside the key biases: median "
+          f"{srels[len(srels) // 2][0]:.3e}, worst {srels[-1][0]:.3e} ({srels[-1][1]}; limit 1e-3); "
+          f"card launches {small_launches}", flush=True)
+    check(dl <= 1e-4 * abs(c_out["loss"].item()), f"small step loss card vs CPU {dl}")
+    check(srels[-1][0] <= 1e-3, f"small step gradients card vs CPU {srels[-1]}")
+    small_expected = {SA: 2 * sm.vit3d_depth, SA_BWD: 2 * sm.vit3d_depth, V2: 2 * sum(sm.swin_depths),
+                      V2_BWD: 2 * sum(sm.swin_depths), MMD: 0}
+    check(small_launches == small_expected, f"small model launches {small_launches}, expected {small_expected}")
+    del s_cpu, s_gpu
+
+    # -- 10. timings ----------------------------------------------------------
+    gen_time = seeded(5)
+
+    def step_ms(state_, step_fn, steps=3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps):
+            step_fn(state_, batch, gen_time)
+        torch.cuda.synchronize()
+        return 1000.0 * (time.perf_counter() - t) / steps
+
+    runs = {}
+    for label, st, fn in (("plain", p_state, p_step), ("kernel", k_state, train_step),
+                          ("kernel", k_state, train_step), ("plain", p_state, p_step)):
+        runs.setdefault(label, []).append(step_ms(st, fn))
+    for label in ("kernel", "plain"):
+        ms = statistics.median(runs[label])
+        print(f"time train step, {label} path, batch {bt} bf16, host clock to sync: {ms:.3f} ms/step, "
+              f"{1000.0 * bt / ms:.1f} pairs/s (runs of 3 steps: {[round(x, 3) for x in runs[label]]}) "
+              f"[{card}]", flush=True)
+    for label, st, fn in (("kernel", k_state, train_step), ("plain", p_state, p_step)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn(st, batch, gen_time)
+        torch.cuda.synchronize()
+        print(f"peak device memory, {label} path train step: "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
+    del k_state, p_state
+    torch.cuda.empty_cache()
+
+    totals = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0,
+                     "flops": 0.0} for name in KERNEL_SOURCE}
+
+    def add(name, calls, ms, plain_ms, library_ms, nbytes, flops):
+        t = totals[name]
+        t["ms"] += calls * ms
+        t["plain_ms"] += calls * plain_ms
+        if library_ms is not None:
+            t["library_ms"] += calls * library_ms
+        t["bytes"] += calls * nbytes
+        t["flops"] += calls * flops
+
+    def report(name, label, calls, ms, plain_ms, library_ms, nbytes, flops, peak=BF16_FLOPS_PER_S):
+        bms, by = bound(nbytes, flops, peak)
+        lib = "null" if library_ms is None else f"{library_ms:.4f} ms"
+        print(f"time {name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, "
+              f"bound {bms:.4f} ms ({by}) per call, x{calls} per train step [{card}]", flush=True)
+        add(name, calls, ms, plain_ms, library_ms, nbytes, flops)
+
+    def sdpa_bwd_ms(q4, k4, v4, do4, mask=None):
+        leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+        if mask is not None:
+            mask = mask.detach().requires_grad_()
+            leaves.append(mask)
+        out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=mask)
+        return time_ms(torch, lambda: torch.autograd.grad(out, leaves, do4, retain_graph=True))
+
+    # B1 at [32, 216, 768] x 6, bf16.
+    s = train_vit
+    bsz, n, c, heads = s["b"], s["n"], s["c"], s["heads"]
+    hd = c // heads
+    scale = hd ** -0.5
+    q, k, v, do = vit_inputs(s, torch.bfloat16) + (normal((bsz, n, c), torch.bfloat16),)
+    split = lambda x: x.view(bsz, n, heads, hd).transpose(1, 2)  # noqa: E731
+    with torch.no_grad():
+        tk = time_ms(torch, lambda: wa.self_attention_fused(q, k, v, heads, scale))
+        tp = time_ms(torch, lambda: wa.self_attention_reference(q, k, v, heads, scale))
+        tl = time_ms(torch, lambda: F.scaled_dot_product_attention(split(q), split(k), split(v), scale=scale))
+    elems = bsz * n * c
+    report(SA, f"[{bsz},{n},{c}]x{heads} bf16", 2 * s["calls"], tk, tp, tl, 4 * elems * 2,
+           4.0 * bsz * heads * n * n * hd)
+    tk = time_ms(torch, lambda: wa.self_attention_bwd_kernel(q, k, v, do, heads, scale))
+    tp = time_ms(torch, lambda: wa.self_attention_bwd_reference(q, k, v, do, heads, scale))
+    tl = sdpa_bwd_ms(split(q), split(k), split(v), split(do))
+    report(SA_BWD, f"[{bsz},{n},{c}]x{heads} bf16", 2 * s["calls"], tk, tp, tl, 7 * elems * 2,
+           10.0 * bsz * heads * n * n * hd)
+
+    # B2 at the four Swin stages of batch 32, bf16.
+    for s in train_swin:
+        qkv, bias = swin_inputs(s, torch.bfloat16)
+        bsz, w, n, c3 = qkv.shape
+        c, heads = c3 // 3, s["heads"]
+        hd = c // heads
+        scale = hd ** -0.5
+        do = normal((bsz, w, n, c), torch.bfloat16)
+        x = qkv.view(bsz * w, n, 3, heads, hd)
+        q4, k4, v4 = (x[:, :, i].transpose(1, 2) for i in range(3))
+        do4 = do.view(bsz * w, n, heads, hd).transpose(1, 2)
+        mask = bias.to(torch.bfloat16)[None].expand(bsz, w, heads, n, n).reshape(bsz * w, heads, n, n)
+        label = f"{list(qkv.shape)} H={heads} bf16"
+        with torch.no_grad():
+            tk = time_ms(torch, lambda: wa.window_attention_fused_v2(qkv, bias, heads, scale))
+            tp = time_ms(torch, lambda: wa.window_attention_v2_reference(qkv, bias, heads, scale))
+            tl = time_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale))
+        elems = bsz * w * n * c
+        bias_bytes = w * heads * n * n * 4
+        flops = 1.0 * bsz * w * heads * n * n * hd
+        report(V2, label, 2 * s["calls"], tk, tp, tl, 4 * elems * 2 + bias_bytes, 4 * flops)
+        tk = time_ms(torch, lambda: wa.window_attention_v2_bwd_kernel(qkv, bias, do, heads, scale))
+        tp = time_ms(torch, lambda: wa.window_attention_v2_bwd_reference(qkv, bias, do, heads, scale))
+        tl = sdpa_bwd_ms(q4, k4, v4, do4, mask)
+        report(V2_BWD, label, 2 * s["calls"], tk, tp, tl, 7 * elems * 2 + 2 * bias_bytes, 10 * flops)
+        del qkv, bias, do, mask
+        torch.cuda.empty_cache()
+
+    # B3 at [32, 3072] + [32, 3072] f32.
+    src = normal((bt, feat_dim), torch.float32)
+    tgt = normal((bt, feat_dim), torch.float32) * 1.1 + 0.05
+    tk = time_ms(torch, lambda: kmmd.mk_mmd_kernel(src, tgt))
+    tp = time_ms(torch, lambda: mk_mmd(src, tgt))
+    report(MMD, f"[{bt},{feat_dim}]+[{bt},{feat_dim}] f32", 1, tk, tp, None, 2 * bt * feat_dim * 4 + 4,
+           2.0 * (2 * bt) ** 2 * feat_dim, peak=F32_FLOPS_PER_S)
+
+    kernels = []
+    for name in KERNEL_SOURCE:
+        t = totals[name]
+        peak = F32_FLOPS_PER_S if name == MMD else BF16_FLOPS_PER_S
+        bms, by = bound(t["bytes"], t["flops"], peak)
+        kernels.append({
             "name": name,
             "route": "cuda",
             "source": KERNEL_SOURCE[name],
             "replaces": KERNEL_REPLACES[name],
-            "launches": launches[name],
+            "launches": train_launches[name],
             "max_abs_err": max_err[name],
-            "ms": kernel_ms[name],
-            "plain_ms": plain_ms[name],
-        }
-        for name in (wa.SELF_ATTENTION, wa.WINDOW_ATTENTION_V2)
-    ]
-    print("kernel ms / plain_ms: device time of the launches one batch-16 forward makes "
-          "(sum over the main-path shapes); max_abs_err: worst bf16 main-path check")
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": bms,
+            "bound_by": by,
+            "library_ms": None if name == MMD else t["library_ms"],
+        })
+    print("kernels: ms / plain_ms / library_ms / bound_ms are the device time of the launches one "
+          f"batch-{bt} train step makes (sum over its shapes; B3 runs once, with use_pallas_mmd); "
+          f"launches: the main path's run ({TRAIN_STEPS} steps; B3: its one step); max_abs_err: worst "
+          f"bf16 check at the main-path shapes (B3: f32) [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
 The sources in ``csrc/`` compile with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, which ``ctypes`` loads.  The build happens
-at first use, into ``build/edrl_tpu_torch/`` at the root of the checkout, and
+library with a plain C interface, which ``ctypes`` loads: one ``nvcc -c`` per
+``.cu`` file, all started together, then one link.  The build happens at
+first use, into ``build/edrl_tpu_torch/`` at the root of the checkout, and
 is reused until a hash of the sources and flags changes.  Nothing here runs
 at import time: a machine without ``nvcc`` can import the package, and only
 a call that needs a kernel fails, with :class:`KernelBuildError`.
@@ -22,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "edrl_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -70,33 +71,59 @@ def build_library(build_dir: Path = BUILD_DIR) -> Path:
     if out.exists():
         return out
     nvcc = find_nvcc()
-    build_dir.mkdir(parents=True, exist_ok=True)
+    obj_dir = build_dir / f"obj_{out.stem}_{os.getpid()}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    cu_files = [p for p in _sources() if p.suffix == ".cu"]
+    jobs = []
+    for src in cu_files:
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj_dir / f"{src.stem}.o"), str(src)]
+        jobs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, proc in jobs:
+        text, _ = proc.communicate()
+        log.append(text)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{text}")
+    if failed:
+        raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cu_files = [str(p) for p in _sources() if p.suffix == ".cu"]
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *cu_files]
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+           *(str(obj_dir / f"{src.stem}.o") for src in cu_files)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise KernelBuildError(
-            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
+            f"nvcc link failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
             f"{proc.stdout}{proc.stderr}"
         )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    out.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, out)
     return out
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.edrl_attention_smem_bytes.argtypes = [i32, i32]
-    lib.edrl_attention_smem_bytes.restype = ctypes.c_longlong
-    lib.edrl_self_attention_fwd.argtypes = [
-        ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, i32, ptr,
-    ]
-    lib.edrl_self_attention_fwd.restype = i32
-    lib.edrl_window_attention_v2_fwd.argtypes = [
-        ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, i32, ptr,
-    ]
-    lib.edrl_window_attention_v2_fwd.restype = i32
+    ptr, i32, f32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    signatures = {
+        "edrl_attention_smem_bytes": (i64, [i32, i32]),
+        "edrl_attention_bwd_smem_bytes": (i64, [i32, i32, i32]),
+        "edrl_self_attention_fwd": (i32, [ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, i32, ptr]),
+        "edrl_window_attention_v2_fwd": (i32, [ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, i32, ptr]),
+        # q, k, v, dout, dq, dk, dv, stats, batch, n, c, heads, scale, is_bf16, stream
+        "edrl_self_attention_bwd": (
+            i32, [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, i32, ptr]),
+        # qkv, bias, dout, dqkv, dbias_partial, dbias, stats, batch, windows, n, c,
+        # heads, batch_per_block, scale, is_bf16, stream
+        "edrl_window_attention_v2_bwd": (
+            i32, [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, i32, ptr]),
+        "edrl_mk_mmd_scratch_floats": (i64, [i32, i32]),
+        # source, target, n_s, n_t, d, kernel_mul, kernel_num, scratch, out, stream
+        "edrl_mk_mmd_fwd": (i32, [ptr, ptr, i32, i32, i32, f32, i32, ptr, ptr, ptr]),
+    }
+    for name, (restype, argtypes) in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
     return lib
 
 

@@ -1,0 +1,85 @@
+// Fused Swin window attention backward (B2), packed-qkv layout.
+//
+// Replaces: edrl_tpu/kernels/window_attention.py, window_attention_fused_v2's
+// backward (_v2_bwd / _attn_bwd_kernel_v2).  From the packed qkv [B, W, N, 3C],
+// the bias [W, H, N, N] f32 and the output's cotangent do [B, W, N, C] it
+// recomputes the softmax and writes dq, dk and dv straight into one packed
+// dqkv [B, W, N, 3C] (columns h*D, C + h*D, 2C + h*D: the TPU version needed
+// a concatenate for this) and dbias [W, H, N, N] f32 summed over the batch.
+//
+// What bounds it on an H100: at N = 144 and head_dim 128, each (b, w, h)
+// needs 5 products of 2 * N^2 * D = 5.3 MFLOP against about 258 KB of qkv,
+// do and dqkv in bf16 plus the 83 KB f32 bias and dbias per (w, h): ~80
+// FLOP/B, below the ~295 FLOP/B ridge, so the ideal kernel is
+// bandwidth-bound.  This first version runs its products as f32 FMA on the
+// CUDA cores (attention_bwd.cuh) and is bound by them.
+//
+// The batch reduction of dbias: the TPU kernel accumulated it over a
+// sequential batch grid.  Here each dq block walks over a chunk of the batch
+// and sums its ds rows in shared memory; the chunk size is chosen by the
+// caller so that the grid still fills the card (4 blocks per SM), and a
+// small kernel sums the chunks' partials in a fixed order.  The result is
+// deterministic.
+
+#include "attention_bwd.cuh"
+
+namespace {
+
+template <typename T>
+cudaError_t run(const void* qkv, const float* bias, const void* dout, void* dqkv,
+                float* dbias_partial, float* dbias, float* stats, int batch, int windows, int n,
+                int c, int heads, int batch_per_block, float scale, cudaStream_t stream) {
+  const T* base = static_cast<const T*>(qkv);
+  T* grad = static_cast<T*>(dqkv);
+  AttnBwdParams p = {};
+  p.q = base;
+  p.k = base + c;
+  p.v = base + 2 * c;
+  p.dout = dout;
+  p.dq = grad;
+  p.dk = grad + c;
+  p.dv = grad + 2 * c;
+  p.bias = bias;
+  p.dbias = dbias_partial;
+  const size_t rows = (size_t)batch * windows * heads * n;
+  p.row_m = stats;
+  p.row_l = stats + rows;
+  p.row_delta = stats + 2 * rows;
+  p.group_stride_in = (long long)n * 3 * c;
+  p.group_stride_dout = (long long)n * c;
+  p.group_stride_grad = (long long)n * 3 * c;
+  p.row_stride_in = 3 * c;
+  p.row_stride_dout = c;
+  p.row_stride_grad = 3 * c;
+  p.batch = batch;
+  p.windows = windows;
+  p.batch_per_block = batch_per_block;
+  p.heads = heads;
+  p.n = n;
+  p.d = c / heads;
+  p.scale = scale;
+  return launch_attention_bwd<T>(p, dbias, stream);
+}
+
+}  // namespace
+
+// dbias_partial: ceil(batch / batch_per_block) * windows * heads * n * n f32
+// (dbias itself when that is one chunk).  stats: 3 * batch * windows * heads
+// * n f32.
+extern "C" int edrl_window_attention_v2_bwd(const void* qkv, const void* bias, const void* dout,
+                                            void* dqkv, void* dbias_partial, void* dbias,
+                                            void* stats, int batch, int windows, int n, int c,
+                                            int heads, int batch_per_block, float scale,
+                                            int is_bf16, void* stream) {
+  const float* b = static_cast<const float*>(bias);
+  float* part = static_cast<float*>(dbias_partial);
+  float* db = static_cast<float*>(dbias);
+  float* st = static_cast<float*>(stats);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      is_bf16 ? run<__nv_bfloat16>(qkv, b, dout, dqkv, part, db, st, batch, windows, n, c, heads,
+                                   batch_per_block, scale, s)
+              : run<float>(qkv, b, dout, dqkv, part, db, st, batch, windows, n, c, heads,
+                           batch_per_block, scale, s);
+  return (int)err;
+}

@@ -1,8 +1,8 @@
 """DILR, the disentangled-representation fusion head (``edrl_tpu/models/dilr.py``).
 
-Eval mode only in this slice: the affine-free BatchNorms standardise with
-their running statistics (training, with batch statistics and running-stat
-updates, is ROADMAP item A6).
+The affine-free BatchNorms standardise with the batch's statistics in train
+mode, and update their running statistics, and with the running statistics
+in eval mode.
 """
 
 from __future__ import annotations
@@ -33,7 +33,16 @@ class AttentionModel(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Affine-free BatchNorm in eval mode: (x - running_mean) * rsqrt(running_var + eps)."""
+    """Affine-free BatchNorm over the batch axis, as flax's ``nn.BatchNorm``.
+
+    Train mode normalises with the batch mean and the *biased* batch
+    variance, E[x^2] - E[x]^2 clipped at 0 (flax's fast variance), and moves
+    the running statistics toward them with ``momentum`` 0.1 (flax's 0.9):
+    the running variance takes the biased variance, where ``nn.BatchNorm1d``
+    would take the unbiased one.  Eval mode uses the running statistics.
+    """
+
+    momentum = 0.1
 
     def __init__(self, dim: int, *, eps: float = 1e-5, device=None):
         super().__init__()
@@ -45,8 +54,16 @@ class BatchNorm(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
-    def forward(self, x):
-        return (x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+    def forward(self, x, train: bool = False):
+        xf = x.float()
+        if not train:
+            return (xf - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+        mean = xf.mean(dim=0)
+        var = (xf.square().mean(dim=0) - mean.square()).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+        return (xf - mean) * torch.rsqrt(var + self.eps)
 
 
 class DILR(nn.Module):
@@ -74,7 +91,8 @@ class DILR(nn.Module):
         self.bn1 = BatchNorm(feature_dim, device=device)
         self.bn2 = BatchNorm(feature_dim, device=device)
 
-    def forward(self, fundus_tokens, oct_tokens, shared_features, fundus_guided, oct_guided):
+    def forward(self, fundus_tokens, oct_tokens, shared_features, fundus_guided, oct_guided,
+                train: bool = False):
         half = self.feature_dim // 2
         b = fundus_tokens.shape[0]
         y1 = self.projector1(fundus_tokens)
@@ -91,8 +109,8 @@ class DILR(nn.Module):
         y1_com = self.cross_attn1(shared, y1_common, y1_common)[:, 0]
         y2_com = self.cross_attn2(shared, y2_common, y2_common)[:, 0]
 
-        z1 = self.bn1(torch.cat([y1_com, y1_uni], dim=1))
-        z2 = self.bn2(torch.cat([y2_com, y2_uni], dim=1))
+        z1 = self.bn1(torch.cat([y1_com, y1_uni], dim=1), train)
+        z2 = self.bn2(torch.cat([y2_com, y2_uni], dim=1), train)
         loss, _, _ = barlow_block_loss(
             z1, z2,
             common_dim=int(self.common_ratio * self.feature_dim),

@@ -1,14 +1,17 @@
 """EPRL, Essence-Point Representation Learning (``edrl_tpu/models/eprl.py``).
 
-Eval mode only in this slice (train mode is ROADMAP item A6): pseudo-labels
-are the argmax of the confidence-blended distribution, and the entropy
-regularizer is returned.  Normalisation is over the feature axis, and the
-token-mean attention divides by the token count, as in the JAX package.
+Train mode indexes the proxies with the labels ``y``, applies dropout 0.2 at
+the three sites of the JAX module (after enc1 and enc2, and after
+token_mlp on the pseudo-label branch, whose result train mode does not use)
+and draws its proxy noise per call.  Eval mode takes the pseudo-labels, the
+argmax of the confidence-blended distribution, and returns the entropy
+regularizer.  Normalisation is over the feature axis, and the token-mean
+attention divides by the token count, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -18,6 +21,7 @@ from edrl_tpu_torch.models.layers import Dense, xavier_uniform_
 from edrl_tpu_torch.ops.distributions import entropy_regularization
 
 EVAL_SEED = 1
+DROPOUT = 0.2
 
 
 def _l2_normalize(x, eps: float = 1e-12):
@@ -32,6 +36,19 @@ def eval_eps(num_classes: int, sample_num: int, z_dim: int, device) -> torch.Ten
     """
     gen = torch.Generator(device=device).manual_seed(EVAL_SEED)
     return torch.randn((num_classes, sample_num, z_dim), generator=gen, device=device)
+
+
+def dropout(x, rate: float, mask: Optional[torch.Tensor] = None,
+            generator: Optional[torch.Generator] = None):
+    """flax ``nn.Dropout`` in train mode: ``where(mask, x / keep, 0)``.
+
+    ``mask`` is the boolean keep mask (True keeps), drawn as U[0, 1) < keep
+    from ``generator`` when absent.
+    """
+    keep = 1.0 - rate
+    if mask is None:
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask.to(x.device), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class EPRL(nn.Module):
@@ -54,23 +71,40 @@ class EPRL(nn.Module):
         xavier_uniform_(self.proxies, generator)
         self.alpha.fill_(0.5)
 
-    def forward(self, x, eps: Optional[torch.Tensor] = None):
-        """x: tokens ``[B, N, x_dim]``; eps: ``[C, S, z]`` proxy noise, or None
-        for :func:`eval_eps`."""
+    def forward(self, x, y=None, *, train: bool = False, eps: Optional[torch.Tensor] = None,
+                dropout_masks: Optional[Sequence[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None):
+        """x: tokens ``[B, N, x_dim]``; y: labels ``[B]`` (train mode needs them).
+
+        eps: ``[C, S, z]`` proxy noise, or None: drawn from ``generator`` in
+        train mode, :func:`eval_eps` in eval mode.  dropout_masks: train
+        mode's three keep masks (``[B, N, 2z]``, ``[B, N, 2z]``, ``[B, C]``),
+        or None to draw them from ``generator``.
+        """
         b, n, _ = x.shape
         c, s, z_dim = self.num_classes, self.sample_num, self.z_dim
         if x.shape[-1] != self.x_dim or n != self.num_tokens:
             raise ValueError(
                 f"EPRL configured for [B, {self.num_tokens}, {self.x_dim}] tokens, got {tuple(x.shape)}"
             )
-        h = F.relu(self.enc1(x))
-        h = F.relu(self.enc2(h))
+        if train and y is None:
+            raise ValueError("EPRL train mode requires labels y")
+        masks = list(dropout_masks) if dropout_masks is not None else [None] * 3
+
+        def drop(h, site):
+            return dropout(h, DROPOUT, masks[site], generator) if train else h
+
+        h = drop(F.relu(self.enc1(x)), 0)
+        h = drop(F.relu(self.enc2(h)), 1)
         z = self.enc3(h)  # [B, N, z]
 
         mu_proxy = self.proxies[:, :z_dim]
         sigma_proxy = F.softplus(self.proxies[:, z_dim:])
         if eps is None:
-            eps = eval_eps(c, s, z_dim, x.device)
+            if train:
+                eps = torch.randn((c, s, z_dim), generator=generator, device=x.device)
+            else:
+                eps = eval_eps(c, s, z_dim, x.device)
         z_proxy = mu_proxy[:, None, :] + sigma_proxy[:, None, :] * eps  # [C, S, z]
 
         z_norm = _l2_normalize(z.float())
@@ -78,13 +112,19 @@ class EPRL(nn.Module):
         att = torch.einsum("bnd,csd->bcs", z_norm, p_norm) / float(n)
 
         feat = torch.softmax(z_norm.mean(dim=2), dim=1)  # over tokens, [B, N]
-        feat = F.relu(self.token_mlp(F.relu(feat)))
+        feat = F.relu(drop(self.token_mlp(F.relu(feat)), 2))
         combined = self.alpha * torch.softmax(att.mean(dim=2), dim=1) + (1.0 - self.alpha) * feat
 
-        labels = combined.argmax(dim=1)
-        entropy_loss = entropy_regularization(combined)
+        if train:
+            labels = y.long()
+            entropy_loss = torch.zeros((), device=x.device)
+        else:
+            labels = combined.argmax(dim=1)
+            entropy_loss = entropy_regularization(combined)
 
-        one_hot = F.one_hot(labels, c).bool()  # [B, C]
+        # A comparison, not F.one_hot: that checks its range on the host (a
+        # device sync) and raises where jax.nn.one_hot gives a zero row.
+        one_hot = labels[:, None] == torch.arange(c, device=labels.device)  # [B, C]
         pos = torch.einsum("bcs,bc->bs", att, one_hot.to(att.dtype))
         neg_mask = (~one_hot).repeat_interleave(s, dim=1)  # [B, C*S]
         neg = torch.where(neg_mask, att.reshape(b, c * s), float("-inf"))

@@ -4,31 +4,31 @@ Swin-2D fundus and ViT-3D OCT backbones feed one EPRL head each; the proxy
 Gaussians fuse through PoE into a global vector; DILR disentangles common
 and unique feature blocks; a small MLP head grades the disease.
 
-This slice runs eval mode only (train mode is ROADMAP item A6).  Eval draws
-two kinds of noise that the JAX package takes from fixed threefry keys:
+Both modes draw noise, which the JAX package takes from threefry keys:
 
-- the guided uniforms U[0, 1) ``[B, C, z]``, one per modality, drawn from
-  ``split(key(1))`` there.  They reach the logits through DILR's guided
-  queries.
-- EPRL's proxy noise ``eps`` ``[C, S, z]``, drawn from ``key(1)`` for both
-  modalities.  It reaches only the losses and the entropy.
+- the guided uniforms U[0, 1) ``[B, C, z]``, one per modality.  They reach
+  the logits through DILR's guided queries.
+- EPRL's proxy noise ``eps`` ``[C, S, z]``.  It reaches the losses.
+- train mode only: EPRL's dropout keep masks, three per modality.
 
-``forward`` takes both as optional tensors (``guided_uniform=(u_f, u_o)``,
-``eprl_eps``).  When they are absent, it draws them from a
-``torch.Generator`` seeded with 1 on the model's device: deterministic, but
-not the JAX package's numbers, which torch cannot replay.  Parity tests
-inject JAX's draws.
+Eval mode draws the uniforms and one eps for both modalities from fixed
+keys there, and here from a ``torch.Generator`` seeded with 1 on the
+model's device: deterministic, but not the JAX package's numbers, which
+torch cannot replay.  Train mode draws all of them per call, there from the
+step's keys and here from the ``generator`` the caller passes.  ``forward``
+takes every draw as an optional tensor (``guided_uniform=(u_f, u_o)``,
+``eprl_eps``, ``dropout_masks``), so that parity tests can inject JAX's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from edrl_tpu.config import ModelConfig
+from edrl_tpu_torch.config import ModelConfig
 from edrl_tpu_torch.models.dilr import DILR
 from edrl_tpu_torch.models.eprl import EVAL_SEED, EPRL, eval_eps
 from edrl_tpu_torch.models.layers import Dense
@@ -104,16 +104,23 @@ class MedFusion(nn.Module):
         train: bool = False,
         modality_mask: Optional[torch.Tensor] = None,  # [2] bool: (fundus, oct)
         guided_uniform: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-        eprl_eps: Optional[torch.Tensor] = None,
+        eprl_eps: Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor], None] = None,
+        dropout_masks: Optional[Tuple[Sequence[torch.Tensor], Sequence[torch.Tensor]]] = None,
+        generator: Optional[torch.Generator] = None,
     ):
-        if train:
-            raise NotImplementedError(
-                "MedFusion train mode (dropout, BN batch statistics, sampled "
-                "noise, backward kernels) is ROADMAP item A6"
-            )
+        """Returns ``(logits, loss, combined_features, aux)``.
+
+        ``eprl_eps``: one ``[C, S, z]`` tensor for both EPRL heads, or a pair
+        ``(eps_fundus, eps_oct)``.  ``dropout_masks``: ``(masks_fundus,
+        masks_oct)``, each EPRL's three keep masks (train mode).  Draws that
+        are absent come from ``generator`` in train mode and from the eval
+        seed in eval mode.  Train mode needs ``y``.
+        """
         cfg = self.cfg
         b = fundus.shape[0]
         c, z_dim = cfg.num_classes, cfg.z_dim
+        if train and y is None:
+            raise ValueError("MedFusion train mode requires labels y")
         if modality_mask is not None:
             fundus = fundus * modality_mask[0].to(fundus.dtype)
             oct_vol = oct_vol * modality_mask[1].to(oct_vol.dtype)
@@ -121,13 +128,23 @@ class MedFusion(nn.Module):
         tokens_f, _ = self.transformer_2d(fundus)
         tokens_o, _ = self.transformer_3d(oct_vol)
 
-        if eprl_eps is None:
+        if eprl_eps is None and not train:
             eprl_eps = eval_eps(c, cfg.sample_num, z_dim, fundus.device)
-        mu_f, sig_f, proxy_f, _, ent_f = self.eprl_fundus(tokens_f, eps=eprl_eps)
-        mu_o, sig_o, proxy_o, _, ent_o = self.eprl_oct(tokens_o, eps=eprl_eps)
+        eps_f, eps_o = eprl_eps if isinstance(eprl_eps, (tuple, list)) else (eprl_eps, eprl_eps)
+        masks_f, masks_o = dropout_masks if dropout_masks is not None else (None, None)
+        eprl_kw = dict(train=train, generator=generator)
+        mu_f, sig_f, proxy_f, _, ent_f = self.eprl_fundus(
+            tokens_f, y, eps=eps_f, dropout_masks=masks_f, **eprl_kw)
+        mu_o, sig_o, proxy_o, _, ent_o = self.eprl_oct(
+            tokens_o, y, eps=eps_o, dropout_masks=masks_o, **eprl_kw)
 
         if guided_uniform is None:
-            guided_uniform = eval_guided_uniform(b, c, z_dim, fundus.device)
+            if train:
+                shape = (b, c, z_dim)
+                guided_uniform = tuple(
+                    torch.rand(shape, generator=generator, device=fundus.device) for _ in range(2))
+            else:
+                guided_uniform = eval_guided_uniform(b, c, z_dim, fundus.device)
         u_f, u_o = guided_uniform
         guided_f = (mu_f + u_f * sig_f).reshape(b, c * z_dim)
         guided_o = (mu_o + u_o * sig_o).reshape(b, c * z_dim)
@@ -135,7 +152,7 @@ class MedFusion(nn.Module):
         poe = self.poe([mu_f, mu_o], [sig_f, sig_o], modality_mask=modality_mask)
         global_fusion = F.relu(self.fc_fundus(F.relu(poe.reshape(b, c * z_dim))))
 
-        combined, loss_dilr = self.dilr(tokens_f, tokens_o, global_fusion, guided_f, guided_o)
+        combined, loss_dilr = self.dilr(tokens_f, tokens_o, global_fusion, guided_f, guided_o, train=train)
         logits = self.head2(F.relu(self.head1(F.relu(combined))))
 
         aux: Dict[str, torch.Tensor] = {
@@ -151,6 +168,7 @@ class MedFusion(nn.Module):
         ib = cfg.kl_weight * kl_to_standard_normal(mu_f, sig_f, axis=1) + (
             cfg.kl_weight * kl_to_standard_normal(mu_o, sig_o, axis=1)
         )
-        loss = ce + ib + cfg.proxy_weight_eval * (proxy_f + proxy_o) + cfg.dilr_weight * loss_dilr
+        w_proxy = cfg.proxy_weight_train if train else cfg.proxy_weight_eval
+        loss = ce + ib + w_proxy * (proxy_f + proxy_o) + cfg.dilr_weight * loss_dilr
         aux.update({"ce_loss": ce, "ib_loss": ib})
         return logits, loss, combined, aux

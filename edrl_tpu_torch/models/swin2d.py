@@ -36,12 +36,13 @@ def rel_bias_from_table(table, index, num_heads: int, dtype: torch.dtype):
 
     The JAX package looks the table up with a one-hot matmul in the module
     dtype, with f32 accumulation.  Each output of that product is exactly one
-    table entry rounded to ``dtype``, so a gather of the table cast to
-    ``dtype`` gives the same values bit for bit (in bf16 mode the table is
-    rounded to bf16 first, as there).
+    table entry rounded to ``dtype``, so a gather from the f32 table rounded
+    to ``dtype`` after gives the same values bit for bit.  Gathering first
+    keeps the backward in f32: the ~n^2 / (2w-1)^2 duplicates per slot are
+    summed in f32 (as the one-hot product's transpose does), not in bf16.
     """
     n = index.shape[0]
-    bias = table.to(dtype)[index.reshape(-1)].float().reshape(n, n, num_heads)
+    bias = table[index.reshape(-1)].to(dtype).float().reshape(n, n, num_heads)
     return bias.permute(2, 0, 1)
 
 

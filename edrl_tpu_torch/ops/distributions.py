@@ -1,4 +1,4 @@
-"""Gaussian KL and categorical entropy (``edrl_tpu/ops/distributions.py``)."""
+"""Gaussian KL, categorical entropy and JS divergence (``edrl_tpu/ops/distributions.py``)."""
 
 from __future__ import annotations
 
@@ -30,3 +30,17 @@ def entropy_regularization(logits):
     """Mean entropy of the rows of softmax(logits)."""
     log_p = torch.log_softmax(logits.float(), dim=1)
     return torch.mean(-torch.sum(log_p.exp() * log_p, dim=1))
+
+
+def kl_divergence_categorical(p, q):
+    """mean_i sum_j p_ij log(p_ij / q_ij), logs clamped at 1e-12."""
+    p, q = p.float(), q.float()
+    ratio = torch.log(p.clamp_min(1e-12)) - torch.log(q.clamp_min(1e-12))
+    return torch.mean(torch.sum(p * ratio, dim=1))
+
+
+def js_divergence(p, q):
+    """Jensen-Shannon divergence between categorical rows (the dual-view
+    step's optional logit distillation)."""
+    m = 0.5 * (p + q)
+    return 0.5 * (kl_divergence_categorical(p, m) + kl_divergence_categorical(q, m))

@@ -19,11 +19,11 @@ from typing import Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from edrl_tpu.config import EDRLConfig
+from edrl_tpu_torch.config import EDRLConfig
 from edrl_tpu_torch.convert import load_flax_variables
 from edrl_tpu_torch.models.layers import cast_dense_weights_, init_parameters
 from edrl_tpu_torch.models.medfusion import MedFusion
-from edrl_tpu_torch.train.trainer import _dequantize, _normalize_output
+from edrl_tpu_torch.train.trainer import _dequantize, _normalize_output, resolve_device
 
 
 def _to_uint8_transport(x: np.ndarray) -> np.ndarray:
@@ -55,7 +55,7 @@ class Predictor:
         arrays (e.g. a JAX ``TrainState``'s), loaded with
         ``convert.load_flax_variables``; ``None`` gives the seeded flax-style
         init from ``seed``.
-    device: where the model runs, e.g. ``"cuda"`` or ``"cpu"``.
+    device: where the model runs: ``"cuda"`` (the default) or ``"cpu"``.
     transport: ``"uint8"`` (default) ships requests as uint8 and dequantizes
         on the device; ``"f32"`` ships floats unmodified.
     guided_uniform: optional ``(u_f, u_o)``, each ``[eval_batch_size, C, z]``,
@@ -72,7 +72,7 @@ class Predictor:
         cfg: EDRLConfig,
         variables: Optional[Mapping] = None,
         *,
-        device,
+        device="cuda",
         seed: int = 0,
         transport: str = "uint8",
         guided_uniform: Optional[Tuple[np.ndarray, np.ndarray]] = None,
@@ -90,9 +90,7 @@ class Predictor:
             raise NotImplementedError("mesh serving is ROADMAP item A11")
         if transport not in ("uint8", "f32"):
             raise ValueError(f"transport must be 'uint8' or 'f32', got {transport!r}")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"Predictor on {self.device}: torch finds no CUDA device")
+        self.device = resolve_device(device)
         self.cfg = cfg
         self.transport = transport
         self.batch_size = cfg.data.eval_batch_size

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from edrl_tpu_torch.config import tiny_test_config as port_tiny_config
 from edrl_tpu.config import tiny_test_config
 from edrl_tpu.models import dilr as jdilr
 from edrl_tpu.models import eprl as jeprl
@@ -164,6 +165,24 @@ class TestSwinStatics:
         got = swin2d.rel_bias_from_table(_t(table), index, 3, tdtype)
         assert got.dtype == torch.float32
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    @pytest.mark.parametrize(
+        "jdtype,tdtype,rtol", [(jnp.float32, torch.float32, 1e-5), (jnp.bfloat16, torch.bfloat16, 1e-2)]
+    )
+    def test_rel_bias_table_gradient(self, rng, jdtype, tdtype, rtol):
+        """The table's gradient sums the gathered entries' cotangents in f32
+        (in bf16 mode too), as the one-hot product's transpose does; bf16 mode
+        rounds to bf16 on the way, at different places in the two stacks."""
+        table = rng.normal(scale=0.02, size=(49, 3)).astype(np.float32)
+        ct = rng.normal(size=(3, 16, 16)).astype(np.float32)
+        _, vjp = jax.vjp(lambda t: jswin._rel_bias_from_table(t, 4, 3, jdtype), jnp.asarray(table))
+        (want,) = vjp(jnp.asarray(ct))
+        ttable = torch.tensor(table, requires_grad=True)
+        index = torch.as_tensor(swin2d.relative_position_index(4))
+        swin2d.rel_bias_from_table(ttable, index, 3, tdtype).backward(_t(ct))
+        assert ttable.grad.dtype == torch.float32
+        err = np.abs(ttable.grad.numpy() - np.asarray(want, np.float32)).max()
+        assert err <= rtol * np.abs(np.asarray(want, np.float32)).max()
 
     @pytest.mark.parametrize("grid,window,shift", [(8, 4, 2), (96, 12, 6)])
     def test_shift_mask(self, grid, window, shift):
@@ -369,7 +388,7 @@ def test_medfusion_modality_mask(medfusion_case):
 
 
 def test_medfusion_refuses_train_and_unported_flags():
-    cfg = tiny_test_config()
+    cfg = port_tiny_config()
     with pytest.raises(NotImplementedError, match="B5"):
         medfusion.MedFusion(dataclasses.replace(cfg.model, use_fused_mlp=True), 64, (32, 32, 32))
     with pytest.raises(NotImplementedError, match="B4"):
@@ -379,5 +398,5 @@ def test_medfusion_refuses_train_and_unported_flags():
             dataclasses.replace(cfg.model, use_fused_block_attention=True), 64, (32, 32, 32)
         )
     tm = medfusion.MedFusion(cfg.model, 64, (32, 32, 32), device="meta")
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="train mode requires labels"):
         tm(torch.empty(1, device="meta"), torch.empty(1, device="meta"), train=True)

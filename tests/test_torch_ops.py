@@ -1,17 +1,21 @@
 """Port's ops and small helpers against the JAX package, on the CPU in f32."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from edrl_tpu.kernels import layer_norm as jlayer_norm
+from edrl_tpu.kernels.mmd_pallas import mk_mmd_pallas
 from edrl_tpu.ops import correlation as jcorrelation
 from edrl_tpu.ops import distributions as jdistributions
 from edrl_tpu.ops import losses as jlosses
+from edrl_tpu.ops import mmd as jmmd
 from edrl_tpu.train import trainer as jtrainer
 from edrl_tpu_torch.kernels import layer_norm
-from edrl_tpu_torch.ops import correlation, distributions, losses
+from edrl_tpu_torch.kernels import mmd as kmmd
+from edrl_tpu_torch.ops import correlation, distributions, losses, mmd
 from edrl_tpu_torch.train import trainer
 
 
@@ -88,3 +92,70 @@ def test_dequantize(rng):
 def test_normalize_output():
     assert trainer._normalize_output((1, 2, 3)) == (1, 2, 3, {})
     assert trainer._normalize_output((1, 2, 3, {"a": 4})) == (1, 2, 3, {"a": 4})
+
+
+# ---------------------------------------------------------------------------
+# MK-MMD (plain path and B3's CPU path) and the JS divergence, values and
+# gradients at rtol 1e-4 / atol 1e-6 (``tests/test_kernels.py``'s bar).
+# ---------------------------------------------------------------------------
+
+MMD_TOL = dict(rtol=1e-4, atol=1e-6)
+
+
+def _features(rng, n_s=8, n_t=8, d=128):
+    src = rng.normal(size=(n_s, d)).astype(np.float32)
+    tgt = (rng.normal(size=(n_t, d)) * 1.2 + 0.1).astype(np.float32)
+    return src, tgt
+
+
+@pytest.mark.parametrize("mul,num", [(2.0, 5), (1.5, 3)])
+def test_gaussian_kernel(rng, mul, num):
+    src, tgt = _features(rng)
+    want = jmmd.gaussian_kernel(src, tgt, mul, num)
+    np.testing.assert_allclose(mmd.gaussian_kernel(_t(src), _t(tgt), mul, num).numpy(), np.asarray(want),
+                               **MMD_TOL)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("shape", [(8, 8, 128), (3, 5, 7)])
+def test_mk_mmd_value_and_grad(rng, fused, shape):
+    """ops.mmd.mk_mmd against the JAX XLA path; kernels.mmd.mk_mmd_fused (its
+    CPU path) against mk_mmd_pallas in interpret mode (which sends the odd
+    shape to the XLA path)."""
+    src, tgt = _features(rng, *shape)
+    if fused:
+        jfn = lambda a, b: mk_mmd_pallas(a, b, 2.0, 5, True)  # noqa: E731
+        tfn = kmmd.mk_mmd_fused
+    else:
+        jfn, tfn = jmmd.mk_mmd, mmd.mk_mmd
+    want, (wsrc, wtgt) = jax.value_and_grad(jfn, argnums=(0, 1))(jnp.asarray(src), jnp.asarray(tgt))
+    tsrc, ttgt = (torch.tensor(a, requires_grad=True) for a in (src, tgt))
+    got = tfn(tsrc, ttgt)
+    got.backward()
+    assert got.dtype == torch.float32 and got.dim() == 0
+    np.testing.assert_allclose(float(got.detach()), float(want), **MMD_TOL)
+    np.testing.assert_allclose(tsrc.grad.numpy(), np.asarray(wsrc), **MMD_TOL)
+    np.testing.assert_allclose(ttgt.grad.numpy(), np.asarray(wtgt), **MMD_TOL)
+
+
+def test_mk_mmd_fused_cpu_counts_no_launch(rng):
+    kmmd.reset_launch_counts()
+    src, tgt = _features(rng)
+    kmmd.mk_mmd_fused(_t(src), _t(tgt))
+    assert kmmd.LAUNCHES == {kmmd.MK_MMD: 0}
+
+
+def test_mk_mmd_kernel_needs_cuda(rng):
+    src, tgt = _features(rng)
+    with pytest.raises(ValueError, match="CUDA"):
+        kmmd.mk_mmd_kernel(_t(src), _t(tgt))
+
+
+def test_js_divergence(rng):
+    p = rng.dirichlet(np.ones(3), size=5).astype(np.float32)
+    q = rng.dirichlet(np.ones(3), size=5).astype(np.float32)
+    q[0, 1] = 0.0  # exercises the 1e-12 log clamp
+    np.testing.assert_allclose(float(distributions.js_divergence(_t(p), _t(q))),
+                               float(jdistributions.js_divergence(p, q)), rtol=1e-5)
+    np.testing.assert_allclose(float(distributions.kl_divergence_categorical(_t(p), _t(q))),
+                               float(jdistributions.kl_divergence_categorical(p, q)), rtol=1e-5)
