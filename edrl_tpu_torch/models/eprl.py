@@ -1,12 +1,13 @@
 """EPRL, Essence-Point Representation Learning (``edrl_tpu/models/eprl.py``).
 
-Train mode indexes the proxies with the labels ``y``, applies dropout 0.2 at
-the three sites of the JAX module (after enc1 and enc2, and after
-token_mlp on the pseudo-label branch, whose result train mode does not use)
-and draws its proxy noise per call.  Eval mode takes the pseudo-labels, the
-argmax of the confidence-blended distribution, and returns the entropy
-regularizer.  Normalisation is over the feature axis, and the token-mean
-attention divides by the token count, as in the JAX package.
+Train mode indexes the proxies with the labels ``y``, applies dropout 0.2
+after enc1 and enc2 and draws its proxy noise per call.  It skips the
+pseudo-label branch (token_mlp, its dropout and the alpha blend): the JAX
+module builds that branch in train mode too, but nothing it returns
+depends on it there.  Eval mode takes the pseudo-labels, the argmax of the
+confidence-blended distribution, and returns the entropy regularizer.
+Normalisation is over the feature axis, and the token-mean attention
+divides by the token count, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -78,8 +79,8 @@ class EPRL(nn.Module):
 
         eps: ``[C, S, z]`` proxy noise, or None: drawn from ``generator`` in
         train mode, :func:`eval_eps` in eval mode.  dropout_masks: train
-        mode's three keep masks (``[B, N, 2z]``, ``[B, N, 2z]``, ``[B, C]``),
-        or None to draw them from ``generator``.
+        mode's two keep masks (``[B, N, 2z]`` after enc1 and after enc2), or
+        None to draw them from ``generator``.
         """
         b, n, _ = x.shape
         c, s, z_dim = self.num_classes, self.sample_num, self.z_dim
@@ -89,7 +90,7 @@ class EPRL(nn.Module):
             )
         if train and y is None:
             raise ValueError("EPRL train mode requires labels y")
-        masks = list(dropout_masks) if dropout_masks is not None else [None] * 3
+        masks = list(dropout_masks) if dropout_masks is not None else [None] * 2
 
         def drop(h, site):
             return dropout(h, DROPOUT, masks[site], generator) if train else h
@@ -111,20 +112,17 @@ class EPRL(nn.Module):
         p_norm = _l2_normalize(z_proxy)
         att = torch.einsum("bnd,csd->bcs", z_norm, p_norm) / float(n)
 
-        feat = torch.softmax(z_norm.mean(dim=2), dim=1)  # over tokens, [B, N]
-        feat = F.relu(drop(self.token_mlp(F.relu(feat)), 2))
-        combined = self.alpha * torch.softmax(att.mean(dim=2), dim=1) + (1.0 - self.alpha) * feat
-
         if train:
             labels = y.long()
             entropy_loss = torch.zeros((), device=x.device)
         else:
+            feat = torch.softmax(z_norm.mean(dim=2), dim=1)  # over tokens, [B, N]
+            feat = F.relu(self.token_mlp(F.relu(feat)))
+            combined = self.alpha * torch.softmax(att.mean(dim=2), dim=1) + (1.0 - self.alpha) * feat
             labels = combined.argmax(dim=1)
             entropy_loss = entropy_regularization(combined)
 
-        # A comparison, not F.one_hot: that checks its range on the host (a
-        # device sync) and raises where jax.nn.one_hot gives a zero row.
-        one_hot = labels[:, None] == torch.arange(c, device=labels.device)  # [B, C]
+        one_hot = F.one_hot(labels, c).bool()  # [B, C]
         pos = torch.einsum("bcs,bc->bs", att, one_hot.to(att.dtype))
         neg_mask = (~one_hot).repeat_interleave(s, dim=1)  # [B, C*S]
         neg = torch.where(neg_mask, att.reshape(b, c * s), float("-inf"))

@@ -112,7 +112,7 @@ class MedFusion(nn.Module):
 
         ``eprl_eps``: one ``[C, S, z]`` tensor for both EPRL heads, or a pair
         ``(eps_fundus, eps_oct)``.  ``dropout_masks``: ``(masks_fundus,
-        masks_oct)``, each EPRL's three keep masks (train mode).  Draws that
+        masks_oct)``, each EPRL's two keep masks (train mode).  Draws that
         are absent come from ``generator`` in train mode and from the eval
         seed in eval mode.  Train mode needs ``y``.
         """

@@ -2,23 +2,20 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python -m edrl_tpu_torch.tools.profile_train_step [--steps 3] [--plain] [--json PATH]
+    python -m edrl_tpu_torch.tools.profile_train_step [--plain]
 
 Builds the shipped ``EDRLConfig()`` (bf16, batch 32; ``--plain`` turns both
-fused-attention flags off) with seeded random weights, feeds it ready-made
-f32 views from numpy seed 0, takes two warm-up steps, times ``--steps``
-steps without the profiler, then profiles as many and prints:
+fused-attention flags off) with seeded random weights, feeds it
+``trainer.random_views`` from seed 0, takes two warm-up steps, then runs
+three steps without the profiler and three under it, and prints:
 
 - unprofiled: the step time on the host clock (to a ``synchronize()``) and
   the host's enqueue time per step (the step returns before the device
   finishes);
-- profiled (the profiler slows the host, not the kernels): the device
-  busy share, the union of the kernels' intervals over the span from the
-  first kernel's start to the last kernel's end, and device time per step
-  by category and by kernel (the top 25), with the kernel count.
-
-With ``--json`` it also writes these numbers to a file.  This is the
-PyTorch counterpart of the JAX package's TPU trace breakdown.
+- profiled (the profiler slows the host, not the kernels): the kernels per
+  step, the device busy time per step (the union of the kernels'
+  intervals) and its share of the span from the first kernel's start to
+  the last kernel's end, and device time per step by category.
 """
 
 from __future__ import annotations
@@ -26,16 +23,16 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
-import json
+import statistics
 import subprocess
 import time
 
-import numpy as np
 import torch
 
 from edrl_tpu_torch.config import EDRLConfig
 from edrl_tpu_torch.train import trainer
 
+STEPS = 3
 # (category, substrings of a kernel name), first match wins.
 CATEGORIES = (
     ("attention kernels (B1/B2 fwd)", ("attention_fwd",)),
@@ -73,55 +70,40 @@ def _union_us(intervals):
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--plain", action="store_true", help="both fused-attention flags off")
-    parser.add_argument("--json", default="", help="also write the numbers to this file")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train_step: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     cfg = EDRLConfig()
     if args.plain:
         cfg = cfg.replace(model=dataclasses.replace(
             cfg.model, use_fused_attention=False, vit_fused_attention=False))
-    d, b = cfg.data, cfg.data.batch_size
-    rng = np.random.default_rng(0)
-    batch = {k: rng.uniform(size=(b, d.fundus_size, d.fundus_size, 3)).astype(np.float32)
-             for k in ("fundus_low", "fundus_high")}
-    batch.update({k: rng.uniform(size=(b, *d.oct_size, 1)).astype(np.float32) for k in ("oct_low", "oct_high")})
-    batch["label"] = rng.integers(0, 2, size=b).astype(np.int32)
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-    state = trainer.init_state(cfg, seed=0, device=dev)
+    batch = trainer.random_views(cfg, seed=0)
+    state = trainer.init_state(cfg, seed=0)
     train_step = trainer.make_train_step(cfg)
-    gen = torch.Generator(device=dev).manual_seed(1)
-
-    def step(state_, batch_):
-        return train_step(state_, batch_, gen)
-
+    gen = torch.Generator(device="cuda").manual_seed(1)
     for _ in range(2):
-        step(state, batch)
+        train_step(state, batch, gen)
     torch.cuda.synchronize()
 
     enqueue_ms = []
     t0 = time.perf_counter()
-    for _ in range(args.steps):
+    for _ in range(STEPS):
         t = time.perf_counter()
-        step(state, batch)
+        train_step(state, batch, gen)
         enqueue_ms.append(1000.0 * (time.perf_counter() - t))
     torch.cuda.synchronize()
-    wall_ms = 1000.0 * (time.perf_counter() - t0) / args.steps
+    wall_ms = 1000.0 * (time.perf_counter() - t0) / STEPS
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            step(state, batch)
+        for _ in range(STEPS):
+            train_step(state, batch, gen)
         torch.cuda.synchronize()
-        profiled_ms = 1000.0 * (time.perf_counter() - t0) / args.steps
 
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
@@ -130,38 +112,19 @@ def main(argv=None) -> None:
     spans = [(e.time_range.start, e.time_range.end) for e in kernels]
     window_us = max(e for _, e in spans) - min(s for s, _ in spans)
     busy_us = _union_us(spans)
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in kernels:
-        by_name[e.name][0] += e.time_range.elapsed_us()
-        by_name[e.name][1] += 1
     by_cat = collections.defaultdict(float)
-    for name, (us, _) in by_name.items():
-        by_cat[_category(name)] += us
-    per_step = 1000.0 * args.steps  # us over the run -> ms per step
-    path = "plain" if args.plain else "kernel"
-    print(f"train step, {path} path, batch {b} bf16, {args.steps} profiled steps [{card}]")
+    for e in kernels:
+        by_cat[_category(e.name)] += e.time_range.elapsed_us()
+    per_step = 1000.0 * STEPS  # us over the run -> ms per step
+    print(f"train step, {'plain' if args.plain else 'kernel'} path, batch {cfg.data.batch_size} bf16 "
+          f"[{card}]")
     print(f"  unprofiled: host clock to sync {wall_ms:.3f} ms/step, host enqueue "
-          f"{np.median(enqueue_ms):.3f} ms/step (median)")
-    print(f"  profiled: {profiled_ms:.3f} ms/step; device busy {busy_us / per_step:.3f} ms/step, "
-          f"{100.0 * busy_us / window_us:.1f}% of the {window_us / per_step:.3f} ms/step kernel span; "
-          f"{len(kernels) // args.steps} kernels/step")
+          f"{statistics.median(enqueue_ms):.3f} ms/step (median of {STEPS})")
+    print(f"  profiled: {len(kernels) // STEPS} kernels/step; device busy {busy_us / per_step:.3f} ms/step, "
+          f"{100.0 * busy_us / window_us:.1f}% of the {window_us / per_step:.3f} ms/step kernel span")
     print("  device ms/step by category:")
     for label, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"    {us / per_step:9.3f}  {label}")
-    print("  device ms/step by kernel (top 25):")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
-    for name, (us, count) in top:
-        print(f"    {us / per_step:9.3f}  x{count // args.steps:<5d} {name[:110]}")
-    if args.json:
-        with open(args.json, "w") as f:
-            json.dump({
-                "card": card, "path": path, "batch": b, "steps": args.steps,
-                "wall_ms_per_step": wall_ms, "enqueue_ms_per_step": float(np.median(enqueue_ms)),
-                "profiled_ms_per_step": profiled_ms, "device_busy_ms_per_step": busy_us / per_step,
-                "device_busy_share": busy_us / window_us, "kernels_per_step": len(kernels) // args.steps,
-                "device_ms_per_step_by_category": {k: v / per_step for k, v in by_cat.items()},
-                "device_ms_per_step_by_kernel": {k: v[0] / per_step for k, v in top},
-            }, f, indent=1)
 
 
 if __name__ == "__main__":

@@ -141,6 +141,21 @@ def _ready_views(batch: Mapping, device, keys: Sequence[str]) -> Dict[str, torch
     return views
 
 
+def random_views(cfg: EDRLConfig, seed: int = 0, *, batch_size: Optional[int] = None,
+                 device="cuda") -> Dict[str, torch.Tensor]:
+    """A train batch of ready-made f32 views, uniform in [0, 1), and 0/1
+    labels from numpy seed ``seed``, drawn in the order of the JAX package's
+    ``bench.make_batch``; ``batch_size`` defaults to ``cfg.data.batch_size``."""
+    b = cfg.data.batch_size if batch_size is None else batch_size
+    d, rng = cfg.data, np.random.default_rng(seed)
+    batch = {k: rng.uniform(size=(b, d.fundus_size, d.fundus_size, 3)).astype(np.float32)
+             for k in ("fundus_low", "fundus_high")}
+    batch.update({k: rng.uniform(size=(b, *d.oct_size, 1)).astype(np.float32) for k in ("oct_low", "oct_high")})
+    batch["label"] = rng.integers(0, 2, size=b).astype(np.int32)
+    device = resolve_device(device)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
 def make_train_step(cfg: EDRLConfig):
     """The dual-view train step for ``cfg``.
 

@@ -81,7 +81,9 @@ def record_jax_draws(rec):
 def port_draws(rec, forwards: int):
     """JAX's recorded draws as ``MedFusion.forward`` keyword arguments, one
     mapping per forward (per forward JAX draws: fundus EPRL masks 1, 2, eps,
-    mask 3; the same for OCT; then the two guided uniforms)."""
+    mask 3; the same for OCT; then the two guided uniforms).  Mask 3 is on the
+    pseudo-label branch, which the port's train mode skips: nothing the step
+    returns depends on it."""
     t = lambda a: torch.tensor(np.asarray(a))  # noqa: E731
     assert len(rec["uniform"]) == 2 * forwards and len(rec["normal"]) == 2 * forwards
     assert len(rec["dropout"]) == 6 * forwards
@@ -91,7 +93,7 @@ def port_draws(rec, forwards: int):
         out.append({
             "guided_uniform": (t(rec["uniform"][2 * i]), t(rec["uniform"][2 * i + 1])),
             "eprl_eps": (t(rec["normal"][2 * i]), t(rec["normal"][2 * i + 1])),
-            "dropout_masks": (masks[:3], masks[3:]),
+            "dropout_masks": (masks[:2], masks[3:5]),
         })
     return out
 
@@ -115,6 +117,19 @@ def _batch(cfg, seed=0):
                   for k in ("oct_low", "oct_high")})
     batch["label"] = np.array([0, 1, 1], np.int32)
     return batch
+
+
+def test_random_views_match_bench_make_batch():
+    """The port's synthetic train batch holds what the JAX package's
+    ``bench.make_batch`` draws from the same numpy seed."""
+    import bench
+
+    jcfg, tcfg = _configs(False)
+    want = bench.make_batch(BATCH, jcfg.data, np.random.default_rng(4))
+    got = trainer.random_views(tcfg, seed=4, batch_size=BATCH, device="cpu")
+    assert set(got) == set(want)
+    for key, value in want.items():
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(value))
 
 
 @pytest.fixture(scope="module")
@@ -192,7 +207,7 @@ def test_eprl_train(jax_variables):
     assert [m.shape for m in rec["dropout"]] == [(4, 16, 16), (4, 16, 16), (4, 3)]
     tm = load_flax_variables(eprl.EPRL(24, 16, z_dim=8, num_classes=3, sample_num=12, topk=5),
                              variables["params"])
-    got = tm(_t(x), _t(y), train=True, eps=_t(eps), dropout_masks=[_t(m) for m in rec["dropout"]])
+    got = tm(_t(x), _t(y), train=True, eps=_t(eps), dropout_masks=[_t(m) for m in rec["dropout"][:2]])
     for g, w in zip(got, want):  # mu, sigma, proxy loss, z, entropy (0 in train mode)
         _close(g, w)
     assert float(got[4]) == 0.0
