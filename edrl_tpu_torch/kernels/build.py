@@ -119,6 +119,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "edrl_mk_mmd_scratch_floats": (i64, [i32, i32]),
         # source, target, n_s, n_t, d, kernel_mul, kernel_num, scratch, out, stream
         "edrl_mk_mmd_fwd": (i32, [ptr, ptr, i32, i32, i32, f32, i32, ptr, ptr, ptr]),
+        # x, gamma, beta, y, m, c, eps, is_bf16, stream
+        "edrl_layer_norm_fwd": (i32, [ptr, ptr, ptr, ptr, i32, i32, f32, i32, ptr]),
+        # x, dy, gamma, dx, dgamma, dbeta, partial, m, c, blocks, eps, is_bf16, stream
+        "edrl_layer_norm_bwd": (i32, [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, i32, ptr]),
+        # u, w1, b1, w2, b2, y, w1t, w2t, m, c, h, u_is_bf16, w_is_bf16, stream
+        "edrl_fused_mlp_fwd": (i32, [ptr] * 8 + [i32] * 5 + [ptr]),
+        # u, dy, w1, b1, w2, du, dw1, db1, dw2, db2, w1t, w1b, w2b, dh, act,
+        # db1_part, db2_part, dw1_part, dw2_part, m, c, h, splits, chunk,
+        # u_is_bf16, w_is_bf16, stream
+        "edrl_fused_mlp_bwd": (i32, [ptr] * 19 + [i32] * 7 + [ptr]),
     }
     for name, (restype, argtypes) in signatures.items():
         fn = getattr(lib, name)
@@ -128,6 +138,24 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 _LIB: Optional[ctypes.CDLL] = None
+
+
+def launch(counts: dict, name: str, fn, device, *args) -> None:
+    """Call entry point ``fn(*args, stream)`` on ``device``'s current stream,
+    raise if it returns a CUDA error, and count the launch in ``counts[name]``."""
+    import torch
+
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    counts[name] += 1
+
+
+def sm_count(device) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def load_library() -> ctypes.CDLL:

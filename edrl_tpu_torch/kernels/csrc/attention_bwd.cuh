@@ -24,8 +24,8 @@
 //    rows of s and dp over all keys (kept in shared memory as f32), takes the
 //    softmax and ds, writes dq, and writes the row statistics (max, sum,
 //    delta) that kernel 2 needs.  ds is summed over the chunk's batch entries
-//    in shared memory and written once as the chunk's partial dbias; a third
-//    small kernel sums the chunks in a fixed order.  Every sum has one fixed
+//    in shared memory and written once as the chunk's partial dbias;
+//    column_sum_kernel sums the chunks in a fixed order.  Every sum has one fixed
 //    order, so dbias is the same from run to run.
 // 2. attention_bwd_dkv_kernel: one block per (group, head, 32-key tile).  It
 //    keeps its keys and values in shared memory, walks over the queries in
@@ -411,23 +411,6 @@ __global__ void __launch_bounds__(kBwdThreads) attention_bwd_dkv_kernel(AttnBwdP
   }
 }
 
-// dbias[i] = sum over chunks of partial[chunk][i], in chunk order.
-__global__ void dbias_reduce_kernel(const float* partial, float* dbias, long long count,
-                                    int chunks) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < count;
-       i += (long long)gridDim.x * blockDim.x) {
-    float acc = 0.0f;
-    for (int c = 0; c < chunks; ++c) acc += partial[(size_t)c * count + i];
-    dbias[i] = acc;
-  }
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 // Launches the dq kernel, the dkv kernel and, when p.dbias holds more than one
 // chunk, the dbias reduction into dbias_out, in that order on `stream`.  The
 // caller has checked the shapes (d % 8 == 0, d <= kBwdMaxHeadDim,
@@ -455,11 +438,8 @@ cudaError_t launch_attention_bwd(AttnBwdParams p, float* dbias_out, cudaStream_t
   if (err != cudaSuccess) return err;
 
   if (p.dbias && p.batch_chunks > 1) {
-    const long long count = (long long)p.windows * p.heads * p.n * p.n;
-    const long long want = (count + 255) / 256;
-    const int blocks = (int)(want < 4096 ? want : 4096);
-    dbias_reduce_kernel<<<blocks, 256, 0, stream>>>(p.dbias, dbias_out, count, p.batch_chunks);
-    err = cudaGetLastError();
+    err = launch_column_sum(p.dbias, dbias_out, p.batch_chunks, p.windows * p.heads * p.n * p.n,
+                            stream);
   }
   return err;
 }

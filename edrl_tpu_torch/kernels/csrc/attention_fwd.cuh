@@ -36,6 +36,7 @@
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
@@ -238,32 +239,6 @@ constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = kMmaWarps * 32;
 constexpr int kMmaTileQ = kMmaWarps * 16;  // 64 query rows, 16 per warp
 constexpr int kMmaMaxKeys = 224;
-
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// B fragments of a [16 keys, 8 columns] block of a row-major [key][d] tile.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, const void* ptr) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
 
 // Rows [row0, row0 + rows) of one head (d bf16 each) into shared rows of
 // stride ld, 16 bytes per thread and step; rows past n are zero.

@@ -41,13 +41,8 @@ def mk_mmd_kernel(source, target, kernel_mul: float = 2.0, kernel_num: int = 5):
     scratch = torch.empty(lib.edrl_mk_mmd_scratch_floats(n_s + n_t, d), dtype=torch.float32,
                           device=src.device)
     out = torch.empty((), dtype=torch.float32, device=src.device)
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = lib.edrl_mk_mmd_fwd(src.data_ptr(), tgt.data_ptr(), n_s, n_t, d, float(kernel_mul),
-                                  int(kernel_num), scratch.data_ptr(), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{MK_MMD}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[MK_MMD] += 1
+    build.launch(LAUNCHES, MK_MMD, lib.edrl_mk_mmd_fwd, src.device, src.data_ptr(), tgt.data_ptr(),
+                 n_s, n_t, d, float(kernel_mul), int(kernel_num), scratch.data_ptr(), out.data_ptr())
     return out
 
 

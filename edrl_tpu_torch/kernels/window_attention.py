@@ -166,15 +166,6 @@ def _check_bwd_shape(name: str, n: int) -> None:
         )
 
 
-def _launch(name: str, fn, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
-
-
 def _check_smem(name: str, smem: int, n: int) -> None:
     if smem > _SMEM_LIMIT:
         raise ValueError(
@@ -199,8 +190,8 @@ def _self_attention_fwd_kernel(q, k, v, num_heads: int, scale: float):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    _launch(
-        SELF_ATTENTION, lib.edrl_self_attention_fwd, q.device,
+    build.launch(
+        LAUNCHES, SELF_ATTENTION, lib.edrl_self_attention_fwd, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, n, c, num_heads, float(scale), int(q.dtype == torch.bfloat16),
     )
@@ -220,8 +211,8 @@ def self_attention_bwd_kernel(q, k, v, dout, num_heads: int, scale: float):
     if q.numel() == 0:
         return dq, dk, dv
     stats = torch.empty((3, b * num_heads * n), dtype=torch.float32, device=q.device)
-    _launch(
-        SELF_ATTENTION_BWD, lib.edrl_self_attention_bwd, q.device,
+    build.launch(
+        LAUNCHES, SELF_ATTENTION_BWD, lib.edrl_self_attention_bwd, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
         b, n, c, num_heads, float(scale), int(q.dtype == torch.bfloat16),
@@ -278,8 +269,8 @@ def _window_attention_v2_fwd_kernel(qkv, bias, num_heads: int, scale: float):
     out = torch.empty((b, w, n, c), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
-    _launch(
-        WINDOW_ATTENTION_V2, lib.edrl_window_attention_v2_fwd, qkv.device,
+    build.launch(
+        LAUNCHES, WINDOW_ATTENTION_V2, lib.edrl_window_attention_v2_fwd, qkv.device,
         qkv.data_ptr(), bias.data_ptr(), out.data_ptr(),
         b, w, n, c, num_heads, float(scale), int(qkv.dtype == torch.bfloat16),
     )
@@ -308,15 +299,15 @@ def window_attention_v2_bwd_kernel(qkv, bias, dout, num_heads: int, scale: float
     stats = torch.empty((3, b * w * num_heads * n), dtype=torch.float32, device=qkv.device)
     # Batch entries one dq block sums ds over: as many as leave the grid at
     # least _BLOCKS_PER_SM blocks per SM.
-    sms = torch.cuda.get_device_properties(qkv.device).multi_processor_count
+    sms = build.sm_count(qkv.device)
     base = w * num_heads * -(-n // 32)
     chunks = min(b, max(1, -(-_BLOCKS_PER_SM * sms // base)))
     per_block = -(-b // chunks)
     chunks = -(-b // per_block)
     partial = dbias if chunks == 1 else torch.empty(
         (chunks, *bias.shape), dtype=torch.float32, device=qkv.device)
-    _launch(
-        WINDOW_ATTENTION_V2_BWD, lib.edrl_window_attention_v2_bwd, qkv.device,
+    build.launch(
+        LAUNCHES, WINDOW_ATTENTION_V2_BWD, lib.edrl_window_attention_v2_bwd, qkv.device,
         qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), partial.data_ptr(),
         dbias.data_ptr(), stats.data_ptr(), b, w, n, c, num_heads, per_block, float(scale),
         int(qkv.dtype == torch.bfloat16),

@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from edrl_tpu_torch.kernels.layer_norm import layer_norm_reference
+from edrl_tpu_torch.kernels.fused_mlp import fused_mlp
+from edrl_tpu_torch.kernels.layer_norm import fused_layer_norm, layer_norm_reference
 
 # ---------------------------------------------------------------------------
 # Flax initialisers, drawn from an explicit generator.
@@ -40,9 +41,10 @@ def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> No
     nn.init.trunc_normal_(t, mean=0.0, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
 
 
-def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
-    """Flax ``lecun_normal`` for a ``[out, in]`` weight (fan_in = in)."""
-    trunc_normal_(weight, math.sqrt(1.0 / weight.shape[1]) / _TRUNC_STD, generator)
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator, fan_in_dim: int = 1) -> None:
+    """Flax ``lecun_normal``; fan_in is ``weight.shape[fan_in_dim]`` (1 for a
+    torch ``[out, in]`` weight, 0 for a flax-layout ``[in, out]`` one)."""
+    trunc_normal_(weight, math.sqrt(1.0 / weight.shape[fan_in_dim]) / _TRUNC_STD, generator)
 
 
 def xavier_uniform_(t: torch.Tensor, generator: torch.Generator) -> None:
@@ -63,18 +65,24 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 @torch.no_grad()
 def cast_dense_weights_(model: nn.Module) -> nn.Module:
-    """Store every :class:`Dense`'s weight and bias in its compute dtype.
+    """Store every :class:`Dense`'s weight and bias in its compute dtype, and
+    a fused :class:`Mlp`'s ``w1`` and ``w2`` in bf16.
 
-    For serving.  A Dense casts both to its ``dtype`` on every call, so
-    storing them cast gives the same products, bit for bit, without a cast
-    kernel per tensor and call (about 460 launches per bf16 forward at full
-    width).  The model's float32 master weights are gone afterwards.
+    For serving.  A Dense casts both to its ``dtype`` on every call, and the
+    fused MLP rounds its weights to bf16 in either dtype, so storing them cast
+    gives the same products, bit for bit, without a cast kernel per tensor
+    and call (about 460 launches per bf16 forward at full width).  The fused
+    MLP's ``b1`` and ``b2`` stay f32: it adds them in f32.  The model's
+    float32 master weights are gone afterwards.
     """
     for module in model.modules():
         if isinstance(module, Dense):
             module.weight.data = module.weight.data.to(module.dtype)
             if module.bias is not None:
                 module.bias.data = module.bias.data.to(module.dtype)
+        elif isinstance(module, Mlp) and module.fused:
+            module.w1.data = module.w1.data.to(torch.bfloat16)
+            module.w2.data = module.w2.data.to(torch.bfloat16)
     return model
 
 
@@ -110,19 +118,22 @@ class Dense(nn.Module):
 class LayerNorm(nn.Module):
     """LayerNorm over the last axis with f32 statistics, eps 1e-6.
 
-    The default matches ``edrl_tpu.models.layers.FusedLayerNorm`` on its XLA
-    path: cast x to ``dtype``, then ``layer_norm_reference``.
-    ``fast_variance=True`` matches flax's own ``nn.LayerNorm`` (used by
-    DILR's ``AttentionModel``): var = E[x^2] - E[x]^2 clipped at 0, and
+    The default matches ``edrl_tpu.models.layers.FusedLayerNorm``: cast x to
+    ``dtype``, then ``layer_norm_reference``, or, with ``use_fused`` and a
+    width that is a multiple of 128 (flax's rule), ``fused_layer_norm`` over
+    the rows (B4: the CUDA kernels on the card, their plain versions on the
+    CPU).  ``fast_variance=True`` matches flax's own ``nn.LayerNorm`` (used
+    by DILR's ``AttentionModel``): var = E[x^2] - E[x]^2 clipped at 0, and
     (x - mean) * (rsqrt(var + eps) * scale) + bias.
     """
 
     def __init__(self, dim: int, *, dtype: torch.dtype = torch.float32, eps: float = 1e-6,
-                 fast_variance: bool = False, device=None):
+                 fast_variance: bool = False, use_fused: bool = False, device=None):
         super().__init__()
         self.dtype = dtype
         self.eps = eps
         self.fast_variance = fast_variance
+        self.fused = use_fused and dim % 128 == 0
         self.weight = _param((dim,), device)
         self.bias = _param((dim,), device)
 
@@ -131,6 +142,10 @@ class LayerNorm(nn.Module):
         self.bias.zero_()
 
     def forward(self, x):
+        if self.fused:
+            x = x.to(self.dtype)
+            y = fused_layer_norm(x.reshape(-1, x.shape[-1]), self.weight, self.bias, self.eps)
+            return y.reshape(x.shape)
         if not self.fast_variance:
             return layer_norm_reference(x.to(self.dtype), self.weight, self.bias, self.eps)
         xf = x.float()
@@ -141,15 +156,42 @@ class LayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    """Dense -> tanh-GELU -> Dense (eval: the dropouts are identities)."""
+    """Dense -> tanh-GELU -> Dense (the backbones' dropout is 0).
+
+    With ``use_fused``, ``in_dim == out_dim`` and both widths multiples of
+    128 (flax's ``fusable`` rule), the MLP runs through ``fused_mlp`` (B5: the
+    CUDA kernels on the card, their plain versions on the CPU) and owns
+    ``w1 [in, hidden]``, ``b1``, ``w2 [hidden, out]`` and ``b2`` in flax's
+    layout, under flax's names; otherwise it has ``Dense_0`` and ``Dense_1``.
+    """
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, *,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, use_fused: bool = False, device=None):
         super().__init__()
-        self.Dense_0 = Dense(in_dim, hidden_dim, dtype=dtype, device=device)
-        self.Dense_1 = Dense(hidden_dim, out_dim, dtype=dtype, device=device)
+        self.dtype = dtype
+        self.fused = (use_fused and in_dim == out_dim and in_dim % 128 == 0
+                      and hidden_dim % 128 == 0)
+        if self.fused:
+            self.w1 = _param((in_dim, hidden_dim), device)
+            self.b1 = _param((hidden_dim,), device)
+            self.w2 = _param((hidden_dim, out_dim), device)
+            self.b2 = _param((out_dim,), device)
+        else:
+            self.Dense_0 = Dense(in_dim, hidden_dim, dtype=dtype, device=device)
+            self.Dense_1 = Dense(hidden_dim, out_dim, dtype=dtype, device=device)
+
+    def flax_init_(self, generator):
+        if self.fused:
+            lecun_normal_(self.w1, generator, fan_in_dim=0)
+            lecun_normal_(self.w2, generator, fan_in_dim=0)
+            self.b1.zero_()
+            self.b2.zero_()
 
     def forward(self, x):
+        if self.fused:
+            c = x.shape[-1]
+            y = fused_mlp(x.to(self.dtype).reshape(-1, c), self.w1, self.b1, self.w2, self.b2)
+            return y.reshape(x.shape)
         return self.Dense_1(F.gelu(self.Dense_0(x), approximate="tanh"))
 
 
@@ -206,15 +248,16 @@ class SelfAttentionBlock(nn.Module):
     """Pre-LN transformer encoder block (attention + MLP with residuals)."""
 
     def __init__(self, dim: int, num_heads: int, *, mlp_ratio: float = 4.0,
-                 use_fused_attention: bool = False, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 use_fused_attention: bool = False, use_fused_ln: bool = False,
+                 use_fused_mlp: bool = False, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        self.LayerNorm_0 = LayerNorm(dim, dtype=dtype, device=device)
+        self.LayerNorm_0 = LayerNorm(dim, dtype=dtype, use_fused=use_fused_ln, device=device)
         self.MultiHeadAttention_0 = MultiHeadAttention(
             dim, num_heads, use_fused=use_fused_attention, dtype=dtype, device=device
         )
-        self.LayerNorm_1 = LayerNorm(dim, dtype=dtype, device=device)
-        self.Mlp_0 = Mlp(dim, int(dim * mlp_ratio), dim, dtype=dtype, device=device)
+        self.LayerNorm_1 = LayerNorm(dim, dtype=dtype, use_fused=use_fused_ln, device=device)
+        self.Mlp_0 = Mlp(dim, int(dim * mlp_ratio), dim, dtype=dtype, use_fused=use_fused_mlp,
+                         device=device)
 
     def forward(self, x):
         h = self.LayerNorm_0(x)

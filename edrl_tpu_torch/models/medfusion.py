@@ -40,8 +40,6 @@ from edrl_tpu_torch.ops.losses import label_smoothing_cross_entropy
 
 # Config flags whose kernels are not ported yet, with their ROADMAP items.
 _UNPORTED_FLAGS = {
-    "use_fused_ln": "B4 (fused_layer_norm)",
-    "use_fused_mlp": "B5 (fused_mlp)",
     "use_fused_block_attention": "B6 (attention_sublayer_fused)",
 }
 
@@ -73,12 +71,14 @@ class MedFusion(nn.Module):
         self.transformer_2d = SwinTransformer2D(
             img_size=fundus_size, embed_dim=cfg.swin_embed_dim, depths=cfg.swin_depths,
             num_heads=cfg.swin_heads, window=cfg.swin_window,
-            use_fused_attention=cfg.use_fused_attention, dtype=dtype, device=device,
+            use_fused_attention=cfg.use_fused_attention, use_fused_ln=cfg.use_fused_ln,
+            use_fused_mlp=cfg.use_fused_mlp, dtype=dtype, device=device,
         )
         self.transformer_3d = ViT3D(
             volume_size=oct_size[0], patch_size=cfg.vit3d_patch, dim=cfg.oct_embed_dim,
             depth=cfg.vit3d_depth, num_heads=cfg.vit3d_heads,
-            use_fused_attention=cfg.vit_fused_attention, dtype=dtype, device=device,
+            use_fused_attention=cfg.vit_fused_attention, use_fused_ln=cfg.use_fused_ln,
+            use_fused_mlp=cfg.use_fused_mlp, dtype=dtype, device=device,
         )
         eprl_kw = dict(z_dim=z, num_classes=c, sample_num=cfg.sample_num, topk=cfg.proxy_topk,
                        dtype=dtype, device=device)

@@ -6,7 +6,10 @@ heads (1, 2, 4, 8), window 12) it maps ``[B, 384, 384, 3]`` to tokens
 ``[B, nW, N, C]``; shifted blocks re-window once on each side of their
 attention.  With ``use_fused_attention`` the window attention reads its
 q/k/v in place from the packed qkv projection (``window_attention_fused_v2``:
-the CUDA kernel on the card, its plain version on the CPU).
+the CUDA kernel on the card, its plain version on the CPU); with
+``use_fused_ln`` and ``use_fused_mlp`` every LayerNorm and MLP of the
+backbone whose width routes (a multiple of 128) takes the fused kernels B4
+and B5, at the JAX package's sites.
 """
 
 from __future__ import annotations
@@ -131,17 +134,19 @@ class WindowAttention(nn.Module):
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, grid: int, num_heads: int, window: int, shift: int, *,
                  mlp_ratio: float = 4.0, use_fused_attention: bool = False,
+                 use_fused_ln: bool = False, use_fused_mlp: bool = False,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.grid = grid
         self.window = min(window, grid)
         self.shift = shift if self.window < grid else 0
-        self.LayerNorm_0 = LayerNorm(dim, dtype=dtype, device=device)
+        self.LayerNorm_0 = LayerNorm(dim, dtype=dtype, use_fused=use_fused_ln, device=device)
         self.WindowAttention_0 = WindowAttention(
             dim, self.window, num_heads, use_fused=use_fused_attention, dtype=dtype, device=device
         )
-        self.LayerNorm_1 = LayerNorm(dim, dtype=dtype, device=device)
-        self.Mlp_0 = Mlp(dim, int(dim * mlp_ratio), dim, dtype=dtype, device=device)
+        self.LayerNorm_1 = LayerNorm(dim, dtype=dtype, use_fused=use_fused_ln, device=device)
+        self.Mlp_0 = Mlp(dim, int(dim * mlp_ratio), dim, dtype=dtype, use_fused=use_fused_mlp,
+                         device=device)
         if self.shift > 0:
             mask = torch.as_tensor(shift_attn_mask(grid, self.window, self.shift), device=device)
             self.register_buffer("shift_mask", mask, persistent=False)
@@ -161,9 +166,10 @@ class SwinBlock(nn.Module):
 
 
 class PatchMerging(nn.Module):
-    def __init__(self, dim: int, *, dtype: torch.dtype = torch.float32, device=None):
+    def __init__(self, dim: int, *, dtype: torch.dtype = torch.float32, use_fused_ln: bool = False,
+                 device=None):
         super().__init__()
-        self.LayerNorm_0 = LayerNorm(4 * dim, dtype=dtype, device=device)
+        self.LayerNorm_0 = LayerNorm(4 * dim, dtype=dtype, use_fused=use_fused_ln, device=device)
         self.Dense_0 = Dense(4 * dim, 2 * dim, use_bias=False, dtype=dtype, device=device)
 
     def forward(self, x):
@@ -178,28 +184,31 @@ class SwinTransformer2D(nn.Module):
     def __init__(self, *, img_size: int = 384, patch_size: int = 4, embed_dim: int = 128,
                  depths: Sequence[int] = (2, 2, 6, 2), num_heads: Sequence[int] = (4, 8, 16, 32),
                  window: int = 12, mlp_ratio: float = 4.0, use_fused_attention: bool = False,
+                 use_fused_ln: bool = False, use_fused_mlp: bool = False,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.patch_size = patch_size
         self.dtype = dtype
         self.depths = tuple(depths)
         self.window = window
+        ln = dict(dtype=dtype, use_fused=use_fused_ln, device=device)
         self.patch_embed = Dense(patch_size * patch_size * 3, embed_dim, dtype=dtype, device=device)
-        self.LayerNorm_0 = LayerNorm(embed_dim, dtype=dtype, device=device)
+        self.LayerNorm_0 = LayerNorm(embed_dim, **ln)
         grid, dim, block = img_size // patch_size, embed_dim, 0
         for stage, (depth, heads) in enumerate(zip(depths, num_heads)):
             for i in range(depth):
                 setattr(self, f"SwinBlock_{block}", SwinBlock(
                     dim, grid, heads, window, 0 if i % 2 == 0 else window // 2,
                     mlp_ratio=mlp_ratio, use_fused_attention=use_fused_attention,
-                    dtype=dtype, device=device,
+                    use_fused_ln=use_fused_ln, use_fused_mlp=use_fused_mlp, dtype=dtype, device=device,
                 ))
                 block += 1
             if stage != len(depths) - 1:
-                setattr(self, f"PatchMerging_{stage}", PatchMerging(dim, dtype=dtype, device=device))
+                setattr(self, f"PatchMerging_{stage}", PatchMerging(
+                    dim, dtype=dtype, use_fused_ln=use_fused_ln, device=device))
                 dim *= 2
                 grid //= 2
-        self.final_norm = LayerNorm(dim, dtype=dtype, device=device)
+        self.final_norm = LayerNorm(dim, **ln)
 
     def forward(self, x):
         """x: [B, H, W, 3] (NHWC, values in [0, 1])."""

@@ -4,7 +4,8 @@ At the shipped config (volume 96, patch 16, 12 blocks of 768 with 6 heads of
 128) it maps ``[B, 96, 96, 96, 1]`` to tokens ``[B, 216, 768]``.  With
 ``use_fused_attention`` each block's attention runs through
 ``self_attention_fused`` (the CUDA kernel on the card, its plain version on
-the CPU).
+the CPU); ``use_fused_ln`` and ``use_fused_mlp`` route its LayerNorms and
+MLPs through B4 and B5 where the width is a multiple of 128.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ class ViT3D(nn.Module):
     def __init__(self, *, volume_size: int = 96, patch_size: int = 16, dim: int = 768,
                  depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
                  in_channels: int = 1, use_fused_attention: bool = False,
+                 use_fused_ln: bool = False, use_fused_mlp: bool = False,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.patch_size = patch_size
@@ -32,9 +34,9 @@ class ViT3D(nn.Module):
         for i in range(depth):
             setattr(self, f"SelfAttentionBlock_{i}", SelfAttentionBlock(
                 dim, num_heads, mlp_ratio=mlp_ratio, use_fused_attention=use_fused_attention,
-                dtype=dtype, device=device,
+                use_fused_ln=use_fused_ln, use_fused_mlp=use_fused_mlp, dtype=dtype, device=device,
             ))
-        self.final_norm = LayerNorm(dim, dtype=dtype, device=device)
+        self.final_norm = LayerNorm(dim, dtype=dtype, use_fused=use_fused_ln, device=device)
 
     def flax_init_(self, generator):
         trunc_normal_(self.pos_embed, 0.02, generator)

@@ -36,8 +36,13 @@ STEPS = 3
 # (category, substrings of a kernel name), first match wins.
 CATEGORIES = (
     ("attention kernels (B1/B2 fwd)", ("attention_fwd",)),
-    ("attention kernels (B1/B2 bwd)", ("attention_bwd", "dbias_reduce")),
+    ("attention kernels (B1/B2 bwd)", ("attention_bwd",)),
     ("MK-MMD kernel (B3)", ("mmd_",)),
+    ("LayerNorm kernels (B4 fwd/bwd)", ("layer_norm_fwd_kernel", "layer_norm_bwd_kernel")),
+    ("MLP kernels (B5 fwd/bwd, weight preps)", ("fused_mlp_fwd_kernel", "mlp_bwd_", "mlp_wgrad_kernel",
+                                                "row_tile_sums_kernel", "transpose_bf16_kernel",
+                                                "round_bf16_kernel")),
+    ("partial sums (dbias, B4, B5)", ("column_sum_kernel",)),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "sm90_", "sm80_", "cublas", "Kernel2")),
     ("Adam (multi-tensor)", ("multi_tensor", "adam", "Adam")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),

@@ -152,3 +152,121 @@ def test_mmd_fused_grad_is_the_plain_paths(cuda):
     mk_mmd(s2, t2).backward()
     assert torch.allclose(src.grad, s2.grad, rtol=1e-4, atol=1e-7)
     assert torch.allclose(tgt.grad, t2.grad, rtol=1e-4, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# B4 (fused LayerNorm) and B5 (fused MLP).  Bars, relative to the largest
+# magnitude of the plain result, as for the attention backwards: 1e-2 for
+# bf16 results, 1e-4 for f32 ones; B5's f32 results 2^-8, because the
+# kernel and the plain version sum in different orders, and a value next to
+# a bf16 rounding boundary (the activation, or dh in the backward) then
+# rounds the other way, moving one term of each sum it enters by 2^-8 of
+# itself (up to ~2e-3 of the largest magnitude where a sum has few terms).
+# ---------------------------------------------------------------------------
+
+from edrl_tpu_torch.kernels import fused_mlp as fm  # noqa: E402
+from edrl_tpu_torch.kernels import layer_norm as ln  # noqa: E402
+from edrl_tpu_torch.models import layers  # noqa: E402
+
+
+def _mlp_bar(dtype):
+    return 1e-2 if dtype == torch.bfloat16 else 2.0 ** -8
+
+
+def _ln_inputs(cuda, m, c, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn((m, c), generator=gen, device=cuda) * 2 + 0.5).to(dtype)
+    gamma = 1 + 0.1 * torch.randn((c,), generator=gen, device=cuda)
+    beta = 0.1 * torch.randn((c,), generator=gen, device=cuda)
+    dy = torch.randn((m, c), generator=gen, device=cuda).to(dtype)
+    return x, gamma, beta, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,c", [(37, 128), (1000, 768), (4608, 2048), (3, 1152)])
+def test_layer_norm_kernels_match_plain(cuda, dtype, m, c):
+    x, gamma, beta, dy = _ln_inputs(cuda, m, c, dtype, 6)
+    y = ln.layer_norm_fwd_kernel(x, gamma, beta)
+    assert y.dtype == dtype
+    assert _rel_err(y, ln.layer_norm_reference(x, gamma, beta)) <= _bwd_bar(dtype)
+    got = ln.layer_norm_bwd_kernel(x, dy, gamma)
+    want = ln.layer_norm_bwd_reference(x, dy, gamma)
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
+    assert _rel_err(got[0], want[0]) <= _bwd_bar(dtype)
+    for g, w in zip(got[1:], want[1:]):
+        assert _rel_err(g, w) <= 1e-4
+    again = ln.layer_norm_bwd_kernel(x, dy, gamma)
+    assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])  # a fixed summation order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [200, 4096])
+def test_layer_norm_kernel_refuses_a_width(cuda, c):
+    x = torch.zeros((4, c), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ln.layer_norm_fwd_kernel(x, torch.ones(c, device=cuda), torch.zeros(c, device=cuda))
+
+
+def _mlp_inputs(cuda, m, c, h, dtype, seed, wdtype=torch.float32):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    u = torch.randn((m, c), generator=gen, device=cuda).to(dtype)
+    w1 = (torch.randn((c, h), generator=gen, device=cuda) / c ** 0.5).to(wdtype)
+    b1 = 0.1 * torch.randn((h,), generator=gen, device=cuda)
+    w2 = (torch.randn((h, c), generator=gen, device=cuda) / h ** 0.5).to(wdtype)
+    b2 = 0.1 * torch.randn((c,), generator=gen, device=cuda)
+    dy = torch.randn((m, c), generator=gen, device=cuda).to(dtype)
+    return u, w1, b1, w2, b2, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,c,h", [(37, 128, 512), (300, 768, 3072), (40, 1024, 4096), (33, 256, 1024),
+                                   (2000, 128, 512)])
+def test_fused_mlp_kernels_match_plain(cuda, dtype, m, c, h):
+    u, w1, b1, w2, b2, dy = _mlp_inputs(cuda, m, c, h, dtype, 7)
+    y = fm.fused_mlp_fwd_kernel(u, w1, b1, w2, b2)
+    assert y.dtype == dtype
+    assert _rel_err(y, fm.fused_mlp_reference(u, w1, b1, w2, b2)) <= _mlp_bar(dtype)
+    got = fm.fused_mlp_bwd_kernel(u, dy, w1, b1, w2)
+    want = fm.fused_mlp_bwd_reference(u, dy, w1, b1, w2)
+    assert got[0].dtype == dtype and all(g.dtype == torch.float32 for g in got[1:])
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) <= _mlp_bar(dtype)
+    again = fm.fused_mlp_bwd_kernel(u, dy, w1, b1, w2)
+    for g, a in zip(got[1:], again[1:]):
+        assert torch.equal(g, a)  # a fixed summation order
+
+
+@pytest.mark.cuda
+def test_fused_mlp_takes_bf16_weights(cuda):
+    """Serving stores w1/w2 in bf16: the same products as from f32 weights."""
+    u, w1, b1, w2, b2, _ = _mlp_inputs(cuda, 64, 256, 1024, torch.bfloat16, 8)
+    y32 = fm.fused_mlp_fwd_kernel(u, w1, b1, w2, b2)
+    y16 = fm.fused_mlp_fwd_kernel(u, w1.bfloat16(), b1, w2.bfloat16(), b2)
+    assert torch.equal(y32, y16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h", [(200, 512), (2048, 8192), (128, 96)])
+def test_fused_mlp_kernel_refuses_a_shape(cuda, c, h):
+    u, w1, b1, w2, b2, _ = _mlp_inputs(cuda, 4, c, h, torch.bfloat16, 9)
+    with pytest.raises(ValueError, match="the kernel takes C"):
+        fm.fused_mlp_fwd_kernel(u, w1, b1, w2, b2)
+
+
+@pytest.mark.cuda
+def test_autograd_through_the_modules_reaches_the_b4_b5_kernels(cuda):
+    norm = layers.LayerNorm(256, use_fused=True, dtype=torch.bfloat16, device=cuda)
+    mlp = layers.Mlp(256, 1024, 256, use_fused=True, dtype=torch.bfloat16, device=cuda)
+    layers.init_parameters(norm, torch.Generator(device=cuda).manual_seed(0))
+    layers.init_parameters(mlp, torch.Generator(device=cuda).manual_seed(1))
+    x = torch.randn((2, 40, 256), generator=torch.Generator(device=cuda).manual_seed(2), device=cuda,
+                    requires_grad=True)
+    ln.reset_launch_counts()
+    fm.reset_launch_counts()
+    mlp(norm(x)).float().sum().backward()
+    assert ln.LAUNCHES == {ln.LAYER_NORM: 1, ln.LAYER_NORM_BWD: 1}
+    assert fm.LAUNCHES == {fm.FUSED_MLP: 1, fm.FUSED_MLP_BWD: 1}
+    assert all(torch.isfinite(p.grad).all() for p in (*norm.parameters(), *mlp.parameters()))
+    assert x.grad.dtype == torch.float32 and torch.isfinite(x.grad).all()

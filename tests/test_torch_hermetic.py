@@ -120,5 +120,6 @@ def test_source_hash_names_the_library():
     assert {p.name for p in build._sources()} >= {
         "attention_common.cuh", "attention_fwd.cuh", "attention_bwd.cuh", "self_attention_fwd.cu",
         "window_attention_v2_fwd.cu", "self_attention_bwd.cu", "window_attention_v2_bwd.cu",
-        "mmd_fwd.cu",
+        "mmd_fwd.cu", "mma_common.cuh", "layer_norm.cuh", "layer_norm_fwd.cu", "layer_norm_bwd.cu",
+        "fused_mlp.cuh", "fused_mlp_fwd.cu", "fused_mlp_bwd.cu",
     }

@@ -388,11 +388,8 @@ def test_medfusion_modality_mask(medfusion_case):
 
 
 def test_medfusion_refuses_train_and_unported_flags():
+    """B4 and B5 are ported (``test_torch_fused_models.py``); B6 is not."""
     cfg = port_tiny_config()
-    with pytest.raises(NotImplementedError, match="B5"):
-        medfusion.MedFusion(dataclasses.replace(cfg.model, use_fused_mlp=True), 64, (32, 32, 32))
-    with pytest.raises(NotImplementedError, match="B4"):
-        medfusion.MedFusion(dataclasses.replace(cfg.model, use_fused_ln=True), 64, (32, 32, 32))
     with pytest.raises(NotImplementedError, match="B6"):
         medfusion.MedFusion(
             dataclasses.replace(cfg.model, use_fused_block_attention=True), 64, (32, 32, 32)
