@@ -79,6 +79,37 @@ MLP runs through B4 and B5:
     and B5 shape of the batch-32 step against its plain version, one
     PyTorch call (B4: ``F.layer_norm`` and its backward) and its bound.
 
+Then the fused attention-sublayer configuration (``EDRLConfig()`` with
+``use_fused_block_attention``), whose every backbone block runs its attention
+sublayer (LayerNorm, qkv, attention, proj, residual) through B6 and its
+backward through the B2 kernels:
+
+17. B6's forward kernel and its backward composition against their plain
+    versions at every Swin and ViT shape of the configuration's serving
+    (batch 16) and train step (batch 32), with a one-window bias (Wb = 1) and
+    a per-window one (Wb = W), and at odd shapes, in bf16 and f32 (the bars
+    of phase 7); the bf16 kernel against the TPU kernel's rounding order
+    (scores from the f32 qkv) is printed; shapes the kernel refuses raise.
+    The v1 adapter (``window_attention_fused``) against its plain versions,
+    forward and backward, at the Swin train shapes and an odd one.
+18. Serve the three requests with a full-width ``Predictor`` of the
+    configuration: finite probabilities; 24 B6 launches per batch (12 Swin,
+    12 ViT) and none of B1 or B2.
+19. Train three full-width bf16 steps at batch 32: finite losses, changed
+    parameters; per step 48 B6 launches, 48 of B2's forward (the backward's
+    recompute) and 48 of B2's backward, none of B1.
+20. One more bf16 step with every B6 call, forward and backward, held
+    against the plain versions on that call's own tensors.
+21. A small f32 model of the configuration (widths that route, shifted
+    blocks included), one step on the card against the same step on the
+    CPU: loss 1e-4, per-tensor gradient error median 1e-4 and worst 1e-2.
+22. Time the configuration's train step against the shipped config's
+    (interleaved), both peak memories, both serving forwards, each B6 shape
+    of the batch-32 step against its plain version, its bound and the
+    shipped sublayer at that shape (LayerNorm, Dense, B2, Dense), and the
+    v1 adapter's own path: one forward and backward at each Swin stage of a
+    batch-32 step, against its plain version, SDPA and its bound.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX
 and nothing of the JAX package.
@@ -117,6 +148,7 @@ SA, V2, SA_BWD, V2_BWD, MMD = (
     "window_attention_fused_v2_bwd", "mk_mmd_fused",
 )
 LN, LN_BWD, MLP, MLP_BWD = "fused_layer_norm", "fused_layer_norm_bwd", "fused_mlp", "fused_mlp_bwd"
+B6, V1, V1_BWD = "attention_sublayer_fused", "window_attention_fused", "window_attention_fused_bwd"
 KERNEL_SOURCE = {
     SA: "edrl_tpu_torch/kernels/csrc/self_attention_fwd.cu",
     V2: "edrl_tpu_torch/kernels/csrc/window_attention_v2_fwd.cu",
@@ -127,6 +159,9 @@ KERNEL_SOURCE = {
     LN_BWD: "edrl_tpu_torch/kernels/csrc/layer_norm_bwd.cu",
     MLP: "edrl_tpu_torch/kernels/csrc/fused_mlp_fwd.cu",
     MLP_BWD: "edrl_tpu_torch/kernels/csrc/fused_mlp_bwd.cu",
+    B6: "edrl_tpu_torch/kernels/csrc/attention_sublayer_fwd.cu",
+    # The v1 adapter launches B2's kernels (this source and window_attention_v2_bwd.cu).
+    V1: "edrl_tpu_torch/kernels/csrc/window_attention_v2_fwd.cu",
 }
 KERNEL_REPLACES = {
     SA: "edrl_tpu/kernels/window_attention.py:571",
@@ -138,6 +173,8 @@ KERNEL_REPLACES = {
     LN_BWD: "edrl_tpu/kernels/layer_norm.py:109",
     MLP: "edrl_tpu/kernels/fused_mlp.py:123",
     MLP_BWD: "edrl_tpu/kernels/fused_mlp.py:217",
+    B6: "edrl_tpu/kernels/block_attention.py:141",
+    V1: "edrl_tpu/kernels/window_attention.py:152,164",
 }
 
 
@@ -194,6 +231,7 @@ def main() -> None:
     dev = torch.device("cuda")
 
     from edrl_tpu_torch.config import EDRLConfig, tiny_test_config
+    from edrl_tpu_torch.kernels import block_attention as ba
     from edrl_tpu_torch.kernels import build
     from edrl_tpu_torch.kernels import fused_mlp as fm
     from edrl_tpu_torch.kernels import layer_norm as ln
@@ -205,11 +243,11 @@ def main() -> None:
     from edrl_tpu_torch.train import trainer
 
     def reset_counts():
-        for module in (wa, kmmd, ln, fm):
+        for module in (wa, kmmd, ln, fm, ba):
             module.reset_launch_counts()
 
     def counts():
-        return {**wa.LAUNCHES, **kmmd.LAUNCHES, **ln.LAUNCHES, **fm.LAUNCHES}
+        return {**wa.LAUNCHES, **kmmd.LAUNCHES, **ln.LAUNCHES, **fm.LAUNCHES, **ba.LAUNCHES}
 
     # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -700,8 +738,9 @@ def main() -> None:
           f"card launches {small_launches}", flush=True)
     check(dl <= 1e-4 * abs(c_out["loss"].item()), f"small step loss card vs CPU {dl}")
     check(srels[-1][0] <= 1e-3, f"small step gradients card vs CPU {srels[-1]}")
-    small_expected = {SA: 2 * sm.vit3d_depth, SA_BWD: 2 * sm.vit3d_depth, V2: 2 * sum(sm.swin_depths),
-                      V2_BWD: 2 * sum(sm.swin_depths), MMD: 0, LN: 0, LN_BWD: 0, MLP: 0, MLP_BWD: 0}
+    small_expected = {name: 0 for name in small_launches}
+    small_expected.update({SA: 2 * sm.vit3d_depth, SA_BWD: 2 * sm.vit3d_depth, V2: 2 * sum(sm.swin_depths),
+                           V2_BWD: 2 * sum(sm.swin_depths)})
     check(small_launches == small_expected, f"small model launches {small_launches}, expected {small_expected}")
     del s_cpu, s_gpu
 
@@ -965,8 +1004,9 @@ def main() -> None:
     print(f"slice parameters changed: {changed} of {n_tensors} tensors", flush=True)
     check(changed >= n_tensors - 4, f"slice: only {changed} of {n_tensors} parameter tensors changed")
     del before, after
-    want = {SA: 24, V2: 24, SA_BWD: 24, V2_BWD: 24, MMD: 0, LN: 2 * n_ln, LN_BWD: 2 * n_ln,
-            MLP: 2 * n_mlp, MLP_BWD: 2 * n_mlp}
+    want = {name: 0 for name in slice_launches}
+    want.update({SA: 24, V2: 24, SA_BWD: 24, V2_BWD: 24, LN: 2 * n_ln, LN_BWD: 2 * n_ln, MLP: 2 * n_mlp,
+                 MLP_BWD: 2 * n_mlp})
     want = {name: TRAIN_STEPS * n for name, n in want.items()}
     print(f"slice train launches over {TRAIN_STEPS} steps: {slice_launches} (expected {want})", flush=True)
     check(slice_launches == want, f"slice train launches {slice_launches}")
@@ -1100,9 +1140,10 @@ def main() -> None:
           f"small slice step gradients card vs CPU: median {rows[len(rows) // 2]}, worst {rows[-1]}")
     f_ln, f_mlp = (sum(d.values()) for d in ln_mlp_shapes(fcfg, 4))
     fm_ = fcfg.model
-    want = {SA: 2 * fm_.vit3d_depth, SA_BWD: 2 * fm_.vit3d_depth, V2: 2 * sum(fm_.swin_depths),
-            V2_BWD: 2 * sum(fm_.swin_depths), MMD: 0, LN: 2 * f_ln, LN_BWD: 2 * f_ln, MLP: 2 * f_mlp,
-            MLP_BWD: 2 * f_mlp}
+    want = {name: 0 for name in f_launches}
+    want.update({SA: 2 * fm_.vit3d_depth, SA_BWD: 2 * fm_.vit3d_depth, V2: 2 * sum(fm_.swin_depths),
+                 V2_BWD: 2 * sum(fm_.swin_depths), LN: 2 * f_ln, LN_BWD: 2 * f_ln, MLP: 2 * f_mlp,
+                 MLP_BWD: 2 * f_mlp})
     check(f_launches == want, f"small slice launches {f_launches}, expected {want}")
     del f_cpu, f_free, f_gpu, recorded
 
@@ -1185,6 +1226,368 @@ def main() -> None:
         torch.cuda.empty_cache()
     train_launches.update({name: slice_launches[name] for name in (LN, LN_BWD, MLP, MLP_BWD)})
 
+    # == 17-22. The fused attention-sublayer configuration (B6) ===============
+    b6_cfg = cfg.replace(model=dataclasses.replace(mc, use_fused_block_attention=True))
+
+    def sublayer_shapes(b_):
+        """B6 calls of one forward at batch b_: Swin blocks by stage (unshifted
+        with a one-window bias, shifted with bias + shift mask per window), then
+        the ViT's blocks (W = 1, zero bias)."""
+        out = []
+        for s_ in attention_shapes(b_)[1]:
+            w_ = (s_["grid"] // s_["window"]) ** 2
+            shifted = s_["calls"] // 2 if s_["shifted"] else 0
+            for wb, calls in ((1, s_["calls"] - shifted), (w_, shifted)):
+                if calls:
+                    out.append(dict(b=b_, w=w_, n=s_["window"] ** 2, c=s_["c"], heads=s_["heads"], wb=wb,
+                                    calls=calls, grid=s_["grid"], window=s_["window"], vit=False))
+        out.append(dict(b=b_, w=1, n=mc.oct_tokens, c=c_vit, heads=h_vit, wb=1, calls=mc.vit3d_depth, vit=True))
+        return out
+
+    b6_serve, b6_train = sublayer_shapes(cfg.data.eval_batch_size), sublayer_shapes(bt)
+    n_b6 = sum(s_["calls"] for s_ in b6_train)
+    check(n_b6 == 24, f"B6 config: {n_b6} sublayers per forward")
+
+    def sublayer_inputs(s_, dtype):
+        b_, w_, n_, c_, h_ = s_["b"], s_["w"], s_["n"], s_["c"], s_["heads"]
+        if s_["vit"]:
+            bias_ = torch.zeros((1, h_, n_, n_), device=dev)
+        elif s_["grid"] is None:  # odd shapes: a random bias with masked keys
+            bias_ = torch.randn((s_["wb"], h_, n_, n_), generator=gen, device=dev)
+            bias_[..., 1::3] = -1e9
+        elif s_["wb"] == 1:
+            bias_ = swin_bias(s_["grid"], s_["window"], h_, False)[:1].contiguous()
+        else:
+            bias_ = swin_bias(s_["grid"], s_["window"], h_, True)
+        x_ = normal((b_, w_, n_, c_), dtype)
+        gamma_ = 1 + 0.1 * torch.randn((c_,), generator=gen, device=dev)
+        beta_ = 0.1 * torch.randn((c_,), generator=gen, device=dev)
+        wqkv_ = (torch.randn((c_, 3 * c_), generator=gen, device=dev) / c_ ** 0.5).to(dtype)
+        bqkv_ = 0.1 * torch.randn((3 * c_,), generator=gen, device=dev)
+        wproj_ = (torch.randn((c_, c_), generator=gen, device=dev) / c_ ** 0.5).to(dtype)
+        bproj_ = 0.1 * torch.randn((c_,), generator=gen, device=dev)
+        return (x_, gamma_, beta_, wqkv_, bqkv_, wproj_, bproj_, bias_), (c_ // h_) ** -0.5
+
+    def tpu_order(x_, gamma_, beta_, wqkv_, bqkv_, wproj_, bproj_, bias_, h_, scale_):
+        """The TPU kernel's rounding order in bf16: scores and o from the f32
+        qkv, o rounded once before the projection."""
+        xln_ = ln.layer_norm_reference(x_, gamma_, beta_)
+        qkv32 = xln_.float() @ wqkv_.float() + bqkv_
+        o_ = wa.window_attention_v2_reference(qkv32, ba._full_bias(bias_, x_.shape[1]), h_, scale_)
+        return (x_.float() + (o_.to(x_.dtype).float() @ wproj_.float() + bproj_)).to(x_.dtype)
+
+    def sublayer_label(s_):
+        kind = "ViT" if s_["vit"] else ("Swin" if s_["grid"] else "random bias")
+        return f"{kind} [{s_['b']},{s_['w']},{s_['n']},{s_['c']}] H={s_['heads']} Wb={s_['wb']}"
+
+    def sublayer_case(s_, dtype, main_path, backward):
+        args_, scale_ = sublayer_inputs(s_, dtype)
+        h_ = s_["heads"]
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        bar = BWD_BAR[kind]
+        label = sublayer_label(s_) + ("" if main_path else " (odd)")
+        got = ba.attention_sublayer_fwd_kernel(*args_, h_, scale_)
+        want_ = ba.attention_sublayer_reference(*args_, h_, scale_)
+        hold(B6, label, dtype, [(g, w_, bar) for g, w_ in zip(got, want_)], main_path)
+        if dtype == torch.bfloat16:
+            tpu_err.append(rel_err(got[0], tpu_order(*args_, h_, scale_)))
+        if backward:
+            x_, gamma_, _, wqkv_, _, wproj_, _, bias_ = args_
+            y_, qkv_, xln_ = got
+            dy_ = normal(tuple(y_.shape), dtype)
+            res = (x_, xln_, qkv_, gamma_, wqkv_, wproj_, bias_, dy_, h_, scale_)
+            pairs = [(g, w_, BWD_BAR["f32"] if i == 7 else bar) for i, (g, w_) in enumerate(
+                zip(ba.attention_sublayer_bwd_kernel(*res), ba.attention_sublayer_bwd_reference(*res)))]
+            hold(B6 + " backward (B2 kernels + products)", label, dtype, pairs, False)
+
+    def v1_inputs(b_, w_, h_, n_, d_, dtype, shifted=True, grid=None, window=None):
+        q_, k_, v_, do_ = (normal((b_, w_, h_, n_, d_), dtype) for _ in range(4))
+        q_ = q_ * d_ ** -0.5
+        if grid is not None:
+            bias_ = swin_bias(grid, window, h_, shifted)
+        else:
+            bias_ = torch.randn((w_, h_, n_, n_), generator=gen, device=dev)
+            bias_[..., 1::3] = -1e9
+        return q_, k_, v_, bias_, do_
+
+    def v1_case(args_, dtype, label, main_path):
+        q_, k_, v_, bias_, do_ = args_
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        leaves = [t.detach().requires_grad_() for t in (q_, k_, v_, bias_)]
+        out_ = wa.window_attention_fused(*leaves)
+        out_.backward(do_)
+        want_ = wa.window_attention_bwd_reference(q_, k_, v_, bias_, do_)
+        pairs = [(out_, wa.window_attention_reference(q_, k_, v_, bias_), BWD_BAR[kind])]
+        pairs += [(leaf.grad, w_, BWD_BAR["f32"] if i == 3 else BWD_BAR[kind])
+                  for i, (leaf, w_) in enumerate(zip(leaves, want_))]
+        hold(V1, label, dtype, pairs, main_path)
+
+    v1_train = [(bt, (s_["grid"] // s_["window"]) ** 2, s_["heads"], s_["window"] ** 2, s_["c"] // s_["heads"],
+                 s_["shifted"], s_["grid"], s_["window"]) for s_ in train_swin]
+
+    # -- 17. B6 and v1 against their plain versions ---------------------------
+    tpu_err = []
+    for dtype in (torch.bfloat16, torch.float32):
+        with torch.no_grad():
+            for s_ in b6_serve:
+                sublayer_case(s_, dtype, True, backward=False)
+                torch.cuda.empty_cache()
+        for s_ in b6_train:
+            sublayer_case(s_, dtype, True, backward=True)
+            torch.cuda.empty_cache()
+        for s_ in (dict(b=3, w=2, n=40, c=128, heads=8, wb=2, grid=None, vit=False),
+                   dict(b=2, w=3, n=16, c=256, heads=4, wb=1, grid=None, vit=False)):
+            sublayer_case(s_, dtype, False, backward=True)
+        for b_, w_, h_, n_, d_, shifted, grid, window in v1_train:
+            v1_case(v1_inputs(b_, w_, h_, n_, d_, dtype, shifted, grid, window), dtype,
+                    f"[{b_},{w_},{h_},{n_},{d_}]", True)
+            torch.cuda.empty_cache()
+        v1_case(v1_inputs(3, 2, 2, 16, 16, dtype), dtype, "[3,2,2,16,16] (odd)", False)
+    print(f"B6 bf16 against the TPU kernel's rounding order (scores and o from the f32 qkv): worst relative "
+          f"error of y {max(tpu_err):.3e}, median {statistics.median(tpu_err):.3e} over {len(tpu_err)} shapes",
+          flush=True)
+    for what, shape, heads in (("C=200", (1, 1, 16, 200), 2), ("head_dim 256", (1, 1, 16, 256), 1)):
+        s_ = dict(b=shape[0], w=shape[1], n=shape[2], c=shape[3], heads=heads, wb=1, vit=True)
+        args_, _ = sublayer_inputs(s_, torch.bfloat16)
+        try:
+            ba.attention_sublayer_fwd_kernel(*args_, heads, 0.25)
+        except ValueError as e:
+            print(f"check {B6} {what}: refused ({e})", flush=True)
+        else:
+            check(False, f"{B6} took {what}")
+    args_, _ = sublayer_inputs(dict(b=1, w=1, n=264, c=128, heads=1, wb=1, vit=True), torch.float32)
+    try:
+        ba.attention_sublayer_fused(args_[0].requires_grad_(), *args_[1:], 1, 0.25)
+    except ValueError as e:
+        print(f"check {B6} N=264 with a gradient: refused ({e})", flush=True)
+    else:
+        check(False, f"{B6} took N=264 with a gradient")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # -- 18. serving the B6 configuration at full width ------------------------
+    b6_pred = Predictor(b6_cfg, device=dev, seed=0)
+    reset_counts()
+    b6_outputs = [b6_pred.predict_probs(f, o) for f, o in requests]
+    b6_serve_launches = counts()
+    for (f, _), p in zip(requests, b6_outputs):
+        check(p.shape == (len(f), mc.num_classes) and bool(np.isfinite(p).all()), f"B6 config probs {p.shape}")
+        check(bool(np.allclose(p.sum(-1), 1.0, atol=1e-5)), "B6 config probs rows sum to 1")
+        print(f"B6 config request {len(f)} pairs -> probs {p.shape}, first row {p[0].tolist()}", flush=True)
+    want = {name: 0 for name in b6_serve_launches}
+    want[B6] = n_b6 * batches
+    print(f"B6 config serving launches over {batches} batches: {b6_serve_launches} (expected {want})", flush=True)
+    check(b6_serve_launches == want, f"B6 config serving launches {b6_serve_launches}")
+
+    # -- 19. training the B6 configuration at full width -----------------------
+    b6_state = trainer.init_state(b6_cfg, seed=0, device=dev)
+    b6_step = trainer.make_train_step(b6_cfg)
+    before = {k: v.detach().clone() for k, v in b6_state.model.state_dict().items()}
+    gen_b6 = seeded(21)
+    reset_counts()
+    b6_outs = [b6_step(b6_state, batch, gen_b6) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    b6_launches = counts()
+    for i, out in enumerate(b6_outs):
+        loss, mmd_v = out["loss"].item(), out["mmd"].item()
+        print(f"B6 config train step {i}: loss {loss:.6f}, mmd {mmd_v:.6f}", flush=True)
+        check(np.isfinite(loss) and np.isfinite(mmd_v), f"B6 config step {i}: loss {loss}, mmd {mmd_v}")
+    after = b6_state.model.state_dict()
+    changed = sum(not torch.equal(before[n], after[n]) for n, _ in b6_state.model.named_parameters())
+    n_tensors = sum(1 for _ in b6_state.model.parameters())
+    print(f"B6 config parameters changed: {changed} of {n_tensors} tensors", flush=True)
+    check(changed >= n_tensors - 4, f"B6 config: only {changed} of {n_tensors} parameter tensors changed")
+    del before, after
+    want = {name: 0 for name in b6_launches}
+    want.update({B6: 2 * n_b6, V2: 2 * n_b6, V2_BWD: 2 * n_b6})
+    want = {name: TRAIN_STEPS * n for name, n in want.items()}
+    print(f"B6 config train launches over {TRAIN_STEPS} steps: {b6_launches} (expected {want})", flush=True)
+    check(b6_launches == want, f"B6 config train launches {b6_launches}")
+    train_launches[B6] = b6_launches[B6]
+
+    # -- 20. every B6 call of a bf16 step against the plain versions -----------
+    held_b6 = {B6: [], "B6 backward": [], "B6 dbias": []}
+    b6_kernels = (ba.attention_sublayer_fwd_kernel, ba.attention_sublayer_bwd_kernel)
+
+    def held_b6_fwd(*args_):
+        got = b6_kernels[0](*args_)
+        held_b6[B6].append(max(rel_err(g, w_) for g, w_ in zip(got, ba.attention_sublayer_reference(*args_))))
+        return got
+
+    def held_b6_bwd(*args_):
+        got = b6_kernels[1](*args_)
+        want_ = ba.attention_sublayer_bwd_reference(*args_)
+        held_b6["B6 backward"].append(max(rel_err(g, w_) for g, w_ in zip(got[:7], want_[:7])))
+        held_b6["B6 dbias"].append(rel_err(got[7], want_[7]))
+        return got
+
+    ba.attention_sublayer_fwd_kernel, ba.attention_sublayer_bwd_kernel = held_b6_fwd, held_b6_bwd
+    try:
+        b6_step(b6_state, batch, seeded(22))
+        torch.cuda.synchronize()
+    finally:
+        ba.attention_sublayer_fwd_kernel, ba.attention_sublayer_bwd_kernel = b6_kernels
+    for name, bar in ((B6, BWD_BAR["bf16"]), ("B6 backward", BWD_BAR["bf16"]), ("B6 dbias", BWD_BAR["f32"])):
+        e = held_b6[name]
+        print(f"bf16 B6 config step, {name} held against its plain version on the step's own tensors: {len(e)} "
+              f"calls, worst relative error {max(e):.3e}, median {statistics.median(e):.3e} (bar {bar:g})",
+              flush=True)
+        check(len(e) == 2 * n_b6 and max(e) <= bar, f"bf16 B6 step {name}: {len(e)} calls, worst {max(e)}")
+    torch.cuda.empty_cache()
+
+    # -- 21. a small f32 model of the B6 configuration, card against CPU -------
+    gcfg = tiny_test_config(batch_size=4)
+    gcfg = gcfg.replace(model=dataclasses.replace(
+        gcfg.model, swin_depths=(2, 2), swin_embed_dim=128, swin_heads=(1, 2), fundus_embed_dim=256,
+        oct_embed_dim=128, vit3d_heads=2, use_fused_block_attention=True))
+    g_cpu = trainer.init_state(gcfg, seed=0, device="cpu")
+    g_gpu = trainer.init_state(gcfg, seed=0, device=dev)
+    g_gpu.model.load_state_dict(g_cpu.model.state_dict())
+    gbatch = trainer.random_views(gcfg, seed=5, device="cpu")
+    gbatch["label"] = torch.tensor([0, 1, 1, 0], dtype=torch.int32)
+    reset_counts()
+    g_out = trainer.make_train_step(gcfg)(g_gpu, gbatch, seeded(4), draws=small_draws(dev))
+    g_launches = counts()
+    c_out = trainer.make_train_step(gcfg)(g_cpu, gbatch, torch.Generator(), draws=small_draws("cpu"))
+    rows = sorted((rel_err(pg.grad.cpu(), pc.grad), name)
+                  for (name, pg), pc in zip(g_gpu.model.named_parameters(), g_cpu.model.parameters())
+                  if pc.grad.abs().max() > 0 and not name.endswith(".k.bias"))
+    dl = abs(g_out["loss"].item() - c_out["loss"].item())
+    print(f"small f32 B6 config step, card vs CPU: loss {g_out['loss'].item():.7g} vs {c_out['loss'].item():.7g} "
+          f"(|d| {dl:.3e}, limit 1e-4 relative); per-tensor gradient error outside the key biases: median "
+          f"{rows[len(rows) // 2][0]:.3e} (limit 1e-4), worst {rows[-1][0]:.3e} ({rows[-1][1]}; limit 1e-2); "
+          f"card launches {g_launches}", flush=True)
+    check(dl <= 1e-4 * abs(c_out["loss"].item()), f"small B6 step loss card vs CPU {dl}")
+    check(rows[len(rows) // 2][0] <= 1e-4 and rows[-1][0] <= 1e-2,
+          f"small B6 step gradients card vs CPU: median {rows[len(rows) // 2]}, worst {rows[-1]}")
+    g_n = sum(gcfg.model.swin_depths) + gcfg.model.vit3d_depth
+    want = {name: 0 for name in g_launches}
+    want.update({B6: 2 * g_n, V2: 2 * g_n, V2_BWD: 2 * g_n})
+    check(g_launches == want, f"small B6 config launches {g_launches}, expected {want}")
+    del g_cpu, g_gpu
+
+    # -- 22. the B6 configuration's step, serving forward and kernels, timed ---
+    ship_state = trainer.init_state(cfg, seed=2, device=dev)
+    runs = {}
+    for label, st, fn in (("shipped", ship_state, train_step), ("B6", b6_state, b6_step),
+                          ("B6", b6_state, b6_step), ("shipped", ship_state, train_step)):
+        runs.setdefault(label, []).append(step_ms(st, fn))
+    for label in ("B6", "shipped"):
+        ms = statistics.median(runs[label])
+        print(f"time train step, {label} config (kernel path), batch {bt} bf16, host clock to sync: {ms:.3f} "
+              f"ms/step, {1000.0 * bt / ms:.1f} pairs/s (runs of 3 steps: {[round(x, 3) for x in runs[label]]}) "
+              f"[{card}]", flush=True)
+    del ship_state
+    for label in ("B6", "shipped"):
+        if label == "shipped":
+            del b6_state
+            torch.cuda.empty_cache()
+            b6_state, b6_step = trainer.init_state(cfg, seed=2, device=dev), train_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        b6_step(b6_state, batch, gen_time)
+        torch.cuda.synchronize()
+        print(f"peak device memory, {label} config train step, its state alone on the card: "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
+    del b6_state
+    torch.cuda.empty_cache()
+    ship_pred = Predictor(cfg, device=dev, seed=0)
+    with torch.inference_mode():
+        fwd = {}
+        for label, p in (("shipped", ship_pred), ("B6", b6_pred), ("B6", b6_pred), ("shipped", ship_pred)):
+            fwd.setdefault(label, []).append(time_ms(torch, lambda: p._forward(f_dev, o_dev), reps=10))
+    for label in ("B6", "shipped"):
+        ms = statistics.median(fwd[label])
+        print(f"time full-width forward, {label} config, batch {b} bf16: {ms:.3f} ms/batch, "
+              f"{1000.0 * b / ms:.1f} pairs/s (runs {fwd[label]}) [{card}]", flush=True)
+    del ship_pred, b6_pred
+    torch.cuda.empty_cache()
+
+    def shipped_sublayer(x_, gamma_, beta_, wqkv_t, bqkv_, wproj_t, bproj_, bias_full, h_, scale_):
+        """The shipped config's sublayer at the same shape: LayerNorm, Dense,
+        B2, Dense and the residual, as the port's unfused modules run them
+        (Dense weights [out, in], stored in bf16 as serving stores them)."""
+        h = ln.layer_norm_reference(x_, gamma_, beta_)
+        qkv_ = F.linear(h, wqkv_t, bqkv_.to(x_.dtype))
+        o_ = wa.window_attention_fused_v2(qkv_, bias_full, h_, scale_)
+        return x_ + F.linear(o_, wproj_t, bproj_.to(x_.dtype))
+
+    b6_bwd_ms = 0.0
+    for s_ in b6_train:
+        args_, scale_ = sublayer_inputs(s_, torch.bfloat16)
+        x_, gamma_, beta_, wqkv_, bqkv_, wproj_, bproj_, bias_ = args_
+        h_, (b_, w_, n_, c_) = s_["heads"], x_.shape
+        wqkv_t, wproj_t = wqkv_.T.contiguous(), wproj_.T.contiguous()
+        bias_full = ba._full_bias(bias_, w_)
+        with torch.no_grad():
+            tk = time_ms(torch, lambda: ba.attention_sublayer_fwd_kernel(*args_, h_, scale_))
+            tp = time_ms(torch, lambda: ba.attention_sublayer_reference(*args_, h_, scale_))
+            ts = time_ms(torch, lambda: shipped_sublayer(x_, gamma_, beta_, wqkv_t, bqkv_, wproj_t, bproj_,
+                                                         bias_full, h_, scale_))
+            y_, qkv_, xln_ = ba.attention_sublayer_fwd_kernel(*args_, h_, scale_)
+            dy_ = normal(tuple(y_.shape), torch.bfloat16)
+            tb = time_ms(torch, lambda: ba.attention_sublayer_bwd_kernel(
+                x_, xln_, qkv_, gamma_, wqkv_, wproj_, bias_, dy_, h_, scale_))
+        m_ = b_ * w_ * n_
+        # Bytes: x read; y, xln (C each) and qkv (3C) written; the weights, vectors and bias read once.
+        nbytes = 2 * m_ * c_ * 6 + 2 * 4 * c_ * c_ + 4 * 6 * c_ + 4 * bias_.numel()
+        flops = 2.0 * m_ * c_ * 4 * c_ + 4.0 * b_ * w_ * n_ * n_ * c_
+        calls = 2 * s_["calls"]
+        report(B6, sublayer_label(s_) + " bf16", calls, tk, tp, None, nbytes, flops)
+        print(f"  beside it: the shipped sublayer (LayerNorm, Dense, B2, Dense) {ts:.4f} ms; B6's backward "
+              f"(B2 forward + backward kernels and f32 products) {tb:.4f} ms per call [{card}]", flush=True)
+        b6_bwd_ms += calls * tb
+        totals[B6].setdefault("shipped_ms", 0.0)
+        totals[B6]["shipped_ms"] += calls * ts
+        del args_, x_, y_, qkv_, xln_, dy_, bias_full
+        torch.cuda.empty_cache()
+    print(f"B6 per batch-{bt} train step: forward kernel {totals[B6]['ms']:.3f} ms against the shipped sublayers' "
+          f"{totals[B6]['shipped_ms']:.3f} ms; backward composition {b6_bwd_ms:.3f} ms [{card}]", flush=True)
+
+    # v1's own path: one forward and backward at each Swin stage of a batch-32
+    # step, in v1's layout, counts set to 0 before and read after.
+    v1_cases = []
+    for b_, w_, h_, n_, d_, shifted, grid, window in v1_train:
+        v1_cases.append(v1_inputs(b_, w_, h_, n_, d_, torch.bfloat16, shifted, grid, window))
+    reset_counts()
+    for q_, k_, v_, bias_, do_ in v1_cases:
+        leaves = [t.detach().requires_grad_() for t in (q_, k_, v_, bias_)]
+        wa.window_attention_fused(*leaves).backward(do_)
+    torch.cuda.synchronize()
+    v1_launches = counts()
+    want = {name: 0 for name in v1_launches}
+    want.update({V1: len(v1_cases), V1_BWD: len(v1_cases)})
+    print(f"v1 path (one forward and backward per Swin stage, batch {bt}): launches {v1_launches}", flush=True)
+    check(v1_launches == want, f"v1 path launches {v1_launches}, expected {want}")
+    train_launches[V1] = v1_launches[V1] + v1_launches[V1_BWD]
+
+    def v1_step(q_, k_, v_, bias_, do_):
+        leaves = [t.detach().requires_grad_() for t in (q_, k_, v_, bias_)]
+        return torch.autograd.grad(wa.window_attention_fused(*leaves), leaves, do_)
+
+    def v1_plain(q_, k_, v_, bias_, do_):
+        return wa.window_attention_reference(q_, k_, v_, bias_), wa.window_attention_bwd_reference(
+            q_, k_, v_, bias_, do_)
+
+    for q_, k_, v_, bias_, do_ in v1_cases:
+        b_, w_, h_, n_, d_ = q_.shape
+        tk = time_ms(torch, lambda: v1_step(q_, k_, v_, bias_, do_))
+        with torch.no_grad():
+            tp = time_ms(torch, lambda: v1_plain(q_, k_, v_, bias_, do_))
+        q4, k4, v4, do4 = (t.reshape(b_ * w_, h_, n_, d_) for t in (q_, k_, v_, do_))
+        mask = bias_.to(torch.bfloat16)[None].expand(b_, w_, h_, n_, n_).reshape(b_ * w_, h_, n_, n_)
+        leaves = [t.detach().requires_grad_() for t in (q4, k4, v4, mask)]
+        out_ = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
+        tl = time_ms(torch, lambda: (F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0),
+                                     torch.autograd.grad(out_, leaves, do4, retain_graph=True)))
+        elems = b_ * w_ * h_ * n_ * d_
+        bias_bytes = w_ * h_ * n_ * n_ * 4
+        # Forward and backward: q, k, v, do and bias read, o, dq, dk, dv and dbias written.
+        report(V1, f"[{b_},{w_},{h_},{n_},{d_}] bf16 forward + backward", 1, tk, tp, tl,
+               8 * elems * 2 + 2 * bias_bytes, 14.0 * b_ * w_ * h_ * n_ * n_ * d_)
+    del v1_cases
+    torch.cuda.empty_cache()
+
     kernels = []
     for name in KERNEL_SOURCE:
         t = totals[name]
@@ -1201,12 +1604,14 @@ def main() -> None:
             "plain_ms": t["plain_ms"],
             "bound_ms": bms,
             "bound_by": by,
-            "library_ms": None if name in (MMD, MLP, MLP_BWD) else t["library_ms"],
+            "library_ms": None if name in (MMD, MLP, MLP_BWD, B6) else t["library_ms"],
         })
     print("kernels: ms / plain_ms / library_ms / bound_ms are the device time of the launches one "
           f"batch-{bt} train step makes (sum over its shapes; B3 runs once, with use_pallas_mmd; B4 and B5 "
-          f"in the use_fused_ln + use_fused_mlp config); launches: the main path's run ({TRAIN_STEPS} steps; "
-          f"B3: its one step; B4, B5: the fused config's {TRAIN_STEPS} steps); max_abs_err: worst bf16 check "
+          f"in the use_fused_ln + use_fused_mlp config; B6 its forward launches in the "
+          f"use_fused_block_attention config; v1 one forward and backward per Swin stage of its own path); "
+          f"launches: the main path's run ({TRAIN_STEPS} steps; B3: its one step; B4, B5, B6: their configs' "
+          f"{TRAIN_STEPS} steps; v1: its path's forward and backward launches); max_abs_err: worst bf16 check "
           f"at the main-path shapes (B3: f32) [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -129,6 +129,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # db1_part, db2_part, dw1_part, dw2_part, m, c, h, splits, chunk,
         # u_is_bf16, w_is_bf16, stream
         "edrl_fused_mlp_bwd": (i32, [ptr] * 19 + [i32] * 7 + [ptr]),
+        # x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, y, qkv, xln, o, wqkv_t,
+        # wproj_t, batch, windows, bias_windows, n, c, heads, scale, is_bf16, stream
+        "edrl_attention_sublayer_fwd": (i32, [ptr] * 14 + [i32] * 6 + [f32, i32, ptr]),
     }
     for name, (restype, argtypes) in signatures.items():
         fn = getattr(lib, name)

@@ -24,6 +24,10 @@
 //   keeps their f32 sums in registers across all chunks (BM * C / 256
 //   floats a thread: 128 at C = 1024, BM = 32).
 //
+// tile_product, a 128 x 64 output tile of a product whose operands both hold
+// K contiguously, serves the backward's row kernels and the fused attention
+// sublayer's (B6) bf16 products.
+//
 // The weights reach the kernels as bf16 copies in the layout whose rows hold
 // the product's K dimension contiguously (prep kernels below), so that a B
 // fragment is two 32-bit shared-memory loads.  C must be a multiple of 128
@@ -260,6 +264,94 @@ __device__ __forceinline__ void store_wide(const float (&acc)[BM / 16][NT][4], T
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// A tiled product with both operands K-contiguous: acc += A[rows, K] . B[cols, K]^T
+// ---------------------------------------------------------------------------
+
+constexpr int kTileM = 128;  // rows of a block (4 warps of 32)
+constexpr int kTileN = 64;   // columns of a block (2 warps of 32)
+constexpr int kTileK = 32;   // K per staged slice
+constexpr int kLdK = kTileK + 8;  // padded slice rows: conflict-free fragment loads
+constexpr int kStages = 2;
+
+// An f32 operand rounded to bf16 (dy where the TPU kernel rounds it).
+struct AFragRounded {
+  static constexpr int kParts = 1;
+  __device__ static __forceinline__ void load(const float* s, int ld, int row, int k,
+                                              uint32_t (&a)[1][4]) {
+    const float* p = s + row * ld + k;
+    const float* src[4] = {p, p + 8 * ld, p + 8, p + 8 * ld + 8};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = *reinterpret_cast<const float2*>(src[i]);
+      a[0][i] = pack_bf16(v.x, v.y);
+    }
+  }
+};
+
+// acc[2][4][4] += A[row0 + 128 tile, 0:K] . B[col0 + 64 tile, 0:K]^T for this
+// warp's 32 x 32 quarter; A of type TA read through Frag, B bf16.  smem holds
+// kStages slices of A ([128][kLdK] TA) followed by kStages slices of B.
+template <typename Frag, typename TA>
+__device__ __forceinline__ void tile_product(float (&acc)[2][4][4], const TA* a, int lda,
+                                             int row0, int row_end, const __nv_bfloat16* b,
+                                             int ldb, int col0, int k_len, unsigned char* smem) {
+  TA* a_s = reinterpret_cast<TA*>(smem);
+  __nv_bfloat16* b_s = reinterpret_cast<__nv_bfloat16*>(a_s + kStages * kTileM * kLdK);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int slices = k_len / kTileK;
+  auto stage = [&](int slice) {
+    const int buf = slice % kStages;
+    stage_rows_async(a_s + buf * kTileM * kLdK, kLdK, a, lda, row0, kTileM, row_end, slice * kTileK, kTileK);
+    stage_rows_async(b_s + buf * kTileN * kLdK, kLdK, b, ldb, col0, kTileN, col0 + kTileN, slice * kTileK,
+                     kTileK);
+    cp_async_commit();
+  };
+  stage(0);
+  for (int s = 0; s < slices; ++s) {
+    if (s + 1 < slices) {
+      stage(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const TA* as = a_s + (s % kStages) * kTileM * kLdK;
+    const __nv_bfloat16* bs = b_s + (s % kStages) * kTileN * kLdK;
+#pragma unroll
+    for (int k = 0; k < kTileK; k += 16) {
+      uint32_t af[2][Frag::kParts][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) Frag::load(as, kLdK, wm + mi * 16 + g, k + 2 * t, af[mi]);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const __nv_bfloat16* bp = bs + (wn + ni * 8 + g) * kLdK + k + 2 * t;
+        const uint32_t b0 = lds32(bp), b1 = lds32(bp + 8);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int pi = 0; pi < Frag::kParts; ++pi) mma_bf16_16816(acc[mi][ni], af[mi][pi], b0, b1);
+      }
+    }
+    __syncthreads();  // this slice's buffer is free for the slice after next
+  }
+}
+
+template <typename TA>
+size_t tile_smem_bytes() {
+  return (size_t)kStages * kLdK * (kTileM * sizeof(TA) + kTileN * 2);
+}
+
+__device__ __forceinline__ void zero(float (&acc)[2][4][4]) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.0f;
 }
 
 // ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Fused attention on the H100, forward and backward, with plain PyTorch versions.
 
-Counterparts of two Pallas kernels of ``edrl_tpu/kernels/window_attention.py``:
+Counterparts of three Pallas kernels of ``edrl_tpu/kernels/window_attention.py``:
 
 - :func:`self_attention_fused` (B1): per head softmax(q k^T * scale) v over
   three ``[B, N, C]`` tensors with the heads packed in columns, as the ViT-3D
@@ -10,6 +10,12 @@ Counterparts of two Pallas kernels of ``edrl_tpu/kernels/window_attention.py``:
   softmax(q k^T * scale + bias) v read from the packed qkv ``[B, W, N, 3C]``
   with a ``[W, H, N, N]`` f32 bias.  CUDA sources:
   ``csrc/window_attention_v2_fwd.cu`` and ``csrc/window_attention_v2_bwd.cu``.
+- :func:`window_attention_fused` (v1): B2's function in the ``[B, W, H, N,
+  D]`` layout, with q pre-scaled and no scale applied inside.  No model
+  calls it.  It is a layout adapter over the B2 kernels, not a kernel of its
+  own: it packs q, k, v into B2's ``[B, W, N, 3C]``, runs B2 with scale 1
+  and unpacks the result, forward and backward (dq is then unscaled and dk
+  takes the pre-scaled q, as the v1 Pallas backward computes them).
 
 Each is a ``torch.autograd.Function``: the forward saves its inputs (not the
 probabilities) and the backward recomputes them, as the JAX VJPs do.  A CPU
@@ -33,8 +39,12 @@ SELF_ATTENTION = "self_attention_fused"
 WINDOW_ATTENTION_V2 = "window_attention_fused_v2"
 SELF_ATTENTION_BWD = "self_attention_fused_bwd"
 WINDOW_ATTENTION_V2_BWD = "window_attention_fused_v2_bwd"
-# Kernel launches since the last reset_launch_counts(), by wrapper name.
-LAUNCHES = {SELF_ATTENTION: 0, WINDOW_ATTENTION_V2: 0, SELF_ATTENTION_BWD: 0, WINDOW_ATTENTION_V2_BWD: 0}
+WINDOW_ATTENTION_V1 = "window_attention_fused"
+WINDOW_ATTENTION_V1_BWD = "window_attention_fused_bwd"
+# Kernel launches since the last reset_launch_counts(), by wrapper name.  The
+# v1 adapter counts its launches of the B2 kernels under its own names.
+LAUNCHES = {SELF_ATTENTION: 0, WINDOW_ATTENTION_V2: 0, SELF_ATTENTION_BWD: 0, WINDOW_ATTENTION_V2_BWD: 0,
+            WINDOW_ATTENTION_V1: 0, WINDOW_ATTENTION_V1_BWD: 0}
 MAX_HEAD_DIM = 128
 MAX_BWD_TOKENS = 256  # the backward keeps [32, N] f32 score rows per block in shared memory
 _SMEM_LIMIT = 232448 - 4 * 64  # opt-in per-block limit, less the 64 static f32 row sums
@@ -125,6 +135,28 @@ def window_attention_v2_bwd_reference(qkv, bias, dout, num_heads: int, scale: fl
     )
     dqkv = torch.stack([dq, dk, dv], dim=3).reshape(b, w, n, c3).to(qkv.dtype)
     return dqkv, ds.sum(dim=0)
+
+
+def window_attention_reference(q, k, v, bias):
+    """softmax(q k^T + bias) v per (batch, window, head), q pre-scaled (v1).
+
+    q, k, v ``[B, W, H, N, D]``; bias ``[W, H, N, N]`` f32.  Returns
+    ``[B, W, H, N, D]`` in q's dtype.
+    """
+    s = torch.einsum("bwhnd,bwhmd->bwhnm", q.float(), k.float()) + bias.float()[None]
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bwhnm,bwhmd->bwhnd", p, v.float()).to(q.dtype)
+
+
+def window_attention_bwd_reference(q, k, v, bias, dout):
+    """Backward of :func:`window_attention_reference`: ``(dq, dk, dv, dbias)``.
+
+    dq, dk, dv ``[B, W, H, N, D]`` in q's dtype, dq unscaled and dk from the
+    pre-scaled q; dbias ``[W, H, N, N]`` f32, summed over the batch.
+    """
+    heads_last = [t.float().transpose(2, 3) for t in (q, k, v, dout)]  # [B, W, N, H, D]
+    dq, dk, dv, ds = _attention_bwd_math(*heads_last[:3], heads_last[3], bias.float()[None], 1.0)
+    return (*(t.transpose(2, 3).to(q.dtype) for t in (dq, dk, dv)), ds.sum(dim=0))
 
 
 # ---------------------------------------------------------------------------
@@ -260,38 +292,42 @@ def self_attention_fused(q, k, v, num_heads: int, scale: float):
 # -- B2 ----------------------------------------------------------------------
 
 
-def _window_attention_v2_fwd_kernel(qkv, bias, num_heads: int, scale: float):
+def window_attention_v2_fwd_kernel(qkv, bias, num_heads: int, scale: float, name: str = WINDOW_ATTENTION_V2):
+    """The B2 forward kernel's ``[B, W, N, C]`` result; CUDA tensors only.
+    The launch counts under ``name``."""
     b, w, n, c3 = qkv.shape
     c = c3 // 3
-    d = _check_cuda_inputs(WINDOW_ATTENTION_V2, (qkv,), num_heads, c, n)
+    d = _check_cuda_inputs(name, (qkv,), num_heads, c, n)
     lib = build.load_library()
-    _check_smem(WINDOW_ATTENTION_V2, lib.edrl_attention_smem_bytes(n, d), n)
+    _check_smem(name, lib.edrl_attention_smem_bytes(n, d), n)
     out = torch.empty((b, w, n, c), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
     build.launch(
-        LAUNCHES, WINDOW_ATTENTION_V2, lib.edrl_window_attention_v2_fwd, qkv.device,
+        LAUNCHES, name, lib.edrl_window_attention_v2_fwd, qkv.device,
         qkv.data_ptr(), bias.data_ptr(), out.data_ptr(),
         b, w, n, c, num_heads, float(scale), int(qkv.dtype == torch.bfloat16),
     )
     return out
 
 
-def window_attention_v2_bwd_kernel(qkv, bias, dout, num_heads: int, scale: float):
-    """``(dqkv, dbias)`` from the B2 backward kernel; CUDA tensors only."""
+def window_attention_v2_bwd_kernel(qkv, bias, dout, num_heads: int, scale: float,
+                                   name: str = WINDOW_ATTENTION_V2_BWD):
+    """``(dqkv, dbias)`` from the B2 backward kernel; CUDA tensors only.
+    The launch counts under ``name``."""
     b, w, n, c3 = qkv.shape
     c = c3 // 3
-    d = _check_cuda_inputs(WINDOW_ATTENTION_V2_BWD, (qkv,), num_heads, c, n)
-    _check_cuda_inputs(WINDOW_ATTENTION_V2_BWD, (dout,), num_heads, c, n)
+    d = _check_cuda_inputs(name, (qkv,), num_heads, c, n)
+    _check_cuda_inputs(name, (dout,), num_heads, c, n)
     if dout.dtype != qkv.dtype or tuple(dout.shape) != (b, w, n, c):
-        raise ValueError(f"{WINDOW_ATTENTION_V2_BWD}: dout must be {(b, w, n, c)} in {qkv.dtype}")
+        raise ValueError(f"{name}: dout must be {(b, w, n, c)} in {qkv.dtype}")
     if (tuple(bias.shape) != (w, num_heads, n, n) or bias.dtype != torch.float32
             or bias.device != qkv.device or not bias.is_contiguous()):
-        raise ValueError(f"{WINDOW_ATTENTION_V2_BWD}: bias must be a contiguous float32 "
+        raise ValueError(f"{name}: bias must be a contiguous float32 "
                          f"{(w, num_heads, n, n)} tensor on {qkv.device}")
-    _check_bwd_shape(WINDOW_ATTENTION_V2_BWD, n)
+    _check_bwd_shape(name, n)
     lib = build.load_library()
-    _check_smem(WINDOW_ATTENTION_V2_BWD, lib.edrl_attention_bwd_smem_bytes(n, d, 1), n)
+    _check_smem(name, lib.edrl_attention_bwd_smem_bytes(n, d, 1), n)
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty_like(bias)
     if qkv.numel() == 0:
@@ -307,7 +343,7 @@ def window_attention_v2_bwd_kernel(qkv, bias, dout, num_heads: int, scale: float
     partial = dbias if chunks == 1 else torch.empty(
         (chunks, *bias.shape), dtype=torch.float32, device=qkv.device)
     build.launch(
-        LAUNCHES, WINDOW_ATTENTION_V2_BWD, lib.edrl_window_attention_v2_bwd, qkv.device,
+        LAUNCHES, name, lib.edrl_window_attention_v2_bwd, qkv.device,
         qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), partial.data_ptr(),
         dbias.data_ptr(), stats.data_ptr(), b, w, n, c, num_heads, per_block, float(scale),
         int(qkv.dtype == torch.bfloat16),
@@ -324,7 +360,7 @@ class _WindowAttentionV2(torch.autograd.Function):
             return window_attention_v2_reference(qkv, bias, num_heads, scale)
         if any(ctx.needs_input_grad[:2]):
             _check_bwd_shape(WINDOW_ATTENTION_V2_BWD, qkv.shape[2])
-        return _window_attention_v2_fwd_kernel(qkv, bias, num_heads, scale)
+        return window_attention_v2_fwd_kernel(qkv, bias, num_heads, scale)
 
     @staticmethod
     def backward(ctx, dout):
@@ -362,3 +398,71 @@ def window_attention_fused_v2(qkv, bias, num_heads: int, scale: float):
             f"{WINDOW_ATTENTION_V2}: bias must be a contiguous float32 tensor on {qkv.device}"
         )
     return _WindowAttentionV2.apply(qkv, bias, num_heads, scale)
+
+
+# -- v1: a layout adapter over the B2 kernels --------------------------------
+
+
+def _pack_qkv(q, k, v):
+    """q, k, v ``[B, W, H, N, D]`` -> qkv ``[B, W, N, 3C]``, columns [q heads | k heads | v heads]."""
+    b, w, h, n, d = q.shape
+    return torch.stack((q, k, v), dim=2).permute(0, 1, 4, 2, 3, 5).reshape(b, w, n, 3 * h * d)
+
+
+def _pack_heads(x):
+    """``[B, W, H, N, D]`` -> ``[B, W, N, H * D]``."""
+    b, w, h, n, d = x.shape
+    return x.transpose(2, 3).reshape(b, w, n, h * d)
+
+
+def _unpack_heads(x, num_heads: int):
+    """``[B, W, N, C]`` -> contiguous ``[B, W, H, N, C / H]``."""
+    b, w, n, c = x.shape
+    return x.view(b, w, n, num_heads, c // num_heads).transpose(2, 3).contiguous()
+
+
+class _WindowAttentionV1(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        ctx.save_for_backward(q, k, v, bias)
+        if q.device.type == "cpu":
+            return window_attention_reference(q, k, v, bias)
+        if any(ctx.needs_input_grad[:4]):
+            _check_bwd_shape(WINDOW_ATTENTION_V1_BWD, q.shape[3])
+        o = window_attention_v2_fwd_kernel(_pack_qkv(q, k, v), bias, q.shape[2], 1.0, name=WINDOW_ATTENTION_V1)
+        return _unpack_heads(o, q.shape[2])
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias = ctx.saved_tensors
+        dout = _grad_output(dout, q)
+        if q.device.type == "cpu":
+            return window_attention_bwd_reference(q, k, v, bias, dout)
+        heads = q.shape[2]
+        dqkv, dbias = window_attention_v2_bwd_kernel(
+            _pack_qkv(q, k, v), bias, _pack_heads(dout), heads, 1.0, name=WINDOW_ATTENTION_V1_BWD)
+        dq, dk, dv = (_unpack_heads(t, heads) for t in dqkv.chunk(3, dim=-1))
+        return dq, dk, dv, dbias
+
+
+def window_attention_fused(q, k, v, bias):
+    """softmax(q k^T + bias) v per (batch, window, head), differentiable (v1).
+
+    q, k, v: ``[B, W, H, N, D]``, q pre-scaled by 1/sqrt(D); bias ``[W, H, N,
+    N]`` f32, its gradient summed over the batch.  Returns ``[B, W, H, N, D]``
+    in q's dtype.  CPU tensors take the plain versions
+    (:func:`window_attention_reference` and its backward); CUDA tensors the B2
+    kernels, through a packed ``[B, W, N, 3C]`` copy of q, k and v.
+    """
+    if q.dim() != 5 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v must share a [B, W, H, N, D] shape, got {q.shape}, {k.shape}, {v.shape}")
+    b, w, h, n, d = q.shape
+    if tuple(bias.shape) != (w, h, n, n):
+        raise ValueError(f"bias must be [W, H, N, N] = {(w, h, n, n)}, got {tuple(bias.shape)}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{WINDOW_ATTENTION_V1}: no kernel for device {q.device}")
+    if q.device.type == "cuda" and (
+        bias.dtype != torch.float32 or bias.device != q.device or not bias.is_contiguous()
+    ):
+        raise ValueError(f"{WINDOW_ATTENTION_V1}: bias must be a contiguous float32 tensor on {q.device}")
+    return _WindowAttentionV1.apply(q, k, v, bias)

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from edrl_tpu_torch.kernels.block_attention import attention_sublayer_fused
 from edrl_tpu_torch.kernels.fused_mlp import fused_mlp
 from edrl_tpu_torch.kernels.layer_norm import fused_layer_norm, layer_norm_reference
 
@@ -65,15 +66,18 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 @torch.no_grad()
 def cast_dense_weights_(model: nn.Module) -> nn.Module:
-    """Store every :class:`Dense`'s weight and bias in its compute dtype, and
-    a fused :class:`Mlp`'s ``w1`` and ``w2`` in bf16.
+    """Store every :class:`Dense`'s weight and bias in its compute dtype, a
+    fused :class:`Mlp`'s ``w1`` and ``w2`` in bf16, and a fused attention
+    sublayer's ``qkv_kernel`` and ``proj_kernel`` in its compute dtype.
 
-    For serving.  A Dense casts both to its ``dtype`` on every call, and the
-    fused MLP rounds its weights to bf16 in either dtype, so storing them cast
+    For serving.  A Dense casts both to its ``dtype`` on every call, the
+    fused MLP rounds its weights to bf16 in either dtype, and the fused
+    sublayer casts its two kernels to its ``dtype``, so storing them cast
     gives the same products, bit for bit, without a cast kernel per tensor
     and call (about 460 launches per bf16 forward at full width).  The fused
-    MLP's ``b1`` and ``b2`` stay f32: it adds them in f32.  The model's
-    float32 master weights are gone afterwards.
+    MLP's ``b1`` and ``b2`` and the sublayer's LayerNorm parameters and biases
+    stay f32: both add them in f32.  The model's float32 master weights are
+    gone afterwards.
     """
     for module in model.modules():
         if isinstance(module, Dense):
@@ -83,6 +87,9 @@ def cast_dense_weights_(model: nn.Module) -> nn.Module:
         elif isinstance(module, Mlp) and module.fused:
             module.w1.data = module.w1.data.to(torch.bfloat16)
             module.w2.data = module.w2.data.to(torch.bfloat16)
+        elif getattr(module, "fused_block", False):
+            module.qkv_kernel.data = module.qkv_kernel.data.to(module.dtype)
+            module.proj_kernel.data = module.proj_kernel.data.to(module.dtype)
     return model
 
 
@@ -244,22 +251,84 @@ class MultiHeadAttention(nn.Module):
         return self.proj(out)
 
 
+# ---------------------------------------------------------------------------
+# The fused attention sublayer's flat parameters (B6), shared by
+# SelfAttentionBlock and swin2d.SwinBlock.
+# ---------------------------------------------------------------------------
+
+
+def add_sublayer_params(module: nn.Module, dim: int, device) -> None:
+    """Register the fused sublayer's flat flax-named parameters on ``module``:
+    ``ln1_scale``, ``ln1_bias``, ``qkv_kernel [C, 3C]``, ``qkv_bias``,
+    ``proj_kernel [C, C]``, ``proj_bias``, kernels in flax's ``[in, out]``
+    layout."""
+    for name, shape in (("ln1_scale", (dim,)), ("ln1_bias", (dim,)), ("qkv_kernel", (dim, 3 * dim)),
+                        ("qkv_bias", (3 * dim,)), ("proj_kernel", (dim, dim)), ("proj_bias", (dim,))):
+        setattr(module, name, _param(shape, device))
+
+
+def init_sublayer_params_(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's init of those parameters: LayerNorm ones / zeros, lecun-normal
+    kernels (fan-in on axis 0), zero biases."""
+    module.ln1_scale.fill_(1.0)
+    module.ln1_bias.zero_()
+    lecun_normal_(module.qkv_kernel, generator, fan_in_dim=0)
+    lecun_normal_(module.proj_kernel, generator, fan_in_dim=0)
+    module.qkv_bias.zero_()
+    module.proj_bias.zero_()
+
+
+def attention_sublayer(module: nn.Module, x, bias, num_heads: int):
+    """``x + proj(attention(qkv(LN(x))))`` through ``attention_sublayer_fused``
+    with ``module``'s flat parameters, in ``module.dtype``; x ``[B, W, N, C]``."""
+    scale = (x.shape[-1] // num_heads) ** -0.5
+    dtype = module.dtype
+    return attention_sublayer_fused(
+        x.to(dtype), module.ln1_scale, module.ln1_bias, module.qkv_kernel.to(dtype), module.qkv_bias,
+        module.proj_kernel.to(dtype), module.proj_bias, bias, num_heads, scale)
+
+
 class SelfAttentionBlock(nn.Module):
-    """Pre-LN transformer encoder block (attention + MLP with residuals)."""
+    """Pre-LN transformer encoder block (attention + MLP with residuals).
+
+    With ``use_fused_block_attention`` the attention sublayer (LayerNorm_0,
+    the q/k/v projections, attention, proj and the residual) runs as one
+    ``attention_sublayer_fused`` (B6: the CUDA kernel on the card, its plain
+    version on the CPU) on ``x[:, None]`` with a zero bias, and the block owns
+    the sublayer's flat parameters (:func:`add_sublayer_params`), as flax's
+    block does; it takes precedence over ``use_fused_attention``.  The MLP
+    sublayer is the same either way.
+    """
 
     def __init__(self, dim: int, num_heads: int, *, mlp_ratio: float = 4.0,
                  use_fused_attention: bool = False, use_fused_ln: bool = False,
-                 use_fused_mlp: bool = False, dtype: torch.dtype = torch.float32, device=None):
+                 use_fused_mlp: bool = False, use_fused_block_attention: bool = False,
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        self.LayerNorm_0 = LayerNorm(dim, dtype=dtype, use_fused=use_fused_ln, device=device)
-        self.MultiHeadAttention_0 = MultiHeadAttention(
-            dim, num_heads, use_fused=use_fused_attention, dtype=dtype, device=device
-        )
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.fused_block = use_fused_block_attention
+        if self.fused_block:
+            add_sublayer_params(self, dim, device)
+        else:
+            self.LayerNorm_0 = LayerNorm(dim, dtype=dtype, use_fused=use_fused_ln, device=device)
+            self.MultiHeadAttention_0 = MultiHeadAttention(
+                dim, num_heads, use_fused=use_fused_attention, dtype=dtype, device=device
+            )
         self.LayerNorm_1 = LayerNorm(dim, dtype=dtype, use_fused=use_fused_ln, device=device)
         self.Mlp_0 = Mlp(dim, int(dim * mlp_ratio), dim, dtype=dtype, use_fused=use_fused_mlp,
                          device=device)
 
+    def flax_init_(self, generator):
+        if self.fused_block:
+            init_sublayer_params_(self, generator)
+
     def forward(self, x):
-        h = self.LayerNorm_0(x)
-        x = x + self.MultiHeadAttention_0(h, h, h)
+        if self.fused_block:
+            n = x.shape[1]
+            bias = torch.zeros((1, self.num_heads, n, n), dtype=torch.float32, device=x.device)
+            x = attention_sublayer(self, x[:, None], bias, self.num_heads)[:, 0]
+        else:
+            h = self.LayerNorm_0(x)
+            x = x + self.MultiHeadAttention_0(h, h, h)
         return x + self.Mlp_0(self.LayerNorm_1(x))

@@ -38,11 +38,6 @@ from edrl_tpu_torch.models.vit3d import ViT3D
 from edrl_tpu_torch.ops.distributions import kl_to_standard_normal
 from edrl_tpu_torch.ops.losses import label_smoothing_cross_entropy
 
-# Config flags whose kernels are not ported yet, with their ROADMAP items.
-_UNPORTED_FLAGS = {
-    "use_fused_block_attention": "B6 (attention_sublayer_fused)",
-}
-
 
 def eval_guided_uniform(batch: int, num_classes: int, z_dim: int, device):
     """The eval-mode guided uniforms ``(u_f, u_o)``, each ``[B, C, z]``, from a
@@ -59,12 +54,6 @@ class MedFusion(nn.Module):
     def __init__(self, cfg: ModelConfig, fundus_size: int = 384,
                  oct_size: Tuple[int, int, int] = (96, 96, 96), *, device=None):
         super().__init__()
-        for flag, item in _UNPORTED_FLAGS.items():
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f"ModelConfig.{flag} needs the kernel of ROADMAP item {item}, "
-                    "which edrl_tpu_torch does not have yet"
-                )
         self.cfg = cfg
         dtype = torch.bfloat16 if cfg.use_bfloat16 else torch.float32
         c, z = cfg.num_classes, cfg.z_dim
@@ -72,13 +61,15 @@ class MedFusion(nn.Module):
             img_size=fundus_size, embed_dim=cfg.swin_embed_dim, depths=cfg.swin_depths,
             num_heads=cfg.swin_heads, window=cfg.swin_window,
             use_fused_attention=cfg.use_fused_attention, use_fused_ln=cfg.use_fused_ln,
-            use_fused_mlp=cfg.use_fused_mlp, dtype=dtype, device=device,
+            use_fused_mlp=cfg.use_fused_mlp, use_fused_block_attention=cfg.use_fused_block_attention,
+            dtype=dtype, device=device,
         )
         self.transformer_3d = ViT3D(
             volume_size=oct_size[0], patch_size=cfg.vit3d_patch, dim=cfg.oct_embed_dim,
             depth=cfg.vit3d_depth, num_heads=cfg.vit3d_heads,
             use_fused_attention=cfg.vit_fused_attention, use_fused_ln=cfg.use_fused_ln,
-            use_fused_mlp=cfg.use_fused_mlp, dtype=dtype, device=device,
+            use_fused_mlp=cfg.use_fused_mlp, use_fused_block_attention=cfg.use_fused_block_attention,
+            dtype=dtype, device=device,
         )
         eprl_kw = dict(z_dim=z, num_classes=c, sample_num=cfg.sample_num, topk=cfg.proxy_topk,
                        dtype=dtype, device=device)

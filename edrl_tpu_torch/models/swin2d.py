@@ -9,7 +9,10 @@ q/k/v in place from the packed qkv projection (``window_attention_fused_v2``:
 the CUDA kernel on the card, its plain version on the CPU); with
 ``use_fused_ln`` and ``use_fused_mlp`` every LayerNorm and MLP of the
 backbone whose width routes (a multiple of 128) takes the fused kernels B4
-and B5, at the JAX package's sites.
+and B5, at the JAX package's sites.  With ``use_fused_block_attention`` each
+block's whole attention sublayer (LayerNorm_0, qkv, window attention, proj,
+residual) runs as ``attention_sublayer_fused`` (B6), which takes precedence
+over ``use_fused_attention``.
 """
 
 from __future__ import annotations
@@ -20,7 +23,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from edrl_tpu_torch.models.layers import Dense, LayerNorm, Mlp, scaled_dot_attention, trunc_normal_
+from edrl_tpu_torch.models.layers import (
+    Dense, LayerNorm, Mlp, add_sublayer_params, attention_sublayer, init_sublayer_params_, scaled_dot_attention,
+    trunc_normal_,
+)
 
 
 def relative_position_index(window: int) -> np.ndarray:
@@ -132,18 +138,41 @@ class WindowAttention(nn.Module):
 
 
 class SwinBlock(nn.Module):
+    """A Swin block in the persistent windowed layout.
+
+    With ``use_fused_block_attention`` the attention sublayer is one
+    ``attention_sublayer_fused`` call and the block owns its flat parameters
+    (:func:`layers.add_sublayer_params`) and ``rel_bias_table``, as flax's
+    ``_fused_sublayer`` does: the bias is the table's ``[1, H, N, N]`` for an
+    unshifted block and bias + shift mask ``[nW, H, N, N]`` for a shifted one,
+    which rolls the raw x before the call and the result back after it
+    (LayerNorm and the residual are per token, so they commute with the
+    shift).
+    """
+
     def __init__(self, dim: int, grid: int, num_heads: int, window: int, shift: int, *,
                  mlp_ratio: float = 4.0, use_fused_attention: bool = False,
                  use_fused_ln: bool = False, use_fused_mlp: bool = False,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 use_fused_block_attention: bool = False, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.grid = grid
         self.window = min(window, grid)
         self.shift = shift if self.window < grid else 0
-        self.LayerNorm_0 = LayerNorm(dim, dtype=dtype, use_fused=use_fused_ln, device=device)
-        self.WindowAttention_0 = WindowAttention(
-            dim, self.window, num_heads, use_fused=use_fused_attention, dtype=dtype, device=device
-        )
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.fused_block = use_fused_block_attention
+        if self.fused_block:
+            add_sublayer_params(self, dim, device)
+            self.rel_bias_table = nn.Parameter(
+                torch.empty(((2 * self.window - 1) ** 2, num_heads), dtype=torch.float32, device=device)
+            )
+            index = torch.as_tensor(relative_position_index(self.window), dtype=torch.long, device=device)
+            self.register_buffer("rel_index", index, persistent=False)
+        else:
+            self.LayerNorm_0 = LayerNorm(dim, dtype=dtype, use_fused=use_fused_ln, device=device)
+            self.WindowAttention_0 = WindowAttention(
+                dim, self.window, num_heads, use_fused=use_fused_attention, dtype=dtype, device=device
+            )
         self.LayerNorm_1 = LayerNorm(dim, dtype=dtype, use_fused=use_fused_ln, device=device)
         self.Mlp_0 = Mlp(dim, int(dim * mlp_ratio), dim, dtype=dtype, use_fused=use_fused_mlp,
                          device=device)
@@ -153,8 +182,26 @@ class SwinBlock(nn.Module):
         else:
             self.shift_mask = None
 
+    def flax_init_(self, generator):
+        if self.fused_block:
+            init_sublayer_params_(self, generator)
+            trunc_normal_(self.rel_bias_table, 0.02, generator)
+
+    def _fused_sublayer(self, xw):
+        bias = rel_bias_from_table(self.rel_bias_table, self.rel_index, self.num_heads, self.dtype)[None]
+        if self.shift > 0:
+            xw = shift_windows(xw, self.window, self.grid, -self.shift)
+            bias = bias + self.shift_mask[:, None]
+        y = attention_sublayer(self, xw, bias.contiguous(), self.num_heads)
+        if self.shift > 0:
+            y = shift_windows(y, self.window, self.grid, self.shift)
+        return y
+
     def forward(self, xw):
         """xw: [B, nW, N, C] in the persistent windowed layout."""
+        if self.fused_block:
+            xw = self._fused_sublayer(xw)
+            return xw + self.Mlp_0(self.LayerNorm_1(xw))
         h = self.LayerNorm_0(xw)
         if self.shift > 0:
             h = shift_windows(h, self.window, self.grid, -self.shift)
@@ -185,7 +232,7 @@ class SwinTransformer2D(nn.Module):
                  depths: Sequence[int] = (2, 2, 6, 2), num_heads: Sequence[int] = (4, 8, 16, 32),
                  window: int = 12, mlp_ratio: float = 4.0, use_fused_attention: bool = False,
                  use_fused_ln: bool = False, use_fused_mlp: bool = False,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 use_fused_block_attention: bool = False, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.patch_size = patch_size
         self.dtype = dtype
@@ -200,7 +247,8 @@ class SwinTransformer2D(nn.Module):
                 setattr(self, f"SwinBlock_{block}", SwinBlock(
                     dim, grid, heads, window, 0 if i % 2 == 0 else window // 2,
                     mlp_ratio=mlp_ratio, use_fused_attention=use_fused_attention,
-                    use_fused_ln=use_fused_ln, use_fused_mlp=use_fused_mlp, dtype=dtype, device=device,
+                    use_fused_ln=use_fused_ln, use_fused_mlp=use_fused_mlp,
+                    use_fused_block_attention=use_fused_block_attention, dtype=dtype, device=device,
                 ))
                 block += 1
             if stage != len(depths) - 1:

@@ -5,7 +5,9 @@ At the shipped config (volume 96, patch 16, 12 blocks of 768 with 6 heads of
 ``use_fused_attention`` each block's attention runs through
 ``self_attention_fused`` (the CUDA kernel on the card, its plain version on
 the CPU); ``use_fused_ln`` and ``use_fused_mlp`` route its LayerNorms and
-MLPs through B4 and B5 where the width is a multiple of 128.
+MLPs through B4 and B5 where the width is a multiple of 128;
+``use_fused_block_attention`` runs each block's attention sublayer as one
+``attention_sublayer_fused`` (B6), in place of ``use_fused_attention``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ class ViT3D(nn.Module):
                  depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
                  in_channels: int = 1, use_fused_attention: bool = False,
                  use_fused_ln: bool = False, use_fused_mlp: bool = False,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 use_fused_block_attention: bool = False, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.patch_size = patch_size
         self.depth = depth
@@ -34,7 +36,8 @@ class ViT3D(nn.Module):
         for i in range(depth):
             setattr(self, f"SelfAttentionBlock_{i}", SelfAttentionBlock(
                 dim, num_heads, mlp_ratio=mlp_ratio, use_fused_attention=use_fused_attention,
-                use_fused_ln=use_fused_ln, use_fused_mlp=use_fused_mlp, dtype=dtype, device=device,
+                use_fused_ln=use_fused_ln, use_fused_mlp=use_fused_mlp,
+                use_fused_block_attention=use_fused_block_attention, dtype=dtype, device=device,
             ))
         self.final_norm = LayerNorm(dim, dtype=dtype, use_fused=use_fused_ln, device=device)
 

@@ -2,12 +2,16 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python -m edrl_tpu_torch.tools.profile_train_step [--plain]
+    python -m edrl_tpu_torch.tools.profile_train_step [--plain] [--fused-ln] [--fused-mlp]
+        [--fused-block-attention]
 
-Builds the shipped ``EDRLConfig()`` (bf16, batch 32; ``--plain`` turns both
-fused-attention flags off) with seeded random weights, feeds it
-``trainer.random_views`` from seed 0, takes two warm-up steps, then runs
-three steps without the profiler and three under it, and prints:
+Builds the shipped ``EDRLConfig()`` (bf16, batch 32) with the flags given:
+``--plain`` turns both fused-attention flags off, ``--fused-ln`` and
+``--fused-mlp`` turn on B4 and B5, ``--fused-block-attention`` turns on B6
+(which takes precedence over the fused-attention flags).  With seeded
+random weights it feeds the step ``trainer.random_views`` from seed 0, takes
+two warm-up steps, then runs three steps without the profiler and three
+under it, and prints:
 
 - unprofiled: the step time on the host clock (to a ``synchronize()``) and
   the host's enqueue time per step (the step returns before the device
@@ -15,7 +19,10 @@ three steps without the profiler and three under it, and prints:
 - profiled (the profiler slows the host, not the kernels): the kernels per
   step, the device busy time per step (the union of the kernels'
   intervals) and its share of the span from the first kernel's start to
-  the last kernel's end, and device time per step by category.
+  the last kernel's end, and device time per step by category.  B6 is three
+  phases: its two products count as "attention sublayer products (B6)", its
+  LayerNorm under B4's category, its attention under B1/B2 fwd and its weight
+  transposes under B5's weight preps.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ CATEGORIES = (
                                                 "row_tile_sums_kernel", "transpose_bf16_kernel",
                                                 "round_bf16_kernel")),
     ("partial sums (dbias, B4, B5)", ("column_sum_kernel",)),
+    ("attention sublayer products (B6)", ("sublayer_gemm",)),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "sm90_", "sm80_", "cublas", "Kernel2")),
     ("Adam (multi-tensor)", ("multi_tensor", "adam", "Adam")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
@@ -73,20 +81,42 @@ def _union_us(intervals):
     return total
 
 
-def main(argv=None) -> None:
+def config_from_args(args) -> EDRLConfig:
+    """``EDRLConfig()`` with the command line's flags."""
+    flags = dict(use_fused_ln=args.fused_ln, use_fused_mlp=args.fused_mlp,
+                 use_fused_block_attention=args.fused_block_attention)
+    if args.plain:
+        flags.update(use_fused_attention=False, vit_fused_attention=False)
+    cfg = EDRLConfig()
+    return cfg.replace(model=dataclasses.replace(cfg.model, **flags))
+
+
+def _label(cfg: EDRLConfig) -> str:
+    m = cfg.model
+    on = [name for name, flag in (("use_fused_attention", m.use_fused_attention),
+                                  ("vit_fused_attention", m.vit_fused_attention), ("use_fused_ln", m.use_fused_ln),
+                                  ("use_fused_mlp", m.use_fused_mlp),
+                                  ("use_fused_block_attention", m.use_fused_block_attention)) if flag]
+    return "flags on: " + (", ".join(on) or "none")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--plain", action="store_true", help="both fused-attention flags off")
-    args = parser.parse_args(argv)
+    parser.add_argument("--fused-ln", action="store_true", help="use_fused_ln on (B4)")
+    parser.add_argument("--fused-mlp", action="store_true", help="use_fused_mlp on (B5)")
+    parser.add_argument("--fused-block-attention", action="store_true", help="use_fused_block_attention on (B6)")
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    cfg = config_from_args(parse_args(argv))
     if not torch.cuda.is_available():
         raise SystemExit("profile_train_step: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    cfg = EDRLConfig()
-    if args.plain:
-        cfg = cfg.replace(model=dataclasses.replace(
-            cfg.model, use_fused_attention=False, vit_fused_attention=False))
     batch = trainer.random_views(cfg, seed=0)
     state = trainer.init_state(cfg, seed=0)
     train_step = trainer.make_train_step(cfg)
@@ -121,8 +151,7 @@ def main(argv=None) -> None:
     for e in kernels:
         by_cat[_category(e.name)] += e.time_range.elapsed_us()
     per_step = 1000.0 * STEPS  # us over the run -> ms per step
-    print(f"train step, {'plain' if args.plain else 'kernel'} path, batch {cfg.data.batch_size} bf16 "
-          f"[{card}]")
+    print(f"train step, {_label(cfg)}, batch {cfg.data.batch_size} bf16 [{card}]")
     print(f"  unprofiled: host clock to sync {wall_ms:.3f} ms/step, host enqueue "
           f"{statistics.median(enqueue_ms):.3f} ms/step (median of {STEPS})")
     print(f"  profiled: {len(kernels) // STEPS} kernels/step; device busy {busy_us / per_step:.3f} ms/step, "

@@ -6,7 +6,9 @@ imports no JAX, so it also runs on a card machine that has none:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
 Shapes: the main-path ones, plus odd ones that take the CUDA-core kernel in
-bf16 (head_dim 8, N above 224).  Tolerances: forwards bf16 atol 3e-2, f32
+bf16 (head_dim 8, N above 224).  B6 (the fused attention sublayer) and the
+v1 adapter are held at the bars of the backwards below, forward and
+backward.  Tolerances: forwards bf16 atol 3e-2, f32
 atol 1e-4.  Backwards, relative to the largest magnitude of the plain
 version's result (gradients scale with their inputs): 1e-2 for bf16
 results (one bf16 rounding is 2^-8), 1e-4 for f32 results, dbias included.
@@ -121,7 +123,8 @@ def test_autograd_reaches_the_backward_kernels(cuda):
     bias = torch.randn((4, 2, 16, 16), generator=gen, device=cuda, requires_grad=True)
     wa.reset_launch_counts()
     (wa.self_attention_fused(q, k, v, 2, 0.3).sum() + wa.window_attention_fused_v2(qkv, bias, 2, 0.3).sum()).backward()
-    assert wa.LAUNCHES == {name: 1 for name in wa.LAUNCHES}
+    assert wa.LAUNCHES == {name: int(name not in (wa.WINDOW_ATTENTION_V1, wa.WINDOW_ATTENTION_V1_BWD))
+                           for name in wa.LAUNCHES}
     q2, k2, v2, qkv2, bias2 = (t.detach().clone().requires_grad_() for t in (q, k, v, qkv, bias))
     (wa.self_attention_reference(q2, k2, v2, 2, 0.3).sum()
      + wa.window_attention_v2_reference(qkv2, bias2, 2, 0.3).sum()).backward()
@@ -270,3 +273,108 @@ def test_autograd_through_the_modules_reaches_the_b4_b5_kernels(cuda):
     assert fm.LAUNCHES == {fm.FUSED_MLP: 1, fm.FUSED_MLP_BWD: 1}
     assert all(torch.isfinite(p.grad).all() for p in (*norm.parameters(), *mlp.parameters()))
     assert x.grad.dtype == torch.float32 and torch.isfinite(x.grad).all()
+
+
+# ---------------------------------------------------------------------------
+# B6 (fused attention sublayer) and the v1 adapter over the B2 kernels.  Bars
+# relative to the plain result's largest magnitude: 1e-2 for results of a
+# bf16 call (its f32 gradients are sums of bf16 cotangents), 1e-4 in f32;
+# dbias 1e-4 in both (the B2 backward gets the same inputs on both paths).
+# ---------------------------------------------------------------------------
+
+from edrl_tpu_torch.kernels import block_attention as ba  # noqa: E402
+from edrl_tpu_torch.models import swin2d  # noqa: E402
+
+
+def _sublayer_inputs(cuda, b, w, n, c, heads, wb, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    bias = randn(wb, heads, n, n)
+    bias[..., 1::3] = -1e9
+    return (randn(b, w, n, c).to(dtype), 1 + 0.1 * randn(c), 0.1 * randn(c),
+            (randn(c, 3 * c) / c ** 0.5).to(dtype), 0.1 * randn(3 * c), (randn(c, c) / c ** 0.5).to(dtype),
+            0.1 * randn(c), bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,w,n,c,heads,wb", [(2, 64, 144, 128, 1, 1), (2, 16, 144, 256, 2, 16),
+                                              (4, 1, 216, 768, 6, 1), (2, 1, 144, 1024, 8, 1),
+                                              (3, 2, 40, 128, 8, 2), (2, 3, 16, 256, 4, 1)])
+def test_attention_sublayer_kernels_match_plain(cuda, dtype, b, w, n, c, heads, wb):
+    args = _sublayer_inputs(cuda, b, w, n, c, heads, wb, dtype, 10)
+    scale = (c // heads) ** -0.5
+    ba.reset_launch_counts()
+    got = ba.attention_sublayer_fwd_kernel(*args, heads, scale)
+    want = ba.attention_sublayer_reference(*args, heads, scale)
+    assert ba.LAUNCHES[ba.ATTENTION_SUBLAYER] == 1
+    for g, w_ in zip(got, want):
+        assert g.dtype == dtype and _rel_err(g, w_) <= _bwd_bar(dtype)
+    x, gamma, _, wqkv, _, wproj, _, bias = args
+    y, qkv, xln = got
+    dy = torch.randn(y.shape, generator=torch.Generator(device=cuda).manual_seed(11), device=cuda).to(dtype)
+    grads = ba.attention_sublayer_bwd_kernel(x, xln, qkv, gamma, wqkv, wproj, bias, dy, heads, scale)
+    plain = ba.attention_sublayer_bwd_reference(x, xln, qkv, gamma, wqkv, wproj, bias, dy, heads, scale)
+    for i, (g, w_) in enumerate(zip(grads, plain)):
+        assert g.dtype == w_.dtype and g.shape == w_.shape
+        assert _rel_err(g, w_) <= (1e-4 if i == 7 else _bwd_bar(dtype)), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,what", [(200, 2, "multiple of 128"), (256, 1, "head_dim"),
+                                          (4096, 32, "multiple of 128")])
+def test_attention_sublayer_kernel_refuses_a_shape(cuda, c, heads, what):
+    args = _sublayer_inputs(cuda, 1, 1, 16, c, heads, 1, torch.bfloat16, 12)
+    with pytest.raises(ValueError, match=what):
+        ba.attention_sublayer_fwd_kernel(*args, heads, 0.25)
+
+
+@pytest.mark.cuda
+def test_attention_sublayer_refuses_a_grad_over_256_tokens(cuda):
+    args = list(_sublayer_inputs(cuda, 1, 1, 264, 128, 1, 1, torch.float32, 13))
+    args[0].requires_grad_()
+    with pytest.raises(ValueError, match="at most 256 tokens"):
+        ba.attention_sublayer_fused(*args, 1, 0.25)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 6])
+def test_autograd_through_the_swin_block_reaches_b6_and_b2(cuda, shift):
+    block = swin2d.SwinBlock(128, 24, 1, 12, shift, use_fused_block_attention=True, dtype=torch.bfloat16,
+                             device=cuda)
+    layers.init_parameters(block, torch.Generator(device=cuda).manual_seed(0))
+    x = torch.randn((2, 4, 144, 128), generator=torch.Generator(device=cuda).manual_seed(1), device=cuda,
+                    requires_grad=True)
+    ba.reset_launch_counts()
+    wa.reset_launch_counts()
+    block(x).float().sum().backward()
+    assert ba.LAUNCHES == {ba.ATTENTION_SUBLAYER: 1}
+    assert wa.LAUNCHES[wa.WINDOW_ATTENTION_V2] == wa.LAUNCHES[wa.WINDOW_ATTENTION_V2_BWD] == 1
+    assert wa.LAUNCHES[wa.SELF_ATTENTION] == 0
+    for name, p in block.named_parameters():
+        assert p.grad is not None and p.grad.dtype == p.dtype and torch.isfinite(p.grad).all(), name
+    assert x.grad.dtype == torch.float32 and torch.isfinite(x.grad).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,w,h,n,d", [(4, 64, 1, 144, 128), (2, 1, 8, 144, 128), (3, 2, 2, 16, 16)])
+def test_v1_adapter_matches_plain(cuda, dtype, b, w, h, n, d):
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    q, k, v, do = (torch.randn((b, w, h, n, d), generator=gen, device=cuda).to(dtype) for _ in range(4))
+    q = q * d ** -0.5
+    bias = torch.randn((w, h, n, n), generator=gen, device=cuda)
+    bias[..., 1::3] = -1e9
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+    wa.reset_launch_counts()
+    out = wa.window_attention_fused(*leaves)
+    out.backward(do)
+    assert wa.LAUNCHES[wa.WINDOW_ATTENTION_V1] == wa.LAUNCHES[wa.WINDOW_ATTENTION_V1_BWD] == 1
+    assert wa.LAUNCHES[wa.WINDOW_ATTENTION_V2] == wa.LAUNCHES[wa.WINDOW_ATTENTION_V2_BWD] == 0
+    assert out.dtype == dtype and _rel_err(out, wa.window_attention_reference(q, k, v, bias)) <= _bwd_bar(dtype)
+    want = wa.window_attention_bwd_reference(q, k, v, bias, do)
+    for leaf, w_, bar in zip(leaves, want, (_bwd_bar(dtype),) * 3 + (1e-4,)):
+        assert leaf.grad.dtype == w_.dtype and _rel_err(leaf.grad, w_) <= bar

@@ -215,10 +215,16 @@ def test_widths_that_do_not_route_keep_the_unfused_tree():
 
 
 def test_medfusion_builds_with_the_fused_flags_and_refuses_b6():
+    """The fused flags build, B6's too: its flag gives every backbone block
+    the flat sublayer layout (``test_torch_block_attention.py``), beside B4
+    and B5 when all three are on."""
     cfg = tconfig.tiny_test_config()
     medfusion.MedFusion(dataclasses.replace(cfg.model, **FLAGS), 64, (32, 32, 32), device="meta")
-    with pytest.raises(NotImplementedError, match="B6"):
-        medfusion.MedFusion(dataclasses.replace(cfg.model, use_fused_block_attention=True), 64, (32, 32, 32))
+    tm = medfusion.MedFusion(dataclasses.replace(cfg.model, use_fused_block_attention=True, **FLAGS), 64,
+                             (32, 32, 32), device="meta")
+    blocks = [m for m in tm.modules() if isinstance(m, (layers.SelfAttentionBlock, swin2d.SwinBlock))]
+    assert len(blocks) == 4 and all(b.fused_block and not hasattr(b, "LayerNorm_0") for b in blocks)
+    assert all(hasattr(b, "ln1_scale") and hasattr(b, "LayerNorm_1") for b in blocks)
 
 
 def test_serving_cast_keeps_the_fused_biases_f32(rng):

@@ -84,7 +84,8 @@ class TestSelfAttention:
         q = torch.tensor(rng.normal(size=(2, 16, 16)).astype(np.float32), requires_grad=True)
         wa.self_attention_fused(q, q, q, 2, 0.25).sum().backward()
         assert set(wa.LAUNCHES) == {wa.SELF_ATTENTION, wa.WINDOW_ATTENTION_V2,
-                                    wa.SELF_ATTENTION_BWD, wa.WINDOW_ATTENTION_V2_BWD}
+                                    wa.SELF_ATTENTION_BWD, wa.WINDOW_ATTENTION_V2_BWD,
+                                    wa.WINDOW_ATTENTION_V1, wa.WINDOW_ATTENTION_V1_BWD}
         assert all(count == 0 for count in wa.LAUNCHES.values())
 
     def test_other_devices_raise(self):

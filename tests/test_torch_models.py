@@ -388,12 +388,18 @@ def test_medfusion_modality_mask(medfusion_case):
 
 
 def test_medfusion_refuses_train_and_unported_flags():
-    """B4 and B5 are ported (``test_torch_fused_models.py``); B6 is not."""
+    """Every kernel flag is ported: B4 and B5 (``test_torch_fused_models.py``)
+    and B6, whose flag builds the blocks' flat sublayer layout
+    (``test_torch_block_attention.py``).  Train mode still needs labels."""
     cfg = port_tiny_config()
-    with pytest.raises(NotImplementedError, match="B6"):
-        medfusion.MedFusion(
-            dataclasses.replace(cfg.model, use_fused_block_attention=True), 64, (32, 32, 32)
-        )
+    fused = medfusion.MedFusion(
+        dataclasses.replace(cfg.model, use_fused_block_attention=True), 64, (32, 32, 32), device="meta"
+    )
+    names = dict(fused.named_parameters())
+    assert "transformer_2d.SwinBlock_0.qkv_kernel" in names
+    assert "transformer_3d.SelfAttentionBlock_0.proj_kernel" in names
+    assert not any(("WindowAttention_0" in n or "MultiHeadAttention_0" in n) and n.startswith("transformer_")
+                   for n in names)
     tm = medfusion.MedFusion(cfg.model, 64, (32, 32, 32), device="meta")
     with pytest.raises(ValueError, match="train mode requires labels"):
         tm(torch.empty(1, device="meta"), torch.empty(1, device="meta"), train=True)

@@ -31,10 +31,26 @@ def test_union_of_kernel_intervals(spans, want):
     ("void (anonymous namespace)::fused_mlp_fwd_kernel<__nv_bfloat16, 32, 2>(MlpFwdParams)",
      "MLP kernels (B5 fwd/bwd, weight preps)"),
     ("void (anonymous namespace)::column_sum_kernel(const float *, float *, int, int)", "partial sums (dbias, B4, B5)"),
+    ("void (anonymous namespace)::sublayer_gemm_bf16_kernel<(anonymous namespace)::QkvEpilogue<__nv_bfloat16>>",
+     "attention sublayer products (B6)"),
     ("some_unknown_kernel", "other"),
 ])
 def test_kernel_categories(name, want):
     assert pts._category(name) == want
+
+
+@pytest.mark.parametrize("argv,flags", [
+    ([], dict(use_fused_attention=True, vit_fused_attention=True, use_fused_ln=False, use_fused_mlp=False,
+              use_fused_block_attention=False)),
+    (["--plain"], dict(use_fused_attention=False, vit_fused_attention=False, use_fused_block_attention=False)),
+    (["--fused-ln", "--fused-mlp"], dict(use_fused_ln=True, use_fused_mlp=True, use_fused_block_attention=False)),
+    (["--fused-block-attention"], dict(use_fused_block_attention=True, use_fused_ln=False)),
+])
+def test_configuration_flags(argv, flags):
+    cfg = pts.config_from_args(pts.parse_args(argv))
+    for name, value in flags.items():
+        assert getattr(cfg.model, name) == value, name
+    assert cfg.data.batch_size == 32 and cfg.model.use_bfloat16
 
 
 def test_refuses_without_a_card():
