@@ -10,7 +10,9 @@ Phases (any failed check raises, so the exit code is nonzero):
 1. Require CUDA; print the card's name and power limit; turn TF32 off.
 2. Build the CUDA kernels from ``edrl_tpu_torch/kernels/csrc`` (one nvcc per
    source, in parallel) and print the build time and the compiler's
-   register/shared-memory report.
+   register/shared-memory report; for the attention backward's tensor-core
+   kernels, registers, spills, shared memory and resident blocks per SM at
+   the main-path shapes.
 3. Check each forward kernel against its plain PyTorch version at every
    serving shape (batch 16) and at odd shapes, in bf16 (atol 3e-2) and f32
    (atol 1e-4).
@@ -24,14 +26,21 @@ Phases (any failed check raises, so the exit code is nonzero):
 6. Time each forward kernel against its plain version at the serving
    shapes, and the full-width forward at batch 16 on both paths.
 7. Check the backward kernels (B1, B2) and the MK-MMD kernel (B3) against
-   their plain versions at every train-step shape of batch 32 and at odd
-   shapes, in bf16 and f32.  Bars, relative to the largest magnitude of the
-   plain result: 1e-2 for bf16 results, 1e-4 for f32 results and dbias;
-   MK-MMD rtol 1e-4.
+   their plain versions at every train-step shape of batch 32 (B2 also at
+   N = 216, W = 1, as the fused attention sublayer calls it) and at the
+   edges of the backward's two routes (bf16 takes the tensor cores at
+   head_dim % 16 == 0 and N <= 224): N = 224 and 225, N = 1, 17 and 145,
+   head_dim 16, 8 and 24, N = 240, biases with -1e9 entries; in bf16 and
+   f32, each call counted under the route the Python mirror predicts, which
+   must be the C entry points' choice.  Bars, relative to the largest
+   magnitude of the plain result: 1e-2 for bf16 results, 1e-4 for f32
+   results and dbias; MK-MMD rtol 1e-4.  dqkv and dbias the same bit for bit
+   over two launches at a Swin train shape.
 8. Train three full-width steps (``EDRLConfig()``: bf16, both fused flags,
    batch 32, seeded weights) on ready-made f32 views from numpy seed 0, and
    check finite losses, changed parameters and BN statistics, and 24
-   launches per step of each attention kernel, forward and backward.  Then
+   launches per step of each attention kernel, forward and backward, every
+   backward launch on the tensor-core route.  Then
    one step with ``use_pallas_mmd`` against the same step with the plain
    MMD: B3 launched once, and the two MMD values agree (rtol 1e-4).
 9. One step on the kernel path against one on the plain path, same weights,
@@ -63,7 +72,7 @@ MLP runs through B4 and B5:
     12 B2 launches.
 13. Train three full-width bf16 steps at batch 32: finite losses, changed
     parameters; per step 108 + 108 B4, 48 + 48 B5 and 24 of each attention
-    kernel, forward and backward.
+    kernel, forward and backward, the backward on the tensor cores.
 14. One more bf16 step with every B4 and B5 call, forward and backward, held
     against the plain versions on that call's own tensors.
 15. A small f32 model of the configuration (widths that route), one step on
@@ -97,7 +106,7 @@ backward through the B2 kernels:
     12 ViT) and none of B1 or B2.
 19. Train three full-width bf16 steps at batch 32: finite losses, changed
     parameters; per step 48 B6 launches, 48 of B2's forward (the backward's
-    recompute) and 48 of B2's backward, none of B1.
+    recompute) and 48 of B2's backward on the tensor cores, none of B1.
 20. One more bf16 step with every B6 call, forward and backward, held
     against the plain versions on that call's own tensors.
 21. A small f32 model of the configuration (widths that route, shifted
@@ -269,6 +278,21 @@ def main() -> None:
               f"{len(spills)} spill", flush=True)
         for line in spills:
             print(f"  ptxas spill: {line}")
+        for kernel in ("attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel"):
+            found = [r for e, r in regs.items() if kernel in e]
+            print(f"  ptxas {kernel}: registers {found}, "
+                  f"spilling: {[line for line in spills if kernel in line] or 'none'}", flush=True)
+    # The attention backward's tensor-core kernels at the main-path shapes:
+    # resident blocks per SM (occupancy calculator) and shared memory.
+    import ctypes
+
+    bwd_lib = build.load_library()
+    for label, n_bwd, with_dbias in (("B1, N=216", 216, 0), ("B2, N=144", 144, 1), ("B2 under B6, N=216", 216, 1)):
+        occ = (ctypes.c_int * 4)()
+        check(bwd_lib.edrl_attention_bwd_occupancy(1, n_bwd, 128, with_dbias, occ) == 0, "occupancy query")
+        print(f"  attention bwd tensor cores, {label}, head_dim 128: dq kernel {occ[0]} blocks per SM "
+              f"({4 * occ[0]} warps), {occ[2]} bytes of shared memory; dk/dv kernel {occ[1]} blocks per SM "
+              f"({4 * occ[1]} warps), {occ[3]} bytes", flush=True)
 
     # -- 3. forward kernels against their plain versions --------------------
     cfg = EDRLConfig()
@@ -464,7 +488,7 @@ def main() -> None:
     def rel_err(got, want):
         return ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30)).item()
 
-    def compare_grads(name, label, dtype, got, want, dbias=None):
+    def compare_grads(name, label, dtype, got, want, dbias=None, main_path=True):
         """got/want: tuples of gradients in dtype; dbias: optional (got, want) f32."""
         kind = "bf16" if dtype == torch.bfloat16 else "f32"
         pairs = [(g, w, BWD_BAR[kind]) for g, w in zip(got, want)]
@@ -473,37 +497,75 @@ def main() -> None:
         for g, w, bar in pairs:
             err, rel = (g.float() - w.float()).abs().max().item(), rel_err(g, w)
             check(rel <= bar, f"{name} {label} {kind}: relative error {rel} over {bar}")
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and main_path:
                 max_err[name] = max(max_err[name], err)
         worst = max(rel_err(g, w) for g, w, _ in pairs)
         print(f"check {name} {label} {kind}: worst relative error {worst:.3e} "
               f"(bars {BWD_BAR[kind]:g} / dbias {BWD_BAR['f32']:g})", flush=True)
 
-    def sa_bwd_case(shape, heads, dtype):
+    def routed(name, label, dtype, n_, d_, launch):
+        """Run ``launch`` (one backward call) and check that it counted under
+        the route attention_bwd_route predicts, which must be the route the C
+        entry points pick (edrl_attention_bwd_route)."""
+        route = wa.attention_bwd_route(dtype, n_, d_)
+        c_route = {1: "mma", 0: "fma"}[bwd_lib.edrl_attention_bwd_route(int(dtype == torch.bfloat16), n_, d_)]
+        check(route == c_route, f"{name} {label}: Python route {route}, C route {c_route}")
+        wa.reset_launch_counts()
+        out = launch()
+        check(wa.BWD_ROUTES == {r: int(r == route) for r in wa.BWD_ROUTES},
+              f"{name} {label}: routes {wa.BWD_ROUTES}, expected one launch on {route}")
+        return out, route
+
+    def sa_bwd_case(shape, heads, dtype, main_path=False):
         q, k, v, do = (normal(shape, dtype) for _ in range(4))
         scale = (shape[2] // heads) ** -0.5
-        got = wa.self_attention_bwd_kernel(q, k, v, do, heads, scale)
+        label = f"{list(shape)}x{heads}" + ("" if main_path else " (edge)")
+        got, route = routed(SA_BWD, label, dtype, shape[1], shape[2] // heads,
+                            lambda: wa.self_attention_bwd_kernel(q, k, v, do, heads, scale))
         want = wa.self_attention_bwd_reference(q, k, v, do, heads, scale)
-        compare_grads(SA_BWD, f"{list(shape)}x{heads}", dtype, got, want)
+        compare_grads(SA_BWD, f"{label} {route}", dtype, got, want, main_path=main_path)
 
-    def v2_bwd_case(qkv, bias, heads, dtype, label):
+    def v2_bwd_case(qkv, bias, heads, dtype, label, main_path=False, twice=False):
         do = normal((*qkv.shape[:3], qkv.shape[3] // 3), dtype)
         scale = (qkv.shape[3] // 3 // heads) ** -0.5
-        dqkv, dbias = wa.window_attention_v2_bwd_kernel(qkv, bias, do, heads, scale)
+        (dqkv, dbias), route = routed(V2_BWD, label, dtype, qkv.shape[2], qkv.shape[3] // 3 // heads,
+                                      lambda: wa.window_attention_v2_bwd_kernel(qkv, bias, do, heads, scale))
         want_dqkv, want_dbias = wa.window_attention_v2_bwd_reference(qkv, bias, do, heads, scale)
-        compare_grads(V2_BWD, label, dtype, (dqkv,), (want_dqkv,), (dbias, want_dbias))
+        compare_grads(V2_BWD, f"{label} {route}", dtype, (dqkv,), (want_dqkv,), (dbias, want_dbias),
+                      main_path=main_path)
+        if twice:
+            again = wa.window_attention_v2_bwd_kernel(qkv, bias, do, heads, scale)
+            same = torch.equal(again[0], dqkv) and torch.equal(again[1], dbias)
+            print(f"check {V2_BWD} {label} {route}: dqkv and dbias the same bit for bit over two launches: "
+                  f"{same}", flush=True)
+            check(same, f"{V2_BWD} {label}: two launches differ")
 
+    # The backward's edges, (shape, heads): N = 224 (tensor cores) and 225
+    # (CUDA cores in bf16 too), N = 1, 17 and 145 (ragged tails), head_dim
+    # 16 (tensor cores), 8 and 24 (CUDA cores), N = 240.
+    sa_edges = (((2, 224, 128), 1), ((2, 225, 128), 1), ((2, 1, 32), 2), ((3, 17, 32), 2), ((2, 145, 256), 2),
+                ((3, 16, 32), 2), ((2, 40, 16), 2), ((2, 40, 48), 2), ((2, 240, 128), 1))
+    v2_edges = (((2, 1, 224, 384), 1), ((2, 1, 225, 384), 1), ((2, 3, 1, 96), 2), ((3, 2, 17, 96), 2),
+                ((2, 2, 145, 384), 1), ((3, 2, 16, 96), 2), ((2, 2, 16, 48), 2), ((2, 1, 40, 144), 2),
+                ((2, 1, 240, 48), 2))
     for dtype in (torch.bfloat16, torch.float32):
-        sa_bwd_case((bt, mc.oct_tokens, c_vit), h_vit, dtype)
-        for s in train_swin:
+        sa_bwd_case((bt, mc.oct_tokens, c_vit), h_vit, dtype, main_path=True)
+        for i, s in enumerate(train_swin):
             qkv, bias = swin_inputs(s, dtype)
-            v2_bwd_case(qkv, bias, s["heads"], dtype, f"{list(qkv.shape)} H={s['heads']} shifted={s['shifted']}")
-        for shape, heads in (((3, 16, 32), 2), ((2, 40, 16), 2), ((2, 240, 128), 1)):
+            v2_bwd_case(qkv, bias, s["heads"], dtype, f"{list(qkv.shape)} H={s['heads']} shifted={s['shifted']}",
+                        main_path=True, twice=i == 1)
+            del qkv, bias
+        # B2 as the fused attention sublayer calls it for the ViT: N = 216, W = 1, zero bias.
+        v2_bwd_case(normal((bt, 1, mc.oct_tokens, 3 * c_vit), dtype),
+                    torch.zeros((1, h_vit, mc.oct_tokens, mc.oct_tokens), device=dev), h_vit, dtype,
+                    f"[{bt},1,{mc.oct_tokens},{3 * c_vit}] H={h_vit} zero bias (B6's ViT)", main_path=True)
+        torch.cuda.empty_cache()
+        for shape, heads in sa_edges:
             sa_bwd_case(shape, heads, dtype)
-        for shape, heads in (((3, 2, 16, 96), 2), ((2, 1, 240, 48), 2)):
+        for shape, heads in v2_edges:
             bias = torch.randn((shape[1], heads, shape[2], shape[2]), generator=gen, device=dev)
             bias[..., 1::3] = -1e9
-            v2_bwd_case(normal(shape, dtype), bias, heads, dtype, f"{list(shape)} H={heads} (odd)")
+            v2_bwd_case(normal(shape, dtype), bias, heads, dtype, f"{list(shape)} H={heads} -1e9 bias (edge)")
     feat_dim = mc.fundus_embed_dim * 3
     for n_s, n_t, dd in ((bt, bt, feat_dim), (3, 5, 7), (70, 70, 129)):
         src = normal((n_s, dd), torch.float32)
@@ -538,6 +600,7 @@ def main() -> None:
     outs = [train_step(state, batch, gen_train) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     train_launches = counts()
+    train_routes = dict(wa.BWD_ROUTES)
     for i, out in enumerate(outs):
         loss, mmd_v = out["loss"].item(), out["mmd"].item()
         print(f"train step {i}: loss {loss:.6f}, mmd {mmd_v:.6f}, ce {out['ce_loss'].item():.6f}, "
@@ -560,6 +623,13 @@ def main() -> None:
         check(train_launches[name] == per_step * TRAIN_STEPS,
               f"{name} launched {train_launches[name]} times in {TRAIN_STEPS} steps")
     check(train_launches[MMD] == 0, "B3 is off in the shipped config")
+
+    def check_routes(label, routes, launches):
+        print(f"{label}: backward launches by route {routes} (expected {launches} on the tensor cores, "
+              f"none on the CUDA cores)", flush=True)
+        check(routes == {"mma": launches, "fma": 0}, f"{label}: backward routes {routes}")
+
+    check_routes(f"train, {TRAIN_STEPS} steps", train_routes, 2 * per_step * TRAIN_STEPS)
     del state
     torch.cuda.empty_cache()
 
@@ -994,6 +1064,7 @@ def main() -> None:
     s_outs = [s_step(s_state, batch, gen_slice) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     slice_launches = counts()
+    check_routes(f"slice train, {TRAIN_STEPS} steps", dict(wa.BWD_ROUTES), 48 * TRAIN_STEPS)
     for i, out in enumerate(s_outs):
         loss, mmd_v = out["loss"].item(), out["mmd"].item()
         print(f"slice train step {i}: loss {loss:.6f}, mmd {mmd_v:.6f}", flush=True)
@@ -1388,6 +1459,7 @@ def main() -> None:
     b6_outs = [b6_step(b6_state, batch, gen_b6) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     b6_launches = counts()
+    check_routes(f"B6 config train, {TRAIN_STEPS} steps", dict(wa.BWD_ROUTES), 2 * n_b6 * TRAIN_STEPS)
     for i, out in enumerate(b6_outs):
         loss, mmd_v = out["loss"].item(), out["mmd"].item()
         print(f"B6 config train step {i}: loss {loss:.6f}, mmd {mmd_v:.6f}", flush=True)

@@ -107,6 +107,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     signatures = {
         "edrl_attention_smem_bytes": (i64, [i32, i32]),
         "edrl_attention_bwd_smem_bytes": (i64, [i32, i32, i32]),
+        # is_bf16, n, d -> 1 for the tensor-core route, 0 for the CUDA-core route
+        "edrl_attention_bwd_route": (i32, [i32, i32, i32]),
+        # is_bf16, n, d, with_dbias, out[4]: dq and dk/dv kernels' blocks per SM, then their smem bytes
+        "edrl_attention_bwd_occupancy": (i32, [i32, i32, i32, i32, ptr]),
         "edrl_self_attention_fwd": (i32, [ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, i32, ptr]),
         "edrl_window_attention_v2_fwd": (i32, [ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, i32, ptr]),
         # q, k, v, dout, dq, dk, dv, stats, batch, n, c, heads, scale, is_bf16, stream

@@ -1,6 +1,6 @@
 // Helpers shared by the kernels in this folder: dtype conversion to and from
-// f32, warp reductions, rounding up, the dynamic shared-memory opt-in, and a
-// fixed-order column sum of per-block partials.
+// f32, warp reductions, rounding up, pointer alignment, the dynamic
+// shared-memory opt-in, and a fixed-order column sum of per-block partials.
 
 #pragma once
 
@@ -13,6 +13,9 @@
 namespace {
 
 inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+inline bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0; }
+inline bool aligned4(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 3u) == 0; }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

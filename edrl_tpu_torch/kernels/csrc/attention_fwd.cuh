@@ -410,10 +410,6 @@ cudaError_t launch_attention_fwd_mma(AttnParams p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-inline bool aligned16(const void* ptr) {
-  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
-}
-
 // Launches on `stream` and returns cudaGetLastError(); the caller has checked
 // the shapes (d % 8 == 0, d <= kMaxHeadDim, shared memory within the limit).
 template <typename T>

@@ -131,19 +131,6 @@ __device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src, int src
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // As stage_rows, asynchronously (cp.async); the caller commits and waits.
 template <typename T>
 __device__ __forceinline__ void stage_rows_async(T* dst, int ld, const T* src, int src_ld, int row0,

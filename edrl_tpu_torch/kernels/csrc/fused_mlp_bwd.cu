@@ -190,13 +190,6 @@ constexpr int kWgTile = 128;     // a block's P x Q tile; 8 warps of 64 x 32
 constexpr int kWgK = 32;         // rows of m per staged slice
 constexpr int kWgLd = kWgTile + 8;
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* ptr) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 // A fragments (A[p][k] = x_s[k][p]) of the 16 x 16 block at (p0, k0).
 __device__ __forceinline__ void wg_a_frag(const __nv_bfloat16* x_s, int k0, int p0, uint32_t (&a)[1][4]) {
   const int lane = threadIdx.x & 31;

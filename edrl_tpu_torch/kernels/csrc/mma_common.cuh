@@ -1,6 +1,7 @@
-// Tensor-core helpers shared by the attention forward and the fused MLP:
-// mma.sync m16n8k16 (bf16 in, f32 accumulate), ldmatrix of B fragments,
-// bf16 packing and 32-bit shared-memory loads.
+// Tensor-core helpers shared by the attention kernels, the fused MLP and the
+// fused attention sublayer: mma.sync m16n8k16 (bf16 in, f32 accumulate),
+// ldmatrix of A and B fragments, bf16 packing, 32-bit shared-memory loads
+// and cp.async.
 //
 // Fragment layout of m16n8k16 (lane = 4 * g + t): A rows g and g + 8, columns
 // 2t, 2t + 1 (+ 8); B columns g, rows 2t, 2t + 1 (+ 8); C rows g and g + 8,
@@ -29,6 +30,21 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, co
                : "r"(addr));
 }
 
+// Four 8 x 8 matrices; lanes 8i .. 8i + 7 give the row addresses of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* ptr) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* ptr) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
@@ -36,6 +52,27 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* ptr) {
   return *reinterpret_cast<const uint32_t*>(ptr);
+}
+
+// 16 bytes (or, when !valid, 16 zero bytes) into shared memory, asynchronously.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
+
+// 4 bytes (or 4 zero bytes), asynchronously.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 }  // namespace

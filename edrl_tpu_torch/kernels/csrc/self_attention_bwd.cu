@@ -10,22 +10,43 @@
 // (recomputed scores, dp, dv, dq, dk) against about 387 KB of q, k, v, do,
 // dq, dk and dv in bf16: ~154 FLOP/B, below the card's ~295 FLOP/B ridge for
 // bf16 tensor cores, so the ideal kernel is bandwidth-bound (bound_ms in
-// chip_smoke.py).  This first version runs its products as f32 FMA on the
-// CUDA cores (attention_bwd.cuh), so it is bound by those operations, and it
-// recomputes the scores and dp in both of its kernels (7 products instead
-// of 5).  What the design does: every operand is read in place through
-// strides, the [N, N] probabilities never reach device memory (only three
-// f32 numbers per row do), and no block waits on another.
+// chip_smoke.py: 74 MB per call).  The first version ran 7 products as f32
+// FMA on the CUDA cores at ~10 TFLOP/s and was bound by those operations.
+// What the design does (attention_bwd.cuh): bf16 calls run on the tensor
+// cores, 11 mma.sync products per (b, h) (scores and dp recomputed rather
+// than stored, ds as bf16 hi + lo in the dq and dk products; ~25 GFLOP a
+// call) from bf16 tiles that cp.async stages ahead of their use.  What holds
+// it now is latency: 8 resident warps per SM (registers), each working
+// through a chain of short dependent products per staged chunk (PERF.md).
+// Every operand is read in place through strides, the [N, N] probabilities
+// never reach device memory (only three f32 numbers per row do), and no
+// block waits on another.  f32 calls keep the CUDA-core route.
 //
 // Layout: B1 is attention_bwd.cuh with one window and no bias.
 
 #include "attention_bwd.cuh"
 
-// Dynamic shared memory the larger of the two backward kernels takes at (n, d).
+// 1 if a call of this dtype and shape takes the tensor-core route, 0 if it
+// takes the CUDA-core route (kernels/window_attention.py mirrors this as
+// attention_bwd_route).
+extern "C" int edrl_attention_bwd_route(int is_bf16, int n, int d) {
+  return attention_bwd_route_mma(is_bf16 != 0, n, d) ? 1 : 0;
+}
+
+// Dynamic shared memory the largest backward kernel of either route takes
+// at (n, d).
 extern "C" long long edrl_attention_bwd_smem_bytes(int n, int d, int with_dbias) {
-  const size_t dq = attention_bwd_dq_smem_bytes(n, d, with_dbias != 0);
-  const size_t dkv = attention_bwd_dkv_smem_bytes(d);
-  return (long long)(dq > dkv ? dq : dkv);
+  const size_t fma = attention_bwd_smem_bytes(false, n, d, with_dbias != 0);
+  const size_t mma = attention_bwd_smem_bytes(true, n, d, with_dbias != 0);
+  return (long long)(fma > mma ? fma : mma);
+}
+
+// The route's dq and dk/dv kernels at (n, d): resident blocks per SM, as the
+// CUDA occupancy calculator gives them (registers, shared memory and threads
+// per block), in out[0] and out[1], dynamic shared memory per block in out[2]
+// and out[3]; returns 0 or a CUDA error.
+extern "C" int edrl_attention_bwd_occupancy(int is_bf16, int n, int d, int with_dbias, int* out) {
+  return (int)attention_bwd_occupancy(is_bf16 != 0, n, d, with_dbias != 0, out);
 }
 
 // stats: 3 * batch * heads * n f32 scratch (row max, row sum, delta).

@@ -11,15 +11,20 @@
 // needs 5 products of 2 * N^2 * D = 5.3 MFLOP against about 258 KB of qkv,
 // do and dqkv in bf16 plus the 83 KB f32 bias and dbias per (w, h): ~80
 // FLOP/B, below the ~295 FLOP/B ridge, so the ideal kernel is
-// bandwidth-bound.  This first version runs its products as f32 FMA on the
-// CUDA cores (attention_bwd.cuh) and is bound by them.
+// bandwidth-bound.  The first version ran 7 products as f32 FMA on the CUDA
+// cores at ~9 TFLOP/s and was bound by them.  What the design does
+// (attention_bwd.cuh): bf16 calls (every Swin stage, and N = 216 with W = 1
+// under the fused attention sublayer) run 11 mma.sync products per (b, w, h)
+// on the tensor cores from cp.async-staged bf16 tiles, dbias summed from the
+// f32 ds; f32 calls keep the CUDA-core route.  Latency (8 resident warps per
+// SM, short dependent products per staged chunk) holds it now (PERF.md).
 //
 // The batch reduction of dbias: the TPU kernel accumulated it over a
 // sequential batch grid.  Here each dq block walks over a chunk of the batch
 // and sums its ds rows in shared memory; the chunk size is chosen by the
-// caller so that the grid still fills the card (4 blocks per SM), and a
-// small kernel sums the chunks' partials in a fixed order.  The result is
-// deterministic.
+// caller (window_attention.dbias_chunking: the fewest whole waves of blocks
+// on the card), and a small kernel sums the chunks' partials in a fixed
+// order.  The result is deterministic.
 
 #include "attention_bwd.cuh"
 

@@ -26,10 +26,17 @@ backward (:func:`self_attention_bwd_reference`,
 hand-written kernels or raises.
 
 Each kernel wrapper counts its launches in :data:`LAUNCHES`, so that a run
-can show that its main path went through the kernels.
+can show that its main path went through the kernels.  The backward kernels
+take one of two routes, chosen from the dtype and shape in the C entry points
+and mirrored by :func:`attention_bwd_route`: ``"mma"`` (bf16, head_dim % 16
+== 0, N <= 224: tensor cores) or ``"fma"`` (f32, and the other bf16 shapes:
+CUDA cores).  Each backward launch also counts under its route in
+:data:`BWD_ROUTES`.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -45,15 +52,32 @@ WINDOW_ATTENTION_V1_BWD = "window_attention_fused_bwd"
 # v1 adapter counts its launches of the B2 kernels under its own names.
 LAUNCHES = {SELF_ATTENTION: 0, WINDOW_ATTENTION_V2: 0, SELF_ATTENTION_BWD: 0, WINDOW_ATTENTION_V2_BWD: 0,
             WINDOW_ATTENTION_V1: 0, WINDOW_ATTENTION_V1_BWD: 0}
+# Backward launches (B1, B2 and the v1 adapter's) since the last reset, by route.
+BWD_ROUTES = {"mma": 0, "fma": 0}
 MAX_HEAD_DIM = 128
-MAX_BWD_TOKENS = 256  # the backward keeps [32, N] f32 score rows per block in shared memory
+MAX_BWD_TOKENS = 256  # the CUDA-core backward keeps [32, N] f32 score rows per block in shared memory
+MMA_BWD_MAX_TOKENS = 224  # the tensor-core backward takes the calls the tensor-core forward takes
 _SMEM_LIMIT = 232448 - 4 * 64  # opt-in per-block limit, less the 64 static f32 row sums
-_BLOCKS_PER_SM = 4  # the B2 backward sizes its batch chunks to fill the SMs this many times
+_BWD_QUERY_TILE = {"mma": 64, "fma": 32}  # queries per dq block of each route
+_DQ_BLOCKS_PER_SM: dict = {}  # (device index, dtype, n, d) -> resident dq blocks per SM with dbias
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, BWD_ROUTES):
+        for name in counts:
+            counts[name] = 0
+
+
+def attention_bwd_route(dtype, n: int, d: int) -> str:
+    """The backward kernels' route for a call: ``"mma"`` (tensor cores) for
+    bf16 with head_dim % 16 == 0 and N <= 224, else ``"fma"`` (CUDA cores).
+
+    Mirrors ``attention_bwd_route_mma`` in ``csrc/attention_bwd.cuh``, which
+    picks the route before the launch (``edrl_attention_bwd_route`` exposes
+    it).  Shapes the kernels refuse altogether (head_dim % 8, N > 256) are
+    checked elsewhere.
+    """
+    return "mma" if dtype == torch.bfloat16 and d % 16 == 0 and n <= MMA_BWD_MAX_TOKENS else "fma"
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +235,53 @@ def _grad_output(dout, like):
     return dout.to(like.dtype).contiguous()
 
 
+def _bwd_operands(route: str, tensors):
+    """The backward's inputs as its route takes them: the tensor-core route
+    stages rows by 16-byte copies, so a view that starts off a 16-byte
+    boundary is copied (a fresh allocation is aligned)."""
+    if route != "mma":
+        return tuple(tensors)
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors)
+
+
+def _launch_bwd(name: str, route: str, fn, device, *args) -> None:
+    build.launch(LAUNCHES, name, fn, device, *args)
+    BWD_ROUTES[route] += 1
+
+
+def dbias_chunking(b: int, base: int, slots: int) -> tuple[int, int]:
+    """``(batch entries per dq block, chunks)`` for the B2 backward's dbias.
+
+    A dq block walks over its chunk of the batch one entry after another and
+    writes the chunk's partial dbias; ``base`` blocks (query tiles x windows
+    x heads) take each chunk, and ``slots`` blocks fit on the card at once.
+    The kernel then takes about ceil(base * chunks / slots) * per_block
+    entries' time: the smallest such time, and of those the fewest chunks
+    (the fewest partials to add).
+    """
+    best = None
+    for per_block in range(1, b + 1):
+        chunks = -(-b // per_block)
+        key = (-(-base * chunks // slots) * per_block, chunks)
+        if best is None or key < best[0]:
+            best = (key, per_block, chunks)
+    return best[1], best[2]
+
+
+def _dq_blocks_per_sm(lib, device, dtype, n: int, d: int) -> int:
+    """Resident blocks per SM of the dq kernel with dbias, from the card's
+    occupancy calculator (cached)."""
+    key = (device.index, dtype, n, d)
+    if key not in _DQ_BLOCKS_PER_SM:
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(device):
+            err = lib.edrl_attention_bwd_occupancy(int(dtype == torch.bfloat16), n, d, 1, out)
+        if err != 0 or out[0] < 1:
+            raise RuntimeError(f"{WINDOW_ATTENTION_V2_BWD}: occupancy query failed with CUDA error {err}")
+        _DQ_BLOCKS_PER_SM[key] = out[0]
+    return _DQ_BLOCKS_PER_SM[key]
+
+
 # -- B1 ----------------------------------------------------------------------
 
 
@@ -242,9 +313,11 @@ def self_attention_bwd_kernel(q, k, v, dout, num_heads: int, scale: float):
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel() == 0:
         return dq, dk, dv
+    route = attention_bwd_route(q.dtype, n, d)
+    q, k, v, dout = _bwd_operands(route, (q, k, v, dout))
     stats = torch.empty((3, b * num_heads * n), dtype=torch.float32, device=q.device)
-    build.launch(
-        LAUNCHES, SELF_ATTENTION_BWD, lib.edrl_self_attention_bwd, q.device,
+    _launch_bwd(
+        SELF_ATTENTION_BWD, route, lib.edrl_self_attention_bwd, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
         b, n, c, num_heads, float(scale), int(q.dtype == torch.bfloat16),
@@ -332,18 +405,16 @@ def window_attention_v2_bwd_kernel(qkv, bias, dout, num_heads: int, scale: float
     dbias = torch.empty_like(bias)
     if qkv.numel() == 0:
         return dqkv, dbias.zero_()
+    route = attention_bwd_route(qkv.dtype, n, d)
+    qkv, bias, dout = _bwd_operands(route, (qkv, bias, dout))
     stats = torch.empty((3, b * w * num_heads * n), dtype=torch.float32, device=qkv.device)
-    # Batch entries one dq block sums ds over: as many as leave the grid at
-    # least _BLOCKS_PER_SM blocks per SM.
-    sms = build.sm_count(qkv.device)
-    base = w * num_heads * -(-n // 32)
-    chunks = min(b, max(1, -(-_BLOCKS_PER_SM * sms // base)))
-    per_block = -(-b // chunks)
-    chunks = -(-b // per_block)
+    # Batch entries one dq block sums ds over (dbias_chunking).
+    slots = _dq_blocks_per_sm(lib, qkv.device, qkv.dtype, n, d) * build.sm_count(qkv.device)
+    per_block, chunks = dbias_chunking(b, w * num_heads * -(-n // _BWD_QUERY_TILE[route]), slots)
     partial = dbias if chunks == 1 else torch.empty(
         (chunks, *bias.shape), dtype=torch.float32, device=qkv.device)
-    build.launch(
-        LAUNCHES, name, lib.edrl_window_attention_v2_bwd, qkv.device,
+    _launch_bwd(
+        name, route, lib.edrl_window_attention_v2_bwd, qkv.device,
         qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), partial.data_ptr(),
         dbias.data_ptr(), stats.data_ptr(), b, w, n, c, num_heads, per_block, float(scale),
         int(qkv.dtype == torch.bfloat16),

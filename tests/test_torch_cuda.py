@@ -6,7 +6,7 @@ imports no JAX, so it also runs on a card machine that has none:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
 Shapes: the main-path ones, plus odd ones that take the CUDA-core kernel in
-bf16 (head_dim 8, N above 224).  B6 (the fused attention sublayer) and the
+bf16 (head_dim 8 or 24, N above 224) and ragged tails.  B6 (the fused attention sublayer) and the
 v1 adapter are held at the bars of the backwards below, forward and
 backward.  Tolerances: forwards bf16 atol 3e-2, f32
 atol 1e-4.  Backwards, relative to the largest magnitude of the plain
@@ -78,17 +78,31 @@ def _bwd_bar(dtype):
     return 1e-2 if dtype == torch.bfloat16 else 1e-4
 
 
+# Backward shapes: the batch-32 train shapes, and the edges of the two
+# routes (bf16 takes the tensor cores at head_dim % 16 == 0 and N <= 224):
+# N = 224 (tensor cores) and 225 (CUDA cores), N = 1, 17 and 145 (ragged
+# tails), head_dim 16 (tensor cores), head_dim 8 and 24 (CUDA cores), and
+# N = 240 (CUDA cores).
+SA_BWD_SHAPES = [(32, 216, 768, 6), (2, 224, 128, 1), (2, 225, 128, 1), (2, 1, 32, 2), (3, 17, 32, 2),
+                 (2, 145, 256, 2), (3, 16, 32, 2), (2, 70, 64, 1), (2, 40, 16, 2), (2, 40, 48, 2),
+                 (2, 240, 128, 1)]
+V2_BWD_SHAPES = [(32, 64, 144, 128, 1), (32, 16, 144, 256, 2), (32, 4, 144, 512, 4), (32, 1, 144, 1024, 8),
+                 (32, 1, 216, 768, 6), (2, 1, 224, 128, 1), (2, 1, 225, 128, 1), (2, 3, 1, 32, 2),
+                 (3, 2, 17, 32, 2), (2, 2, 145, 128, 1), (3, 2, 16, 32, 2), (2, 2, 16, 16, 2), (2, 1, 240, 48, 2)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize(
-    "b,n,c,heads", [(32, 216, 768, 6), (3, 16, 32, 2), (2, 70, 64, 1), (2, 40, 16, 2), (2, 240, 128, 1)]
-)
+@pytest.mark.parametrize("b,n,c,heads", SA_BWD_SHAPES)
 def test_self_attention_bwd_kernel_matches_plain(cuda, dtype, b, n, c, heads):
     gen = torch.Generator(device=cuda).manual_seed(1)
     q, k, v, do = (torch.randn((b, n, c), generator=gen, device=cuda).to(dtype) for _ in range(4))
     scale = (c // heads) ** -0.5
+    wa.reset_launch_counts()
     got = wa.self_attention_bwd_kernel(q, k, v, do, heads, scale)
     want = wa.self_attention_bwd_reference(q, k, v, do, heads, scale)
+    route = wa.attention_bwd_route(dtype, n, c // heads)
+    assert wa.BWD_ROUTES == {name: int(name == route) for name in wa.BWD_ROUTES}
     for g, w in zip(got, want):
         assert g.dtype == dtype
         assert _rel_err(g, w) <= _bwd_bar(dtype)
@@ -96,9 +110,7 @@ def test_self_attention_bwd_kernel_matches_plain(cuda, dtype, b, n, c, heads):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize(
-    "b,w,n,c,heads", [(32, 64, 144, 128, 1), (32, 1, 144, 1024, 8), (3, 2, 16, 32, 2), (2, 1, 240, 48, 2)]
-)
+@pytest.mark.parametrize("b,w,n,c,heads", V2_BWD_SHAPES)
 def test_window_attention_bwd_kernel_matches_plain(cuda, dtype, b, w, n, c, heads):
     gen = torch.Generator(device=cuda).manual_seed(2)
     qkv = torch.randn((b, w, n, 3 * c), generator=gen, device=cuda).to(dtype)
@@ -106,13 +118,45 @@ def test_window_attention_bwd_kernel_matches_plain(cuda, dtype, b, w, n, c, head
     bias = torch.randn((w, heads, n, n), generator=gen, device=cuda)
     bias[..., 1::3] = -1e9
     scale = (c // heads) ** -0.5
+    wa.reset_launch_counts()
     dqkv, dbias = wa.window_attention_v2_bwd_kernel(qkv, bias, do, heads, scale)
+    route = wa.attention_bwd_route(dtype, n, c // heads)
+    assert wa.BWD_ROUTES == {name: int(name == route) for name in wa.BWD_ROUTES}
     want_dqkv, want_dbias = wa.window_attention_v2_bwd_reference(qkv, bias, do, heads, scale)
     assert dqkv.dtype == dtype and dbias.dtype == torch.float32
     assert _rel_err(dqkv, want_dqkv) <= _bwd_bar(dtype)
     assert _rel_err(dbias, want_dbias) <= 1e-4
     again = wa.window_attention_v2_bwd_kernel(qkv, bias, do, heads, scale)[1]
     assert torch.equal(again, dbias)  # a fixed summation order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,w,n,c,heads", [(32, 16, 144, 256, 2), (32, 1, 216, 768, 6)])
+def test_window_attention_bwd_is_deterministic(cuda, dtype, b, w, n, c, heads):
+    """dqkv and dbias the same bit for bit over two launches: no atomics, one
+    summation order (dbias: per batch chunk in shared memory, then the chunks)."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    qkv = torch.randn((b, w, n, 3 * c), generator=gen, device=cuda).to(dtype)
+    do = torch.randn((b, w, n, c), generator=gen, device=cuda).to(dtype)
+    bias = torch.randn((w, heads, n, n), generator=gen, device=cuda)
+    first = wa.window_attention_v2_bwd_kernel(qkv, bias, do, heads, 0.09)
+    second = wa.window_attention_v2_bwd_kernel(qkv, bias, do, heads, 0.09)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+def test_bwd_route_mirrors_the_entry_points(cuda):
+    """attention_bwd_route (Python) picks what edrl_attention_bwd_route (C) picks."""
+    from edrl_tpu_torch.kernels import build
+
+    lib = build.load_library()
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in (1, 16, 17, 144, 145, 216, 224, 225, 240, 256):
+            for d in (8, 16, 24, 32, 64, 128):
+                want = wa.attention_bwd_route(dtype, n, d)
+                got = lib.edrl_attention_bwd_route(int(dtype == torch.bfloat16), n, d)
+                assert {1: "mma", 0: "fma"}[got] == want, (dtype, n, d)
 
 
 @pytest.mark.cuda
