@@ -10,12 +10,14 @@ Phases (any failed check raises, so the exit code is nonzero):
 1. Require CUDA; print the card's name and power limit; turn TF32 off.
 2. Build the CUDA kernels from ``edrl_tpu_torch/kernels/csrc`` (one nvcc per
    source, in parallel) and print the build time and the compiler's
-   register/shared-memory report; for the attention backward's tensor-core
-   kernels, registers, spills, shared memory and resident blocks per SM at
-   the main-path shapes.
+   register/shared-memory report; for the attention's tensor-core kernels,
+   forward and backward, registers, spills, shared memory and resident
+   blocks per SM at the main-path shapes (N = 144 and 216, head_dim 128).
 3. Check each forward kernel against its plain PyTorch version at every
-   serving shape (batch 16) and at odd shapes, in bf16 (atol 3e-2) and f32
-   (atol 1e-4).
+   serving shape (batch 16) and at the edges of its two routes (those of
+   phase 7, biases with -1e9 entries), in bf16 (atol 3e-2) and f32 (atol
+   1e-4), each call counted under the route the Python mirror predicts,
+   which must be the C entry points' choice.
 4. Serve three uint8 requests (16, 5 and 40 pairs) with a full-width
    ``Predictor`` (``EDRLConfig()`` defaults, seeded random weights) and
    check the probabilities and that each forward kernel ran 12 times per
@@ -25,7 +27,8 @@ Phases (any failed check raises, so the exit code is nonzero):
    model on the card against the same model on the CPU (1e-4).
 6. Time each forward kernel against its plain version at the serving
    shapes, and the full-width forward at batch 16 on both paths.
-7. Check the backward kernels (B1, B2) and the MK-MMD kernel (B3) against
+7. Check the forward kernels (the bars of phase 3), the backward kernels
+   (B1, B2) and the MK-MMD kernel (B3) against
    their plain versions at every train-step shape of batch 32 (B2 also at
    N = 216, W = 1, as the fused attention sublayer calls it) and at the
    edges of the backward's two routes (bf16 takes the tensor cores at
@@ -40,7 +43,7 @@ Phases (any failed check raises, so the exit code is nonzero):
    batch 32, seeded weights) on ready-made f32 views from numpy seed 0, and
    check finite losses, changed parameters and BN statistics, and 24
    launches per step of each attention kernel, forward and backward, every
-   backward launch on the tensor-core route.  Then
+   forward and backward launch on the tensor-core route.  Then
    one step with ``use_pallas_mmd`` against the same step with the plain
    MMD: B3 launched once, and the two MMD values agree (rtol 1e-4).
 9. One step on the kernel path against one on the plain path, same weights,
@@ -53,7 +56,12 @@ Phases (any failed check raises, so the exit code is nonzero):
    and off, are printed.  Then a small f32 model's step on the card against
    the same step on the CPU (loss 1e-4, gradients 1e-3).
 10. Time the train step on both paths (interleaved), its peak device
-    memory, and each kernel at batch 32 against its plain version, one
+    memory (the plain path's Swin attention rematerialised, as
+    ``remat_attention`` asks), one step with ``remat`` on the kernel path
+    (its loss equal to the step's without, two forward launches per
+    attention call, its peak memory), and each kernel at batch 32 against
+    its plain version (B1 and B2 forward also one call between two events,
+    the dispatch included, with SDPA's time taken the same way), one
     PyTorch call computing the same function (``library_ms``; timed only,
     never called by the port) and its bound.
 
@@ -72,7 +80,7 @@ MLP runs through B4 and B5:
     12 B2 launches.
 13. Train three full-width bf16 steps at batch 32: finite losses, changed
     parameters; per step 108 + 108 B4, 48 + 48 B5 and 24 of each attention
-    kernel, forward and backward, the backward on the tensor cores.
+    kernel, forward and backward, both on the tensor cores.
 14. One more bf16 step with every B4 and B5 call, forward and backward, held
     against the plain versions on that call's own tensors.
 15. A small f32 model of the configuration (widths that route), one step on
@@ -86,7 +94,9 @@ MLP runs through B4 and B5:
 16. Time the configuration's train step against the shipped config's
     (interleaved), both peak memories, both serving forwards, and each B4
     and B5 shape of the batch-32 step against its plain version, one
-    PyTorch call (B4: ``F.layer_norm`` and its backward) and its bound.
+    PyTorch call (B4: ``F.layer_norm`` and its backward) and its bound; B5
+    also beside the shipped ``Mlp`` (two cuBLAS Dense and the GELU, forward
+    and backward through autograd), as no single call computes it.
 
 Then the fused attention-sublayer configuration (``EDRLConfig()`` with
 ``use_fused_block_attention``), whose every backbone block runs its attention
@@ -106,7 +116,9 @@ backward through the B2 kernels:
     12 ViT) and none of B1 or B2.
 19. Train three full-width bf16 steps at batch 32: finite losses, changed
     parameters; per step 48 B6 launches, 48 of B2's forward (the backward's
-    recompute) and 48 of B2's backward on the tensor cores, none of B1.
+    recompute) and 48 of B2's backward, none of B1; all 96 forward
+    attention launches (B6's attention phase, B2) and the 48 backward ones
+    on the tensor cores.
 20. One more bf16 step with every B6 call, forward and backward, held
     against the plain versions on that call's own tensors.
 21. A small f32 model of the configuration (widths that route, shifted
@@ -117,7 +129,8 @@ backward through the B2 kernels:
     of the batch-32 step against its plain version, its bound and the
     shipped sublayer at that shape (LayerNorm, Dense, B2, Dense), and the
     v1 adapter's own path: one forward and backward at each Swin stage of a
-    batch-32 step, against its plain version, SDPA and its bound.
+    batch-32 step (its forwards on the tensor cores), against its plain
+    version, SDPA and its bound.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX
@@ -137,7 +150,8 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-TIMING_REPS = 20
+TIMING_REPS = 10
+TIMING_LAUNCHES = 10
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor cores
 F32_FLOPS_PER_S = 67e12          # f32 outside the tensor cores
@@ -200,8 +214,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int = TIMING_REPS) -> float:
-    """Median per-call device time of ``fn`` over ``reps`` calls after warm-up."""
+def time_ms(torch, fn, reps: int = TIMING_REPS, launches: int = TIMING_LAUNCHES) -> float:
+    """Per-call device time of ``fn`` after warm-up: the median over ``reps``
+    runs of ``launches`` calls enqueued back to back, CUDA events around each
+    run.  A run of many calls keeps the card busy while the host enqueues
+    the next, so the host's dispatch per call is not counted as long as it
+    is shorter than the call's device time (one call between two events
+    counts it).  ``launches=1`` times one call as a caller waits for it."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -210,10 +229,11 @@ def time_ms(torch, fn, reps: int = TIMING_REPS) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(launches):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -246,6 +266,7 @@ def main() -> None:
     from edrl_tpu_torch.kernels import layer_norm as ln
     from edrl_tpu_torch.kernels import mmd as kmmd
     from edrl_tpu_torch.kernels import window_attention as wa
+    from edrl_tpu_torch.models.layers import Mlp
     from edrl_tpu_torch.models.swin2d import rel_bias_from_table, relative_position_index, shift_attn_mask
     from edrl_tpu_torch.ops.mmd import mk_mmd
     from edrl_tpu_torch.serve.predictor import Predictor
@@ -278,15 +299,21 @@ def main() -> None:
               f"{len(spills)} spill", flush=True)
         for line in spills:
             print(f"  ptxas spill: {line}")
-        for kernel in ("attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel"):
+        for kernel in ("attention_fwd_tc_kernel", "attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel"):
             found = [r for e, r in regs.items() if kernel in e]
             print(f"  ptxas {kernel}: registers {found}, "
                   f"spilling: {[line for line in spills if kernel in line] or 'none'}", flush=True)
-    # The attention backward's tensor-core kernels at the main-path shapes:
-    # resident blocks per SM (occupancy calculator) and shared memory.
+    # The attention's tensor-core kernels at the main-path shapes: resident
+    # blocks per SM (occupancy calculator) and shared memory.
     import ctypes
 
     bwd_lib = build.load_library()
+    for label, n_fwd, with_bias in (("B1, N=216", 216, 0), ("B2, N=144", 144, 1),
+                                    ("B2 and B6's attention phase, N=216", 216, 1)):
+        occ = (ctypes.c_int * 3)()
+        check(bwd_lib.edrl_attention_fwd_occupancy(1, n_fwd, 128, with_bias, occ) == 0, "occupancy query")
+        print(f"  attention fwd tensor cores, {label}, head_dim 128: {occ[0]} blocks of {occ[2]} warps per SM "
+              f"({occ[0] * occ[2]} warps), {occ[1]} bytes of shared memory per block", flush=True)
     for label, n_bwd, with_dbias in (("B1, N=216", 216, 0), ("B2, N=144", 144, 1), ("B2 under B6, N=216", 216, 1)):
         occ = (ctypes.c_int * 4)()
         check(bwd_lib.edrl_attention_bwd_occupancy(1, n_bwd, 128, with_dbias, occ) == 0, "occupancy query")
@@ -347,32 +374,62 @@ def main() -> None:
         qkv = normal((s["b"], w, n, 3 * s["c"]), dtype)
         return qkv, swin_bias(s["grid"], s["window"], s["heads"], s["shifted"])
 
+    def routed(name, label, dtype, n_, d_, launch, kind="bwd"):
+        """Run ``launch`` (one forward or backward call) and check that it
+        counted under the route attention_fwd_route / attention_bwd_route
+        predicts, which must be the route the C entry points pick
+        (edrl_attention_fwd_route / edrl_attention_bwd_route)."""
+        py_route, c_route, routes = {
+            "fwd": (wa.attention_fwd_route, bwd_lib.edrl_attention_fwd_route, wa.FWD_ROUTES),
+            "bwd": (wa.attention_bwd_route, bwd_lib.edrl_attention_bwd_route, wa.BWD_ROUTES),
+        }[kind]
+        route = py_route(dtype, n_, d_)
+        c_route = {1: "mma", 0: "fma"}[c_route(int(dtype == torch.bfloat16), n_, d_)]
+        check(route == c_route, f"{name} {label}: Python route {route}, C route {c_route}")
+        wa.reset_launch_counts()
+        out = launch()
+        check(routes == {r: int(r == route) for r in routes},
+              f"{name} {label}: {kind} routes {routes}, expected one launch on {route}")
+        return out, route
+
+    def sa_fwd_case(q, k, v, heads, dtype, label):
+        scale = (q.shape[2] // heads) ** -0.5
+        got, route = routed(SA, label, dtype, q.shape[1], q.shape[2] // heads,
+                            lambda: wa.self_attention_fused(q, k, v, heads, scale), kind="fwd")
+        compare(SA, f"{label} {route}", dtype, got, wa.self_attention_reference(q, k, v, heads, scale))
+
+    def v2_fwd_case(qkv, bias, heads, dtype, label):
+        c_ = qkv.shape[3] // 3
+        scale = (c_ // heads) ** -0.5
+        got, route = routed(V2, label, dtype, qkv.shape[2], c_ // heads,
+                            lambda: wa.window_attention_fused_v2(qkv, bias, heads, scale), kind="fwd")
+        compare(V2, f"{label} {route}", dtype, got, wa.window_attention_v2_reference(qkv, bias, heads, scale))
+
+    # The routes' edges, (shape, heads), forward and backward: N = 224 (tensor
+    # cores) and 225 (CUDA cores in bf16 too), N = 1, 17 and 145 (ragged
+    # tails), head_dim 16 (tensor cores), 8 and 24 (CUDA cores), N = 240.
+    sa_edges = (((2, 224, 128), 1), ((2, 225, 128), 1), ((2, 1, 32), 2), ((3, 17, 32), 2), ((2, 145, 256), 2),
+                ((3, 16, 32), 2), ((2, 40, 16), 2), ((2, 40, 48), 2), ((2, 240, 128), 1))
+    v2_edges = (((2, 1, 224, 384), 1), ((2, 1, 225, 384), 1), ((2, 3, 1, 96), 2), ((3, 2, 17, 96), 2),
+                ((2, 2, 145, 384), 1), ((3, 2, 16, 96), 2), ((2, 2, 16, 48), 2), ((2, 1, 40, 144), 2),
+                ((2, 1, 240, 48), 2))
+
+    def edge_bias(shape, heads):
+        bias = torch.randn((shape[1], heads, shape[2], shape[2]), generator=gen, device=dev)
+        bias[..., 1::3] = -1e9
+        return bias
+
     with torch.inference_mode():
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = vit_inputs(vit_shape, dtype)
-            scale = (c_vit // h_vit) ** -0.5
-            compare(SA, f"[{b},{mc.oct_tokens},{c_vit}]x{h_vit}", dtype,
-                    wa.self_attention_fused(q, k, v, h_vit, scale),
-                    wa.self_attention_reference(q, k, v, h_vit, scale))
+            sa_fwd_case(*vit_inputs(vit_shape, dtype), h_vit, dtype, f"[{b},{mc.oct_tokens},{c_vit}]x{h_vit}")
             for s in swin_shapes:
                 qkv, bias = swin_inputs(s, dtype)
-                scale = (s["c"] // s["heads"]) ** -0.5
-                compare(V2, f"{list(qkv.shape)} H={s['heads']} shifted={s['shifted']}", dtype,
-                        wa.window_attention_fused_v2(qkv, bias, s["heads"], scale),
-                        wa.window_attention_v2_reference(qkv, bias, s["heads"], scale))
-            # Odd shapes: N=16 with head_dim 16 (the bf16 tensor-core kernel),
-            # head_dim 8 and N=240 (the CUDA-core kernel in bf16 as well).
-            for shape, heads in (((3, 16, 32), 2), ((2, 40, 16), 2), ((2, 240, 128), 1)):
-                q, k, v = (normal(shape, dtype) for _ in range(3))
-                compare(SA, f"{list(shape)}x{heads} (odd)", dtype,
-                        wa.self_attention_fused(q, k, v, heads, 0.25),
-                        wa.self_attention_reference(q, k, v, heads, 0.25))
-            for shape, heads in (((3, 2, 16, 96), 2), ((2, 1, 240, 48), 2)):
-                qkv = normal(shape, dtype)
-                bias = torch.randn((shape[1], heads, shape[2], shape[2]), generator=gen, device=dev)
-                compare(V2, f"{list(shape)} H={heads} (odd)", dtype,
-                        wa.window_attention_fused_v2(qkv, bias, heads, 0.25),
-                        wa.window_attention_v2_reference(qkv, bias, heads, 0.25))
+                v2_fwd_case(qkv, bias, s["heads"], dtype, f"{list(qkv.shape)} H={s['heads']} shifted={s['shifted']}")
+            for shape, heads in sa_edges:
+                sa_fwd_case(*(normal(shape, dtype) for _ in range(3)), heads, dtype, f"{list(shape)}x{heads} (edge)")
+            for shape, heads in v2_edges:
+                v2_fwd_case(normal(shape, dtype), edge_bias(shape, heads), heads, dtype,
+                            f"{list(shape)} H={heads} -1e9 bias (edge)")
     torch.cuda.synchronize()
 
     # -- 4. the serving path at full width ---------------------------------
@@ -466,7 +523,7 @@ def main() -> None:
         o_dev = pred._to_device(o16)
         fwd = {}
         for label, p in (("plain", plain_pred), ("kernel", pred), ("kernel", pred), ("plain", plain_pred)):
-            fwd.setdefault(label, []).append(time_ms(torch, lambda: p._forward(f_dev, o_dev), reps=10))
+            fwd.setdefault(label, []).append(time_ms(torch, lambda: p._forward(f_dev, o_dev), reps=10, launches=1))
         for label in ("kernel", "plain"):
             ms = statistics.median(fwd[label])
             print(f"time full-width forward, {label} path, batch {b} bf16: {ms:.3f} ms/batch, "
@@ -503,29 +560,22 @@ def main() -> None:
         print(f"check {name} {label} {kind}: worst relative error {worst:.3e} "
               f"(bars {BWD_BAR[kind]:g} / dbias {BWD_BAR['f32']:g})", flush=True)
 
-    def routed(name, label, dtype, n_, d_, launch):
-        """Run ``launch`` (one backward call) and check that it counted under
-        the route attention_bwd_route predicts, which must be the route the C
-        entry points pick (edrl_attention_bwd_route)."""
-        route = wa.attention_bwd_route(dtype, n_, d_)
-        c_route = {1: "mma", 0: "fma"}[bwd_lib.edrl_attention_bwd_route(int(dtype == torch.bfloat16), n_, d_)]
-        check(route == c_route, f"{name} {label}: Python route {route}, C route {c_route}")
-        wa.reset_launch_counts()
-        out = launch()
-        check(wa.BWD_ROUTES == {r: int(r == route) for r in wa.BWD_ROUTES},
-              f"{name} {label}: routes {wa.BWD_ROUTES}, expected one launch on {route}")
-        return out, route
-
     def sa_bwd_case(shape, heads, dtype, main_path=False):
         q, k, v, do = (normal(shape, dtype) for _ in range(4))
         scale = (shape[2] // heads) ** -0.5
         label = f"{list(shape)}x{heads}" + ("" if main_path else " (edge)")
+        if main_path:
+            with torch.no_grad():
+                sa_fwd_case(q, k, v, heads, dtype, label)
         got, route = routed(SA_BWD, label, dtype, shape[1], shape[2] // heads,
                             lambda: wa.self_attention_bwd_kernel(q, k, v, do, heads, scale))
         want = wa.self_attention_bwd_reference(q, k, v, do, heads, scale)
         compare_grads(SA_BWD, f"{label} {route}", dtype, got, want, main_path=main_path)
 
     def v2_bwd_case(qkv, bias, heads, dtype, label, main_path=False, twice=False):
+        if main_path:
+            with torch.no_grad():
+                v2_fwd_case(qkv, bias, heads, dtype, label)
         do = normal((*qkv.shape[:3], qkv.shape[3] // 3), dtype)
         scale = (qkv.shape[3] // 3 // heads) ** -0.5
         (dqkv, dbias), route = routed(V2_BWD, label, dtype, qkv.shape[2], qkv.shape[3] // 3 // heads,
@@ -540,14 +590,6 @@ def main() -> None:
                   f"{same}", flush=True)
             check(same, f"{V2_BWD} {label}: two launches differ")
 
-    # The backward's edges, (shape, heads): N = 224 (tensor cores) and 225
-    # (CUDA cores in bf16 too), N = 1, 17 and 145 (ragged tails), head_dim
-    # 16 (tensor cores), 8 and 24 (CUDA cores), N = 240.
-    sa_edges = (((2, 224, 128), 1), ((2, 225, 128), 1), ((2, 1, 32), 2), ((3, 17, 32), 2), ((2, 145, 256), 2),
-                ((3, 16, 32), 2), ((2, 40, 16), 2), ((2, 40, 48), 2), ((2, 240, 128), 1))
-    v2_edges = (((2, 1, 224, 384), 1), ((2, 1, 225, 384), 1), ((2, 3, 1, 96), 2), ((3, 2, 17, 96), 2),
-                ((2, 2, 145, 384), 1), ((3, 2, 16, 96), 2), ((2, 2, 16, 48), 2), ((2, 1, 40, 144), 2),
-                ((2, 1, 240, 48), 2))
     for dtype in (torch.bfloat16, torch.float32):
         sa_bwd_case((bt, mc.oct_tokens, c_vit), h_vit, dtype, main_path=True)
         for i, s in enumerate(train_swin):
@@ -563,9 +605,8 @@ def main() -> None:
         for shape, heads in sa_edges:
             sa_bwd_case(shape, heads, dtype)
         for shape, heads in v2_edges:
-            bias = torch.randn((shape[1], heads, shape[2], shape[2]), generator=gen, device=dev)
-            bias[..., 1::3] = -1e9
-            v2_bwd_case(normal(shape, dtype), bias, heads, dtype, f"{list(shape)} H={heads} -1e9 bias (edge)")
+            v2_bwd_case(normal(shape, dtype), edge_bias(shape, heads), heads, dtype,
+                        f"{list(shape)} H={heads} -1e9 bias (edge)")
     feat_dim = mc.fundus_embed_dim * 3
     for n_s, n_t, dd in ((bt, bt, feat_dim), (3, 5, 7), (70, 70, 129)):
         src = normal((n_s, dd), torch.float32)
@@ -601,6 +642,7 @@ def main() -> None:
     torch.cuda.synchronize()
     train_launches = counts()
     train_routes = dict(wa.BWD_ROUTES)
+    train_fwd_routes = dict(wa.FWD_ROUTES)
     for i, out in enumerate(outs):
         loss, mmd_v = out["loss"].item(), out["mmd"].item()
         print(f"train step {i}: loss {loss:.6f}, mmd {mmd_v:.6f}, ce {out['ce_loss'].item():.6f}, "
@@ -624,12 +666,13 @@ def main() -> None:
               f"{name} launched {train_launches[name]} times in {TRAIN_STEPS} steps")
     check(train_launches[MMD] == 0, "B3 is off in the shipped config")
 
-    def check_routes(label, routes, launches):
-        print(f"{label}: backward launches by route {routes} (expected {launches} on the tensor cores, "
+    def check_routes(label, routes, launches, kind="backward"):
+        print(f"{label}: {kind} launches by route {routes} (expected {launches} on the tensor cores, "
               f"none on the CUDA cores)", flush=True)
-        check(routes == {"mma": launches, "fma": 0}, f"{label}: backward routes {routes}")
+        check(routes == {"mma": launches, "fma": 0}, f"{label}: {kind} routes {routes}")
 
     check_routes(f"train, {TRAIN_STEPS} steps", train_routes, 2 * per_step * TRAIN_STEPS)
+    check_routes(f"train, {TRAIN_STEPS} steps", train_fwd_routes, 2 * per_step * TRAIN_STEPS, "forward")
     del state
     torch.cuda.empty_cache()
 
@@ -844,7 +887,33 @@ def main() -> None:
     del k_state, p_state
     torch.cuda.empty_cache()
 
-    totals = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0,
+    # The kernel path with remat (every backbone block recomputed in the
+    # backward, as flax's nn.remat): the same loss as without, one forward
+    # launch more per attention call, and its peak memory.
+    remat_cfg = cfg.replace(model=dataclasses.replace(mc, remat=True))
+    remat_loss, remat_peak = {}, {}
+    for label, c in (("remat", remat_cfg), ("no remat", cfg)):
+        st = trainer.init_state(c, seed=2, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        remat_loss[label] = trainer.make_train_step(c)(st, batch, seeded(3))["loss"].item()
+        torch.cuda.synchronize()
+        remat_peak[label] = torch.cuda.max_memory_allocated() / 2**30
+        if label == "remat":
+            remat_launches, remat_fwd_routes = counts(), dict(wa.FWD_ROUTES)
+        del st
+        torch.cuda.empty_cache()
+    print(f"train step with remat, kernel path: loss {remat_loss['remat']:.7g} vs {remat_loss['no remat']:.7g} "
+          f"without; peak device memory {remat_peak['remat']:.2f} GiB vs {remat_peak['no remat']:.2f} GiB; "
+          f"launches {remat_launches} [{card}]", flush=True)
+    check(abs(remat_loss["remat"] - remat_loss["no remat"]) <= 1e-6 * abs(remat_loss["no remat"]),
+          "remat changes the loss")
+    for name, want in ((SA, 2 * per_step), (V2, 2 * per_step), (SA_BWD, per_step), (V2_BWD, per_step)):
+        check(remat_launches[name] == want, f"remat step: {name} launched {remat_launches[name]} times, not {want}")
+    check_routes("train step with remat", remat_fwd_routes, 4 * per_step, "forward")
+
+    totals ={name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0,
                      "flops": 0.0} for name in KERNEL_SOURCE}
 
     def add(name, calls, ms, plain_ms, library_ms, nbytes, flops):
@@ -871,6 +940,15 @@ def main() -> None:
         out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=mask)
         return time_ms(torch, lambda: torch.autograd.grad(out, leaves, do4, retain_graph=True))
 
+    single = {SA: [0.0, 0.0], V2: [0.0, 0.0]}
+
+    def single_call(name, calls, kernel_fn, library_fn):
+        """The forward timed one call between two events, as chip_smoke.py
+        timed every kernel before it timed runs of launches: the host's
+        dispatch of the call counts too.  Printed beside the runs' times."""
+        for i, fn in enumerate((kernel_fn, library_fn)):
+            single[name][i] += calls * time_ms(torch, fn, launches=1)
+
     # B1 at [32, 216, 768] x 6, bf16.
     s = train_vit
     bsz, n, c, heads = s["b"], s["n"], s["c"], s["heads"]
@@ -882,6 +960,8 @@ def main() -> None:
         tk = time_ms(torch, lambda: wa.self_attention_fused(q, k, v, heads, scale))
         tp = time_ms(torch, lambda: wa.self_attention_reference(q, k, v, heads, scale))
         tl = time_ms(torch, lambda: F.scaled_dot_product_attention(split(q), split(k), split(v), scale=scale))
+        single_call(SA, 2 * s["calls"], lambda: wa.self_attention_fused(q, k, v, heads, scale),
+                    lambda: F.scaled_dot_product_attention(split(q), split(k), split(v), scale=scale))
     elems = bsz * n * c
     report(SA, f"[{bsz},{n},{c}]x{heads} bf16", 2 * s["calls"], tk, tp, tl, 4 * elems * 2,
            4.0 * bsz * heads * n * n * hd)
@@ -908,6 +988,8 @@ def main() -> None:
             tk = time_ms(torch, lambda: wa.window_attention_fused_v2(qkv, bias, heads, scale))
             tp = time_ms(torch, lambda: wa.window_attention_v2_reference(qkv, bias, heads, scale))
             tl = time_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale))
+            single_call(V2, 2 * s["calls"], lambda: wa.window_attention_fused_v2(qkv, bias, heads, scale),
+                        lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale))
         elems = bsz * w * n * c
         bias_bytes = w * heads * n * n * 4
         flops = 1.0 * bsz * w * heads * n * n * hd
@@ -918,6 +1000,10 @@ def main() -> None:
         report(V2_BWD, label, 2 * s["calls"], tk, tp, tl, 7 * elems * 2 + 2 * bias_bytes, 10 * flops)
         del qkv, bias, do, mask
         torch.cuda.empty_cache()
+
+    for name, (k_ms, l_ms) in single.items():
+        print(f"time {name} per batch-{bt} train step, one call between two events: kernel {k_ms:.3f} ms, "
+              f"SDPA {l_ms:.3f} ms [{card}]", flush=True)
 
     # B3 at [32, 3072] + [32, 3072] f32.
     src = normal((bt, feat_dim), torch.float32)
@@ -1065,6 +1151,7 @@ def main() -> None:
     torch.cuda.synchronize()
     slice_launches = counts()
     check_routes(f"slice train, {TRAIN_STEPS} steps", dict(wa.BWD_ROUTES), 48 * TRAIN_STEPS)
+    check_routes(f"slice train, {TRAIN_STEPS} steps", dict(wa.FWD_ROUTES), 48 * TRAIN_STEPS, "forward")
     for i, out in enumerate(s_outs):
         loss, mmd_v = out["loss"].item(), out["mmd"].item()
         print(f"slice train step {i}: loss {loss:.6f}, mmd {mmd_v:.6f}", flush=True)
@@ -1248,7 +1335,7 @@ def main() -> None:
     with torch.inference_mode():
         fwd = {}
         for label, p in (("shipped", ship_pred), ("slice", spred), ("slice", spred), ("shipped", ship_pred)):
-            fwd.setdefault(label, []).append(time_ms(torch, lambda: p._forward(f_dev, o_dev), reps=10))
+            fwd.setdefault(label, []).append(time_ms(torch, lambda: p._forward(f_dev, o_dev), reps=10, launches=1))
     for label in ("slice", "shipped"):
         ms = statistics.median(fwd[label])
         print(f"time full-width forward, {label} config, batch {b} bf16: {ms:.3f} ms/batch, "
@@ -1281,6 +1368,23 @@ def main() -> None:
         report(LN_BWD, f"[{m},{c}] bf16", 2 * calls, tk, tp, tl, 3 * m * c * 2 + 3 * c * 4, 20.0 * m * c,
                peak=F32_FLOPS_PER_S)
         del x, dy
+    def shipped_mlp_ms(u, w1, b1, w2, b2, dy):
+        """The shipped config's Mlp at B5's shape, on B5's weights: two cuBLAS
+        Dense (f32 master weights cast to bf16 per call) around the tanh GELU.
+        Forward ms, and backward ms through autograd (the input and the four
+        parameters).  Timed only: no single PyTorch call computes B5's function."""
+        mlp = Mlp(w1.shape[0], w1.shape[1], w2.shape[1], dtype=torch.bfloat16, device=dev)
+        with torch.no_grad():
+            for dense, w_, b_ in ((mlp.Dense_0, w1, b1), (mlp.Dense_1, w2, b2)):
+                dense.weight.copy_(w_.T)
+                dense.bias.copy_(b_)
+            tf = time_ms(torch, lambda: mlp(u))
+        leaves = [u.detach().requires_grad_(), *mlp.parameters()]
+        out = mlp(leaves[0])
+        return tf, time_ms(torch, lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True))
+
+    for name in (MLP, MLP_BWD):
+        totals[name]["shipped_ms"] = 0.0
     for (m, c, h), calls in sorted(mlp_train.items()):
         u, w1, b1, w2, b2, dy = mlp_inputs(m, c, h, torch.bfloat16)
         weights = 2 * c * h * 4  # f32 master weights, read once
@@ -1293,8 +1397,16 @@ def main() -> None:
             tp = time_ms(torch, lambda: fm.fused_mlp_bwd_reference(u, dy, w1, b1, w2))
             report(MLP_BWD, f"[{m},{c}]x{h} bf16", 2 * calls, tk, tp, None,
                    3 * m * c * 2 + 2 * weights + h * 4 + (h + c) * 4, 10.0 * m * c * h)
+        tsf, tsb = shipped_mlp_ms(u, w1, b1, w2, b2, dy)
+        print(f"  beside it: the shipped Mlp (Dense, GELU, Dense) forward {tsf:.4f} ms, backward through "
+              f"autograd {tsb:.4f} ms per call [{card}]", flush=True)
+        totals[MLP]["shipped_ms"] += 2 * calls * tsf
+        totals[MLP_BWD]["shipped_ms"] += 2 * calls * tsb
         del u, dy
         torch.cuda.empty_cache()
+    print(f"B5 per batch-{bt} train step: forward kernel {totals[MLP]['ms']:.3f} ms against the shipped Mlps' "
+          f"{totals[MLP]['shipped_ms']:.3f} ms; backward kernel {totals[MLP_BWD]['ms']:.3f} ms against "
+          f"{totals[MLP_BWD]['shipped_ms']:.3f} ms [{card}]", flush=True)
     train_launches.update({name: slice_launches[name] for name in (LN, LN_BWD, MLP, MLP_BWD)})
 
     # == 17-22. The fused attention-sublayer configuration (B6) ===============
@@ -1460,6 +1572,8 @@ def main() -> None:
     torch.cuda.synchronize()
     b6_launches = counts()
     check_routes(f"B6 config train, {TRAIN_STEPS} steps", dict(wa.BWD_ROUTES), 2 * n_b6 * TRAIN_STEPS)
+    # Forward: B6's attention phase and the backward's B2 recompute.
+    check_routes(f"B6 config train, {TRAIN_STEPS} steps", dict(wa.FWD_ROUTES), 4 * n_b6 * TRAIN_STEPS, "forward")
     for i, out in enumerate(b6_outs):
         loss, mmd_v = out["loss"].item(), out["mmd"].item()
         print(f"B6 config train step {i}: loss {loss:.6f}, mmd {mmd_v:.6f}", flush=True)
@@ -1567,7 +1681,7 @@ def main() -> None:
     with torch.inference_mode():
         fwd = {}
         for label, p in (("shipped", ship_pred), ("B6", b6_pred), ("B6", b6_pred), ("shipped", ship_pred)):
-            fwd.setdefault(label, []).append(time_ms(torch, lambda: p._forward(f_dev, o_dev), reps=10))
+            fwd.setdefault(label, []).append(time_ms(torch, lambda: p._forward(f_dev, o_dev), reps=10, launches=1))
     for label in ("B6", "shipped"):
         ms = statistics.median(fwd[label])
         print(f"time full-width forward, {label} config, batch {b} bf16: {ms:.3f} ms/batch, "
@@ -1627,6 +1741,7 @@ def main() -> None:
         wa.window_attention_fused(*leaves).backward(do_)
     torch.cuda.synchronize()
     v1_launches = counts()
+    check_routes("v1 path", dict(wa.FWD_ROUTES), len(v1_cases), "forward")
     want = {name: 0 for name in v1_launches}
     want.update({V1: len(v1_cases), V1_BWD: len(v1_cases)})
     print(f"v1 path (one forward and backward per Swin stage, batch {bt}): launches {v1_launches}", flush=True)

@@ -86,15 +86,18 @@ class ModelConfig:
     vit3d_heads: int = 6
     vit3d_patch: int = 16
     use_bfloat16: bool = True
-    remat: bool = False
+    remat: bool = False  # torch.utils.checkpoint over backbone blocks
+    # The Swin window attention alone, where it is unfused and remat is off.
     remat_attention: bool = True
     # Swin window attention through window_attention_fused_v2 (B2).
     use_fused_attention: bool = True
-    # Not ported yet (B6); the port's MedFusion raises when it is set.
+    # The attention sublayer through attention_sublayer_fused (B6,
+    # kernels/block_attention.py), in place of use_fused_attention.
     use_fused_block_attention: bool = False
     # ViT-3D attention through self_attention_fused (B1).
     vit_fused_attention: bool = True
-    # Not ported yet (B5, B4); the port's MedFusion raises when set.
+    # Backbone MLPs through fused_mlp (B5, kernels/fused_mlp.py) and
+    # LayerNorms through fused_layer_norm (B4, kernels/layer_norm.py).
     use_fused_mlp: bool = False
     use_fused_ln: bool = False
 

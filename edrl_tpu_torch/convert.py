@@ -8,7 +8,9 @@ The port names its modules and parameters as flax does, so a flax leaf
 - BatchNorm ``mean`` / ``var`` (``batch_stats``) -> ``running_mean`` /
   ``running_var``;
 - every other leaf (``rel_bias_table``, ``pos_embed``, ``proxies``,
-  ``alpha``, ``phi``, Dense ``bias``) keeps its name and layout.
+  ``alpha``, ``phi``, Dense ``bias``) keeps its name and layout;
+- a block that flax wraps in ``nn.remat`` is named ``Checkpoint<Class>_<i>``
+  (a model built with ``remat``); it lands on the port's ``<Class>_<i>``.
 
 The mapping is strict: every flax leaf is used once, every parameter and
 persistent buffer of the module is filled, and shapes must agree.  Anything
@@ -25,6 +27,13 @@ from torch import nn
 
 _PARAM_RENAMES = {"kernel": "weight", "scale": "weight"}
 _STAT_RENAMES = {"mean": "running_mean", "var": "running_var"}
+_REMAT_PREFIX = "Checkpoint"
+
+
+def _module_name(part: str) -> str:
+    """The port's name of a flax module: ``nn.remat``'s prefix dropped."""
+    rest = part[len(_REMAT_PREFIX):]
+    return rest if part.startswith(_REMAT_PREFIX) and rest[:1].isupper() else part
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], object]]:
@@ -48,7 +57,7 @@ def _mapped(model: nn.Module, params: Mapping, batch_stats: Optional[Mapping]):
         for path, leaf in _leaves(tree):
             flax_name = "/".join((collection,) + path)
             transpose = collection == "params" and path[-1] == "kernel"
-            name = ".".join(path[:-1] + (renames.get(path[-1], path[-1]),))
+            name = ".".join(tuple(map(_module_name, path[:-1])) + (renames.get(path[-1], path[-1]),))
             if name not in targets:
                 raise KeyError(f"{flax_name}: no torch tensor {name!r} in {type(model).__name__}")
             if name in filled:

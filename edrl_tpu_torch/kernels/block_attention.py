@@ -37,7 +37,8 @@ cotangent has its primal's dtype.
 
 :func:`attention_sublayer_fused` is a ``torch.autograd.Function``; a CPU
 tensor takes the plain versions, a CUDA tensor the kernel or raises.  The
-kernel wrapper counts its launches in :data:`LAUNCHES`; the backward's B2
+kernel wrapper counts its launches in :data:`LAUNCHES`, and its attention
+phase under its route in ``window_attention.FWD_ROUTES``; the backward's B2
 launches count under B2's names.
 """
 
@@ -147,12 +148,14 @@ def attention_sublayer_fwd_kernel(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias
     d = _check_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads)
     b, w, n, c = x.shape
     lib = build.load_library()
-    wa._check_smem(ATTENTION_SUBLAYER, lib.edrl_attention_smem_bytes(n, d), n)
+    wa._check_smem(ATTENTION_SUBLAYER, wa._fwd_smem(lib, x.dtype, n, d, True), n)
     y, xln, o = (torch.empty_like(x) for _ in range(3))
     qkv = torch.empty((b, w, n, 3 * c), dtype=x.dtype, device=x.device)
     if x.numel() == 0:
         return y, qkv, xln
     bf16 = x.dtype == torch.bfloat16
+    route = wa.attention_fwd_route(x.dtype, n, d)  # the attention phase's
+    (bias,) = wa._aligned_operands(route, (bias,))
     # bf16: the weights transposed (K contiguous) for the tensor-core products.
     wt = [torch.empty(shape, dtype=torch.bfloat16, device=x.device) if bf16 else None
           for shape in ((3 * c, c), (c, c))]
@@ -162,6 +165,7 @@ def attention_sublayer_fwd_kernel(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias
           for t in (x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, y, qkv, xln, o, *wt)),
         b, w, bias.shape[0], n, c, num_heads, float(scale), int(bf16),
     )
+    wa.FWD_ROUTES[route] += 1
     return y, qkv, xln
 
 

@@ -105,7 +105,12 @@ def build_library(build_dir: Path = BUILD_DIR) -> Path:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, f32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     signatures = {
-        "edrl_attention_smem_bytes": (i64, [i32, i32]),
+        # is_bf16, n, d, with_bias -> dynamic shared memory of the forward's route
+        "edrl_attention_fwd_smem_bytes": (i64, [i32, i32, i32, i32]),
+        # is_bf16, n, d -> 1 for the tensor-core route, 0 for the CUDA-core route
+        "edrl_attention_fwd_route": (i32, [i32, i32, i32]),
+        # is_bf16, n, d, with_bias, out[3]: blocks per SM, smem bytes, warps per block
+        "edrl_attention_fwd_occupancy": (i32, [i32, i32, i32, i32, ptr]),
         "edrl_attention_bwd_smem_bytes": (i64, [i32, i32, i32]),
         # is_bf16, n, d -> 1 for the tensor-core route, 0 for the CUDA-core route
         "edrl_attention_bwd_route": (i32, [i32, i32, i32]),

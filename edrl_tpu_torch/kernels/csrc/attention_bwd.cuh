@@ -450,7 +450,7 @@ constexpr int kTcRows = kTcWarps * 16;          // queries of a dq block, keys o
 constexpr int kTcStep = 32;                     // keys (dq) or queries (dkv) per staged chunk
 constexpr int kTcDqStages = 3;                  // the dq kernel's ring of staged key chunks
 constexpr int kTcMaxKeys = 224;                 // the forward's tensor-core route takes the same calls
-constexpr int kTcLd = kBwdMaxHeadDim + 8;       // bf16 row stride of every staged tile
+constexpr int kTcLd = kAttnLd;                  // bf16 row stride of every staged tile
 constexpr int kTcKSteps = kBwdMaxHeadDim / 16;  // 16-deep steps over the head dim
 constexpr int kTcVecs = kBwdMaxHeadDim / 8;     // 16-byte vectors per staged row
 constexpr int kTcBiasLd = kTcRows + 4;          // dkv kernel's staged bias rows: conflict-free reads
@@ -499,38 +499,9 @@ __device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* dst, const __nv_b
   }
 }
 
-// A fragment of the 16 x 16 block at (row0, k0) of a staged [row][k] tile.
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const __nv_bfloat16* s, int row0, int k0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4(a, s + (row0 + (lane & 15)) * kTcLd + k0 + ((lane >> 4) << 3));
-}
-
-// B fragments of the product's columns n0 .. n0 + 15 at depth k0 .. k0 + 15,
-// from a staged tile whose rows are those columns (B[k][n] = s[n][k]):
-// (b[0], b[1]) for columns n0 .. n0 + 7, (b[2], b[3]) for the next 8.
-__device__ __forceinline__ void frag_b_nk(uint32_t (&b)[4], const __nv_bfloat16* s, int n0, int k0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4(b, s + (n0 + (lane & 7) + ((lane >> 4) << 3)) * kTcLd + k0 + (lane & 8));
-}
-
-// The same from a staged tile whose rows are the depth (B[k][n] = s[k][n]).
-__device__ __forceinline__ void frag_b_kn(uint32_t (&b)[4], const __nv_bfloat16* s, int k0, int n0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4_trans(b, s + (k0 + (lane & 15)) * kTcLd + n0 + ((lane >> 4) << 3));
-}
-
-// The A fragment (16 rows, depth 16) that two f32 C tiles of 8 columns
-// make, rounded to bf16.
-__device__ __forceinline__ void frag_a_from_c(uint32_t (&a)[4], const float (&c0)[4],
-                                              const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// The same A fragment as two bf16 parts, hi rounding the f32 values and lo
-// rounding what hi leaves: hi + lo carries ~16 significant bits.  ds goes to
+// The A fragment that frag_a_from_c makes, as two bf16 parts, hi rounding
+// the f32 values and lo rounding what hi leaves: hi + lo carries ~16
+// significant bits.  ds goes to
 // the dq and dk products so: those sums cancel (ds sums to 0 over a row), and
 // on a train step's own tensors one bf16 rounding of ds put B1's backward
 // 3.6% of its largest magnitude off, hi + lo 0.6% (PERF.md).
@@ -1086,13 +1057,6 @@ inline cudaError_t launch_attention_bwd_mma(AttnBwdParams p, cudaStream_t stream
   const dim3 dkv_grid((unsigned)((size_t)p.batch * p.windows * p.tiles), (unsigned)p.heads);
   attention_bwd_dkv_mma_kernel<<<dkv_grid, kTcThreads, dkv_smem, stream>>>(p);
   return cudaGetLastError();
-}
-
-template <typename Kernel>
-cudaError_t blocks_per_sm(Kernel kernel, int threads, size_t smem, int* out) {
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, smem);
 }
 
 // The route's dq and dk/dv kernels at (n, d): resident blocks per SM from the

@@ -47,6 +47,15 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// Resident blocks per SM of `kernel` at this block size and dynamic shared
+// memory, from the occupancy calculator (registers, shared memory, threads).
+template <typename Kernel>
+cudaError_t blocks_per_sm(Kernel kernel, int threads, size_t smem, int* out) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, smem);
+}
+
 // out[c] = sum over r of part[r * cols + c], r = 0 .. rows - 1, in one fixed
 // order: thread (group, lane) of a 256-thread block adds rows group, group +
 // 8, ... of column blockIdx.x * 32 + lane, then group 0 adds the 8 group sums

@@ -1,11 +1,13 @@
-// Shared forward attention kernels for the two entry points in this folder.
+// Shared forward attention kernels for the entry points in this folder:
+// self_attention_fwd.cu (B1), window_attention_v2_fwd.cu (B2, and the v1
+// adapter over it) and the attention phase of attention_sublayer_fwd.cu (B6).
 //
-// Computes, for one (group, head) pair and a tile of 64 query rows,
-//     o = softmax((q * scale) k^T + bias) v
-// the way the Pallas kernels it replaces do (edrl_tpu/kernels/window_attention.py,
-// _attn_fwd_kernel_v2 and _sa_fwd_kernel): scores and softmax in f32, the bias
-// added in f32, a row max, exp and a row sum, o = (p v) / l written in the
-// input type.
+// Replaces the forwards of edrl_tpu/kernels/window_attention.py,
+// _sa_fwd_kernel (self_attention_fused) and _attn_fwd_kernel_v2
+// (window_attention_fused_v2).  For one (group, head):
+//     o = softmax((q k^T) * scale + bias) v
+// with the scores, the bias, the row max, exp and the row sum in f32, and o
+// = (p v) / l written in the input type.
 //
 // Layout: q, k and v are read in place from their packed [.., N, row_stride]
 // tensors (head h owns columns [h*D, (h+1)*D)), and o is written to
@@ -13,23 +15,50 @@
 // outside the kernel.  The tail keys past N are masked with -inf, and the
 // tail queries past N are computed on zeros and never stored.
 //
-// Two kernels, chosen per call by launch_attention_fwd:
+// Two routes, chosen per call from the dtype and shape before the launch
+// (attention_fwd_route_mma; kernels/window_attention.py mirrors it as
+// attention_fwd_route):
 //
-// - attention_fwd_mma_kernel (bf16, head_dim % 16 == 0, N <= 224: the whole
-//   main path).  4 warps, 16 query rows each.  Q, then K, then V are staged
-//   in shared memory as bf16; both products run on the tensor cores with
-//   mma.sync m16n8k16 (bf16 in, f32 accumulate).  A warp keeps its whole
-//   [16, N] f32 score row block in registers, takes the softmax there, and
-//   feeds the probabilities, rounded to bf16, straight back as the A operand
-//   of the value product (as the JAX XLA path rounds them before its value
-//   product).  The scale multiplies the f32 scores rather than q.
-// - attention_fwd_kernel (f32 inputs, and any other shape).  256 threads;
-//   q, k and v upcast to f32, q scaled first, products as f32 FMA on the
-//   CUDA cores.  Shared memory holds the scaled query tile transposed, the
-//   whole f32 score tile and one chunk of 32 keys or values.  This is the
-//   exact path used to compare with the CPU reference at f32 tolerances.
+// - Tensor cores (attention_fwd_tc_kernel): bf16, head_dim % 16 == 0,
+//   N <= 224, the calls the backward's tensor-core route takes; every
+//   main-path call (N = 144 and 216, head_dim 128).
 //
-// wgmma, TMA and a persistent schedule are later work.
+//   What bounds it on the H100: the bytes.  At the main-path shapes a call
+//   reads q, k and v once and writes o once (B1 at [32, 216, 768]: 42 MB,
+//   13 us at 3.35 TB/s, against 4.6 GFLOP, 5 us at the bf16 peak; B2 at the
+//   Swin stage 0 of a batch-32 step: 302 MB of qkv and o plus a 5.3 MB f32
+//   bias that the 32 batch entries read from L2, 90 us, against 21.7 GFLOP,
+//   22 us),
+//   so the tensor cores' rate is not the limit; how much latency each block
+//   hides is.  The first design staged the whole K, then the whole V, with
+//   plain loads between its two products, kept a [16, N] f32 score row in
+//   registers (2 blocks of 4 warps per SM), read the bias by scalar loads
+//   inside the softmax and computed 64-row query tiles (33% padding at
+//   N = 144).  This one:
+//   * streams the keys in chunks of 16 through a ring of three
+//     shared-memory stages that cp.async fills two chunks ahead: a chunk's
+//     keys, values and the f32 bias rows of the block's queries at its keys
+//     (16-byte copies where N % 4 == 0) are in flight while the chunks
+//     before it are computed;
+//   * takes the softmax online: a running f32 row max and row sum, the o
+//     accumulators rescaled when the max rises, p = 2^(x log2 e - m log2 e)
+//     (one FMA), so no score row is kept and a warp's registers hold its
+//     q fragments (loaded once by ldmatrix), o, and one chunk's scores;
+//   * sizes the query tiles to N (attention_fwd_warps: 16 rows a warp, the
+//     least padding in 16-row steps, up to kFwdMaxWarps warps a block);
+//     the blocks of one (group, head) re-read its keys from L2;
+//   * reads every fragment with ldmatrix (x4 for q and k, x4.trans for v)
+//     and skips the 16-key steps that lie wholly past N.
+//   p is rounded to bf16 where it enters the value product as an A operand
+//   (as the JAX path rounds it before its value product); l sums the f32 p.
+//   Registers, shared memory and blocks per SM at the main-path shapes:
+//   chip_smoke.py phase 2 prints them, PERF.md keeps them.
+// - CUDA cores (attention_fwd_kernel): f32 inputs (the exact path used to
+//   compare with the CPU reference at f32 tolerances) and bf16 shapes
+//   outside the tensor-core route.  256 threads; q, k and v upcast to f32,
+//   q scaled first, products as f32 FMA.  Shared memory holds the scaled
+//   query tile transposed, the whole f32 score tile and one chunk of 32 keys
+//   or values.
 
 #pragma once
 
@@ -64,8 +93,8 @@ struct AttnParams {
   int heads;
   int n;
   int d;
-  int n_pad;                   // n rounded up to kKeyChunk
-  int q_tiles;                 // ceil(n / kTileQ)
+  int n_pad;                   // n rounded up to kKeyChunk (CUDA-core route)
+  int q_tiles;                 // query tiles per (group, head)
   float scale;
 };
 
@@ -232,40 +261,69 @@ cudaError_t launch_attention_fwd_simt(AttnParams p, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernel (bf16).
+// Tensor-core route (bf16).
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = kMmaWarps * 32;
-constexpr int kMmaTileQ = kMmaWarps * 16;  // 64 query rows, 16 per warp
-constexpr int kMmaMaxKeys = 224;
+constexpr int kFwdMaxKeys = 224;                  // the backward's tensor-core route takes the same calls
+constexpr int kFwdMaxWarps = 8;                   // query warps of a block, 16 rows each
+constexpr int kFwdChunk = 16;                     // keys per staged chunk
+constexpr int kFwdStages = 3;                     // the ring of staged chunks, two ahead of the products
+constexpr int kFwdKSteps = kMaxHeadDim / 16;      // 16-deep steps over the head dim
+constexpr int kFwdBiasLd = kFwdChunk + 8;         // f32 stride of staged bias rows: conflict-free float2 reads
+constexpr float kFwdLog2e = 1.4426950408889634f;  // p = 2^(x log2 e - m log2 e)
 
-// Rows [row0, row0 + rows) of one head (d bf16 each) into shared rows of
-// stride ld, 16 bytes per thread and step; rows past n are zero.
-__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               int row0, int rows, int n, int d, int ld,
-                                               int row_stride) {
-  const int chunks = d / 8;
-  for (int i = threadIdx.x; i < rows * chunks; i += kMmaThreads) {
-    const int r = i / chunks;
-    const int c = (i - r * chunks) * 8;
-    const int row = row0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row < n) v = *reinterpret_cast<const uint4*>(src + (size_t)row * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-  }
+// The route of a call; the caller has checked d % 8 == 0 and d <= kMaxHeadDim.
+inline bool attention_fwd_route_mma(bool is_bf16, int n, int d) {
+  return is_bf16 && d % 16 == 0 && n <= kFwdMaxKeys;
 }
 
-// KT: 8-key tiles a warp holds per score row (KT * 8 >= n, KT even).
-template <int KT>
-__global__ void __launch_bounds__(kMmaThreads, 2) attention_fwd_mma_kernel(AttnParams p) {
+// Query warps per block at n: of the ways to cut n's 16-row steps into
+// tiles of at most kFwdMaxWarps warps, the one with the fewest padding
+// steps, then the fewest tiles (N = 144: 3 tiles of 3 warps; N = 216: 2 of 7).
+inline int attention_fwd_warps(int n) {
+  const int steps = (n + 15) / 16;
+  int best = kFwdMaxWarps, best_pad = 1 << 30;
+  for (int tiles = (steps + kFwdMaxWarps - 1) / kFwdMaxWarps; tiles <= steps; ++tiles) {
+    const int warps = (steps + tiles - 1) / tiles;
+    if (tiles * warps - steps < best_pad) {
+      best_pad = tiles * warps - steps;
+      best = warps;
+    }
+  }
+  return best;
+}
+
+// Bytes of one ring stage: keys and values [kFwdChunk][kAttnLd] bf16, then
+// with a bias the block's [rows][kFwdBiasLd] f32 bias rows.
+__host__ __device__ inline int fwd_stage_bytes(int rows, bool with_bias) {
+  return 2 * kFwdChunk * kAttnLd * 2 + (with_bias ? rows * kFwdBiasLd * 4 : 0);
+}
+
+// The ring, with the block's query rows staged over stage 1 onwards before
+// the first chunk's products (the warps then hold them in registers).
+inline size_t attention_fwd_mma_smem_bytes(int n, bool with_bias) {
+  const int rows = 16 * attention_fwd_warps(n);
+  const size_t stage = fwd_stage_bytes(rows, with_bias);
+  const size_t ring = kFwdStages * stage;
+  const size_t with_q = stage + (size_t)rows * kAttnLd * 2;
+  return ring > with_q ? ring : with_q;
+}
+
+// One block per (query tile, group, head), 16 query rows a warp; blockDim.x
+// = 32 * attention_fwd_warps(n).  A warp keeps its q rows as A fragments
+// and its o rows as f32 accumulators in registers, and walks the keys in
+// chunks of kFwdChunk, each staged by cp.async kFwdStages - 1 chunks ahead:
+//   s = q k^T (mma.sync), x = s * scale + bias (-inf past n);
+//   m' = max(m, rowmax(x)), o and l scaled by 2^((m - m') log2 e);
+//   p = 2^(x log2 e - m' log2 e), l += rowsum(p), o += bf16(p) v (mma.sync);
+// then o / l for the rows that exist.
+__global__ void __launch_bounds__(kFwdMaxWarps * 32) attention_fwd_tc_kernel(AttnParams p) {
+  using bf16 = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int d = p.d;
   const int n = p.n;
-  const int ld = d + 8;  // padded rows: conflict-free fragment loads
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kMmaTileQ][ld]
-  __nv_bfloat16* kv_s = q_s + kMmaTileQ * ld;  // [16 * k_steps][ld]: keys, then values
-
+  const int threads = blockDim.x;
+  const int rows = threads / 2;  // 16 per warp
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;  // fragment row (and B column) of this lane
@@ -273,153 +331,276 @@ __global__ void __launch_bounds__(kMmaThreads, 2) attention_fwd_mma_kernel(AttnP
   const int tile = blockIdx.x % p.q_tiles;
   const int grp = blockIdx.x / p.q_tiles;
   const int h = blockIdx.y;
-  const int q0 = tile * kMmaTileQ;
-  const int n_tiles = (n + 7) / 8;        // 8-key tiles that hold keys
-  const int k_steps = (n_tiles + 1) / 2;  // 16-key steps of the value product
+  const int q0 = tile * rows;
+  const int r0 = warp * 16;
+  const bool live = q0 + r0 < n;  // the warp owns a query row
+  const int chunks = (n + kFwdChunk - 1) / kFwdChunk;
+  const bool with_bias = p.bias != nullptr;
+  const int stage_bytes = fwd_stage_bytes(rows, with_bias);
 
   const size_t in_off = (size_t)grp * p.group_stride_in + (size_t)h * d;
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + in_off;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + in_off;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + in_off;
-  __nv_bfloat16* og =
-      static_cast<__nv_bfloat16*>(p.o) + (size_t)grp * p.group_stride_out + (size_t)h * d;
+  const bf16* qg = static_cast<const bf16*>(p.q) + in_off;
+  const bf16* kg = static_cast<const bf16*>(p.k) + in_off;
+  const bf16* vg = static_cast<const bf16*>(p.v) + in_off;
+  bf16* og = static_cast<bf16*>(p.o) + (size_t)grp * p.group_stride_out + (size_t)h * d;
   const float* bias =
-      p.bias ? p.bias + ((size_t)(grp % p.windows) * p.heads + h) * (size_t)n * n : nullptr;
+      with_bias ? p.bias + ((size_t)(grp % p.windows) * p.heads + h) * (size_t)n * n : nullptr;
 
-  load_rows_bf16(q_s, qg, q0, kMmaTileQ, n, d, ld, p.row_stride_in);
-  load_rows_bf16(kv_s, kg, 0, 16 * k_steps, n, d, ld, p.row_stride_in);
+  // Rows [row0, row0 + count) of the head's q, or of its k and v, into
+  // shared rows of stride kAttnLd by 16-byte cp.async; rows past n are zero.
+  // Thread i copies column (i % 16) * 8 of rows i / 16, i / 16 + threads / 16, ...
+  const int col = (threadIdx.x & 15) * 8;
+  const int row_step = threads >> 4;
+  auto stage_rows = [&](bf16* dst, bf16* dst2, const bf16* src, const bf16* src2, int row0, int count) {
+    if (col >= d) return;
+    int r = threadIdx.x >> 4;
+    size_t off = (size_t)(row0 + r) * p.row_stride_in + col;
+    const size_t off_step = (size_t)row_step * p.row_stride_in;
+    for (int at = r * kAttnLd + col; r < count; r += row_step, at += row_step * kAttnLd, off += off_step) {
+      const bool valid = row0 + r < n;
+      cp_async16(dst + at, src + (valid ? off : 0), valid);
+      if (dst2 != nullptr) cp_async16(dst2 + at, src2 + (valid ? off : 0), valid);
+    }
+  };
+  // Chunk j (its keys, values and bias columns) into stage j % kFwdStages.
+  auto stage_chunk = [&](int j) {
+    if (j >= chunks) return;
+    bf16* ks = reinterpret_cast<bf16*>(smem_raw + (j % kFwdStages) * stage_bytes);
+    const int k0 = j * kFwdChunk;
+    stage_rows(ks, ks + kFwdChunk * kAttnLd, kg, vg, k0, kFwdChunk);
+    if (!with_bias) return;
+    float* bs = reinterpret_cast<float*>(ks + 2 * kFwdChunk * kAttnLd);
+    if ((n & 3) == 0) {  // bias rows start 16-byte aligned: kFwdChunk / 4 vectors per row
+      constexpr int kVecs = kFwdChunk / 4;
+      const int c = threadIdx.x % kVecs * 4;
+      const bool key_ok = k0 + c < n;
+      for (int r = threadIdx.x / kVecs; r < rows; r += threads / kVecs) {
+        const bool valid = key_ok && q0 + r < n;
+        cp_async16(bs + r * kFwdBiasLd + c, bias + (valid ? (size_t)(q0 + r) * n + k0 + c : 0), valid);
+      }
+    } else {
+      for (int i = threadIdx.x; i < rows * kFwdChunk; i += threads) {
+        const int r = i / kFwdChunk;
+        const int c = i % kFwdChunk;
+        const bool valid = q0 + r < n && k0 + c < n;
+        cp_async4(bs + r * kFwdBiasLd + c, bias + (valid ? (size_t)(q0 + r) * n + k0 + c : 0), valid);
+      }
+    }
+  };
+
+  // The tile's q rows over stage 1 onwards and chunk 0 into stage 0; q into
+  // the warps' A fragments; then the rest of the ring's first chunks.
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw + stage_bytes);
+  stage_rows(q_s, nullptr, qg, nullptr, q0, rows);
+  stage_chunk(0);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
+  uint32_t qa[kFwdKSteps][4];
+  if (live) {
+#pragma unroll
+    for (int kk = 0; kk < kFwdKSteps; ++kk) {
+      if (16 * kk < d) frag_a(qa[kk], q_s, r0, 16 * kk);
+    }
+  }
+  __syncthreads();  // q is read: its stages take the next chunks
+  for (int j = 1; j < kFwdStages - 1; ++j) {
+    stage_chunk(j);
+    cp_async_commit();
+  }
 
-  // 1. s = q k^T for this warp's 16 rows and all keys, in registers.
-  const int r0 = warp * 16;
-  float s[KT][4];
+  float o[kMaxHeadDim / 8][4];
 #pragma unroll
-  for (int j = 0; j < KT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-  for (int kk = 0; kk < d; kk += 16) {
-    const __nv_bfloat16* qa = q_s + (r0 + g) * ld + kk + 2 * t;
-    const uint32_t a[4] = {lds32(qa), lds32(qa + 8 * ld), lds32(qa + 8), lds32(qa + 8 * ld + 8)};
+  for (int j = 0; j < kMaxHeadDim / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.0f, l_hi = 0.0f;
+  const float scale = p.scale;
+
+  for (int c = 0; c < chunks; ++c) {
+    // Chunk c has landed; every warp is past chunk c - 1 (and q), so its
+    // stage takes chunk c + kFwdStages - 1.
+    cp_async_wait<kFwdStages - 2>();
+    __syncthreads();
+    stage_chunk(c + kFwdStages - 1);
+    cp_async_commit();
+    if (!live) continue;
+    const bf16* ks = reinterpret_cast<const bf16*>(smem_raw + (c % kFwdStages) * stage_bytes);
+    const bf16* vs = ks + kFwdChunk * kAttnLd;
+    const float* bs = reinterpret_cast<const float*>(vs + kFwdChunk * kAttnLd);
+    const int k0 = c * kFwdChunk;
+
+    // s = q k^T: lane (g, t) holds rows g and g + 8, keys k0 + 8jj + 2t (+ 1).
+    float x[kFwdChunk / 8][4];
 #pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      if (j < n_tiles) {
-        const __nv_bfloat16* kb = kv_s + (8 * j + g) * ld + kk + 2 * t;
-        mma_bf16_16816(s[j], a, lds32(kb), lds32(kb + 8));
+    for (int jj = 0; jj < kFwdChunk / 8; ++jj) x[jj][0] = x[jj][1] = x[jj][2] = x[jj][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kFwdKSteps; ++kk) {
+      if (16 * kk < d) {
+#pragma unroll
+        for (int half = 0; half < kFwdChunk / 16; ++half) {
+          if (k0 + 16 * half < n) {
+            uint32_t b[4];
+            frag_b_nk(b, ks, 16 * half, 16 * kk);
+            mma_bf16_16816(x[2 * half], qa[kk], b[0], b[1]);
+            mma_bf16_16816(x[2 * half + 1], qa[kk], b[2], b[3]);
+          }
+        }
+      }
+    }
+
+    // x = s * scale + bias, -inf past n (the last chunk only).
+#pragma unroll
+    for (int jj = 0; jj < kFwdChunk / 8; ++jj) {
+      float2 b_lo = make_float2(0.0f, 0.0f), b_hi = b_lo;
+      if (with_bias) {
+        b_lo = *reinterpret_cast<const float2*>(bs + (r0 + g) * kFwdBiasLd + 8 * jj + 2 * t);
+        b_hi = *reinterpret_cast<const float2*>(bs + (r0 + g + 8) * kFwdBiasLd + 8 * jj + 2 * t);
+      }
+      x[jj][0] = fmaf(x[jj][0], scale, b_lo.x);
+      x[jj][1] = fmaf(x[jj][1], scale, b_lo.y);
+      x[jj][2] = fmaf(x[jj][2], scale, b_hi.x);
+      x[jj][3] = fmaf(x[jj][3], scale, b_hi.y);
+    }
+    if (k0 + kFwdChunk > n) {
+#pragma unroll
+      for (int jj = 0; jj < kFwdChunk / 8; ++jj) {
+        const int key = k0 + 8 * jj + 2 * t;
+        if (key >= n) x[jj][0] = x[jj][2] = -INFINITY;
+        if (key + 1 >= n) x[jj][1] = x[jj][3] = -INFINITY;
+      }
+    }
+    // The rows' new max over the quad.
+    float cm_lo = m_lo, cm_hi = m_hi;
+#pragma unroll
+    for (int jj = 0; jj < kFwdChunk / 8; ++jj) {
+      cm_lo = fmaxf(cm_lo, fmaxf(x[jj][0], x[jj][1]));
+      cm_hi = fmaxf(cm_hi, fmaxf(x[jj][2], x[jj][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      cm_lo = fmaxf(cm_lo, __shfl_xor_sync(0xffffffffu, cm_lo, off));
+      cm_hi = fmaxf(cm_hi, __shfl_xor_sync(0xffffffffu, cm_hi, off));
+    }
+    // Rescale l and o to the new max where it rose (o and l are 0 before
+    // chunk 0, whose max is finite: key 0 is in it).
+    if (c > 0 && __any_sync(0xffffffffu, cm_lo != m_lo || cm_hi != m_hi)) {
+      const float r_lo = exp2f((m_lo - cm_lo) * kFwdLog2e);
+      const float r_hi = exp2f((m_hi - cm_hi) * kFwdLog2e);
+      l_lo *= r_lo;
+      l_hi *= r_hi;
+#pragma unroll
+      for (int j = 0; j < kMaxHeadDim / 8; ++j) {
+        o[j][0] *= r_lo;
+        o[j][1] *= r_lo;
+        o[j][2] *= r_hi;
+        o[j][3] *= r_hi;
+      }
+    }
+    m_lo = cm_lo;
+    m_hi = cm_hi;
+    const float ml_lo = cm_lo * kFwdLog2e;
+    const float ml_hi = cm_hi * kFwdLog2e;
+#pragma unroll
+    for (int jj = 0; jj < kFwdChunk / 8; ++jj) {
+      x[jj][0] = exp2f(fmaf(x[jj][0], kFwdLog2e, -ml_lo));
+      x[jj][1] = exp2f(fmaf(x[jj][1], kFwdLog2e, -ml_lo));
+      x[jj][2] = exp2f(fmaf(x[jj][2], kFwdLog2e, -ml_hi));
+      x[jj][3] = exp2f(fmaf(x[jj][3], kFwdLog2e, -ml_hi));
+      l_lo += x[jj][0] + x[jj][1];
+      l_hi += x[jj][2] + x[jj][3];
+    }
+
+    // o += p v, p rounded to bf16 as the value product's A operand.
+#pragma unroll
+    for (int ks16 = 0; ks16 < kFwdChunk / 16; ++ks16) {
+      if (k0 + 16 * ks16 < n) {
+        uint32_t pa[4];
+        frag_a_from_c(pa, x[2 * ks16], x[2 * ks16 + 1]);
+#pragma unroll
+        for (int dn = 0; dn < kFwdKSteps; ++dn) {
+          if (16 * dn < d) {
+            uint32_t vb[4];
+            frag_b_kn(vb, vs, 16 * ks16, 16 * dn);
+            mma_bf16_16816(o[2 * dn], pa, vb[0], vb[1]);
+            mma_bf16_16816(o[2 * dn + 1], pa, vb[2], vb[3]);
+          }
+        }
       }
     }
   }
+  if (!live) return;
 
-  // 2. Scale, bias and masks; row softmax numerators.  Lane (g, t) holds rows
-  //    g and g + 8 of the block, keys 8j + 2t and 8j + 2t + 1 of each tile;
-  //    a row is spread over the 4 lanes of a quad.
-  const int row_lo = q0 + r0 + g;
-  const int row_hi = row_lo + 8;
-  float m_lo = -INFINITY, m_hi = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < KT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = e < 2 ? row_lo : row_hi;
-      const int key = 8 * j + 2 * t + (e & 1);
-      float x;
-      if (key >= n) {
-        x = -INFINITY;
-      } else if (row >= n) {
-        x = 0.0f;
-      } else {
-        x = s[j][e] * p.scale + (bias ? bias[(size_t)row * n + key] : 0.0f);
-      }
-      s[j][e] = x;
-    }
-    m_lo = fmaxf(m_lo, fmaxf(s[j][0], s[j][1]));
-    m_hi = fmaxf(m_hi, fmaxf(s[j][2], s[j][3]));
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, off));
-    m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, off));
-  }
-  float l_lo = 0.0f, l_hi = 0.0f;
-  uint32_t pa[KT / 2][4];  // probabilities as A fragments of the value product
-#pragma unroll
-  for (int j = 0; j < KT; ++j) {
-    s[j][0] = expf(s[j][0] - m_lo);
-    s[j][1] = expf(s[j][1] - m_lo);
-    s[j][2] = expf(s[j][2] - m_hi);
-    s[j][3] = expf(s[j][3] - m_hi);
-    l_lo += s[j][0] + s[j][1];
-    l_hi += s[j][2] + s[j][3];
-    pa[j / 2][(j & 1) * 2 + 0] = pack_bf16(s[j][0], s[j][1]);
-    pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(s[j][2], s[j][3]);
-  }
+  // Normalise and store the rows that exist.
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
   }
-
-  // 3. o = p v, with v staged where k was.
-  __syncthreads();
-  load_rows_bf16(kv_s, vg, 0, 16 * k_steps, n, d, ld, p.row_stride_in);
-  __syncthreads();
-  float o[kMaxHeadDim / 8][4];
+  const float il_lo = 1.0f / l_lo;
+  const float il_hi = 1.0f / l_hi;
+  const int row_lo = q0 + r0 + g;
+  const int row_hi = row_lo + 8;
 #pragma unroll
-  for (int dn = 0; dn < kMaxHeadDim / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.0f;
-#pragma unroll
-  for (int kt = 0; kt < KT / 2; ++kt) {
-    if (kt < k_steps) {
-      const __nv_bfloat16* vrow = kv_s + (16 * kt + (lane & 15)) * ld;
-#pragma unroll
-      for (int dn = 0; dn < kMaxHeadDim / 8; ++dn) {
-        if (8 * dn < d) {
-          uint32_t b0, b1;
-          ldmatrix_x2_trans(b0, b1, vrow + 8 * dn);
-          mma_bf16_16816(o[dn], pa[kt], b0, b1);
-        }
-      }
-    }
-  }
-
-  // 4. Normalise and store the rows that exist.
-#pragma unroll
-  for (int dn = 0; dn < kMaxHeadDim / 8; ++dn) {
-    if (8 * dn < d) {
-      const int c = 8 * dn + 2 * t;
+  for (int j = 0; j < kMaxHeadDim / 8; ++j) {
+    if (8 * j < d) {
+      const int c = 8 * j + 2 * t;
       if (row_lo < n) {
         *reinterpret_cast<__nv_bfloat162*>(og + (size_t)row_lo * p.row_stride_out + c) =
-            __floats2bfloat162_rn(o[dn][0] / l_lo, o[dn][1] / l_lo);
+            __floats2bfloat162_rn(o[j][0] * il_lo, o[j][1] * il_lo);
       }
       if (row_hi < n) {
         *reinterpret_cast<__nv_bfloat162*>(og + (size_t)row_hi * p.row_stride_out + c) =
-            __floats2bfloat162_rn(o[dn][2] / l_hi, o[dn][3] / l_hi);
+            __floats2bfloat162_rn(o[j][2] * il_hi, o[j][3] * il_hi);
       }
     }
   }
 }
 
-template <int KT>
-cudaError_t launch_attention_fwd_mma(AttnParams p, cudaStream_t stream) {
-  p.n_pad = 8 * KT;
-  p.q_tiles = (p.n + kMmaTileQ - 1) / kMmaTileQ;
-  const size_t smem = (size_t)(kMmaTileQ + 8 * KT) * (p.d + 8) * sizeof(__nv_bfloat16);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        attention_fwd_mma_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+inline cudaError_t launch_attention_fwd_mma(AttnParams p, cudaStream_t stream) {
+  const int warps = attention_fwd_warps(p.n);
+  p.q_tiles = ((p.n + 15) / 16 + warps - 1) / warps;
+  const size_t smem = attention_fwd_mma_smem_bytes(p.n, p.bias != nullptr);
+  cudaError_t err = allow_smem(attention_fwd_tc_kernel, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)p.num_groups * (unsigned)p.q_tiles, (unsigned)p.heads);
-  attention_fwd_mma_kernel<KT><<<grid, kMmaThreads, smem, stream>>>(p);
+  attention_fwd_tc_kernel<<<grid, 32 * warps, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// Launches on `stream` and returns cudaGetLastError(); the caller has checked
-// the shapes (d % 8 == 0, d <= kMaxHeadDim, shared memory within the limit).
+// Dynamic shared memory a block of the call's route takes.
+inline size_t attention_fwd_smem_bytes(bool is_bf16, int n, int d, bool with_bias) {
+  return attention_fwd_route_mma(is_bf16, n, d) ? attention_fwd_mma_smem_bytes(n, with_bias)
+                                                : attention_smem_bytes(n, d);
+}
+
+// The route's kernel at (n, d): resident blocks per SM from the occupancy
+// calculator in out[0], dynamic shared memory per block in out[1], warps per
+// block in out[2].
+inline cudaError_t attention_fwd_occupancy(bool is_bf16, int n, int d, bool with_bias, int* out) {
+  out[1] = (int)attention_fwd_smem_bytes(is_bf16, n, d, with_bias);
+  if (attention_fwd_route_mma(is_bf16, n, d)) {
+    out[2] = attention_fwd_warps(n);
+    return blocks_per_sm(attention_fwd_tc_kernel, 32 * out[2], out[1], &out[0]);
+  }
+  out[2] = kWarps;
+  return is_bf16 ? blocks_per_sm(attention_fwd_kernel<__nv_bfloat16>, kThreads, out[1], &out[0])
+                 : blocks_per_sm(attention_fwd_kernel<float>, kThreads, out[1], &out[0]);
+}
+
+// Launches the kernel of the route attention_fwd_route_mma picks on `stream`
+// and returns cudaGetLastError(); the caller has checked the shapes (d % 8
+// == 0, d <= kMaxHeadDim, shared memory within the limit).  The tensor-core
+// route stages rows by 16-byte copies: it takes 16-byte aligned q, k, v and
+// bias with row strides of whole 16-byte vectors and a 4-byte aligned o, and
+// returns cudaErrorMisalignedAddress, launching nothing, for others.
 template <typename T>
 cudaError_t launch_attention_fwd(AttnParams p, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (p.d % 16 == 0 && p.n <= kMmaMaxKeys && p.row_stride_in % 8 == 0 &&
-        p.row_stride_out % 2 == 0 && aligned16(p.q) && aligned16(p.k) && aligned16(p.v) &&
-        aligned16(p.o)) {
-      return p.n <= 144 ? launch_attention_fwd_mma<18>(p, stream)
-                        : launch_attention_fwd_mma<28>(p, stream);
+    if (attention_fwd_route_mma(true, p.n, p.d)) {
+      if (!aligned16(p.q) || !aligned16(p.k) || !aligned16(p.v) || (p.bias && !aligned16(p.bias)) ||
+          !aligned4(p.o) || p.row_stride_in % 8 != 0 || p.row_stride_out % 2 != 0) {
+        return cudaErrorMisalignedAddress;
+      }
+      return launch_attention_fwd_mma(p, stream);
     }
   }
   return launch_attention_fwd_simt<T>(p, stream);

@@ -33,7 +33,7 @@
 //     the weights transposed once per call so that K is contiguous), in f32
 //     tiles of 64 x 64 as f32 FMA on the CUDA cores (both operands f32, the
 //     TPU kernel's f32 product); the f32 bias is added to the f32 sum.
-// (b) the attention of attention_fwd.cuh per (b, w, h, 64-query tile),
+// (b) the attention of attention_fwd.cuh per (b, w, h, query tile),
 //     reading q, k and v in place from qkv and the bias with window index
 //     g % Wb, so a Wb = 1 bias is never broadcast.  In bf16 it reads the
 //     rounded qkv that (a) wrote (the TPU kernel scores the f32 qkv; see

@@ -1,7 +1,8 @@
 // Tensor-core helpers shared by the attention kernels, the fused MLP and the
 // fused attention sublayer: mma.sync m16n8k16 (bf16 in, f32 accumulate),
-// ldmatrix of A and B fragments, bf16 packing, 32-bit shared-memory loads
-// and cp.async.
+// ldmatrix of A and B fragments (and the fragment loads from the attention
+// kernels' staged tiles), bf16 packing, 32-bit shared-memory loads and
+// cp.async.
 //
 // Fragment layout of m16n8k16 (lane = 4 * g + t): A rows g and g + 8, columns
 // 2t, 2t + 1 (+ 8); B columns g, rows 2t, 2t + 1 (+ 8); C rows g and g + 8,
@@ -52,6 +53,40 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* ptr) {
   return *reinterpret_cast<const uint32_t*>(ptr);
+}
+
+// Row stride, in bf16 elements, of the attention kernels' staged q, k, v and
+// do tiles: head dims up to 128, padded by 8 so that the eight row addresses
+// of an ldmatrix fall in distinct banks.
+constexpr int kAttnLd = 128 + 8;
+
+// A fragment of the 16 x 16 block at (row0, k0) of a staged [row][k] tile.
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const __nv_bfloat16* s, int row0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(a, s + (row0 + (lane & 15)) * kAttnLd + k0 + ((lane >> 4) << 3));
+}
+
+// B fragments of the product's columns n0 .. n0 + 15 at depth k0 .. k0 + 15,
+// from a staged tile whose rows are those columns (B[k][n] = s[n][k]):
+// (b[0], b[1]) for columns n0 .. n0 + 7, (b[2], b[3]) for the next 8.
+__device__ __forceinline__ void frag_b_nk(uint32_t (&b)[4], const __nv_bfloat16* s, int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(b, s + (n0 + (lane & 7) + ((lane >> 4) << 3)) * kAttnLd + k0 + (lane & 8));
+}
+
+// The same from a staged tile whose rows are the depth (B[k][n] = s[k][n]).
+__device__ __forceinline__ void frag_b_kn(uint32_t (&b)[4], const __nv_bfloat16* s, int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4_trans(b, s + (k0 + (lane & 15)) * kAttnLd + n0 + ((lane >> 4) << 3));
+}
+
+// The A fragment (16 rows, depth 16) that two f32 C tiles of 8 columns
+// make, rounded to bf16.
+__device__ __forceinline__ void frag_a_from_c(uint32_t (&a)[4], const float (&c0)[4], const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
 }
 
 // 16 bytes (or, when !valid, 16 zero bytes) into shared memory, asynchronously.

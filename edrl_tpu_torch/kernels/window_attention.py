@@ -26,12 +26,14 @@ backward (:func:`self_attention_bwd_reference`,
 hand-written kernels or raises.
 
 Each kernel wrapper counts its launches in :data:`LAUNCHES`, so that a run
-can show that its main path went through the kernels.  The backward kernels
-take one of two routes, chosen from the dtype and shape in the C entry points
-and mirrored by :func:`attention_bwd_route`: ``"mma"`` (bf16, head_dim % 16
-== 0, N <= 224: tensor cores) or ``"fma"`` (f32, and the other bf16 shapes:
-CUDA cores).  Each backward launch also counts under its route in
-:data:`BWD_ROUTES`.
+can show that its main path went through the kernels.  The forward and the
+backward kernels each take one of two routes, chosen from the dtype and
+shape in the C entry points and mirrored by :func:`attention_fwd_route` and
+:func:`attention_bwd_route`: ``"mma"`` (bf16, head_dim % 16 == 0, N <= 224:
+tensor cores) or ``"fma"`` (f32, and the other bf16 shapes: CUDA cores).
+Each forward launch also counts under its route in :data:`FWD_ROUTES` (the
+fused attention sublayer's attention phase and the v1 adapter's included),
+each backward launch in :data:`BWD_ROUTES`.
 """
 
 from __future__ import annotations
@@ -52,32 +54,46 @@ WINDOW_ATTENTION_V1_BWD = "window_attention_fused_bwd"
 # v1 adapter counts its launches of the B2 kernels under its own names.
 LAUNCHES = {SELF_ATTENTION: 0, WINDOW_ATTENTION_V2: 0, SELF_ATTENTION_BWD: 0, WINDOW_ATTENTION_V2_BWD: 0,
             WINDOW_ATTENTION_V1: 0, WINDOW_ATTENTION_V1_BWD: 0}
-# Backward launches (B1, B2 and the v1 adapter's) since the last reset, by route.
+# Forward launches (B1, B2, the v1 adapter's and B6's attention phase) and
+# backward launches (B1, B2 and the v1 adapter's) since the last reset, by route.
+FWD_ROUTES = {"mma": 0, "fma": 0}
 BWD_ROUTES = {"mma": 0, "fma": 0}
 MAX_HEAD_DIM = 128
 MAX_BWD_TOKENS = 256  # the CUDA-core backward keeps [32, N] f32 score rows per block in shared memory
-MMA_BWD_MAX_TOKENS = 224  # the tensor-core backward takes the calls the tensor-core forward takes
+MMA_MAX_TOKENS = 224  # the tensor-core routes, forward and backward, take the same calls
 _SMEM_LIMIT = 232448 - 4 * 64  # opt-in per-block limit, less the 64 static f32 row sums
 _BWD_QUERY_TILE = {"mma": 64, "fma": 32}  # queries per dq block of each route
 _DQ_BLOCKS_PER_SM: dict = {}  # (device index, dtype, n, d) -> resident dq blocks per SM with dbias
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, BWD_ROUTES):
+    for counts in (LAUNCHES, FWD_ROUTES, BWD_ROUTES):
         for name in counts:
             counts[name] = 0
 
 
-def attention_bwd_route(dtype, n: int, d: int) -> str:
-    """The backward kernels' route for a call: ``"mma"`` (tensor cores) for
+def attention_fwd_route(dtype, n: int, d: int) -> str:
+    """The forward kernel's route for a call: ``"mma"`` (tensor cores) for
     bf16 with head_dim % 16 == 0 and N <= 224, else ``"fma"`` (CUDA cores).
+
+    Mirrors ``attention_fwd_route_mma`` in ``csrc/attention_fwd.cuh``, which
+    picks the route before the launch (``edrl_attention_fwd_route`` exposes
+    it).  Shapes the kernels refuse altogether (head_dim % 8) are checked
+    elsewhere.
+    """
+    return "mma" if dtype == torch.bfloat16 and d % 16 == 0 and n <= MMA_MAX_TOKENS else "fma"
+
+
+def attention_bwd_route(dtype, n: int, d: int) -> str:
+    """The backward kernels' route for a call: the forward's
+    (:func:`attention_fwd_route`).
 
     Mirrors ``attention_bwd_route_mma`` in ``csrc/attention_bwd.cuh``, which
     picks the route before the launch (``edrl_attention_bwd_route`` exposes
     it).  Shapes the kernels refuse altogether (head_dim % 8, N > 256) are
     checked elsewhere.
     """
-    return "mma" if dtype == torch.bfloat16 and d % 16 == 0 and n <= MMA_BWD_MAX_TOKENS else "fma"
+    return attention_fwd_route(dtype, n, d)
 
 
 # ---------------------------------------------------------------------------
@@ -235,18 +251,27 @@ def _grad_output(dout, like):
     return dout.to(like.dtype).contiguous()
 
 
-def _bwd_operands(route: str, tensors):
-    """The backward's inputs as its route takes them: the tensor-core route
-    stages rows by 16-byte copies, so a view that starts off a 16-byte
+def _aligned_operands(route: str, tensors):
+    """A kernel's inputs as its route takes them: the tensor-core routes
+    stage rows by 16-byte copies, so a view that starts off a 16-byte
     boundary is copied (a fresh allocation is aligned)."""
     if route != "mma":
         return tuple(tensors)
     return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors)
 
 
+def _launch_fwd(name: str, route: str, fn, device, *args) -> None:
+    build.launch(LAUNCHES, name, fn, device, *args)
+    FWD_ROUTES[route] += 1
+
+
 def _launch_bwd(name: str, route: str, fn, device, *args) -> None:
     build.launch(LAUNCHES, name, fn, device, *args)
     BWD_ROUTES[route] += 1
+
+
+def _fwd_smem(lib, dtype, n: int, d: int, with_bias: bool) -> int:
+    return lib.edrl_attention_fwd_smem_bytes(int(dtype == torch.bfloat16), n, d, int(with_bias))
 
 
 def dbias_chunking(b: int, base: int, slots: int) -> tuple[int, int]:
@@ -289,12 +314,14 @@ def _self_attention_fwd_kernel(q, k, v, num_heads: int, scale: float):
     b, n, c = q.shape
     d = _check_cuda_inputs(SELF_ATTENTION, (q, k, v), num_heads, c, n)
     lib = build.load_library()
-    _check_smem(SELF_ATTENTION, lib.edrl_attention_smem_bytes(n, d), n)
+    _check_smem(SELF_ATTENTION, _fwd_smem(lib, q.dtype, n, d, False), n)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    build.launch(
-        LAUNCHES, SELF_ATTENTION, lib.edrl_self_attention_fwd, q.device,
+    route = attention_fwd_route(q.dtype, n, d)
+    q, k, v = _aligned_operands(route, (q, k, v))
+    _launch_fwd(
+        SELF_ATTENTION, route, lib.edrl_self_attention_fwd, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, n, c, num_heads, float(scale), int(q.dtype == torch.bfloat16),
     )
@@ -314,7 +341,7 @@ def self_attention_bwd_kernel(q, k, v, dout, num_heads: int, scale: float):
     if q.numel() == 0:
         return dq, dk, dv
     route = attention_bwd_route(q.dtype, n, d)
-    q, k, v, dout = _bwd_operands(route, (q, k, v, dout))
+    q, k, v, dout = _aligned_operands(route, (q, k, v, dout))
     stats = torch.empty((3, b * num_heads * n), dtype=torch.float32, device=q.device)
     _launch_bwd(
         SELF_ATTENTION_BWD, route, lib.edrl_self_attention_bwd, q.device,
@@ -372,12 +399,14 @@ def window_attention_v2_fwd_kernel(qkv, bias, num_heads: int, scale: float, name
     c = c3 // 3
     d = _check_cuda_inputs(name, (qkv,), num_heads, c, n)
     lib = build.load_library()
-    _check_smem(name, lib.edrl_attention_smem_bytes(n, d), n)
+    _check_smem(name, _fwd_smem(lib, qkv.dtype, n, d, True), n)
     out = torch.empty((b, w, n, c), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
-    build.launch(
-        LAUNCHES, name, lib.edrl_window_attention_v2_fwd, qkv.device,
+    route = attention_fwd_route(qkv.dtype, n, d)
+    qkv, bias = _aligned_operands(route, (qkv, bias))
+    _launch_fwd(
+        name, route, lib.edrl_window_attention_v2_fwd, qkv.device,
         qkv.data_ptr(), bias.data_ptr(), out.data_ptr(),
         b, w, n, c, num_heads, float(scale), int(qkv.dtype == torch.bfloat16),
     )
@@ -406,7 +435,7 @@ def window_attention_v2_bwd_kernel(qkv, bias, dout, num_heads: int, scale: float
     if qkv.numel() == 0:
         return dqkv, dbias.zero_()
     route = attention_bwd_route(qkv.dtype, n, d)
-    qkv, bias, dout = _bwd_operands(route, (qkv, bias, dout))
+    qkv, bias, dout = _aligned_operands(route, (qkv, bias, dout))
     stats = torch.empty((3, b * w * num_heads * n), dtype=torch.float32, device=qkv.device)
     # Batch entries one dq block sums ds over (dbias_chunking).
     slots = _dq_blocks_per_sm(lib, qkv.device, qkv.dtype, n, d) * build.sm_count(qkv.device)

@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from edrl_tpu_torch.kernels.block_attention import attention_sublayer_fused
 from edrl_tpu_torch.kernels.fused_mlp import fused_mlp
@@ -200,6 +201,16 @@ class Mlp(nn.Module):
             y = fused_mlp(x.to(self.dtype).reshape(-1, c), self.w1, self.b1, self.w2, self.b2)
             return y.reshape(x.shape)
         return self.Dense_1(F.gelu(self.Dense_0(x), approximate="tanh"))
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``, rematerialised under ``remat`` as flax's ``nn.remat``:
+    through ``torch.utils.checkpoint`` (non-reentrant), autograd keeps only
+    the arguments and runs ``fn`` again in the backward.  A plain call when
+    autograd records nothing (eval, ``no_grad``)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def scaled_dot_attention(q, k, v, scale: float, bias: Optional[torch.Tensor] = None):

@@ -62,14 +62,14 @@ class MedFusion(nn.Module):
             num_heads=cfg.swin_heads, window=cfg.swin_window,
             use_fused_attention=cfg.use_fused_attention, use_fused_ln=cfg.use_fused_ln,
             use_fused_mlp=cfg.use_fused_mlp, use_fused_block_attention=cfg.use_fused_block_attention,
-            dtype=dtype, device=device,
+            remat=cfg.remat, remat_attention=cfg.remat_attention, dtype=dtype, device=device,
         )
         self.transformer_3d = ViT3D(
             volume_size=oct_size[0], patch_size=cfg.vit3d_patch, dim=cfg.oct_embed_dim,
             depth=cfg.vit3d_depth, num_heads=cfg.vit3d_heads,
             use_fused_attention=cfg.vit_fused_attention, use_fused_ln=cfg.use_fused_ln,
             use_fused_mlp=cfg.use_fused_mlp, use_fused_block_attention=cfg.use_fused_block_attention,
-            dtype=dtype, device=device,
+            remat=cfg.remat, dtype=dtype, device=device,
         )
         eprl_kw = dict(z_dim=z, num_classes=c, sample_num=cfg.sample_num, topk=cfg.proxy_topk,
                        dtype=dtype, device=device)

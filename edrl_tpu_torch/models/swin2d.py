@@ -13,6 +13,12 @@ and B5, at the JAX package's sites.  With ``use_fused_block_attention`` each
 block's whole attention sublayer (LayerNorm_0, qkv, window attention, proj,
 residual) runs as ``attention_sublayer_fused`` (B6), which takes precedence
 over ``use_fused_attention``.
+
+Rematerialisation follows flax's: ``remat`` recomputes every block in the
+backward (``nn.remat(SwinBlock)``); otherwise ``remat_attention`` (on by
+default) recomputes each block's window attention when it is the unfused
+one, whose ``[B, nW, H, N, N]`` f32 scores dominate the activations (the
+fused kernels and B6 keep no scores, so there it is moot).
 """
 
 from __future__ import annotations
@@ -24,8 +30,8 @@ import torch
 from torch import nn
 
 from edrl_tpu_torch.models.layers import (
-    Dense, LayerNorm, Mlp, add_sublayer_params, attention_sublayer, init_sublayer_params_, scaled_dot_attention,
-    trunc_normal_,
+    Dense, LayerNorm, Mlp, add_sublayer_params, attention_sublayer, init_sublayer_params_, remat_call,
+    scaled_dot_attention, trunc_normal_,
 )
 
 
@@ -153,7 +159,8 @@ class SwinBlock(nn.Module):
     def __init__(self, dim: int, grid: int, num_heads: int, window: int, shift: int, *,
                  mlp_ratio: float = 4.0, use_fused_attention: bool = False,
                  use_fused_ln: bool = False, use_fused_mlp: bool = False,
-                 use_fused_block_attention: bool = False, dtype: torch.dtype = torch.float32, device=None):
+                 use_fused_block_attention: bool = False, remat_attention: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.grid = grid
         self.window = min(window, grid)
@@ -161,6 +168,8 @@ class SwinBlock(nn.Module):
         self.num_heads = num_heads
         self.dtype = dtype
         self.fused_block = use_fused_block_attention
+        # flax remats the attention only on the unfused, non-B6 path.
+        self.remat_attention = remat_attention and not use_fused_attention and not use_fused_block_attention
         if self.fused_block:
             add_sublayer_params(self, dim, device)
             self.rel_bias_table = nn.Parameter(
@@ -205,7 +214,7 @@ class SwinBlock(nn.Module):
         h = self.LayerNorm_0(xw)
         if self.shift > 0:
             h = shift_windows(h, self.window, self.grid, -self.shift)
-        h = self.WindowAttention_0(h, mask=self.shift_mask)
+        h = remat_call(self.remat_attention, self.WindowAttention_0, h, self.shift_mask)
         if self.shift > 0:
             h = shift_windows(h, self.window, self.grid, self.shift)
         xw = xw + h
@@ -232,9 +241,11 @@ class SwinTransformer2D(nn.Module):
                  depths: Sequence[int] = (2, 2, 6, 2), num_heads: Sequence[int] = (4, 8, 16, 32),
                  window: int = 12, mlp_ratio: float = 4.0, use_fused_attention: bool = False,
                  use_fused_ln: bool = False, use_fused_mlp: bool = False,
-                 use_fused_block_attention: bool = False, dtype: torch.dtype = torch.float32, device=None):
+                 use_fused_block_attention: bool = False, remat: bool = False, remat_attention: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.patch_size = patch_size
+        self.remat = remat
         self.dtype = dtype
         self.depths = tuple(depths)
         self.window = window
@@ -248,7 +259,8 @@ class SwinTransformer2D(nn.Module):
                     dim, grid, heads, window, 0 if i % 2 == 0 else window // 2,
                     mlp_ratio=mlp_ratio, use_fused_attention=use_fused_attention,
                     use_fused_ln=use_fused_ln, use_fused_mlp=use_fused_mlp,
-                    use_fused_block_attention=use_fused_block_attention, dtype=dtype, device=device,
+                    use_fused_block_attention=use_fused_block_attention,
+                    remat_attention=remat_attention and not remat, dtype=dtype, device=device,
                 ))
                 block += 1
             if stage != len(depths) - 1:
@@ -272,7 +284,7 @@ class SwinTransformer2D(nn.Module):
             window = min(self.window, grid)
             xw = window_partition(x, window)
             for _ in range(depth):
-                xw = getattr(self, f"SwinBlock_{block}")(xw)
+                xw = remat_call(self.remat, getattr(self, f"SwinBlock_{block}"), xw)
                 block += 1
             x = window_merge(xw, window, grid, grid)
             if stage != len(self.depths) - 1:

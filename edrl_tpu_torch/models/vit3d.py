@@ -8,6 +8,8 @@ the CPU); ``use_fused_ln`` and ``use_fused_mlp`` route its LayerNorms and
 MLPs through B4 and B5 where the width is a multiple of 128;
 ``use_fused_block_attention`` runs each block's attention sublayer as one
 ``attention_sublayer_fused`` (B6), in place of ``use_fused_attention``.
+``remat`` rematerialises every block in the backward, as flax's
+``nn.remat(SelfAttentionBlock)`` does.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from edrl_tpu_torch.models.layers import Dense, LayerNorm, SelfAttentionBlock, trunc_normal_
+from edrl_tpu_torch.models.layers import Dense, LayerNorm, SelfAttentionBlock, remat_call, trunc_normal_
 
 
 class ViT3D(nn.Module):
@@ -25,10 +27,12 @@ class ViT3D(nn.Module):
                  depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
                  in_channels: int = 1, use_fused_attention: bool = False,
                  use_fused_ln: bool = False, use_fused_mlp: bool = False,
-                 use_fused_block_attention: bool = False, dtype: torch.dtype = torch.float32, device=None):
+                 use_fused_block_attention: bool = False, remat: bool = False,
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.patch_size = patch_size
         self.depth = depth
+        self.remat = remat
         self.dtype = dtype
         n = (volume_size // patch_size) ** 3
         self.patch_embed = Dense(patch_size ** 3 * in_channels, dim, dtype=dtype, device=device)
@@ -53,6 +57,6 @@ class ViT3D(nn.Module):
         x = x.reshape(b, (d // p) * (h // p) * (w // p), p * p * p * c)
         x = self.patch_embed(x) + self.pos_embed.to(self.dtype)
         for i in range(self.depth):
-            x = getattr(self, f"SelfAttentionBlock_{i}")(x)
+            x = remat_call(self.remat, getattr(self, f"SelfAttentionBlock_{i}"), x)
         x = self.final_norm(x)
         return x, x.mean(dim=1)

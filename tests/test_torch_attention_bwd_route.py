@@ -43,7 +43,7 @@ def test_route_at_main_path_shapes_and_edges(dtype, n, d, route):
 def test_route_boundary_is_the_forwards():
     """The tensor-core backward takes N up to 224, as the tensor-core forward
     does; 224 < N <= 256 stays on the CUDA cores."""
-    assert wa.MMA_BWD_MAX_TOKENS == 224 <= wa.MAX_BWD_TOKENS
+    assert wa.MMA_MAX_TOKENS == 224 <= wa.MAX_BWD_TOKENS
     assert all(wa.attention_bwd_route(BF16, n, 128) == "mma" for n in range(1, 225))
     assert all(wa.attention_bwd_route(BF16, n, 128) == "fma" for n in range(225, wa.MAX_BWD_TOKENS + 1))
 
@@ -74,7 +74,7 @@ def test_misaligned_view_is_copied_for_the_tensor_cores(route, copied):
     odd = base[1:1 + 4 * 16 * 32].view(4, 16, 32)  # starts 2 bytes in
     aligned = base[:4 * 16 * 32].view(4, 16, 32)
     assert odd.data_ptr() % 16 != 0 and aligned.data_ptr() % 16 == 0
-    got_odd, got_aligned = wa._bwd_operands(route, (odd, aligned))
+    got_odd, got_aligned = wa._aligned_operands(route, (odd, aligned))
     assert (got_odd.data_ptr() != odd.data_ptr()) == copied
     assert got_odd.data_ptr() % 16 == 0 or not copied
     assert torch.equal(got_odd, odd)

@@ -160,6 +160,53 @@ def test_bwd_route_mirrors_the_entry_points(cuda):
 
 
 @pytest.mark.cuda
+def test_fwd_route_mirrors_the_entry_points(cuda):
+    """attention_fwd_route (Python) picks what edrl_attention_fwd_route (C) picks."""
+    from edrl_tpu_torch.kernels import build
+
+    lib = build.load_library()
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in (1, 16, 17, 144, 145, 216, 224, 225, 240, 256):
+            for d in (8, 16, 24, 32, 64, 128):
+                want = wa.attention_fwd_route(dtype, n, d)
+                got = lib.edrl_attention_fwd_route(int(dtype == torch.bfloat16), n, d)
+                assert {1: "mma", 0: "fma"}[got] == want, (dtype, n, d)
+
+
+# The forward at the backward's shapes: the train shapes and both routes' edges.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,n,c,heads", SA_BWD_SHAPES)
+def test_self_attention_fwd_kernel_counts_its_route(cuda, dtype, atol, b, n, c, heads):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn((b, n, c), generator=gen, device=cuda).to(dtype) for _ in range(3))
+    scale = (c // heads) ** -0.5
+    wa.reset_launch_counts()
+    got = wa._self_attention_fwd_kernel(q, k, v, heads, scale)
+    route = wa.attention_fwd_route(dtype, n, c // heads)
+    assert wa.FWD_ROUTES == {name: int(name == route) for name in wa.FWD_ROUTES}
+    want = wa.self_attention_reference(q, k, v, heads, scale)
+    assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,w,n,c,heads", V2_BWD_SHAPES)
+def test_window_attention_fwd_kernel_counts_its_route(cuda, dtype, atol, b, w, n, c, heads):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    qkv = torch.randn((b, w, n, 3 * c), generator=gen, device=cuda).to(dtype)
+    bias = torch.randn((w, heads, n, n), generator=gen, device=cuda)
+    bias[..., 1::3] = -1e9
+    scale = (c // heads) ** -0.5
+    wa.reset_launch_counts()
+    got = wa.window_attention_v2_fwd_kernel(qkv, bias, heads, scale)
+    route = wa.attention_fwd_route(dtype, n, c // heads)
+    assert wa.FWD_ROUTES == {name: int(name == route) for name in wa.FWD_ROUTES}
+    want = wa.window_attention_v2_reference(qkv, bias, heads, scale)
+    assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
 def test_autograd_reaches_the_backward_kernels(cuda):
     gen = torch.Generator(device=cuda).manual_seed(3)
     q, k, v = (torch.randn((2, 40, 64), generator=gen, device=cuda, requires_grad=True) for _ in range(3))
