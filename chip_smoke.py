@@ -12,7 +12,8 @@ Phases (any failed check raises, so the exit code is nonzero):
    source, in parallel) and print the build time and the compiler's
    register/shared-memory report; for the attention's tensor-core kernels,
    forward and backward, registers, spills, shared memory and resident
-   blocks per SM at the main-path shapes (N = 144 and 216, head_dim 128).
+   blocks per SM at the main-path shapes (N = 144 and 216, head_dim 128);
+   the same for B5's wgmma kernels, which must not spill.
 3. Check each forward kernel against its plain PyTorch version at every
    serving shape (batch 16) and at the edges of its two routes (those of
    phase 7, biases with -1e9 entries), in bf16 (atol 3e-2) and f32 (atol
@@ -73,14 +74,17 @@ MLP runs through B4 and B5:
     shape of the configuration's serving (batch 16) and train step (batch
     32), and at odd shapes, in bf16 and f32 (the bars of phase 7; B5's f32
     results 2^-8, see ``MLP_F32_BAR``); dgamma, dbeta and the weight and bias
-    gradients the same bit for bit over two runs; a width the kernels refuse
+    gradients the same bit for bit over two runs; every B5 launch counted
+    under the route the Python mirror predicts (bf16 "wgmma", f32 "mma"),
+    which must be the C entry point's choice; a width the kernels refuse
     raises.
 12. Serve the three requests with a full-width ``Predictor`` of the
-    configuration: finite probabilities; per batch 54 B4, 24 B5, 12 B1 and
-    12 B2 launches.
+    configuration: finite probabilities; per batch 54 B4, 24 B5 (all on the
+    wgmma route), 12 B1 and 12 B2 launches.
 13. Train three full-width bf16 steps at batch 32: finite losses, changed
-    parameters; per step 108 + 108 B4, 48 + 48 B5 and 24 of each attention
-    kernel, forward and backward, both on the tensor cores.
+    parameters; per step 108 + 108 B4, 48 + 48 B5 (all on the wgmma route)
+    and 24 of each attention kernel, forward and backward, both on the
+    tensor cores.
 14. One more bf16 step with every B4 and B5 call, forward and backward, held
     against the plain versions on that call's own tensors.
 15. A small f32 model of the configuration (widths that route), one step on
@@ -89,14 +93,15 @@ MLP runs through B4 and B5:
     its own inputs (the fused MLP rounds its activation to bf16 in f32 mode
     too, and the two devices round a few values the other way): loss 1e-4,
     per-tensor gradient error median 1e-4 and worst 1e-2 (phase 9's bar; a
-    gradient that is a cancelling sum over the batch reads ~1e-3).  The
-    comparison without the replay is printed.
+    gradient that is a cancelling sum over the batch reads ~1e-3); every B5
+    launch on the mma route.  The comparison without the replay is printed.
 16. Time the configuration's train step against the shipped config's
     (interleaved), both peak memories, both serving forwards, and each B4
     and B5 shape of the batch-32 step against its plain version, one
     PyTorch call (B4: ``F.layer_norm`` and its backward) and its bound; B5
     also beside the shipped ``Mlp`` (two cuBLAS Dense and the GELU, forward
-    and backward through autograd), as no single call computes it.
+    and backward through autograd), as no single call computes it, and with
+    its wrappers' host enqueue time per call.
 
 Then the fused attention-sublayer configuration (``EDRLConfig()`` with
 ``use_fused_block_attention``), whose every backbone block runs its attention
@@ -172,6 +177,9 @@ SA, V2, SA_BWD, V2_BWD, MMD = (
 )
 LN, LN_BWD, MLP, MLP_BWD = "fused_layer_norm", "fused_layer_norm_bwd", "fused_mlp", "fused_mlp_bwd"
 B6, V1, V1_BWD = "attention_sublayer_fused", "window_attention_fused", "window_attention_fused_bwd"
+# B5's bf16 (wgmma) route: the mainloop's product kernel, the fused forward
+# (C = 128) and the backward's hidden kernel.
+B5_WGMMA_KERNELS = ("wgmma_gemm_kernel", "mlp_fwd_fused_wgmma_kernel", "mlp_bwd_hidden_wgmma_kernel")
 KERNEL_SOURCE = {
     SA: "edrl_tpu_torch/kernels/csrc/self_attention_fwd.cu",
     V2: "edrl_tpu_torch/kernels/csrc/window_attention_v2_fwd.cu",
@@ -237,6 +245,21 @@ def time_ms(torch, fn, reps: int = TIMING_REPS, launches: int = TIMING_LAUNCHES)
     return statistics.median(times)
 
 
+def enqueue_ms(fn, calls: int = 20) -> float:
+    """Host time per call of ``fn`` to enqueue its work (no synchronisation
+    inside the run; the card runs behind)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = 1000.0 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return ms
+
+
 def bound(nbytes: float, flops: float, flops_per_s: float):
     """(bound_ms, bound_by): the larger of bytes over HBM rate and ops over peak."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
@@ -299,10 +322,12 @@ def main() -> None:
               f"{len(spills)} spill", flush=True)
         for line in spills:
             print(f"  ptxas spill: {line}")
-        for kernel in ("attention_fwd_tc_kernel", "attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel"):
+        for kernel in ("attention_fwd_tc_kernel", "attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel",
+                       *B5_WGMMA_KERNELS):
             found = [r for e, r in regs.items() if kernel in e]
             print(f"  ptxas {kernel}: registers {found}, "
                   f"spilling: {[line for line in spills if kernel in line] or 'none'}", flush=True)
+        check(not [line for line in spills for k in B5_WGMMA_KERNELS if k in line], "B5's wgmma kernels spill")
     # The attention's tensor-core kernels at the main-path shapes: resident
     # blocks per SM (occupancy calculator) and shared memory.
     import ctypes
@@ -320,6 +345,16 @@ def main() -> None:
         print(f"  attention bwd tensor cores, {label}, head_dim 128: dq kernel {occ[0]} blocks per SM "
               f"({4 * occ[0]} warps), {occ[2]} bytes of shared memory; dk/dv kernel {occ[1]} blocks per SM "
               f"({4 * occ[1]} warps), {occ[3]} bytes", flush=True)
+    # B5's wgmma route: CTAs per SM (occupancy calculator) and shared memory.
+    occ = (ctypes.c_int * 7)()
+    check(bwd_lib.edrl_fused_mlp_fwd_occupancy(occ) == 0, "B5 forward occupancy query")
+    print(f"  B5 fwd wgmma, CTAs of {occ[6]} threads: first and second product (C >= 256) {occ[0]} and {occ[2]} "
+          f"per SM, {occ[1]} bytes of dynamic shared memory each; fused kernel (C = 128) {occ[4]} per SM, "
+          f"{occ[5]} bytes", flush=True)
+    occ = (ctypes.c_int * 5)()
+    check(bwd_lib.edrl_fused_mlp_bwd_occupancy(occ) == 0, "B5 backward occupancy query")
+    print(f"  B5 bwd wgmma: hidden kernel {occ[0]} CTA per SM, {occ[1]} bytes; du and weight-gradient products "
+          f"{occ[2]} and {occ[3]} CTAs per SM, {occ[4]} bytes each", flush=True)
 
     # -- 3. forward kernels against their plain versions --------------------
     cfg = EDRLConfig()
@@ -1085,6 +1120,11 @@ def main() -> None:
         u, w1, b1, w2, b2, dy = mlp_inputs(m, c, h, dtype)
         bar = BWD_BAR["bf16"] if dtype == torch.bfloat16 else MLP_F32_BAR
         label = f"[{m},{c}]x{h}" + ("" if main_path else " (odd)")
+        route = fm.fused_mlp_route(dtype, c, h)
+        c_route = build.load_library().edrl_fused_mlp_route(int(dtype == torch.bfloat16), c, h)
+        check(route == {1: "wgmma", 0: "mma"}.get(c_route), f"B5 {label}: route {route}, C entry {c_route}")
+        check(route == ("wgmma" if dtype == torch.bfloat16 else "mma"), f"B5 {label} {dtype}: route {route}")
+        fm.reset_launch_counts()
         hold(MLP, label, dtype, [(fm.fused_mlp_fwd_kernel(u, w1, b1, w2, b2),
                                   fm.fused_mlp_reference(u, w1, b1, w2, b2), bar)], main_path)
         got = fm.fused_mlp_bwd_kernel(u, dy, w1, b1, w2)
@@ -1094,6 +1134,9 @@ def main() -> None:
             again = fm.fused_mlp_bwd_kernel(u, dy, w1, b1, w2)
             check(all(torch.equal(a, g) for a, g in zip(again[1:], got[1:])),
                   f"{MLP_BWD} {label}: weight and bias gradients differ between two runs")
+        want_routes = {"wgmma": 0, "mma": 0}
+        want_routes[route] = 3 if twice else 2
+        check(fm.MLP_ROUTES == want_routes, f"B5 {label} {dtype}: routes {fm.MLP_ROUTES}, expected {want_routes}")
 
     # -- 11. B4 and B5 against their plain versions --------------------------
     with torch.no_grad():
@@ -1138,8 +1181,11 @@ def main() -> None:
         print(f"slice request {len(f)} pairs -> probs {p.shape}, first row {p[0].tolist()}", flush=True)
     want = {name: 0 for name in s_serve}
     want.update({SA: 12 * batches, V2: 12 * batches, LN: n_ln * batches, MLP: n_mlp * batches})
-    print(f"slice serving launches over {batches} batches: {s_serve} (expected {want})", flush=True)
+    s_routes = dict(fm.MLP_ROUTES)
+    print(f"slice serving launches over {batches} batches: {s_serve} (expected {want}); B5 routes {s_routes}",
+          flush=True)
     check(s_serve == want, f"slice serving launches {s_serve}")
+    check(s_routes == {"wgmma": n_mlp * batches, "mma": 0}, f"slice serving: B5 routes {s_routes}")
 
     # -- 13. training the slice at full width ---------------------------------
     s_state = trainer.init_state(slice_cfg, seed=0, device=dev)
@@ -1150,6 +1196,10 @@ def main() -> None:
     s_outs = [s_step(s_state, batch, gen_slice) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     slice_launches = counts()
+    slice_mlp_routes = dict(fm.MLP_ROUTES)
+    print(f"slice train, {TRAIN_STEPS} steps: B5 routes {slice_mlp_routes}", flush=True)
+    check(slice_mlp_routes == {"wgmma": 4 * n_mlp * TRAIN_STEPS, "mma": 0},
+          f"slice train: B5 routes {slice_mlp_routes}, expected every launch on wgmma")
     check_routes(f"slice train, {TRAIN_STEPS} steps", dict(wa.BWD_ROUTES), 48 * TRAIN_STEPS)
     check_routes(f"slice train, {TRAIN_STEPS} steps", dict(wa.FWD_ROUTES), 48 * TRAIN_STEPS, "forward")
     for i, out in enumerate(s_outs):
@@ -1252,6 +1302,7 @@ def main() -> None:
     finally:
         fm.fused_mlp_fwd_kernel, fm.fused_mlp_bwd_kernel = kernels_of[2:]
     f_launches = counts()
+    f_routes = dict(fm.MLP_ROUTES)
     plain_of = (fm.fused_mlp_reference, fm.fused_mlp_bwd_reference)
     replay = iter(recorded)
     replay_err = []
@@ -1303,6 +1354,7 @@ def main() -> None:
                  V2_BWD: 2 * sum(fm_.swin_depths), LN: 2 * f_ln, LN_BWD: 2 * f_ln, MLP: 2 * f_mlp,
                  MLP_BWD: 2 * f_mlp})
     check(f_launches == want, f"small slice launches {f_launches}, expected {want}")
+    check(f_routes == {"wgmma": 0, "mma": 4 * f_mlp}, f"small f32 slice step: B5 routes {f_routes}, expected mma")
     del f_cpu, f_free, f_gpu, recorded
 
     # -- 16. the slice's step, serving forward and kernels, timed --------------
@@ -1400,6 +1452,13 @@ def main() -> None:
         tsf, tsb = shipped_mlp_ms(u, w1, b1, w2, b2, dy)
         print(f"  beside it: the shipped Mlp (Dense, GELU, Dense) forward {tsf:.4f} ms, backward through "
               f"autograd {tsb:.4f} ms per call [{card}]", flush=True)
+        # The wrappers' host work per call (allocations, weight rounding launches,
+        # TMA tensor maps: 3 forward at C = 128, else 4; 10 backward).
+        with torch.no_grad():
+            hf = enqueue_ms(lambda: fm.fused_mlp_fwd_kernel(u, w1, b1, w2, b2))
+            hb = enqueue_ms(lambda: fm.fused_mlp_bwd_kernel(u, dy, w1, b1, w2))
+        print(f"  host enqueue per call: forward {hf:.4f} ms ({3 if c == 128 else 4} tensor maps), backward "
+              f"{hb:.4f} ms (10 tensor maps)", flush=True)
         totals[MLP]["shipped_ms"] += 2 * calls * tsf
         totals[MLP_BWD]["shipped_ms"] += 2 * calls * tsb
         del u, dy

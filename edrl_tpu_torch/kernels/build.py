@@ -132,8 +132,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "edrl_layer_norm_fwd": (i32, [ptr, ptr, ptr, ptr, i32, i32, f32, i32, ptr]),
         # x, dy, gamma, dx, dgamma, dbeta, partial, m, c, blocks, eps, is_bf16, stream
         "edrl_layer_norm_bwd": (i32, [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, i32, ptr]),
-        # u, w1, b1, w2, b2, y, w1t, w2t, m, c, h, u_is_bf16, w_is_bf16, stream
-        "edrl_fused_mlp_fwd": (i32, [ptr] * 8 + [i32] * 5 + [ptr]),
+        # u_is_bf16, c, h -> 1 for the wgmma route, 0 for the mma.sync route, -1 refused
+        "edrl_fused_mlp_route": (i32, [i32, i32, i32]),
+        # out[7]: CTAs per SM and smem bytes of the forward's kernels (two products, fused
+        # at C = 128), threads per CTA
+        "edrl_fused_mlp_fwd_occupancy": (i32, [ptr]),
+        # out[5]: hidden kernel CTAs per SM and smem; du and weight-gradient CTAs per SM; their smem
+        "edrl_fused_mlp_bwd_occupancy": (i32, [ptr]),
+        # u, w1, b1, w2, b2, y, wa, wb, act, m, c, h, u_is_bf16, w_is_bf16, stream
+        "edrl_fused_mlp_fwd": (i32, [ptr] * 9 + [i32] * 5 + [ptr]),
         # u, dy, w1, b1, w2, du, dw1, db1, dw2, db2, w1t, w1b, w2b, dh, act,
         # db1_part, db2_part, dw1_part, dw2_part, m, c, h, splits, chunk,
         # u_is_bf16, w_is_bf16, stream

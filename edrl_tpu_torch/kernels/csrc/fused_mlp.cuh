@@ -1,8 +1,11 @@
 // Shared pieces of the fused MLP kernels (B5): y = gelu_tanh(u W1 + b1) W2 + b2
 // with W1 [C, H], W2 [H, C] and the hidden [M, H] kept on chip.
 //
-// Every product runs on the tensor cores with mma.sync m16n8k16 (bf16 in,
-// f32 accumulate).  The TPU kernel rounds the weights, the activation a and,
+// B5's bf16 calls take the wgmma route (hopper_gemm.cuh, fused_mlp_fwd.cu,
+// fused_mlp_bwd.cu); what follows serves its f32 calls (the "mma" route),
+// the fused attention sublayer (B6: tile_product and the weight
+// transposes) and both routes' GELU.  On the mma route every product runs
+// on the tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate).  The TPU kernel rounds the weights, the activation a and,
 // in its backward, dy and dh to bf16, and keeps u in its own dtype.  bf16
 // operands go to the tensor cores as they are.  An f32 u is split exactly
 // into three bf16 parts, u = u0 + u1 + u2 (each part holds the next 8 bits of
@@ -10,8 +13,8 @@
 // one f32 accumulator: the products u_i * w are exact in f32, so the result
 // is the f32 product the TPU kernel forms, up to the order of the f32 sums.
 //
-// Layout of the forward: a block owns BM rows of u (32 in bf16, 16 in f32)
-// and 8 warps.  It walks over the hidden units in chunks of BH = 32.  Per
+// Layout of the mma route's forward: a block owns BM = 16 rows of u and 8
+// warps.  It walks over the hidden units in chunks of BH = 32.  Per
 // chunk:
 //
 // - gemm_small: the [BM, BH] product of the block's rows with one weight
@@ -22,16 +25,16 @@
 //   hidden times a [BH, C] weight chunk.  Warp w owns output columns
 //   [w * C / 8, (w + 1) * C / 8), i.e. NT = C / 64 tiles of 8 columns, and
 //   keeps their f32 sums in registers across all chunks (BM * C / 256
-//   floats a thread: 128 at C = 1024, BM = 32).
+//   floats a thread: 64 at C = 1024).
 //
 // tile_product, a 128 x 64 output tile of a product whose operands both hold
-// K contiguously, serves the backward's row kernels and the fused attention
+// K contiguously, serves the mma route's backward row kernels and the fused attention
 // sublayer's (B6) bf16 products.
 //
 // The weights reach the kernels as bf16 copies in the layout whose rows hold
 // the product's K dimension contiguously (prep kernels below), so that a B
 // fragment is two 32-bit shared-memory loads.  C must be a multiple of 128
-// and at most 1024; H a multiple of 32.
+// and at most 1024; H a multiple of 128 (mlp_shape_ok).
 
 #pragma once
 
@@ -47,6 +50,15 @@ constexpr int kMlpMaxC = 1024;
 constexpr float kSqrt2OverPi = 0.7978845608028654f;
 constexpr float kGeluC = 0.044715f;
 
+// The shapes the B5 kernels take, both routes.
+inline bool mlp_shape_ok(int c, int h) {
+  return c % 128 == 0 && c >= 128 && c <= kMlpMaxC && h % 128 == 0 && h >= 128;
+}
+
+// The route of a B5 call, forward and backward: warpgroup MMA fed by TMA
+// (hopper_gemm.cuh) for bf16 u, mma.sync for f32 u.
+inline bool mlp_route_wgmma(bool u_is_bf16) { return u_is_bf16; }
+
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float inner = kSqrt2OverPi * (x + kGeluC * x * x * x);
   return 0.5f * x * (1.0f + tanhf(inner));
@@ -57,6 +69,26 @@ __device__ __forceinline__ float gelu_tanh_grad(float x) {
   const float t = tanhf(kSqrt2OverPi * (x + kGeluC * x * x2));
   const float sech2 = 1.0f - t * t;
   return 0.5f * (1.0f + t) + 0.5f * x * sech2 * kSqrt2OverPi * (1.0f + 3.0f * kGeluC * x2);
+}
+
+// The tanh GELU in its logistic form, for the wgmma route's epilogues:
+// 0.5 x (1 + tanh(y)) = x s with s = 1 / (1 + exp(-2y)), y = sqrt(2 / pi)
+// (x + 0.044715 x^3), in f32 with the hardware exp and a fast reciprocal
+// (a few f32 ulps from gelu_tanh, whose tanhf is within 2 ulps; no
+// cancellation near 0), at a quarter of tanhf's instructions.  The
+// derivative is s + 2 x s (1 - s) y'.
+__device__ __forceinline__ float gelu_logistic_s(float x) {
+  const float y = kSqrt2OverPi * (x + kGeluC * x * x * x);
+  return __fdividef(1.0f, 1.0f + __expf(-2.0f * y));
+}
+
+__device__ __forceinline__ float gelu_logistic(float x) { return x * gelu_logistic_s(x); }
+
+// gelu(x) in *act and gelu'(x) returned.
+__device__ __forceinline__ float gelu_logistic_grad(float x, float* act) {
+  const float s = gelu_logistic_s(x);
+  *act = x * s;
+  return s + 2.0f * x * s * (1.0f - s) * kSqrt2OverPi * (1.0f + 3.0f * kGeluC * x * x);
 }
 
 __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {

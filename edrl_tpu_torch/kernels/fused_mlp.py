@@ -15,9 +15,18 @@ does.  :func:`fused_mlp` is a ``torch.autograd.Function`` that saves
 ``(u, w1, b1, w2)``, not the hidden, as the JAX VJP does.  A CPU tensor takes
 the plain versions; a CUDA tensor launches the kernels or raises.  Each
 kernel wrapper counts its launches in :data:`LAUNCHES`.
+
+The kernels take one of two routes, forward and backward alike, chosen in
+the C entry points from u's dtype and mirrored by :func:`fused_mlp_route`:
+``"wgmma"`` for bf16 u (Hopper's warpgroup MMA fed by TMA,
+``csrc/hopper_gemm.cuh``) and ``"mma"`` for f32 u (``mma.sync``, the
+correctness-check mode).  Each launch also counts under its route in
+:data:`MLP_ROUTES`.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -27,16 +36,41 @@ FUSED_MLP = "fused_mlp"
 FUSED_MLP_BWD = "fused_mlp_bwd"
 # Kernel launches since the last reset_launch_counts(), by wrapper name.
 LAUNCHES = {FUSED_MLP: 0, FUSED_MLP_BWD: 0}
+# Forward and backward launches since the last reset, by route.
+MLP_ROUTES = {"wgmma": 0, "mma": 0}
 MAX_C = 1024
 _ROW_TILE = 128  # rows per block of the backward's row kernels (csrc/fused_mlp_bwd.cu)
-_WGRAD_BLOCKS_PER_SM = 4  # the weight-gradient grid: at least this many blocks per SM
+_DB2_ROWS = 64  # rows per partial of db2 on the wgmma route
+_WGRAD_BLOCKS_PER_SM = 4  # the mma route's weight-gradient grid: at least this many blocks per SM
+# The wgmma route's weight gradients (csrc/hopper_gemm.cuh): 128 x 128 tiles,
+# 2 CTAs per SM, 64 rows of M per ring stage.  The split planner's cost model
+# (tuned on an H100): ~0.85 us per CTA stage with two CTAs on an SM, and the
+# split partials moving at ~3 TB/s.
+_WGMMA_CTAS_PER_SM = 2
+_WGRAD_SLICE = 64
+_WGRAD_STAGE_US = 0.85
+_PARTIAL_BYTES_PER_US = 3.0e6
 _SQRT_2_OVER_PI = 0.7978845608028654
 _GELU_C = 0.044715
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, MLP_ROUTES):
+        for name in counts:
+            counts[name] = 0
+
+
+def fused_mlp_route(dtype, c: int, h: int):
+    """The kernels' route for a call, forward and backward: ``"wgmma"`` for
+    bf16 u, ``"mma"`` for f32 u, ``None`` where the kernels refuse the
+    dtype or the shape (C a multiple of 128 up to 1024, H a multiple of 128).
+
+    Mirrors ``edrl_fused_mlp_route`` in ``csrc/fused_mlp_fwd.cu``, which picks
+    the route before the launch.
+    """
+    if c % 128 or not 128 <= c <= MAX_C or h % 128 or h < 128:
+        return None
+    return {torch.bfloat16: "wgmma", torch.float32: "mma"}.get(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -107,29 +141,78 @@ def _check_cuda(name: str, u, w1, b1, w2, b2=None) -> tuple:
     return m, c, h
 
 
+def _aligned(t):
+    """t itself, or a copy where its data does not start on a 16-byte
+    boundary (TMA and the 16-byte loads of both routes need it)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(name: str, route: str, fn, device, *args) -> None:
+    build.launch(LAUNCHES, name, fn, device, *args)
+    MLP_ROUTES[route] += 1
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def fused_mlp_fwd_kernel(u, w1, b1, w2, b2):
-    """The B5 forward kernel's ``[M, C]`` result; CUDA tensors only."""
+    """The B5 forward kernels' ``[M, C]`` result; CUDA tensors only."""
     m, c, h = _check_cuda(FUSED_MLP, u, w1, b1, w2, b2)
     y = torch.empty_like(u)
     if m == 0:
         return y
+    route = fused_mlp_route(u.dtype, c, h)
+    u, w1, w2 = map(_aligned, (u, w1, w2))
     bf16 = dict(dtype=torch.bfloat16, device=u.device)
-    w1t, w2t = torch.empty((h, c), **bf16), torch.empty((c, h), **bf16)
-    build.launch(LAUNCHES, FUSED_MLP, build.load_library().edrl_fused_mlp_fwd, u.device,
-                 u.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                 y.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), m, c, h,
-                 int(u.dtype == torch.bfloat16), int(w1.dtype == torch.bfloat16))
+    w_bf16 = w1.dtype == torch.bfloat16
+    if route == "wgmma":  # bf16 copies of f32 weights, and the activation
+        wa = None if w_bf16 else torch.empty((c, h), **bf16)
+        wb = None if w_bf16 else torch.empty((h, c), **bf16)
+        act = torch.empty((m, h), **bf16)
+    else:  # transposed bf16 weights
+        wa, wb, act = torch.empty((h, c), **bf16), torch.empty((c, h), **bf16), None
+    _launch(FUSED_MLP, route, build.load_library().edrl_fused_mlp_fwd, u.device,
+            *map(_ptr, (u, w1, b1, w2, b2, y, wa, wb, act)), m, c, h,
+            int(u.dtype == torch.bfloat16), int(w_bf16))
     return y
 
 
 def _wgrad_splits(m: int, c: int, h: int, sms: int) -> tuple:
-    """``(splits, chunk)``: the weight-gradient products split M so that
-    their grid of 128 x 128 tiles has at least 4 blocks per SM, in chunks
-    of at least 256 rows (a multiple of 32)."""
+    """``(splits, chunk)`` of the mma route: the weight-gradient products
+    split M so that their grid of 128 x 128 tiles has at least 4 blocks per
+    SM, in chunks of at least 256 rows (a multiple of 32)."""
     tiles = (c // 128) * (h // 128)
     splits = max(1, min(-(-_WGRAD_BLOCKS_PER_SM * sms // tiles), -(-m // 256)))
     chunk = -(-(-(-m // splits)) // 32) * 32
     return -(-m // chunk), chunk
+
+
+@functools.lru_cache(maxsize=256)
+def wgmma_wgrad_splits(m: int, c: int, h: int, sms: int) -> tuple:
+    """``(splits, chunk)`` of the wgmma route's weight gradients.
+
+    Each of ``splits`` splits of M (``chunk`` rows, a multiple of 64, at
+    least 256 unless M is smaller) runs the (C / 128) x (H / 128) output
+    tiles; the persistent grid holds 2 CTAs per SM, so the products take
+    about ceil(tiles * splits / (2 * sms)) * chunk / 64 ring stages, and
+    splits > 1 add (2 * splits + 1) * C * H * 4 bytes of partials to write,
+    read and sum.  Returns the split with the least estimated time (of
+    equal times, the fewest splits).  Cached: a step repeats its shapes, and
+    the search over up to 1024 candidates would cost the host ~1 ms a call.
+    """
+    tiles = (c // 128) * (h // 128)
+    slots = _WGMMA_CTAS_PER_SM * sms
+    best = None
+    for want in range(1, min(max(1, m // 256), 1024) + 1):
+        chunk = -(-(-(-m // want)) // _WGRAD_SLICE) * _WGRAD_SLICE
+        splits = -(-m // chunk)
+        est = -(-tiles * splits // slots) * (chunk // _WGRAD_SLICE) * _WGRAD_STAGE_US
+        if splits > 1:
+            est += (2 * splits + 1) * c * h * 4 / _PARTIAL_BYTES_PER_US
+        if best is None or (est, splits) < best[0]:
+            best = ((est, splits), splits, chunk)
+    return best[1], best[2]
 
 
 def fused_mlp_bwd_kernel(u, dy, w1, b1, w2):
@@ -144,24 +227,24 @@ def fused_mlp_bwd_kernel(u, dy, w1, b1, w2):
     db1, db2 = torch.empty((h,), **f32), torch.empty((c,), **f32)
     if m == 0:
         return du, dw1.zero_(), db1.zero_(), dw2.zero_(), db2.zero_()
-    splits, chunk = _wgrad_splits(m, c, h, build.sm_count(u.device))
+    route = fused_mlp_route(u.dtype, c, h)
+    u, dy, w1, w2 = map(_aligned, (u, dy, w1, w2))
+    plan = wgmma_wgrad_splits if route == "wgmma" else _wgrad_splits
+    splits, chunk = plan(m, c, h, build.sm_count(u.device))
     tiles = -(-m // _ROW_TILE)
     w_f32 = w1.dtype == torch.float32
-    w1t = torch.empty((h, c), **bf16)
+    w1t = torch.empty((h, c), **bf16) if route == "mma" else None
     w1b = torch.empty((c, h), **bf16) if w_f32 else None
     w2b = torch.empty((h, c), **bf16) if w_f32 else None
     dh, act = torch.empty((m, h), **bf16), torch.empty((m, h), **bf16)
-    db1_part, db2_part = torch.empty((tiles, h), **f32), torch.empty((tiles, c), **f32)
+    db2_rows = -(-m // _DB2_ROWS) if route == "wgmma" else tiles
+    db1_part, db2_part = torch.empty((tiles, h), **f32), torch.empty((db2_rows, c), **f32)
     dw1_part = torch.empty((splits, c, h), **f32) if splits > 1 else None
     dw2_part = torch.empty((splits, h, c), **f32) if splits > 1 else None
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    build.launch(LAUNCHES, FUSED_MLP_BWD, build.load_library().edrl_fused_mlp_bwd, u.device,
-                 *map(ptr, (u, dy, w1, b1, w2, du, dw1, db1, dw2, db2, w1t, w1b, w2b, dh, act,
-                            db1_part, db2_part, dw1_part, dw2_part)),
-                 m, c, h, splits, chunk, int(u.dtype == torch.bfloat16), int(not w_f32))
+    _launch(FUSED_MLP_BWD, route, build.load_library().edrl_fused_mlp_bwd, u.device,
+            *map(_ptr, (u, dy, w1, b1, w2, du, dw1, db1, dw2, db2, w1t, w1b, w2b, dh, act,
+                        db1_part, db2_part, dw1_part, dw2_part)),
+            m, c, h, splits, chunk, int(u.dtype == torch.bfloat16), int(not w_f32))
     return du, dw1, db1, dw2, db2
 
 

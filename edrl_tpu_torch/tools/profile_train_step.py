@@ -22,7 +22,9 @@ under it, and prints:
   the last kernel's end, and device time per step by category.  B6 is three
   phases: its two products count as "attention sublayer products (B6)", its
   LayerNorm under B4's category, its attention under B1/B2 fwd and its weight
-  transposes under B5's weight preps.
+  transposes under B5's weight preps.  B5's bf16 kernels (``wgmma_gemm_kernel``,
+  ``mlp_fwd_fused_wgmma_kernel``, ``mlp_bwd_hidden_wgmma_kernel``) count under
+  B5, ahead of the cuBLAS row that "gemm" would otherwise match.
 """
 
 from __future__ import annotations
@@ -46,10 +48,11 @@ CATEGORIES = (
     ("attention kernels (B1/B2 bwd)", ("attention_bwd",)),
     ("MK-MMD kernel (B3)", ("mmd_",)),
     ("LayerNorm kernels (B4 fwd/bwd)", ("layer_norm_fwd_kernel", "layer_norm_bwd_kernel")),
-    ("MLP kernels (B5 fwd/bwd, weight preps)", ("fused_mlp_fwd_kernel", "mlp_bwd_", "mlp_wgrad_kernel",
-                                                "row_tile_sums_kernel", "transpose_bf16_kernel",
+    ("MLP kernels (B5 fwd/bwd, weight preps)", ("fused_mlp_fwd_kernel", "mlp_fwd_fused_wgmma", "wgmma_gemm_kernel",
+                                                "mlp_bwd_", "mlp_wgrad_kernel", "row_tile_sums_kernel",
+                                                "dy_col_partials_kernel", "transpose_bf16_kernel",
                                                 "round_bf16_kernel")),
-    ("partial sums (dbias, B4, B5)", ("column_sum_kernel",)),
+    ("partial sums (dbias, B4, B5)", ("column_sum_kernel", "column_sum4_kernel")),
     ("attention sublayer products (B6)", ("sublayer_gemm",)),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "sm90_", "sm80_", "cublas", "Kernel2")),
     ("Adam (multi-tensor)", ("multi_tensor", "adam", "Adam")),

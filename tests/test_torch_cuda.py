@@ -349,6 +349,76 @@ def test_fused_mlp_kernel_refuses_a_shape(cuda, c, h):
         fm.fused_mlp_fwd_kernel(u, w1, b1, w2, b2)
 
 
+# The bf16 (wgmma) route at one shape per C class, fused forward (C = 128) and
+# two products (C >= 256), ragged M, several weight-gradient splits.
+WGMMA_SHAPES = [(37, 128, 512), (2000, 128, 512), (1000, 256, 1024), (33, 256, 1024), (130, 512, 2048),
+                (300, 768, 3072), (4000, 768, 3072), (40, 1024, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,c,h", WGMMA_SHAPES)
+def test_fused_mlp_wgmma_route_matches_plain(cuda, wdtype, m, c, h):
+    u, w1, b1, w2, b2, dy = _mlp_inputs(cuda, m, c, h, torch.bfloat16, 10, wdtype)
+    fm.reset_launch_counts()
+    y = fm.fused_mlp_fwd_kernel(u, w1, b1, w2, b2)
+    got = fm.fused_mlp_bwd_kernel(u, dy, w1, b1, w2)
+    again = fm.fused_mlp_bwd_kernel(u, dy, w1, b1, w2)
+    assert fm.MLP_ROUTES == {"wgmma": 3, "mma": 0}
+    assert _rel_err(y, fm.fused_mlp_reference(u, w1, b1, w2, b2)) <= 1e-2
+    for g, w in zip(got, fm.fused_mlp_bwd_reference(u, dy, w1, b1, w2)):
+        assert _rel_err(g, w) <= 1e-2
+    for g, a in zip(got[1:], again[1:]):
+        assert torch.equal(g, a)  # fixed-order sums over M
+
+
+@pytest.mark.cuda
+def test_fused_mlp_route_mirrors_the_entry_point(cuda):
+    """fused_mlp_route (Python) picks what edrl_fused_mlp_route (C) picks."""
+    from edrl_tpu_torch.kernels import build
+
+    lib = build.load_library()
+    for dtype in (torch.bfloat16, torch.float32):
+        for c in (0, 128, 200, 256, 512, 768, 1024, 1152):
+            for h in (0, 96, 128, 512, 3072, 4096):
+                got = lib.edrl_fused_mlp_route(int(dtype == torch.bfloat16), c, h)
+                assert {1: "wgmma", 0: "mma", -1: None}[got] == fm.fused_mlp_route(dtype, c, h), (dtype, c, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"), (torch.float32, "mma")])
+def test_fused_mlp_counts_its_route(cuda, dtype, route):
+    mlp = layers.Mlp(256, 1024, 256, use_fused=True, dtype=dtype, device=cuda)
+    layers.init_parameters(mlp, torch.Generator(device=cuda).manual_seed(3))
+    x = torch.randn((3, 40, 256), generator=torch.Generator(device=cuda).manual_seed(4), device=cuda,
+                    requires_grad=True)
+    fm.reset_launch_counts()
+    mlp(x).float().sum().backward()
+    assert fm.LAUNCHES == {fm.FUSED_MLP: 1, fm.FUSED_MLP_BWD: 1}
+    assert fm.MLP_ROUTES == {"wgmma": 2 * (route == "wgmma"), "mma": 2 * (route == "mma")}
+
+
+@pytest.mark.cuda
+def test_fused_mlp_wgmma_route_takes_an_unaligned_view(cuda):
+    """A u that starts off a 16-byte boundary is copied for TMA, not refused."""
+    u, w1, b1, w2, b2, _ = _mlp_inputs(cuda, 65, 256, 1024, torch.bfloat16, 11)
+    view = u.reshape(-1)[1:].reshape(-1)[: 64 * 256].reshape(64, 256)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    y = fm.fused_mlp_fwd_kernel(view, w1, b1, w2, b2)
+    assert _rel_err(y, fm.fused_mlp_reference(view, w1, b1, w2, b2)) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h", [(128, 96), (1152, 4608)])
+def test_fused_mlp_wgmma_route_refuses_a_shape(cuda, c, h):
+    assert fm.fused_mlp_route(torch.bfloat16, c, h) is None
+    u, w1, b1, w2, b2, dy = _mlp_inputs(cuda, 8, c, h, torch.bfloat16, 12)
+    fm.reset_launch_counts()
+    with pytest.raises(ValueError, match="the kernel takes C"):
+        fm.fused_mlp_bwd_kernel(u, dy, w1, b1, w2)
+    assert fm.MLP_ROUTES == {"wgmma": 0, "mma": 0}
+
+
 @pytest.mark.cuda
 def test_autograd_through_the_modules_reaches_the_b4_b5_kernels(cuda):
     norm = layers.LayerNorm(256, use_fused=True, dtype=torch.bfloat16, device=cuda)

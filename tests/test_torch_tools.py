@@ -30,7 +30,18 @@ def test_union_of_kernel_intervals(spans, want):
      "MLP kernels (B5 fwd/bwd, weight preps)"),
     ("void (anonymous namespace)::fused_mlp_fwd_kernel<__nv_bfloat16, 32, 2>(MlpFwdParams)",
      "MLP kernels (B5 fwd/bwd, weight preps)"),
+    ("void (anonymous namespace)::wgmma_gemm_kernel<(anonymous namespace)::GeluEpilogue, 128, false, true, 3, 2>"
+     "(CUtensorMap, CUtensorMap, (anonymous namespace)::GeluEpilogue, (anonymous namespace)::TileGrid)",
+     "MLP kernels (B5 fwd/bwd, weight preps)"),
+    ("void (anonymous namespace)::mlp_fwd_fused_wgmma_kernel<256>(CUtensorMap, CUtensorMap, CUtensorMap)",
+     "MLP kernels (B5 fwd/bwd, weight preps)"),
+    ("void (anonymous namespace)::mlp_bwd_hidden_wgmma_kernel(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap)",
+     "MLP kernels (B5 fwd/bwd, weight preps)"),
+    ("void (anonymous namespace)::dy_col_partials_kernel(const __nv_bfloat16 *, float *, int, int)",
+     "MLP kernels (B5 fwd/bwd, weight preps)"),
     ("void (anonymous namespace)::column_sum_kernel(const float *, float *, int, int)", "partial sums (dbias, B4, B5)"),
+    ("void (anonymous namespace)::column_sum4_kernel(const float4 *, float4 *, int, long long)",
+     "partial sums (dbias, B4, B5)"),
     ("void (anonymous namespace)::sublayer_gemm_bf16_kernel<(anonymous namespace)::QkvEpilogue<__nv_bfloat16>>",
      "attention sublayer products (B6)"),
     ("some_unknown_kernel", "other"),
