@@ -13,7 +13,7 @@ Phases (any failed check raises, so the exit code is nonzero):
    register/shared-memory report; for the attention's tensor-core kernels,
    forward and backward, registers, spills, shared memory and resident
    blocks per SM at the main-path shapes (N = 144 and 216, head_dim 128);
-   the same for B5's wgmma kernels, which must not spill.
+   the same for B5's and B6's wgmma kernels, which must not spill.
 3. Check each forward kernel against its plain PyTorch version at every
    serving shape (batch 16) and at the edges of its two routes (those of
    phase 7, biases with -1e9 entries), in bf16 (atol 3e-2) and f32 (atol
@@ -105,37 +105,50 @@ MLP runs through B4 and B5:
 
 Then the fused attention-sublayer configuration (``EDRLConfig()`` with
 ``use_fused_block_attention``), whose every backbone block runs its attention
-sublayer (LayerNorm, qkv, attention, proj, residual) through B6 and its
-backward through the B2 kernels:
+sublayer (LayerNorm, qkv, attention, proj, residual) through B6, and its
+backward through B2's kernels, B6's two Dense layers' backwards and B4's
+residual LayerNorm backward:
 
-17. B6's forward kernel and its backward composition against their plain
-    versions at every Swin and ViT shape of the configuration's serving
-    (batch 16) and train step (batch 32), with a one-window bias (Wb = 1) and
-    a per-window one (Wb = W), and at odd shapes, in bf16 and f32 (the bars
-    of phase 7); the bf16 kernel against the TPU kernel's rounding order
+17. B6's forward and backward against their plain versions at every Swin
+    and ViT shape of the configuration's serving (batch 16) and train step
+    (batch 32), with a one-window bias (Wb = 1) and a per-window one (Wb =
+    W), and at odd shapes (ragged M), in bf16 and f32 (the bars of phase 7,
+    but a bf16 call's dbias at ``tools/sublayer_dbias.py``'s DBIAS_BAR,
+    since its do rounds in another summation order, and at 1e-4 against B2's
+    plain backward on the do its own product made; a control of bf16
+    precision, dbias on a do truncated to bf16, must read above
+    DBIAS_BAR); the products' route ("wgmma"
+    for bf16, "fma" for f32) counted as the Python mirror and the C entry
+    point predict; the bf16 weight and bias gradients the same bit for bit over
+    two runs; the bf16 kernel against the TPU kernel's rounding order
     (scores from the f32 qkv) is printed; shapes the kernel refuses raise.
     The v1 adapter (``window_attention_fused``) against its plain versions,
     forward and backward, at the Swin train shapes and an odd one.
 18. Serve the three requests with a full-width ``Predictor`` of the
     configuration: finite probabilities; 24 B6 launches per batch (12 Swin,
-    12 ViT) and none of B1 or B2.
+    12 ViT), all on the wgmma route, and none of B1 or B2.
 19. Train three full-width bf16 steps at batch 32: finite losses, changed
-    parameters; per step 48 B6 launches, 48 of B2's forward (the backward's
-    recompute) and 48 of B2's backward, none of B1; all 96 forward
-    attention launches (B6's attention phase, B2) and the 48 backward ones
-    on the tensor cores.
+    parameters; per step 48 B6 forward launches and 96 of its backward's
+    Dense layers (all 144 on the wgmma route), 48 of B2's forward (the
+    backward's recompute), 48 of B2's backward and 48 of B4's backward,
+    none of B1; all 96 forward attention launches (B6's attention phase,
+    B2) and the 48 backward ones on the tensor cores.
 20. One more bf16 step with every B6 call, forward and backward, held
-    against the plain versions on that call's own tensors.
+    against the plain versions on that call's own tensors (dbias as in 17).
 21. A small f32 model of the configuration (widths that route, shifted
     blocks included), one step on the card against the same step on the
-    CPU: loss 1e-4, per-tensor gradient error median 1e-4 and worst 1e-2.
+    CPU: loss 1e-4, per-tensor gradient error median 1e-4 and worst 1e-2;
+    every B6 launch on the fma route.
 22. Time the configuration's train step against the shipped config's
-    (interleaved), both peak memories, both serving forwards, each B6 shape
-    of the batch-32 step against its plain version, its bound and the
-    shipped sublayer at that shape (LayerNorm, Dense, B2, Dense), and the
-    v1 adapter's own path: one forward and backward at each Swin stage of a
-    batch-32 step (its forwards on the tensor cores), against its plain
-    version, SDPA and its bound.
+    (interleaved), both peak memories, both serving forwards; each B6 shape
+    of the batch-32 step, forward and backward, against its plain version,
+    its bound and the shipped sublayer at that shape (LayerNorm, Dense, B2,
+    Dense; its backward through autograd), with B6's device time by phase
+    (``tools/profile_sublayer.py``: LayerNorm, the qkv product, the
+    attention, the proj product; the backward's); and the v1 adapter's own
+    path: one forward and backward at each Swin stage of a batch-32 step
+    (its forwards on the tensor cores), against its plain version, SDPA and
+    its bound.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX
@@ -176,10 +189,14 @@ SA, V2, SA_BWD, V2_BWD, MMD = (
     "window_attention_fused_v2_bwd", "mk_mmd_fused",
 )
 LN, LN_BWD, MLP, MLP_BWD = "fused_layer_norm", "fused_layer_norm_bwd", "fused_mlp", "fused_mlp_bwd"
-B6, V1, V1_BWD = "attention_sublayer_fused", "window_attention_fused", "window_attention_fused_bwd"
+B6, B6_BWD = "attention_sublayer_fused", "attention_sublayer_fused_bwd"
+V1, V1_BWD = "window_attention_fused", "window_attention_fused_bwd"
 # B5's bf16 (wgmma) route: the mainloop's product kernel, the fused forward
 # (C = 128) and the backward's hidden kernel.
 B5_WGMMA_KERNELS = ("wgmma_gemm_kernel", "mlp_fwd_fused_wgmma_kernel", "mlp_bwd_hidden_wgmma_kernel")
+# B6's bf16 (wgmma) route: the mainloop's product kernel with the epilogues of
+# its forward (qkv, proj) and of its backward's Dense layers (do, dxln, dW).
+B6_EPILOGUES = ("BiasEpilogue", "ResidualEpilogue", "StoreEpilogue", "StoreF32Epilogue", "WgradEpilogue")
 KERNEL_SOURCE = {
     SA: "edrl_tpu_torch/kernels/csrc/self_attention_fwd.cu",
     V2: "edrl_tpu_torch/kernels/csrc/window_attention_v2_fwd.cu",
@@ -191,6 +208,7 @@ KERNEL_SOURCE = {
     MLP: "edrl_tpu_torch/kernels/csrc/fused_mlp_fwd.cu",
     MLP_BWD: "edrl_tpu_torch/kernels/csrc/fused_mlp_bwd.cu",
     B6: "edrl_tpu_torch/kernels/csrc/attention_sublayer_fwd.cu",
+    B6_BWD: "edrl_tpu_torch/kernels/csrc/attention_sublayer_bwd.cu",
     # The v1 adapter launches B2's kernels (this source and window_attention_v2_bwd.cu).
     V1: "edrl_tpu_torch/kernels/csrc/window_attention_v2_fwd.cu",
 }
@@ -205,6 +223,8 @@ KERNEL_REPLACES = {
     MLP: "edrl_tpu/kernels/fused_mlp.py:123",
     MLP_BWD: "edrl_tpu/kernels/fused_mlp.py:217",
     B6: "edrl_tpu/kernels/block_attention.py:141",
+    # The JAX VJP (_v4_bwd): B2's Pallas kernels and products XLA runs.
+    B6_BWD: "edrl_tpu/kernels/block_attention.py:208",
     V1: "edrl_tpu/kernels/window_attention.py:152,164",
 }
 
@@ -293,6 +313,8 @@ def main() -> None:
     from edrl_tpu_torch.models.swin2d import rel_bias_from_table, relative_position_index, shift_attn_mask
     from edrl_tpu_torch.ops.mmd import mk_mmd
     from edrl_tpu_torch.serve.predictor import Predictor
+    from edrl_tpu_torch.tools import profile_sublayer as psl
+    from edrl_tpu_torch.tools import sublayer_dbias as sd
     from edrl_tpu_torch.train import trainer
 
     def reset_counts():
@@ -328,6 +350,12 @@ def main() -> None:
             print(f"  ptxas {kernel}: registers {found}, "
                   f"spilling: {[line for line in spills if kernel in line] or 'none'}", flush=True)
         check(not [line for line in spills for k in B5_WGMMA_KERNELS if k in line], "B5's wgmma kernels spill")
+        for epilogue in B6_EPILOGUES:
+            found = [r for e, r in regs.items() if "wgmma_gemm_kernel" in e and epilogue in e]
+            print(f"  ptxas B6 wgmma_gemm_kernel<{epilogue}>: registers {found}, spilling: "
+                  f"{[line for line in spills if 'wgmma_gemm_kernel' in line and epilogue in line] or 'none'}",
+                  flush=True)
+            check(bool(found), f"ptxas reported no wgmma_gemm_kernel<{epilogue}>")
     # The attention's tensor-core kernels at the main-path shapes: resident
     # blocks per SM (occupancy calculator) and shared memory.
     import ctypes
@@ -355,6 +383,13 @@ def main() -> None:
     check(bwd_lib.edrl_fused_mlp_bwd_occupancy(occ) == 0, "B5 backward occupancy query")
     print(f"  B5 bwd wgmma: hidden kernel {occ[0]} CTA per SM, {occ[1]} bytes; du and weight-gradient products "
           f"{occ[2]} and {occ[3]} CTAs per SM, {occ[4]} bytes each", flush=True)
+    occ = (ctypes.c_int * 4)()
+    check(bwd_lib.edrl_attention_sublayer_fwd_occupancy(occ) == 0, "B6 forward occupancy query")
+    print(f"  B6 fwd wgmma, CTAs of {occ[3]} threads: qkv and proj products {occ[0]} and {occ[1]} per SM, {occ[2]} "
+          f"bytes of dynamic shared memory each", flush=True)
+    check(bwd_lib.edrl_attention_sublayer_bwd_occupancy(occ) == 0, "B6 backward occupancy query")
+    print(f"  B6 bwd wgmma: do and dxln products (bf16, f32 out) {occ[0]} and {occ[1]} CTAs per SM, weight "
+          f"gradients {occ[2]}, {occ[3]} bytes each", flush=True)
 
     # -- 3. forward kernels against their plain versions --------------------
     cfg = EDRLConfig()
@@ -1471,44 +1506,24 @@ def main() -> None:
     # == 17-22. The fused attention-sublayer configuration (B6) ===============
     b6_cfg = cfg.replace(model=dataclasses.replace(mc, use_fused_block_attention=True))
 
-    def sublayer_shapes(b_):
-        """B6 calls of one forward at batch b_: Swin blocks by stage (unshifted
-        with a one-window bias, shifted with bias + shift mask per window), then
-        the ViT's blocks (W = 1, zero bias)."""
-        out = []
-        for s_ in attention_shapes(b_)[1]:
-            w_ = (s_["grid"] // s_["window"]) ** 2
-            shifted = s_["calls"] // 2 if s_["shifted"] else 0
-            for wb, calls in ((1, s_["calls"] - shifted), (w_, shifted)):
-                if calls:
-                    out.append(dict(b=b_, w=w_, n=s_["window"] ** 2, c=s_["c"], heads=s_["heads"], wb=wb,
-                                    calls=calls, grid=s_["grid"], window=s_["window"], vit=False))
-        out.append(dict(b=b_, w=1, n=mc.oct_tokens, c=c_vit, heads=h_vit, wb=1, calls=mc.vit3d_depth, vit=True))
-        return out
-
-    b6_serve, b6_train = sublayer_shapes(cfg.data.eval_batch_size), sublayer_shapes(bt)
+    # B6 calls of one forward: Swin blocks by stage (unshifted with a
+    # one-window bias, shifted with bias + shift mask per window), then the
+    # ViT's blocks (W = 1, zero bias).
+    b6_serve, b6_train = psl.train_shapes(cfg, cfg.data.eval_batch_size), psl.train_shapes(cfg, bt)
     n_b6 = sum(s_["calls"] for s_ in b6_train)
     check(n_b6 == 24, f"B6 config: {n_b6} sublayers per forward")
 
     def sublayer_inputs(s_, dtype):
-        b_, w_, n_, c_, h_ = s_["b"], s_["w"], s_["n"], s_["c"], s_["heads"]
+        h_, n_ = s_["heads"], s_["n"]
         if s_["vit"]:
             bias_ = torch.zeros((1, h_, n_, n_), device=dev)
         elif s_["grid"] is None:  # odd shapes: a random bias with masked keys
             bias_ = torch.randn((s_["wb"], h_, n_, n_), generator=gen, device=dev)
             bias_[..., 1::3] = -1e9
-        elif s_["wb"] == 1:
-            bias_ = swin_bias(s_["grid"], s_["window"], h_, False)[:1].contiguous()
         else:
-            bias_ = swin_bias(s_["grid"], s_["window"], h_, True)
-        x_ = normal((b_, w_, n_, c_), dtype)
-        gamma_ = 1 + 0.1 * torch.randn((c_,), generator=gen, device=dev)
-        beta_ = 0.1 * torch.randn((c_,), generator=gen, device=dev)
-        wqkv_ = (torch.randn((c_, 3 * c_), generator=gen, device=dev) / c_ ** 0.5).to(dtype)
-        bqkv_ = 0.1 * torch.randn((3 * c_,), generator=gen, device=dev)
-        wproj_ = (torch.randn((c_, c_), generator=gen, device=dev) / c_ ** 0.5).to(dtype)
-        bproj_ = 0.1 * torch.randn((c_,), generator=gen, device=dev)
-        return (x_, gamma_, beta_, wqkv_, bqkv_, wproj_, bproj_, bias_), (c_ // h_) ** -0.5
+            bias_ = swin_bias(s_["grid"], s_["window"], h_, s_["wb"] > 1)
+            bias_ = bias_ if s_["wb"] > 1 else bias_[:1].contiguous()
+        return psl.sublayer_inputs(s_, dtype, gen, bias_)
 
     def tpu_order(x_, gamma_, beta_, wqkv_, bqkv_, wproj_, bproj_, bias_, h_, scale_):
         """The TPU kernel's rounding order in bf16: scores and o from the f32
@@ -1526,21 +1541,43 @@ def main() -> None:
         args_, scale_ = sublayer_inputs(s_, dtype)
         h_ = s_["heads"]
         kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        route = "wgmma" if kind == "bf16" else "fma"
         bar = BWD_BAR[kind]
         label = sublayer_label(s_) + ("" if main_path else " (odd)")
+        check(ba.attention_sublayer_route(dtype, s_["c"], h_) == route == {1: "wgmma", 0: "fma"}[
+            bwd_lib.edrl_attention_sublayer_route(int(kind == "bf16"), s_["c"], h_)], f"B6 {label} route")
+        ba.reset_launch_counts()
         got = ba.attention_sublayer_fwd_kernel(*args_, h_, scale_)
         want_ = ba.attention_sublayer_reference(*args_, h_, scale_)
         hold(B6, label, dtype, [(g, w_, bar) for g, w_ in zip(got, want_)], main_path)
         if dtype == torch.bfloat16:
             tpu_err.append(rel_err(got[0], tpu_order(*args_, h_, scale_)))
+        want_routes = {"wgmma": 0, "fma": 0}
+        want_routes[route] = 1
         if backward:
             x_, gamma_, _, wqkv_, _, wproj_, _, bias_ = args_
             y_, qkv_, xln_ = got
             dy_ = normal(tuple(y_.shape), dtype)
             res = (x_, xln_, qkv_, gamma_, wqkv_, wproj_, bias_, dy_, h_, scale_)
-            pairs = [(g, w_, BWD_BAR["f32"] if i == 7 else bar) for i, (g, w_) in enumerate(
-                zip(ba.attention_sublayer_bwd_kernel(*res), ba.attention_sublayer_bwd_reference(*res)))]
-            hold(B6 + " backward (B2 kernels + products)", label, dtype, pairs, False)
+            grads = ba.attention_sublayer_bwd_kernel(*res)
+            plain = list(ba.attention_sublayer_bwd_reference(*res))
+            if kind == "bf16":  # two Dense layers' launches, and again for the repeat
+                again = ba.attention_sublayer_bwd_kernel(*res)
+                check(all(torch.equal(a, g) for a, g in zip(again[1:], grads[1:])),
+                      f"{B6_BWD} {label}: weight and bias gradients differ between two runs")
+                want_routes["wgmma"] += 4
+        check(ba.SUBLAYER_ROUTES == want_routes, f"B6 {label}: routes {ba.SUBLAYER_ROUTES}, expected {want_routes}")
+        if backward:
+            dbias_bar = sd.DBIAS_BAR if kind == "bf16" else BWD_BAR["f32"]
+            hold(B6_BWD, label, dtype, [(g, w_, dbias_bar if i == 7 else bar)
+                                        for i, (g, w_) in enumerate(zip(grads, plain))], main_path)
+            if kind == "bf16":
+                r = sd.readings(grads[7], plain[7], qkv_, wproj_, bias_, dy_, h_, scale_, controls=True)
+                print("  dbias: " + ", ".join(f"{k} {v:.3e}" for k, v in r.items())
+                      + f" (bars {sd.DBIAS_BAR:g}, kernel_do {sd.KERNEL_DO_BAR:g}; the controls must read above "
+                        f"{sd.DBIAS_BAR:g})", flush=True)
+                check(r["kernel_do"] <= sd.KERNEL_DO_BAR, f"{B6_BWD} {label}: dbias on the kernel's do {r}")
+                check(r["truncated"] > sd.DBIAS_BAR, f"{B6_BWD} {label}: the truncated-do control reads {r}")
 
     def v1_inputs(b_, w_, h_, n_, d_, dtype, shifted=True, grid=None, window=None):
         q_, k_, v_, do_ = (normal((b_, w_, h_, n_, d_), dtype) for _ in range(4))
@@ -1616,10 +1653,13 @@ def main() -> None:
         check(p.shape == (len(f), mc.num_classes) and bool(np.isfinite(p).all()), f"B6 config probs {p.shape}")
         check(bool(np.allclose(p.sum(-1), 1.0, atol=1e-5)), "B6 config probs rows sum to 1")
         print(f"B6 config request {len(f)} pairs -> probs {p.shape}, first row {p[0].tolist()}", flush=True)
+    b6_serve_routes = dict(ba.SUBLAYER_ROUTES)
     want = {name: 0 for name in b6_serve_launches}
     want[B6] = n_b6 * batches
-    print(f"B6 config serving launches over {batches} batches: {b6_serve_launches} (expected {want})", flush=True)
+    print(f"B6 config serving launches over {batches} batches: {b6_serve_launches} (expected {want}); B6 routes "
+          f"{b6_serve_routes}", flush=True)
     check(b6_serve_launches == want, f"B6 config serving launches {b6_serve_launches}")
+    check(b6_serve_routes == {"wgmma": n_b6 * batches, "fma": 0}, f"B6 config serving: routes {b6_serve_routes}")
 
     # -- 19. training the B6 configuration at full width -----------------------
     b6_state = trainer.init_state(b6_cfg, seed=0, device=dev)
@@ -1630,6 +1670,12 @@ def main() -> None:
     b6_outs = [b6_step(b6_state, batch, gen_b6) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     b6_launches = counts()
+    b6_routes = dict(ba.SUBLAYER_ROUTES)
+    # Per step: 2 * n_b6 forwards and as many backwards, each backward two
+    # Dense layers' launches, all on wgmma.
+    print(f"B6 config train, {TRAIN_STEPS} steps: B6 routes {b6_routes} (forward and backward)", flush=True)
+    check(b6_routes == {"wgmma": 6 * n_b6 * TRAIN_STEPS, "fma": 0},
+          f"B6 config train: routes {b6_routes}, expected every launch on wgmma")
     check_routes(f"B6 config train, {TRAIN_STEPS} steps", dict(wa.BWD_ROUTES), 2 * n_b6 * TRAIN_STEPS)
     # Forward: B6's attention phase and the backward's B2 recompute.
     check_routes(f"B6 config train, {TRAIN_STEPS} steps", dict(wa.FWD_ROUTES), 4 * n_b6 * TRAIN_STEPS, "forward")
@@ -1644,14 +1690,16 @@ def main() -> None:
     check(changed >= n_tensors - 4, f"B6 config: only {changed} of {n_tensors} parameter tensors changed")
     del before, after
     want = {name: 0 for name in b6_launches}
-    want.update({B6: 2 * n_b6, V2: 2 * n_b6, V2_BWD: 2 * n_b6})
+    want.update({B6: 2 * n_b6, B6_BWD: 4 * n_b6, V2: 2 * n_b6, V2_BWD: 2 * n_b6, LN_BWD: 2 * n_b6})
     want = {name: TRAIN_STEPS * n for name, n in want.items()}
     print(f"B6 config train launches over {TRAIN_STEPS} steps: {b6_launches} (expected {want})", flush=True)
     check(b6_launches == want, f"B6 config train launches {b6_launches}")
     train_launches[B6] = b6_launches[B6]
+    train_launches[B6_BWD] = b6_launches[B6_BWD]
 
     # -- 20. every B6 call of a bf16 step against the plain versions -----------
-    held_b6 = {B6: [], "B6 backward": [], "B6 dbias": []}
+    held_b6 = {B6: [], "B6 backward": [], "B6 dbias": [], "B6 dbias on the kernel's do": []}
+    b6_controls = []
     b6_kernels = (ba.attention_sublayer_fwd_kernel, ba.attention_sublayer_bwd_kernel)
 
     def held_b6_fwd(*args_):
@@ -1663,7 +1711,11 @@ def main() -> None:
         got = b6_kernels[1](*args_)
         want_ = ba.attention_sublayer_bwd_reference(*args_)
         held_b6["B6 backward"].append(max(rel_err(g, w_) for g, w_ in zip(got[:7], want_[:7])))
-        held_b6["B6 dbias"].append(rel_err(got[7], want_[7]))
+        _, _, qkv_, _, _, wproj_, bias_, dy_, h_, scale_ = args_
+        r = sd.readings(got[7], want_[7], qkv_, wproj_, bias_, dy_, h_, scale_, controls=True)
+        held_b6["B6 dbias"].append(r["independent"])
+        held_b6["B6 dbias on the kernel's do"].append(r["kernel_do"])
+        b6_controls.append((r["rounded"], r["truncated"]))
         return got
 
     ba.attention_sublayer_fwd_kernel, ba.attention_sublayer_bwd_kernel = held_b6_fwd, held_b6_bwd
@@ -1672,12 +1724,17 @@ def main() -> None:
         torch.cuda.synchronize()
     finally:
         ba.attention_sublayer_fwd_kernel, ba.attention_sublayer_bwd_kernel = b6_kernels
-    for name, bar in ((B6, BWD_BAR["bf16"]), ("B6 backward", BWD_BAR["bf16"]), ("B6 dbias", BWD_BAR["f32"])):
+    for name, bar in ((B6, BWD_BAR["bf16"]), ("B6 backward", BWD_BAR["bf16"]), ("B6 dbias", sd.DBIAS_BAR),
+                      ("B6 dbias on the kernel's do", sd.KERNEL_DO_BAR)):
         e = held_b6[name]
         print(f"bf16 B6 config step, {name} held against its plain version on the step's own tensors: {len(e)} "
               f"calls, worst relative error {max(e):.3e}, median {statistics.median(e):.3e} (bar {bar:g})",
               flush=True)
         check(len(e) == 2 * n_b6 and max(e) <= bar, f"bf16 B6 step {name}: {len(e)} calls, worst {max(e)}")
+    rounded, truncated = (min(c_) for c_ in zip(*b6_controls))
+    print(f"bf16 B6 config step, dbias controls of bf16 precision, smallest over the calls: rounded {rounded:.3e}, "
+          f"truncated do {truncated:.3e} (must read above the bar {sd.DBIAS_BAR:g})", flush=True)
+    check(truncated > sd.DBIAS_BAR, f"bf16 B6 step: the truncated-do control reads {truncated}")
     torch.cuda.empty_cache()
 
     # -- 21. a small f32 model of the B6 configuration, card against CPU -------
@@ -1693,6 +1750,7 @@ def main() -> None:
     reset_counts()
     g_out = trainer.make_train_step(gcfg)(g_gpu, gbatch, seeded(4), draws=small_draws(dev))
     g_launches = counts()
+    g_routes = dict(ba.SUBLAYER_ROUTES)
     c_out = trainer.make_train_step(gcfg)(g_cpu, gbatch, torch.Generator(), draws=small_draws("cpu"))
     rows = sorted((rel_err(pg.grad.cpu(), pc.grad), name)
                   for (name, pg), pc in zip(g_gpu.model.named_parameters(), g_cpu.model.parameters())
@@ -1707,8 +1765,9 @@ def main() -> None:
           f"small B6 step gradients card vs CPU: median {rows[len(rows) // 2]}, worst {rows[-1]}")
     g_n = sum(gcfg.model.swin_depths) + gcfg.model.vit3d_depth
     want = {name: 0 for name in g_launches}
-    want.update({B6: 2 * g_n, V2: 2 * g_n, V2_BWD: 2 * g_n})
+    want.update({B6: 2 * g_n, V2: 2 * g_n, V2_BWD: 2 * g_n, LN_BWD: 2 * g_n})
     check(g_launches == want, f"small B6 config launches {g_launches}, expected {want}")
+    check(g_routes == {"wgmma": 0, "fma": 2 * g_n}, f"small f32 B6 step: routes {g_routes}, expected fma")
     del g_cpu, g_gpu
 
     # -- 22. the B6 configuration's step, serving forward and kernels, timed ---
@@ -1757,7 +1816,16 @@ def main() -> None:
         o_ = wa.window_attention_fused_v2(qkv_, bias_full, h_, scale_)
         return x_ + F.linear(o_, wproj_t, bproj_.to(x_.dtype))
 
-    b6_bwd_ms = 0.0
+    def shipped_sublayer_bwd_ms(x_, gamma_, beta_, wqkv_t, bqkv_, wproj_t, bproj_, bias_full, h_, scale_, dy_):
+        """The shipped sublayer's backward through autograd (LayerNorm,
+        Dense, B2's backward kernel, Dense; the input, the parameters and
+        the bias), as the shipped config's step runs it."""
+        leaves = [t.detach().requires_grad_() for t in (x_, gamma_, beta_, wqkv_t, bqkv_, wproj_t, bproj_, bias_full)]
+        out = shipped_sublayer(*leaves, h_, scale_)
+        return time_ms(torch, lambda: torch.autograd.grad(out, leaves, dy_, retain_graph=True))
+
+    b6_shipped_bwd_ms = 0.0
+    b6_phases = {"forward": collections.defaultdict(float), "backward": collections.defaultdict(float)}
     for s_ in b6_train:
         args_, scale_ = sublayer_inputs(s_, torch.bfloat16)
         x_, gamma_, beta_, wqkv_, bqkv_, wproj_, bproj_, bias_ = args_
@@ -1771,23 +1839,47 @@ def main() -> None:
                                                          bias_full, h_, scale_))
             y_, qkv_, xln_ = ba.attention_sublayer_fwd_kernel(*args_, h_, scale_)
             dy_ = normal(tuple(y_.shape), torch.bfloat16)
-            tb = time_ms(torch, lambda: ba.attention_sublayer_bwd_kernel(
-                x_, xln_, qkv_, gamma_, wqkv_, wproj_, bias_, dy_, h_, scale_))
+            res = (x_, xln_, qkv_, gamma_, wqkv_, wproj_, bias_, dy_, h_, scale_)
+            tb = time_ms(torch, lambda: ba.attention_sublayer_bwd_kernel(*res))
+            tbp = time_ms(torch, lambda: ba.attention_sublayer_bwd_reference(*res))
+            phases = {"forward": psl.phase_ms(lambda: ba.attention_sublayer_fwd_kernel(*args_, h_, scale_),
+                                              psl.FWD_PHASES),
+                      "backward": psl.phase_ms(lambda: ba.attention_sublayer_bwd_kernel(*res), psl.BWD_PHASES)}
+        tsb = shipped_sublayer_bwd_ms(x_, gamma_, beta_, wqkv_t, bqkv_, wproj_t, bproj_, bias_full, h_, scale_, dy_)
         m_ = b_ * w_ * n_
-        # Bytes: x read; y, xln (C each) and qkv (3C) written; the weights, vectors and bias read once.
-        nbytes = 2 * m_ * c_ * 6 + 2 * 4 * c_ * c_ + 4 * 6 * c_ + 4 * bias_.numel()
-        flops = 2.0 * m_ * c_ * 4 * c_ + 4.0 * b_ * w_ * n_ * n_ * c_
         calls = 2 * s_["calls"]
-        report(B6, sublayer_label(s_) + " bf16", calls, tk, tp, None, nbytes, flops)
-        print(f"  beside it: the shipped sublayer (LayerNorm, Dense, B2, Dense) {ts:.4f} ms; B6's backward "
-              f"(B2 forward + backward kernels and f32 products) {tb:.4f} ms per call [{card}]", flush=True)
-        b6_bwd_ms += calls * tb
+        attn = 1.0 * b_ * w_ * n_ * n_ * c_
+        # Forward bytes: x read; y, xln (C each) and qkv (3C) written; the weights, vectors and bias read once.
+        nbytes = 2 * m_ * c_ * 6 + 2 * 4 * c_ * c_ + 4 * 6 * c_ + 4 * bias_.numel()
+        report(B6, sublayer_label(s_) + " bf16", calls, tk, tp, None, nbytes, 8.0 * m_ * c_ * c_ + 4 * attn)
+        # Backward bytes: x, xln, qkv (3C) and dy read, dx written (7 M C in
+        # bf16); the weights read and their gradients written; gamma, the
+        # biases' gradients; the bias read and its gradient written.
+        # Operations: the four products (dwproj, do: 2 M C^2 each; dwqkv,
+        # dxln: 6 M C^2 each) and what the attention needs from these
+        # inputs, 2 per token pair and channel for each of S and PV (o, for
+        # dwproj), dV, dP, dQ and dK; the kernel's second S is its own
+        # recompute and not counted.
+        nbytes = 2 * m_ * c_ * 7 + 2 * 2 * 4 * c_ * c_ + 4 * 8 * c_ + 2 * 4 * bias_.numel()
+        report(B6_BWD, sublayer_label(s_) + " bf16", calls, tb, tbp, None, nbytes, 16.0 * m_ * c_ * c_ + 12 * attn)
+        print(f"  beside them: the shipped sublayer (LayerNorm, Dense, B2, Dense) forward {ts:.4f} ms, backward "
+              f"through autograd {tsb:.4f} ms per call [{card}]", flush=True)
+        for kind, ms in phases.items():
+            print(f"  B6 {kind} by phase (torch.profiler), ms per call: {ms['total']:.4f} in all; " + ", ".join(
+                f"{p} {t:.4f}" for p, t in ms.items() if p != "total"), flush=True)
+            for p, t in ms.items():
+                b6_phases[kind][p] += calls * t
+        b6_shipped_bwd_ms += calls * tsb
         totals[B6].setdefault("shipped_ms", 0.0)
         totals[B6]["shipped_ms"] += calls * ts
-        del args_, x_, y_, qkv_, xln_, dy_, bias_full
+        del args_, x_, y_, qkv_, xln_, dy_, bias_full, res
         torch.cuda.empty_cache()
     print(f"B6 per batch-{bt} train step: forward kernel {totals[B6]['ms']:.3f} ms against the shipped sublayers' "
-          f"{totals[B6]['shipped_ms']:.3f} ms; backward composition {b6_bwd_ms:.3f} ms [{card}]", flush=True)
+          f"{totals[B6]['shipped_ms']:.3f} ms; backward {totals[B6_BWD]['ms']:.3f} ms against the shipped "
+          f"sublayers' autograd backward {b6_shipped_bwd_ms:.3f} ms [{card}]", flush=True)
+    for kind, ms in b6_phases.items():
+        print(f"B6 {kind} per batch-{bt} train step by phase (torch.profiler), ms: {ms['total']:.3f} in all; "
+              + ", ".join(f"{p} {t:.3f}" for p, t in ms.items() if p != "total") + f" [{card}]", flush=True)
 
     # v1's own path: one forward and backward at each Swin stage of a batch-32
     # step, in v1's layout, counts set to 0 before and read after.
@@ -1850,12 +1942,13 @@ def main() -> None:
             "plain_ms": t["plain_ms"],
             "bound_ms": bms,
             "bound_by": by,
-            "library_ms": None if name in (MMD, MLP, MLP_BWD, B6) else t["library_ms"],
+            "library_ms": None if name in (MMD, MLP, MLP_BWD, B6, B6_BWD) else t["library_ms"],
         })
     print("kernels: ms / plain_ms / library_ms / bound_ms are the device time of the launches one "
           f"batch-{bt} train step makes (sum over its shapes; B3 runs once, with use_pallas_mmd; B4 and B5 "
-          f"in the use_fused_ln + use_fused_mlp config; B6 its forward launches in the "
-          f"use_fused_block_attention config; v1 one forward and backward per Swin stage of its own path); "
+          f"in the use_fused_ln + use_fused_mlp config; B6 its forward and backward launches in the "
+          f"use_fused_block_attention config, the backward's row the whole composition of B2's kernels, the two "
+          f"Dense layers' backwards and B4's; v1 one forward and backward per Swin stage of its own path); "
           f"launches: the main path's run ({TRAIN_STEPS} steps; B3: its one step; B4, B5, B6: their configs' "
           f"{TRAIN_STEPS} steps; v1: its path's forward and backward launches); max_abs_err: worst bf16 check "
           f"at the main-path shapes (B3: f32) [{card}]")

@@ -145,9 +145,20 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # db1_part, db2_part, dw1_part, dw2_part, m, c, h, splits, chunk,
         # u_is_bf16, w_is_bf16, stream
         "edrl_fused_mlp_bwd": (i32, [ptr] * 19 + [i32] * 7 + [ptr]),
-        # x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, y, qkv, xln, o, wqkv_t,
-        # wproj_t, batch, windows, bias_windows, n, c, heads, scale, is_bf16, stream
-        "edrl_attention_sublayer_fwd": (i32, [ptr] * 14 + [i32] * 6 + [f32, i32, ptr]),
+        # x, dy (f32), res, gamma, dx, dgamma, dbeta, partial, m, c, blocks, eps, is_bf16, stream
+        "edrl_layer_norm_bwd_residual": (i32, [ptr] * 8 + [i32, i32, i32, f32, i32, ptr]),
+        # is_bf16, c, heads -> 1 for the wgmma route, 0 for the f32 FMA route, -1 refused
+        "edrl_attention_sublayer_route": (i32, [i32, i32, i32]),
+        # out[4]: qkv and proj products' CTAs per SM, their smem bytes, threads per CTA
+        "edrl_attention_sublayer_fwd_occupancy": (i32, [ptr]),
+        # out[4]: da product's CTAs per SM (bf16, f32 result), weight gradient's; their smem bytes
+        "edrl_attention_sublayer_bwd_occupancy": (i32, [ptr]),
+        # x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, y, qkv, xln, o, batch,
+        # windows, bias_windows, n, c, heads, scale, is_bf16, stream
+        "edrl_attention_sublayer_fwd": (i32, [ptr] * 12 + [i32] * 6 + [f32, i32, ptr]),
+        # a, dout, w, dw, db, da, dw_part, db_part, m, p, q, splits, chunk,
+        # rows_per_part, da_is_f32, stream
+        "edrl_attention_sublayer_dense_bwd": (i32, [ptr] * 8 + [i32] * 7 + [ptr]),
     }
     for name, (restype, argtypes) in signatures.items():
         fn = getattr(lib, name)
@@ -169,6 +180,12 @@ def launch(counts: dict, name: str, fn, device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     counts[name] += 1
+
+
+def aligned16(t):
+    """t itself, or a copy where its data does not start on a 16-byte
+    boundary (TMA and the kernels' 16-byte loads need it)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
 def sm_count(device) -> int:

@@ -23,29 +23,36 @@
 // What the design does about it.  The TPU kernel keeps wqkv and wproj
 // resident for its whole grid (16 C^2 bytes in bf16, 8 MB at C = 1024) and a
 // [N, C] f32 accumulator per program; a Hopper block has at most 227 KB of
-// shared memory.  So the sublayer runs as three phases on one stream, each
+// shared memory.  So the sublayer runs as four launches on one stream, each
 // over a grid that fills the card, reusing the port's device code:
 //
 // (a) B4's LayerNorm forward (edrl_layer_norm_fwd: a warp per row, two-pass
-//     f32 statistics) writes xln; then xln . wqkv + bqkv: in bf16 tiles of
-//     128 rows x 64 columns on the tensor cores (tile_product of
-//     fused_mlp.cuh: mma.sync, cp.async double buffering, f32 accumulate,
-//     the weights transposed once per call so that K is contiguous), in f32
-//     tiles of 64 x 64 as f32 FMA on the CUDA cores (both operands f32, the
-//     TPU kernel's f32 product); the f32 bias is added to the f32 sum.
-// (b) the attention of attention_fwd.cuh per (b, w, h, query tile),
+//     f32 statistics) writes xln, a residual of the backward;
+// (b) qkv = xln . wqkv + bqkv, the bias added in f32 and one rounding;
+// (c) the attention of attention_fwd.cuh per (b, w, h, query tile),
 //     reading q, k and v in place from qkv and the bias with window index
 //     g % Wb, so a Wb = 1 bias is never broadcast.  In bf16 it reads the
-//     rounded qkv that (a) wrote (the TPU kernel scores the f32 qkv; see
+//     rounded qkv that (b) wrote (the TPU kernel scores the f32 qkv; see
 //     edrl_tpu_torch/kernels/block_attention.py).  o goes to a scratch
 //     [B, W, N, C] in x's dtype, which the TPU kernel rounds o to as well.
-// (c) o . wproj as in (a), with the epilogue + bproj + x in f32 and one
+// (d) y = x + (o . wproj + bproj), bias and residual added in f32, one
 //     rounding to x's dtype.
 //
-// wgmma, TMA and fusing the phases are later work.
+// Two routes for the products, chosen here (edrl_attention_sublayer_route;
+// block_attention.attention_sublayer_route mirrors it):
+//
+// - "wgmma", bf16 x: both products on the wgmma mainloop of hopper_gemm.cuh
+//   (TMA into mbarrier rings, one producer warp, two consumer warpgroups,
+//   persistent grids of 128 x 128 tiles, two CTAs per SM).  xln and o are
+//   read K-major, wqkv [C, 3C] and wproj [C, C] MN-major as they lie: no
+//   transpose, no scratch.  C is a multiple of 128, so 3C and C are whole
+//   tiles.  The epilogues store through each warp's staging buffer in
+//   whole row segments; (d)'s also reads x there in row segments.
+// - "fma", f32 x (the correctness-check mode): f32 FMA tiles of 64 x 64 on
+//   the CUDA cores (both operands f32, the TPU kernel's f32 product).
 
 #include "attention_fwd.cuh"
-#include "fused_mlp.cuh"
+#include "hopper_products.cuh"
 
 extern "C" int edrl_layer_norm_fwd(const void* x, const void* gamma, const void* beta, void* y,
                                    int m, int c, float eps, int is_bf16, void* stream);
@@ -54,54 +61,47 @@ namespace {
 
 constexpr float kSublayerLnEps = 1e-6f;
 
-// out[row, col:col + 2] = acc + bias[col:col + 2].
-template <typename T>
-struct QkvEpilogue {
-  T* out;
+// out[row, col:col + 2] = acc + bias[col:col + 2] (f32 route).
+struct F32QkvEpilogue {
+  float* out;
   const float* bias;
   int n;
   __device__ __forceinline__ void operator()(int row, int col, float v0, float v1) const {
-    store2<T>(out + (size_t)row * n + col, v0 + bias[col], v1 + bias[col + 1]);
+    *reinterpret_cast<float2*>(out + (size_t)row * n + col) = make_float2(v0 + bias[col], v1 + bias[col + 1]);
   }
 };
 
-// out[row, col:col + 2] = x + (acc + bias), rounded once.
-template <typename T>
-struct ResidualEpilogue {
-  T* out;
-  const T* x;
+// out[row, col:col + 2] = x + (acc + bias) (f32 route).
+struct F32ResidualEpilogue {
+  float* out;
+  const float* x;
   const float* bias;
   int n;
   __device__ __forceinline__ void operator()(int row, int col, float v0, float v1) const {
     const size_t at = (size_t)row * n + col;
-    store2<T>(out + at, to_f32(x[at]) + (v0 + bias[col]), to_f32(x[at + 1]) + (v1 + bias[col + 1]));
+    *reinterpret_cast<float2*>(out + at) = make_float2(x[at] + (v0 + bias[col]), x[at + 1] + (v1 + bias[col + 1]));
   }
 };
 
-// bf16: epi(a[M, K] . wt[N, K]^T), one 128 x 64 tile per block.
-template <typename Epi>
-__global__ void __launch_bounds__(kMlpThreads) sublayer_gemm_bf16_kernel(const __nv_bfloat16* a,
-                                                                         const __nv_bfloat16* wt, int m,
-                                                                         int k, Epi epi) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int row0 = blockIdx.x * kTileM, col0 = blockIdx.y * kTileN;
-  float acc[2][4][4];
-  zero(acc);
-  tile_product<AFrag<__nv_bfloat16>, __nv_bfloat16>(acc, a, k, row0, m, wt, k, col0, k, smem_raw);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = col0 + wn + ni * 8 + 2 * t;
-      const int row = row0 + wm + mi * 16 + g;
-      if (row < m) epi(row, col, acc[mi][ni][0], acc[mi][ni][1]);
-      if (row + 8 < m) epi(row + 8, col, acc[mi][ni][2], acc[mi][ni][3]);
-    }
-}
+// y = bf16(x + (acc + bias)) for the rows below m (wgmma route): the bias
+// and the residual added in f32, one rounding.
+struct ResidualEpilogue {
+  __nv_bfloat16* y;
+  const __nv_bfloat16* x;
+  const float* bias;
+  int m, ld;
+
+  template <int BN>
+  __device__ __forceinline__ void tile(const float (&acc)[BN / 2], int m0, int n0, int, __nv_bfloat16* stage) const {
+    const float* b = bias + n0 + acc_col0();
+    store_rows_bf16_residual<BN>(stage, y, x, ld, m0 + 16 * (threadIdx.x >> 5), n0, m,
+                                 [&](int j, int half, float2 r) {
+                                   const float2 bj = *reinterpret_cast<const float2*>(b + 8 * j);
+                                   return __floats2bfloat162_rn(r.x + (acc[4 * j + 2 * half] + bj.x),
+                                                                r.y + (acc[4 * j + 2 * half + 1] + bj.y));
+                                 });
+  }
+};
 
 // f32: epi(a[M, K] . w[K, N]) as f32 FMA, one 64 x 64 tile per block of 256
 // threads; thread (ty, tx) owns rows ty + 16 i and column pairs 2 tx + 32 j.
@@ -159,23 +159,11 @@ __global__ void __launch_bounds__(256) sublayer_gemm_f32_kernel(const float* __r
   }
 }
 
-// epi(a[M, K] . w[K, N]); N a multiple of 64, K of 32.  bf16 transposes w
-// into wt [N, K] first.
-template <typename T, typename Epi>
-cudaError_t launch_gemm(const T* a, const T* w, __nv_bfloat16* wt, int m, int k, int n, const Epi& epi,
-                        cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    cudaError_t err = launch_transpose_bf16<__nv_bfloat16>(w, wt, k, n, stream);
-    if (err != cudaSuccess) return err;
-    const size_t smem = tile_smem_bytes<__nv_bfloat16>();
-    err = allow_smem(sublayer_gemm_bf16_kernel<Epi>, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((unsigned)((m + kTileM - 1) / kTileM), (unsigned)(n / kTileN));
-    sublayer_gemm_bf16_kernel<Epi><<<grid, kMlpThreads, smem, stream>>>(a, wt, m, k, epi);
-  } else {
-    const dim3 grid((unsigned)((m + kSgTile - 1) / kSgTile), (unsigned)(n / kSgTile));
-    sublayer_gemm_f32_kernel<Epi><<<grid, 256, 0, stream>>>(a, w, m, k, n, epi);
-  }
+// epi(a[M, K] . w[K, N]) in f32; N a multiple of 64, K of 16.
+template <typename Epi>
+cudaError_t launch_gemm_f32(const float* a, const float* w, int m, int k, int n, const Epi& epi, cudaStream_t stream) {
+  const dim3 grid((unsigned)((m + kSgTile - 1) / kSgTile), (unsigned)(n / kSgTile));
+  sublayer_gemm_f32_kernel<Epi><<<grid, 256, 0, stream>>>(a, w, m, k, n, epi);
   return cudaGetLastError();
 }
 
@@ -192,65 +180,123 @@ struct SublayerArgs {
   void* qkv;
   void* xln;
   void* o;
-  __nv_bfloat16* wqkv_t;
-  __nv_bfloat16* wproj_t;
   int batch, windows, bias_windows, n, c, heads;
   float scale;
 };
 
+inline bool sublayer_shape_ok(int c, int heads) {
+  return c % 128 == 0 && c >= 128 && c <= 2048 && heads >= 1 && c % heads == 0 && (c / heads) % 8 == 0 &&
+         c / heads <= kMaxHeadDim;
+}
+
+// The products' route: wgmma for bf16, f32 FMA otherwise.
+inline bool sublayer_route_wgmma(bool is_bf16) { return is_bf16; }
+
 template <typename T>
-cudaError_t run(const SublayerArgs& s, cudaStream_t stream) {
-  const int m = s.batch * s.windows * s.n;
-  const int c = s.c;
+cudaError_t run_attention(const SublayerArgs& s, cudaStream_t stream) {
   T* qkv = static_cast<T*>(s.qkv);
-  // (a) LayerNorm, then qkv = xln . wqkv + bqkv.
-  cudaError_t err = (cudaError_t)edrl_layer_norm_fwd(s.x, s.gamma, s.beta, s.xln, m, c, kSublayerLnEps,
-                                                     (int)std::is_same<T, __nv_bfloat16>::value, stream);
-  if (err != cudaSuccess) return err;
-  err = launch_gemm<T>(static_cast<const T*>(s.xln), static_cast<const T*>(s.wqkv), s.wqkv_t, m, c, 3 * c,
-                       QkvEpilogue<T>{qkv, s.bqkv, 3 * c}, stream);
-  if (err != cudaSuccess) return err;
-  // (b) attention per (b, w, h), q, k, v read in place from qkv.
   AttnParams p = {};
   p.q = qkv;
-  p.k = qkv + c;
-  p.v = qkv + 2 * c;
+  p.k = qkv + s.c;
+  p.v = qkv + 2 * s.c;
   p.o = s.o;
   p.bias = s.bias;
-  p.group_stride_in = (long long)s.n * 3 * c;
-  p.group_stride_out = (long long)s.n * c;
-  p.row_stride_in = 3 * c;
-  p.row_stride_out = c;
+  p.group_stride_in = (long long)s.n * 3 * s.c;
+  p.group_stride_out = (long long)s.n * s.c;
+  p.row_stride_in = 3 * s.c;
+  p.row_stride_out = s.c;
   p.num_groups = s.batch * s.windows;
   p.windows = s.bias_windows;  // group g = b * W + w reads bias window g % Wb
   p.heads = s.heads;
   p.n = s.n;
-  p.d = c / s.heads;
+  p.d = s.c / s.heads;
   p.scale = s.scale;
-  err = launch_attention_fwd<T>(p, stream);
+  return launch_attention_fwd<T>(p, stream);
+}
+
+template <typename T>
+cudaError_t run(const SublayerArgs& s, cudaStream_t stream) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  const int m = s.batch * s.windows * s.n;
+  const int c = s.c;
+  cudaError_t err = cudaSuccess;
+  // The wgmma route's tensor maps: xln and o as A (K-major, boxes of 128
+  // rows), wqkv and wproj as B (MN-major, boxes of 64 k-rows).
+  CUtensorMap xln_map, wqkv_map, o_map, wproj_map;
+  if constexpr (kBf16) {
+    err = make_tile_map(&xln_map, s.xln, m, c, kGemmBM);
+    if (err == cudaSuccess) err = make_tile_map(&wqkv_map, s.wqkv, c, 3 * c, 64);
+    if (err == cudaSuccess) err = make_tile_map(&o_map, s.o, m, c, kGemmBM);
+    if (err == cudaSuccess) err = make_tile_map(&wproj_map, s.wproj, c, c, 64);
+    if (err != cudaSuccess) return err;
+  }
+  // (a) LayerNorm.
+  err = (cudaError_t)edrl_layer_norm_fwd(s.x, s.gamma, s.beta, s.xln, m, c, kSublayerLnEps, (int)kBf16, stream);
   if (err != cudaSuccess) return err;
-  // (c) y = x + (o . wproj + bproj).
-  return launch_gemm<T>(static_cast<const T*>(s.o), static_cast<const T*>(s.wproj), s.wproj_t, m, c, c,
-                        ResidualEpilogue<T>{static_cast<T*>(s.y), static_cast<const T*>(s.x), s.bproj, c},
-                        stream);
+  // (b) qkv = xln . wqkv + bqkv.
+  if constexpr (kBf16) {
+    err = launch_wgmma_gemm<BiasEpilogue, false, true>(
+        xln_map, wqkv_map, BiasEpilogue{static_cast<__nv_bfloat16*>(s.qkv), s.bqkv, m, 3 * c}, m, 3 * c, 1, c, c,
+        stream);
+  } else {
+    err = launch_gemm_f32(static_cast<const float*>(s.xln), static_cast<const float*>(s.wqkv), m, c, 3 * c,
+                          F32QkvEpilogue{static_cast<float*>(s.qkv), s.bqkv, 3 * c}, stream);
+  }
+  if (err != cudaSuccess) return err;
+  // (c) attention per (b, w, h), q, k, v read in place from qkv.
+  err = run_attention<T>(s, stream);
+  if (err != cudaSuccess) return err;
+  // (d) y = x + (o . wproj + bproj).
+  if constexpr (kBf16) {
+    return launch_wgmma_gemm<ResidualEpilogue, false, true>(
+        o_map, wproj_map,
+        ResidualEpilogue{static_cast<__nv_bfloat16*>(s.y), static_cast<const __nv_bfloat16*>(s.x), s.bproj, m, c}, m, c,
+        1, c, c, stream);
+  } else {
+    return launch_gemm_f32(static_cast<const float*>(s.o), static_cast<const float*>(s.wproj), m, c, c,
+                           F32ResidualEpilogue{static_cast<float*>(s.y), static_cast<const float*>(s.x), s.bproj, c},
+                           stream);
+  }
 }
 
 }  // namespace
 
+// 1 if a call of this dtype and shape takes the wgmma route, 0 if it takes
+// the f32 FMA route, -1 if the kernel refuses the shape (C a multiple of
+// 128 up to 2048, C / heads a multiple of 8 up to 128).
+// block_attention.attention_sublayer_route mirrors this.
+extern "C" int edrl_attention_sublayer_route(int is_bf16, int c, int heads) {
+  if (!sublayer_shape_ok(c, heads)) return -1;
+  return sublayer_route_wgmma(is_bf16 != 0) ? 1 : 0;
+}
+
+// The wgmma route's product kernels: resident CTAs per SM (occupancy
+// calculator) of the qkv product in out[0] and of the proj product in
+// out[1], their dynamic shared memory in out[2] and threads per CTA in
+// out[3].  Returns 0 or a CUDA error.
+extern "C" int edrl_attention_sublayer_fwd_occupancy(int* out) {
+  const size_t smem = ring_smem_bytes(kGemmStages, kGemmBN);
+  out[2] = (int)smem;
+  out[3] = kGemmThreads;
+  cudaError_t err = blocks_per_sm(wgmma_gemm_kernel<BiasEpilogue, kGemmBN, false, true, kGemmStages, kGemmCtasPerSm>,
+                                  kGemmThreads, smem, &out[0]);
+  if (err != cudaSuccess) return (int)err;
+  return (int)blocks_per_sm(wgmma_gemm_kernel<ResidualEpilogue, kGemmBN, false, true, kGemmStages, kGemmCtasPerSm>,
+                            kGemmThreads, smem, &out[1]);
+}
+
 // x, y, xln, o (scratch): [batch, windows, n, c]; qkv: [batch, windows, n,
-// 3c]; wqkv [c, 3c], wproj [c, c]: all bf16 (is_bf16) or all f32.  gamma,
-// beta, bproj [c], bqkv [3c], bias [bias_windows, heads, n, n]: f32.  bf16
-// scratch wqkv_t [3c, c] and wproj_t [c, c] (unused in f32).  c a multiple
-// of 128 up to 2048, c / heads a multiple of 8 up to 128, bias_windows 1 or
-// windows; the caller has checked the attention's shared memory.
+// 3c]; wqkv [c, 3c], wproj [c, c]: all bf16 (is_bf16) or all f32, the bf16
+// ones 16-byte aligned.  gamma, beta, bproj [c], bqkv [3c], bias
+// [bias_windows, heads, n, n]: f32.  c a multiple of 128 up to 2048, c /
+// heads a multiple of 8 up to 128, bias_windows 1 or windows; the caller has
+// checked the attention's shared memory.
 extern "C" int edrl_attention_sublayer_fwd(const void* x, const void* gamma, const void* beta,
                                            const void* wqkv, const void* bqkv, const void* wproj,
                                            const void* bproj, const void* bias, void* y, void* qkv,
-                                           void* xln, void* o, void* wqkv_t, void* wproj_t, int batch,
-                                           int windows, int bias_windows, int n, int c, int heads,
-                                           float scale, int is_bf16, void* stream) {
-  if (c % 128 != 0 || c > 2048 || heads < 1 || c % heads != 0 || (c / heads) % 8 != 0 ||
-      c / heads > kMaxHeadDim || n < 1 || batch < 1 || windows < 1 ||
+                                           void* xln, void* o, int batch, int windows, int bias_windows, int n,
+                                           int c, int heads, float scale, int is_bf16, void* stream) {
+  if (!sublayer_shape_ok(c, heads) || n < 1 || batch < 1 || windows < 1 ||
       (bias_windows != 1 && bias_windows != windows)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -266,8 +312,6 @@ extern "C" int edrl_attention_sublayer_fwd(const void* x, const void* gamma, con
                           qkv,
                           xln,
                           o,
-                          static_cast<__nv_bfloat16*>(wqkv_t),
-                          static_cast<__nv_bfloat16*>(wproj_t),
                           batch,
                           windows,
                           bias_windows,
@@ -276,6 +320,6 @@ extern "C" int edrl_attention_sublayer_fwd(const void* x, const void* gamma, con
                           heads,
                           scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = is_bf16 ? run<__nv_bfloat16>(s, st) : run<float>(s, st);
+  const cudaError_t err = sublayer_route_wgmma(is_bf16 != 0) ? run<__nv_bfloat16>(s, st) : run<float>(s, st);
   return (int)err;
 }

@@ -60,7 +60,7 @@
 //   per-warp staging buffer, so that a warp writes whole 64-byte row
 //   segments; the GELU and its derivative are taken in f32 in the logistic
 //   form (gelu_logistic_grad).  db2's partials come from 64-row tiles of dy
-//   (dy_col_partials_kernel).  f32 master weights are rounded to bf16
+//   (col_partials_kernel).  f32 master weights are rounded to bf16
 //   copies first.
 // - "mma", f32 u (the correctness-check mode): the same four products on
 //   mma.sync over cp.async double buffers (tile_product in fused_mlp.cuh
@@ -69,7 +69,7 @@
 //   transposed for the hidden kernel.
 
 #include "fused_mlp.cuh"
-#include "hopper_gemm.cuh"
+#include "hopper_products.cuh"
 
 namespace {
 
@@ -458,103 +458,8 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
 
 inline size_t hidden_smem_bytes() { return ring_smem_bytes(kHidStages, kGemmBN); }
 
-// out = bf16(acc) for the rows below m (du).
-struct StoreEpilogue {
-  __nv_bfloat16* out;
-  int m, ld;
-
-  template <int BN>
-  __device__ __forceinline__ void tile(const float (&acc)[BN / 2], int m0, int n0, int, __nv_bfloat16* stage) const {
-    store_rows_bf16<BN>(stage, out, ld, m0 + 16 * (threadIdx.x >> 5), n0, m, [&](int j, int half) {
-      return __floats2bfloat162_rn(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
-    });
-  }
-};
-
-// out[split] = acc, f32 (a weight gradient, or a split's partial of it); a
-// quad's four float2 stores fill one 32-byte sector, so no staging.
-struct WgradEpilogue {
-  float* out;
-  int ld;
-  long long split_elems;
-
-  template <int BN>
-  __device__ __forceinline__ void tile(const float (&acc)[BN / 2], int m0, int n0, int split, __nv_bfloat16*) const {
-    float* o = out + split * split_elems + (size_t)(m0 + acc_row0()) * ld + n0 + acc_col0();
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      *reinterpret_cast<float2*>(o + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
-      *reinterpret_cast<float2*>(o + 8 * ld + 8 * j) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-    }
-  }
-};
-
-// db2's partials: part[tile][c] = sum of x[tile * 64 + r][c] over the
-// tile's 64 rows, x bf16 [m, cols] (cols a multiple of 8).  Grid
-// (ceil(cols / 256), ceil(m / 64)); a thread sums rows ty, ty + 8, ... of 8
-// columns (16-byte loads), then the 8 row lanes are added in order.
+// db2's partials come from tiles of kDb2Rows rows of dy.
 constexpr int kDb2Rows = 64;
-
-__global__ void __launch_bounds__(256) dy_col_partials_kernel(const __nv_bfloat16* __restrict__ x,
-                                                              float* __restrict__ part, int m, int cols) {
-  __shared__ float sums[8][256];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int c0 = blockIdx.x * 256, c = c0 + 8 * tx;
-  float acc[8] = {};
-  if (c < cols) {
-    for (int r = blockIdx.y * kDb2Rows + ty; r < min(m, (blockIdx.y + 1) * kDb2Rows); r += 8) {
-      const uint4 v = *reinterpret_cast<const uint4*>(x + (size_t)r * cols + c);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) acc[k] += __bfloat162float(e[k]);
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < 8; ++k) sums[ty][8 * tx + k] = acc[k];
-  __syncthreads();
-  if (c0 + threadIdx.x < cols) {
-    float total = 0.0f;
-#pragma unroll
-    for (int y = 0; y < 8; ++y) total += sums[y][threadIdx.x];
-    part[(size_t)blockIdx.y * cols + c0 + threadIdx.x] = total;
-  }
-}
-
-// out[i] = sum over r of part[r * n + i], r = 0 .. rows - 1 in order, four
-// consecutive i a thread (n a multiple of 4): the weight gradients' split
-// partials, read once in 16-byte loads.  No atomics.
-__global__ void __launch_bounds__(256) column_sum4_kernel(const float4* __restrict__ part, float4* __restrict__ out,
-                                                          int rows, long long n4) {
-  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n4; i += (long long)gridDim.x * 256) {
-    float4 acc = part[i];
-    for (int r = 1; r < rows; ++r) {
-      const float4 v = part[r * n4 + i];
-      acc.x += v.x;
-      acc.y += v.y;
-      acc.z += v.z;
-      acc.w += v.w;
-    }
-    out[i] = acc;
-  }
-}
-
-// out [P, Q] = x^T y over m, x [m, P] and y [m, Q] bf16 read MN-major; with
-// splits > 1 through part [splits, P, Q].
-cudaError_t launch_wgrad_wgmma(const void* x, const void* y, float* out, float* part, int m, int pdim, int qdim,
-                               int splits, int chunk, cudaStream_t s) {
-  CUtensorMap x_map, y_map;
-  cudaError_t err = make_tile_map(&x_map, x, m, pdim, 64);
-  if (err == cudaSuccess) err = make_tile_map(&y_map, y, m, qdim, 64);
-  if (err != cudaSuccess) return err;
-  const WgradEpilogue ep{splits > 1 ? part : out, qdim, (long long)pdim * qdim};
-  err = launch_wgmma_gemm<WgradEpilogue, true, true>(x_map, y_map, ep, pdim, qdim, splits, chunk, m, s);
-  if (err != cudaSuccess || splits == 1) return err;
-  const long long n4 = (long long)pdim * qdim / 4;
-  const long long want = (n4 + 255) / 256;
-  column_sum4_kernel<<<(unsigned)(want < 8192 ? want : 8192), 256, 0, s>>>(reinterpret_cast<const float4*>(part),
-                                                                       reinterpret_cast<float4*>(out), splits, n4);
-  return cudaGetLastError();
-}
 
 // u, dy, du [m, c] bf16; w1b [c, h], w2b [h, c] bf16.
 cudaError_t run_bwd_wgmma(const void* u, const void* dy, const __nv_bfloat16* w1b, const __nv_bfloat16* w2b,
@@ -585,17 +490,15 @@ cudaError_t run_bwd_wgmma(const void* u, const void* dy, const __nv_bfloat16* w1
                                                         1, h, h, s);
   if (err != cudaSuccess) return err;
   const unsigned db2_rows = (unsigned)((m + kDb2Rows - 1) / kDb2Rows);
-  dy_col_partials_kernel<<<dim3((unsigned)((c + 255) / 256), db2_rows), 256, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(dy), db2_part, m, c);
-  err = cudaGetLastError();
+  err = launch_col_partials(dy, db2_part, m, c, kDb2Rows, s);
   if (err != cudaSuccess) return err;
   err = launch_column_sum(db1_part, db1, (int)row_tiles, h, s);
   if (err != cudaSuccess) return err;
   err = launch_column_sum(db2_part, db2, (int)db2_rows, c, s);
   if (err != cudaSuccess) return err;
-  err = launch_wgrad_wgmma(u, dh, dw1, dw1_part, m, c, h, splits, chunk, s);
+  err = launch_wgrad_wgmma<float>(u, dh, dw1, dw1_part, m, c, h, splits, chunk, s);
   if (err != cudaSuccess) return err;
-  return launch_wgrad_wgmma(act, dy, dw2, dw2_part, m, h, c, splits, chunk, s);
+  return launch_wgrad_wgmma<float>(act, dy, dw2, dw2_part, m, h, c, splits, chunk, s);
 }
 
 }  // namespace

@@ -46,7 +46,7 @@
 //   so that each B fragment is two 32-bit shared loads.
 
 #include "fused_mlp.cuh"
-#include "hopper_gemm.cuh"
+#include "hopper_products.cuh"
 
 namespace {
 
@@ -162,22 +162,6 @@ struct GeluEpilogue {
       const float2 bj = *reinterpret_cast<const float2*>(b + 8 * j);
       return __floats2bfloat162_rn(gelu_logistic(acc[4 * j + 2 * half] + bj.x),
                                    gelu_logistic(acc[4 * j + 2 * half + 1] + bj.y));
-    });
-  }
-};
-
-// y = bf16(acc + b2) for the rows below m.
-struct BiasEpilogue {
-  __nv_bfloat16* y;
-  const float* b2;
-  int m, c;
-
-  template <int BN>
-  __device__ __forceinline__ void tile(const float (&acc)[BN / 2], int m0, int n0, int, __nv_bfloat16* stage) const {
-    const float* b = b2 + n0 + acc_col0();
-    store_rows_bf16<BN>(stage, y, c, m0 + 16 * (threadIdx.x >> 5), n0, m, [&](int j, int half) {
-      const float2 bj = *reinterpret_cast<const float2*>(b + 8 * j);
-      return __floats2bfloat162_rn(acc[4 * j + 2 * half] + bj.x, acc[4 * j + 2 * half + 1] + bj.y);
     });
   }
 };

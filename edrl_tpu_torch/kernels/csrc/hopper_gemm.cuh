@@ -1,6 +1,7 @@
-// Hopper building blocks of the fused MLP's bf16 route (B5): TMA tensor
-// maps and loads, mbarrier rings, warpgroup MMA (wgmma) and the mainloop
-// that every B5 product runs on.
+// Hopper building blocks of the bf16 routes of the fused MLP (B5) and the
+// fused attention sublayer (B6): TMA tensor maps and loads, mbarrier rings,
+// warpgroup MMA (wgmma) and the mainloop that every B5 and B6 product runs
+// on.
 //
 // A CTA of the mainloop has 288 threads: two consumer warpgroups (threads
 // 0-255, warpgroup w owns rows 64w .. 64w + 63 of a 128-row tile) and one
@@ -393,6 +394,28 @@ __device__ __forceinline__ int acc_col0() { return 2 * (threadIdx.x & 3); }
 constexpr int kStageLd = 40;                      // bf16 elements per staged row
 constexpr int kStageElems = 16 * kStageLd;        // one warp's buffer
 
+// Copies between a warp's 16 x 32 staging block and rows row0 .. row0 + 15,
+// columns col0 .. col0 + 31 of a bf16 matrix, 16 bytes a lane; rows at or
+// past m are skipped.
+template <bool kToGlobal>
+__device__ __forceinline__ void copy_staged(__nv_bfloat16* stage, __nv_bfloat16* global, int ld, int row0, int col0,
+                                            int m) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = g + 8 * i, c = 8 * t;
+    if (row0 + r < m) {
+      uint4* gp = reinterpret_cast<uint4*>(global + (size_t)(row0 + r) * ld + col0 + c);
+      uint4* sp = reinterpret_cast<uint4*>(stage + r * kStageLd + c);
+      if (kToGlobal) {
+        *gp = *sp;
+      } else {
+        *sp = *gp;
+      }
+    }
+  }
+}
+
 template <int BN, class Pair>
 __device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* stage, __nv_bfloat16* out, int ld, int row0,
                                                 int col0, int m, Pair pair) {
@@ -407,14 +430,33 @@ __device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* stage, __nv_bfloa
             pair(4 * q + jj, half);
       }
     __syncwarp();
+    copy_staged<true>(stage, out, ld, row0, col0 + 32 * q, m);
+    __syncwarp();
+  }
+}
+
+// store_rows_bf16 with a residual res (bf16, out's layout): pair(j, half, r)
+// gets r, the float2 of res at the thread's pair.  The warp first stages
+// res's 16 x 32 block as it stores (16 bytes a lane), so that res is read in
+// whole row segments too, then each thread replaces its pairs in place.
+template <int BN, class Pair>
+__device__ __forceinline__ void store_rows_bf16_residual(__nv_bfloat16* stage, __nv_bfloat16* out,
+                                                         const __nv_bfloat16* res, int ld, int row0, int col0,
+                                                         int m, Pair pair) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = g + 8 * i, c = 8 * t;
-      if (row0 + r < m) {
-        *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * ld + col0 + 32 * q + c) =
-            *reinterpret_cast<const uint4*>(stage + r * kStageLd + c);
+  for (int q = 0; q < BN / 32; ++q) {
+    copy_staged<false>(stage, const_cast<__nv_bfloat16*>(res), ld, row0, col0 + 32 * q, m);
+    __syncwarp();
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(stage + (g + 8 * half) * kStageLd + 8 * jj + 2 * t);
+        *p = pair(4 * q + jj, half, __bfloat1622float2(*p));
       }
-    }
+    __syncwarp();
+    copy_staged<true>(stage, out, ld, row0, col0 + 32 * q, m);
     __syncwarp();
   }
 }
@@ -449,10 +491,12 @@ template <class Epi, int BN, bool kAMN, bool kBMN, int kStages, int kCtasPerSm>
 __global__ void __launch_bounds__(kGemmThreads, kCtasPerSm)
     wgmma_gemm_kernel(const __grid_constant__ CUtensorMap a, const __grid_constant__ CUtensorMap b, const Epi ep,
                       const TileGrid g) {
-  extern __shared__ unsigned char smem[];
+  // Named apart from the attention kernels' float smem[]: a unit that
+  // includes both (the fused attention sublayer) would see one symbol.
+  extern __shared__ unsigned char gemm_smem[];
   __shared__ uint64_t bars[2 * kStages];
   __shared__ __align__(16) __nv_bfloat16 stage[kGemmConsumers / 32][kStageElems];
-  Ring r = make_ring(smem, bars, kStages, kATileBytes + BN * kGemmBK * 2);
+  Ring r = make_ring(gemm_smem, bars, kStages, kATileBytes + BN * kGemmBK * 2);
   const bool producer = threadIdx.x >= kGemmConsumers;
   if (producer && threadIdx.x != kGemmConsumers) return;
   for (int t = blockIdx.x; t < g.count(); t += gridDim.x) {
@@ -480,7 +524,7 @@ inline cudaError_t persistent_ctas(int tiles, int ctas_per_sm, unsigned* out) {
   return err;
 }
 
-// The single-product kernels of B5 use 128 x 128 tiles, two CTAs per SM
+// The single-product kernels of B5 and B6 use 128 x 128 tiles, two CTAs per SM
 // (at most 112 registers a thread) and a 3-stage ring (97 KB each, and
 // 10 KB of staging buffers).
 constexpr int kGemmBN = 128;

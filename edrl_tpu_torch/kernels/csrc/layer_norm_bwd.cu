@@ -24,6 +24,12 @@
 // order.  No atomics: dgamma and dbeta are the same bit for bit from run to
 // run.  The wrapper picks the block count (8 per SM) so that the partials
 // stay small (at most ~1,000 x C floats) while the grid fills the card.
+//
+// The residual form (edrl_layer_norm_bwd_residual) is the LayerNorm part of
+// the fused attention sublayer's backward (block_attention.py, _v4_bwd):
+// the cotangent dy is f32 (dxln, an f32 product's output) and a residual
+// cotangent res in x's dtype is added in f32 before dx is rounded once,
+// dx = res + rstd * (...).  The same kernel, with dy read in f32.
 
 #include "layer_norm.cuh"
 
@@ -35,9 +41,10 @@ inline size_t layer_norm_bwd_smem_bytes(int c) {
   return sizeof(float) * 2 * kLnBwdWarps * (size_t)c;
 }
 
-template <typename T, int CHUNKS>
+// TD: dy's type (T, or f32 in the residual form); kRes: add res (x's type) to dx.
+template <typename T, typename TD, bool kRes, int CHUNKS>
 __global__ void __launch_bounds__(kLnBwdWarps * 32)
-    layer_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+    layer_norm_bwd_kernel(const T* __restrict__ x, const TD* __restrict__ dy, const T* __restrict__ res,
                           const float* __restrict__ gamma, T* __restrict__ dx,
                           float* __restrict__ dgamma_part, float* __restrict__ dbeta_part, int m,
                           int c, int rows_per_block, float eps) {
@@ -89,6 +96,12 @@ __global__ void __launch_bounds__(kLnBwdWarps * 32)
         dg_s[col + j] = fmaf(d[i][j], v[i][j], dg_s[col + j]);
         db_s[col + j] += d[i][j];
       }
+      if (kRes) {
+        float r[4];
+        load4(res + (size_t)row * c + col, r);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) out[j] += r[j];
+      }
       store4(dx + (size_t)row * c + col, out);
     }
   }
@@ -105,10 +118,11 @@ __global__ void __launch_bounds__(kLnBwdWarps * 32)
   }
 }
 
-template <typename T>
+template <typename T, typename TD, bool kRes>
 struct LaunchBwd {
   const void* x;
   const void* dy;
+  const void* res;
   const float* gamma;
   void* dx;
   float* dgamma_part;
@@ -120,15 +134,29 @@ struct LaunchBwd {
   template <int CHUNKS>
   cudaError_t operator()() const {
     const size_t smem = layer_norm_bwd_smem_bytes(c);
-    cudaError_t err = allow_smem(layer_norm_bwd_kernel<T, CHUNKS>, smem);
+    cudaError_t err = allow_smem(layer_norm_bwd_kernel<T, TD, kRes, CHUNKS>, smem);
     if (err != cudaSuccess) return err;
     const int rows_per_block = (m + blocks - 1) / blocks;
-    layer_norm_bwd_kernel<T, CHUNKS><<<blocks, kLnBwdWarps * 32, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(dy), gamma, static_cast<T*>(dx),
+    layer_norm_bwd_kernel<T, TD, kRes, CHUNKS><<<blocks, kLnBwdWarps * 32, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const TD*>(dy), static_cast<const T*>(res), gamma, static_cast<T*>(dx),
         dgamma_part, dbeta_part, m, c, rows_per_block, eps);
     return cudaGetLastError();
   }
 };
+
+template <typename T, typename TD, bool kRes>
+cudaError_t run_bwd(const void* x, const void* dy, const void* res, const void* gamma, void* dx, void* dgamma,
+                    void* dbeta, void* partial, int m, int c, int blocks, float eps, cudaStream_t s) {
+  if (c % 128 != 0 || c / 128 > kMaxLnChunks || m < 1 || blocks < 1 || blocks > m) return cudaErrorInvalidValue;
+  float* dg_part = static_cast<float*>(partial);
+  float* db_part = dg_part + (size_t)blocks * c;
+  cudaError_t err = dispatch_chunks(c, LaunchBwd<T, TD, kRes>{x, dy, res, static_cast<const float*>(gamma), dx,
+                                                              dg_part, db_part, m, c, blocks, eps, s});
+  if (err != cudaSuccess) return err;
+  err = launch_column_sum(dg_part, static_cast<float*>(dgamma), blocks, c, s);
+  if (err != cudaSuccess) return err;
+  return launch_column_sum(db_part, static_cast<float*>(dbeta), blocks, c, s);
+}
 
 }  // namespace
 
@@ -138,20 +166,22 @@ struct LaunchBwd {
 extern "C" int edrl_layer_norm_bwd(const void* x, const void* dy, const void* gamma, void* dx,
                                    void* dgamma, void* dbeta, void* partial, int m, int c,
                                    int blocks, float eps, int is_bf16, void* stream) {
-  if (c % 128 != 0 || c / 128 > kMaxLnChunks || m < 1 || blocks < 1 || blocks > m) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const float* g = static_cast<const float*>(gamma);
-  float* dg_part = static_cast<float*>(partial);
-  float* db_part = dg_part + (size_t)blocks * c;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      is_bf16 ? dispatch_chunks(c, LaunchBwd<__nv_bfloat16>{x, dy, g, dx, dg_part, db_part, m, c,
-                                                              blocks, eps, s})
-              : dispatch_chunks(c, LaunchBwd<float>{x, dy, g, dx, dg_part, db_part, m, c, blocks,
-                                                    eps, s});
-  if (err != cudaSuccess) return (int)err;
-  err = launch_column_sum(dg_part, static_cast<float*>(dgamma), blocks, c, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_column_sum(db_part, static_cast<float*>(dbeta), blocks, c, s);
+  return (int)(is_bf16 ? run_bwd<__nv_bfloat16, __nv_bfloat16, false>(x, dy, nullptr, gamma, dx, dgamma, dbeta,
+                                                                       partial, m, c, blocks, eps, s)
+                       : run_bwd<float, float, false>(x, dy, nullptr, gamma, dx, dgamma, dbeta, partial, m, c,
+                                                      blocks, eps, s));
+}
+
+// The residual form: dy [m, c] f32, res [m, c] in x's dtype, dx = res + the
+// LayerNorm's dx, added in f32 and rounded once; the rest as
+// edrl_layer_norm_bwd (dgamma and dbeta from the f32 dy).
+extern "C" int edrl_layer_norm_bwd_residual(const void* x, const void* dy, const void* res, const void* gamma,
+                                            void* dx, void* dgamma, void* dbeta, void* partial, int m, int c,
+                                            int blocks, float eps, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(is_bf16 ? run_bwd<__nv_bfloat16, float, true>(x, dy, res, gamma, dx, dgamma, dbeta, partial, m, c,
+                                                             blocks, eps, s)
+                       : run_bwd<float, float, true>(x, dy, res, gamma, dx, dgamma, dbeta, partial, m, c, blocks,
+                                                     eps, s));
 }

@@ -141,12 +141,6 @@ def _check_cuda(name: str, u, w1, b1, w2, b2=None) -> tuple:
     return m, c, h
 
 
-def _aligned(t):
-    """t itself, or a copy where its data does not start on a 16-byte
-    boundary (TMA and the 16-byte loads of both routes need it)."""
-    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _launch(name: str, route: str, fn, device, *args) -> None:
     build.launch(LAUNCHES, name, fn, device, *args)
     MLP_ROUTES[route] += 1
@@ -163,7 +157,7 @@ def fused_mlp_fwd_kernel(u, w1, b1, w2, b2):
     if m == 0:
         return y
     route = fused_mlp_route(u.dtype, c, h)
-    u, w1, w2 = map(_aligned, (u, w1, w2))
+    u, w1, w2 = map(build.aligned16, (u, w1, w2))
     bf16 = dict(dtype=torch.bfloat16, device=u.device)
     w_bf16 = w1.dtype == torch.bfloat16
     if route == "wgmma":  # bf16 copies of f32 weights, and the activation
@@ -228,7 +222,7 @@ def fused_mlp_bwd_kernel(u, dy, w1, b1, w2):
     if m == 0:
         return du, dw1.zero_(), db1.zero_(), dw2.zero_(), db2.zero_()
     route = fused_mlp_route(u.dtype, c, h)
-    u, dy, w1, w2 = map(_aligned, (u, dy, w1, w2))
+    u, dy, w1, w2 = map(build.aligned16, (u, dy, w1, w2))
     plan = wgmma_wgrad_splits if route == "wgmma" else _wgrad_splits
     splits, chunk = plan(m, c, h, build.sm_count(u.device))
     tiles = -(-m // _ROW_TILE)

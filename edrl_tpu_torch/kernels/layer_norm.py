@@ -10,6 +10,12 @@ x and gamma, the backward recomputes the statistics, as the JAX VJP does.  A
 CPU tensor takes the plain versions (:func:`layer_norm_reference`,
 :func:`layer_norm_bwd_reference`); a CUDA tensor launches the kernels or
 raises.  Each kernel wrapper counts its launches in :data:`LAUNCHES`.
+
+The backward also has a residual form (:func:`layer_norm_bwd_residual_kernel`,
+:func:`layer_norm_bwd_residual_reference`), the LayerNorm part of the fused
+attention sublayer's backward (``_v4_bwd``): an f32 cotangent, and a
+residual cotangent in x's dtype that is added to dx in f32 before dx is
+rounded once.  It counts under the backward's name.
 """
 
 from __future__ import annotations
@@ -60,6 +66,18 @@ def layer_norm_bwd_reference(x, dy, gamma, eps: float = 1e-6):
     return dx.to(x.dtype), (dyf * xhat).sum(dim=0), dyf.sum(dim=0)
 
 
+def layer_norm_bwd_residual_reference(x, dy, gamma, res, eps: float = 1e-6):
+    """The residual form: ``(dx, dgamma, dbeta)`` for x ``[M, C]``, an f32
+    cotangent dy and a residual cotangent res in x's dtype.
+
+    dx = res + the LayerNorm's dx, added in f32 and rounded once to x's
+    dtype; dgamma and dbeta as :func:`layer_norm_bwd_reference` gives them
+    from the f32 dy.
+    """
+    dx, dgamma, dbeta = layer_norm_bwd_reference(x.float(), dy.float(), gamma, eps)
+    return (res.float() + dx).to(x.dtype), dgamma, dbeta
+
+
 def _check_cuda(name: str, x, params) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got {x.device}")
@@ -105,6 +123,28 @@ def layer_norm_bwd_kernel(x, dy, gamma, eps: float = 1e-6):
                  x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
                  dbeta.data_ptr(), partial.data_ptr(), m, c, blocks, float(eps),
                  int(x.dtype == torch.bfloat16))
+    return dx, dgamma, dbeta
+
+
+def layer_norm_bwd_residual_kernel(x, dy, gamma, res, eps: float = 1e-6):
+    """``(dx, dgamma, dbeta)`` of the residual form from the B4 backward
+    kernel (what :func:`layer_norm_bwd_residual_reference` returns); CUDA
+    tensors only, dy f32, res in x's dtype."""
+    _check_cuda(LAYER_NORM_BWD, x, (gamma,))
+    for t, dtype, what in ((dy, torch.float32, "dy"), (res, x.dtype, "res")):
+        if t.shape != x.shape or t.dtype != dtype or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{LAYER_NORM_BWD}: {what} must be a contiguous {tuple(x.shape)} {dtype} tensor")
+    m, c = x.shape
+    dx = torch.empty_like(x)
+    dgamma = torch.empty((c,), dtype=torch.float32, device=x.device)
+    dbeta = torch.empty_like(dgamma)
+    if m == 0:
+        return dx, dgamma.zero_(), dbeta.zero_()
+    blocks = min(m, _BWD_BLOCKS_PER_SM * build.sm_count(x.device))
+    partial = torch.empty((2, blocks, c), dtype=torch.float32, device=x.device)
+    build.launch(LAUNCHES, LAYER_NORM_BWD, build.load_library().edrl_layer_norm_bwd_residual, x.device,
+                 x.data_ptr(), dy.data_ptr(), res.data_ptr(), gamma.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
+                 dbeta.data_ptr(), partial.data_ptr(), m, c, blocks, float(eps), int(x.dtype == torch.bfloat16))
     return dx, dgamma, dbeta
 
 

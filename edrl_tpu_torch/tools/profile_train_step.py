@@ -13,18 +13,20 @@ random weights it feeds the step ``trainer.random_views`` from seed 0, takes
 two warm-up steps, then runs three steps without the profiler and three
 under it, and prints:
 
-- unprofiled: the step time on the host clock (to a ``synchronize()``) and
-  the host's enqueue time per step (the step returns before the device
-  finishes);
+- unprofiled: the step time on the host clock (to a ``synchronize()``), the
+  host's enqueue time per step (the step returns before the device
+  finishes) and the peak device memory of those steps;
 - profiled (the profiler slows the host, not the kernels): the kernels per
   step, the device busy time per step (the union of the kernels'
   intervals) and its share of the span from the first kernel's start to
-  the last kernel's end, and device time per step by category.  B6 is three
-  phases: its two products count as "attention sublayer products (B6)", its
-  LayerNorm under B4's category, its attention under B1/B2 fwd and its weight
-  transposes under B5's weight preps.  B5's bf16 kernels (``wgmma_gemm_kernel``,
-  ``mlp_fwd_fused_wgmma_kernel``, ``mlp_bwd_hidden_wgmma_kernel``) count under
-  B5, ahead of the cuBLAS row that "gemm" would otherwise match.
+  the last kernel's end, and device time per step by category.  B5's and
+  B6's products share one category (a configuration runs one or the other):
+  the wgmma mainloop's ``wgmma_gemm_kernel`` (B5's single products, B6's
+  forward products and its backward's Dense layers), B5's other kernels, B6's
+  f32 products (``sublayer_gemm``) and the bias gradients' column partials,
+  ahead of the cuBLAS row that "gemm" would otherwise match.  B6's LayerNorm,
+  forward and backward, counts under B4's category and its attention under
+  B1/B2's.
 """
 
 from __future__ import annotations
@@ -48,12 +50,11 @@ CATEGORIES = (
     ("attention kernels (B1/B2 bwd)", ("attention_bwd",)),
     ("MK-MMD kernel (B3)", ("mmd_",)),
     ("LayerNorm kernels (B4 fwd/bwd)", ("layer_norm_fwd_kernel", "layer_norm_bwd_kernel")),
-    ("MLP kernels (B5 fwd/bwd, weight preps)", ("fused_mlp_fwd_kernel", "mlp_fwd_fused_wgmma", "wgmma_gemm_kernel",
-                                                "mlp_bwd_", "mlp_wgrad_kernel", "row_tile_sums_kernel",
-                                                "dy_col_partials_kernel", "transpose_bf16_kernel",
-                                                "round_bf16_kernel")),
-    ("partial sums (dbias, B4, B5)", ("column_sum_kernel", "column_sum4_kernel")),
-    ("attention sublayer products (B6)", ("sublayer_gemm",)),
+    ("B5 or B6 products (wgmma, mma.sync, f32), weight preps", (
+        "fused_mlp_fwd_kernel", "mlp_fwd_fused_wgmma", "wgmma_gemm_kernel", "mlp_bwd_", "mlp_wgrad_kernel",
+        "row_tile_sums_kernel", "col_partials_kernel", "transpose_bf16_kernel", "round_bf16_kernel",
+        "sublayer_gemm")),
+    ("partial sums (dbias, B4, B5, B6)", ("column_sum_kernel", "column_sum4_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "sm90_", "sm80_", "cublas", "Kernel2")),
     ("Adam (multi-tensor)", ("multi_tensor", "adam", "Adam")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
@@ -129,6 +130,7 @@ def main(argv=None) -> None:
     torch.cuda.synchronize()
 
     enqueue_ms = []
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(STEPS):
         t = time.perf_counter()
@@ -136,6 +138,7 @@ def main(argv=None) -> None:
         enqueue_ms.append(1000.0 * (time.perf_counter() - t))
     torch.cuda.synchronize()
     wall_ms = 1000.0 * (time.perf_counter() - t0) / STEPS
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
@@ -156,7 +159,7 @@ def main(argv=None) -> None:
     per_step = 1000.0 * STEPS  # us over the run -> ms per step
     print(f"train step, {_label(cfg)}, batch {cfg.data.batch_size} bf16 [{card}]")
     print(f"  unprofiled: host clock to sync {wall_ms:.3f} ms/step, host enqueue "
-          f"{statistics.median(enqueue_ms):.3f} ms/step (median of {STEPS})")
+          f"{statistics.median(enqueue_ms):.3f} ms/step (median of {STEPS}), peak device memory {peak_gib:.2f} GiB")
     print(f"  profiled: {len(kernels) // STEPS} kernels/step; device busy {busy_us / per_step:.3f} ms/step, "
           f"{100.0 * busy_us / window_us:.1f}% of the {window_us / per_step:.3f} ms/step kernel span")
     print("  device ms/step by category:")

@@ -174,7 +174,7 @@ def test_sublayer_cpu_path_counts_no_launch(rng):
     wa.reset_launch_counts()
     leaves = [_t(a).requires_grad_() for a in _sublayer_inputs(rng)]
     ba.attention_sublayer_fused(*leaves, 2, 0.25).sum().backward()
-    assert ba.LAUNCHES == {ba.ATTENTION_SUBLAYER: 0}
+    assert ba.LAUNCHES == {ba.ATTENTION_SUBLAYER: 0, ba.ATTENTION_SUBLAYER_BWD: 0}
     assert all(count == 0 for count in wa.LAUNCHES.values())
 
 

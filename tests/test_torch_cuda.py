@@ -295,6 +295,28 @@ def test_layer_norm_kernels_match_plain(cuda, dtype, m, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,c", [(37, 128), (1000, 768), (4608, 1024), (3, 1152), (294912, 128), (18432, 512)])
+def test_layer_norm_bwd_residual_kernel_matches_plain(cuda, dtype, m, c):
+    """The residual form (B6's LayerNorm backward): an f32 cotangent, and a
+    residual cotangent in x's dtype added before dx is rounded once."""
+    x, _, _, res = _ln_inputs(cuda, m, c, dtype, 16)
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    gamma = 1 + 0.1 * torch.randn((c,), generator=gen, device=cuda)
+    dy = torch.randn((m, c), generator=gen, device=cuda)
+    ln.reset_launch_counts()
+    got = ln.layer_norm_bwd_residual_kernel(x, dy, gamma, res)
+    again = ln.layer_norm_bwd_residual_kernel(x, dy, gamma, res)
+    assert ln.LAUNCHES == {ln.LAYER_NORM: 0, ln.LAYER_NORM_BWD: 2}
+    want = ln.layer_norm_bwd_residual_reference(x, dy, gamma, res)
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
+    assert _rel_err(got[0], want[0]) <= _bwd_bar(dtype)
+    for g, w in zip(got[1:], want[1:]):
+        assert _rel_err(g, w) <= 1e-4
+    assert all(torch.equal(a, g) for a, g in zip(again, got))  # a fixed summation order
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("c", [200, 4096])
 def test_layer_norm_kernel_refuses_a_width(cuda, c):
     x = torch.zeros((4, c), device=cuda)
@@ -440,11 +462,18 @@ def test_autograd_through_the_modules_reaches_the_b4_b5_kernels(cuda):
 # B6 (fused attention sublayer) and the v1 adapter over the B2 kernels.  Bars
 # relative to the plain result's largest magnitude: 1e-2 for results of a
 # bf16 call (its f32 gradients are sums of bf16 cotangents), 1e-4 in f32;
-# dbias 1e-4 in both (the B2 backward gets the same inputs on both paths).
+# dbias 1e-4 against B2's plain backward on the same inputs.  B6's dbias: in
+# f32 both paths compute do with the same torch.matmul, 1e-4; in bf16 the
+# kernel path's do is its own wgmma product, whose f32 sums run in another
+# order, so a few of its elements round to the other bf16 neighbour and
+# dbias (an f32 sum of B2's dS over the batch) moves with them: held at
+# sublayer_dbias.DBIAS_BAR against the plain backward, and at 1e-4 against
+# B2's plain backward on the kernel path's own do.
 # ---------------------------------------------------------------------------
 
 from edrl_tpu_torch.kernels import block_attention as ba  # noqa: E402
 from edrl_tpu_torch.models import swin2d  # noqa: E402
+from edrl_tpu_torch.tools import sublayer_dbias as sd  # noqa: E402
 
 
 def _sublayer_inputs(cuda, b, w, n, c, heads, wb, dtype, seed):
@@ -479,9 +508,12 @@ def test_attention_sublayer_kernels_match_plain(cuda, dtype, b, w, n, c, heads, 
     dy = torch.randn(y.shape, generator=torch.Generator(device=cuda).manual_seed(11), device=cuda).to(dtype)
     grads = ba.attention_sublayer_bwd_kernel(x, xln, qkv, gamma, wqkv, wproj, bias, dy, heads, scale)
     plain = ba.attention_sublayer_bwd_reference(x, xln, qkv, gamma, wqkv, wproj, bias, dy, heads, scale)
+    dbias_bar = sd.DBIAS_BAR if dtype == torch.bfloat16 else 1e-4
     for i, (g, w_) in enumerate(zip(grads, plain)):
         assert g.dtype == w_.dtype and g.shape == w_.shape
-        assert _rel_err(g, w_) <= (1e-4 if i == 7 else _bwd_bar(dtype)), i
+        assert _rel_err(g, w_) <= (dbias_bar if i == 7 else _bwd_bar(dtype)), i
+    if dtype == torch.bfloat16:
+        assert sd.readings(grads[7], plain[7], qkv, wproj, bias, dy, heads, scale)["kernel_do"] <= sd.KERNEL_DO_BAR
 
 
 @pytest.mark.cuda
@@ -512,7 +544,7 @@ def test_autograd_through_the_swin_block_reaches_b6_and_b2(cuda, shift):
     ba.reset_launch_counts()
     wa.reset_launch_counts()
     block(x).float().sum().backward()
-    assert ba.LAUNCHES == {ba.ATTENTION_SUBLAYER: 1}
+    assert ba.LAUNCHES == {ba.ATTENTION_SUBLAYER: 1, ba.ATTENTION_SUBLAYER_BWD: 2}
     assert wa.LAUNCHES[wa.WINDOW_ATTENTION_V2] == wa.LAUNCHES[wa.WINDOW_ATTENTION_V2_BWD] == 1
     assert wa.LAUNCHES[wa.SELF_ATTENTION] == 0
     for name, p in block.named_parameters():
@@ -539,3 +571,76 @@ def test_v1_adapter_matches_plain(cuda, dtype, b, w, h, n, d):
     want = wa.window_attention_bwd_reference(q, k, v, bias, do)
     for leaf, w_, bar in zip(leaves, want, (_bwd_bar(dtype),) * 3 + (1e-4,)):
         assert leaf.grad.dtype == w_.dtype and _rel_err(leaf.grad, w_) <= bar
+
+
+# The wgmma route of B6 (bf16): the forward's products and the backward's
+# Dense layers on hopper_gemm.cuh, and B4's residual LayerNorm backward, at
+# every shape of the batch-32 train step (Swin stages with Wb = 1 and Wb = W,
+# the ViT) and at ragged M.  The bars above: 1e-2 (dgamma and dbeta too: they
+# sum dxln, which carries B2's bf16 dqkv), dbias as above; weight and bias
+# gradients the same bit for bit over two launches.
+SUBLAYER_MAIN_PATH = [(32, 64, 144, 128, 1, 1), (32, 64, 144, 128, 1, 64), (32, 16, 144, 256, 2, 1),
+                      (32, 16, 144, 256, 2, 16), (32, 4, 144, 512, 4, 1), (32, 4, 144, 512, 4, 4),
+                      (32, 1, 144, 1024, 8, 1), (32, 1, 216, 768, 6, 1)]
+SUBLAYER_RAGGED = [(3, 2, 40, 128, 8, 2), (2, 3, 16, 256, 4, 1), (1, 1, 7, 384, 3, 1), (5, 3, 49, 512, 4, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,w,n,c,heads,wb", SUBLAYER_MAIN_PATH + SUBLAYER_RAGGED)
+def test_attention_sublayer_wgmma_route_matches_plain(cuda, b, w, n, c, heads, wb):
+    args = _sublayer_inputs(cuda, b, w, n, c, heads, wb, torch.bfloat16, 15)
+    scale = (c // heads) ** -0.5
+    for module in (ba, ln, wa):
+        module.reset_launch_counts()
+    got = ba.attention_sublayer_fwd_kernel(*args, heads, scale)
+    assert ba.SUBLAYER_ROUTES == {"wgmma": 1, "fma": 0}
+    for g, w_ in zip(got, ba.attention_sublayer_reference(*args, heads, scale)):
+        assert g.dtype == torch.bfloat16 and _rel_err(g, w_) <= 1e-2
+    x, gamma, _, wqkv, _, wproj, _, bias = args
+    y, qkv, xln = got
+    dy = torch.randn(y.shape, generator=torch.Generator(device=cuda).manual_seed(16), device=cuda).bfloat16()
+    res = (x, xln, qkv, gamma, wqkv, wproj, bias, dy, heads, scale)
+    grads = ba.attention_sublayer_bwd_kernel(*res)
+    again = ba.attention_sublayer_bwd_kernel(*res)
+    assert ba.LAUNCHES == {ba.ATTENTION_SUBLAYER: 1, ba.ATTENTION_SUBLAYER_BWD: 4}
+    assert ba.SUBLAYER_ROUTES == {"wgmma": 5, "fma": 0}
+    assert ln.LAUNCHES[ln.LAYER_NORM_BWD] == 2 and ln.LAUNCHES[ln.LAYER_NORM] == 0
+    assert wa.LAUNCHES[wa.WINDOW_ATTENTION_V2] == wa.LAUNCHES[wa.WINDOW_ATTENTION_V2_BWD] == 2
+    for g, a in zip(grads[1:], again[1:]):
+        assert torch.equal(g, a)  # fixed-order sums over M
+    plain = ba.attention_sublayer_bwd_reference(*res)
+    for i, (g, w_) in enumerate(zip(grads, plain)):
+        assert g.dtype == w_.dtype and g.shape == w_.shape
+        assert _rel_err(g, w_) <= (sd.DBIAS_BAR if i == 7 else 1e-2), i
+    assert sd.readings(grads[7], plain[7], qkv, wproj, bias, dy, heads, scale)["kernel_do"] <= sd.KERNEL_DO_BAR
+
+
+@pytest.mark.cuda
+def test_attention_sublayer_route_mirrors_the_entry_point(cuda):
+    """attention_sublayer_route (Python) picks what edrl_attention_sublayer_route (C) picks."""
+    from edrl_tpu_torch.kernels import build
+
+    lib = build.load_library()
+    for dtype in (torch.bfloat16, torch.float32):
+        for c in (0, 128, 200, 256, 384, 768, 1024, 2048, 2176):
+            for heads in (0, 1, 2, 3, 6, 8, 16, 32):
+                got = lib.edrl_attention_sublayer_route(int(dtype == torch.bfloat16), c, heads)
+                assert {1: "wgmma", 0: "fma", -1: None}[got] == ba.attention_sublayer_route(dtype, c, heads), (
+                    dtype, c, heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"), (torch.float32, "fma")])
+def test_attention_sublayer_counts_its_routes(cuda, dtype, route):
+    """Through autograd: one forward launch, and in bf16 two backward ones,
+    each under its route; the LayerNorm backward is B4's kernel."""
+    args = list(_sublayer_inputs(cuda, 2, 4, 144, 128, 1, 1, dtype, 18))
+    leaves = [a.requires_grad_() for a in args]
+    for module in (ba, ln):
+        module.reset_launch_counts()
+    ba.attention_sublayer_fused(*leaves, 1, 128 ** -0.5).float().sum().backward()
+    bwd = 2 if route == "wgmma" else 0
+    assert ba.LAUNCHES == {ba.ATTENTION_SUBLAYER: 1, ba.ATTENTION_SUBLAYER_BWD: bwd}
+    assert ba.SUBLAYER_ROUTES == {"wgmma": (1 + bwd) * (route == "wgmma"), "fma": int(route == "fma")}
+    assert ln.LAUNCHES == {ln.LAYER_NORM: 0, ln.LAYER_NORM_BWD: 1}
+    assert all(torch.isfinite(a.grad).all() for a in leaves)
