@@ -13,7 +13,10 @@ Phases (any failed check raises, so the exit code is nonzero):
    register/shared-memory report; for the attention's tensor-core kernels,
    forward and backward, registers, spills, shared memory and resident
    blocks per SM at the main-path shapes (N = 144 and 216, head_dim 128);
-   the same for B5's and B6's wgmma kernels, which must not spill.
+   the same for B5's and B6's wgmma kernels, which must not spill; for B4's
+   row kernels (forward, backward, residual form) at every width of the
+   train step, registers, local memory, shared memory and CTAs per SM, which
+   must cover the plan's waves, and no B4 kernel may spill.
 3. Check each forward kernel against its plain PyTorch version at every
    serving shape (batch 16) and at the edges of its two routes (those of
    phase 7, biases with -1e9 entries), in bf16 (atol 3e-2) and f32 (atol
@@ -73,8 +76,10 @@ MLP runs through B4 and B5:
 11. B4 and B5, forward and backward, against their plain versions at every
     shape of the configuration's serving (batch 16) and train step (batch
     32), and at odd shapes, in bf16 and f32 (the bars of phase 7; B5's f32
-    results 2^-8, see ``MLP_F32_BAR``); dgamma, dbeta and the weight and bias
-    gradients the same bit for bit over two runs; every B5 launch counted
+    results 2^-8, see ``MLP_F32_BAR``); B4's residual form (B6's LayerNorm
+    backward) at every shape of the B6 configuration's train step and at odd
+    ones; dgamma, dbeta and the weight and bias gradients the same bit for
+    bit over two runs; every B5 launch counted
     under the route the Python mirror predicts (bf16 "wgmma", f32 "mma"),
     which must be the C entry point's choice; a width the kernels refuse
     raises.
@@ -89,19 +94,32 @@ MLP runs through B4 and B5:
     against the plain versions on that call's own tensors.
 15. A small f32 model of the configuration (widths that route), one step on
     the card against the same step on the CPU, which replays the card's B5
-    results call by call after holding each against the plain version on
-    its own inputs (the fused MLP rounds its activation to bf16 in f32 mode
-    too, and the two devices round a few values the other way): loss 1e-4,
-    per-tensor gradient error median 1e-4 and worst 1e-2 (phase 9's bar; a
-    gradient that is a cancelling sum over the batch reads ~1e-3); every B5
-    launch on the mma route.  The comparison without the replay is printed.
+    results call by call (``tools/mlp_replay.py``; the fused MLP rounds its
+    activation to bf16 in f32 mode too, and the two devices round a few
+    values the other way).  Each B5 result is held at ``MLP_F32_BAR``
+    against the plain version on the kernel's own inputs, and against the
+    witness: the plain version on the CPU step's inputs whose bf16 roundings
+    that land one bf16 ulp from the card inputs' take the card inputs'
+    value; each f32 B4 call of the step against its plain version (1e-4).
+    Loss 1e-4, per-tensor gradient error median 1e-4 and worst 1e-2
+    (phase 9's bar; a gradient that is a cancelling sum over the batch reads
+    ~1e-3); every B5 launch on the mma route.  Printed: the distance to the
+    plain version on the CPU's inputs without the witness, the flips, and
+    the comparison without the replay.
 16. Time the configuration's train step against the shipped config's
     (interleaved), both peak memories, both serving forwards, and each B4
     and B5 shape of the batch-32 step against its plain version, one
-    PyTorch call (B4: ``F.layer_norm`` and its backward) and its bound; B5
+    PyTorch call (B4: ``F.layer_norm``, and the library's LayerNorm backward
+    on the statistics its forward saved) and its bound; B5
     also beside the shipped ``Mlp`` (two cuBLAS Dense and the GELU, forward
     and backward through autograd), as no single call computes it, and with
-    its wrappers' host enqueue time per call.
+    its wrappers' host enqueue time per call.  B4, and its residual form at
+    the B6 configuration's shapes, with ``tools/timing.py``'s timers: the
+    device-only time (a CUDA graph of 10 calls; the ``kernels`` line takes it
+    for B4's kernel, plain version and library call alike) beside the
+    runs-of-10 time of each, the host enqueue per call, the
+    backward's row kernel and column sums (``torch.profiler``), the plan and
+    the partials' bytes, which must stay within a tenth of the call's.
 
 Then the fused attention-sublayer configuration (``EDRLConfig()`` with
 ``use_fused_block_attention``), whose every backbone block runs its attention
@@ -168,8 +186,6 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-TIMING_REPS = 10
-TIMING_LAUNCHES = 10
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor cores
 F32_FLOPS_PER_S = 67e12          # f32 outside the tensor cores
@@ -189,6 +205,9 @@ SA, V2, SA_BWD, V2_BWD, MMD = (
     "window_attention_fused_v2_bwd", "mk_mmd_fused",
 )
 LN, LN_BWD, MLP, MLP_BWD = "fused_layer_norm", "fused_layer_norm_bwd", "fused_mlp", "fused_mlp_bwd"
+# B4's backward in its residual form (B6's LayerNorm backward): its own row
+# in the kernels line, its launches counted under LN_BWD by the wrapper.
+LN_RES = "fused_layer_norm_bwd_residual"
 B6, B6_BWD = "attention_sublayer_fused", "attention_sublayer_fused_bwd"
 V1, V1_BWD = "window_attention_fused", "window_attention_fused_bwd"
 # B5's bf16 (wgmma) route: the mainloop's product kernel, the fused forward
@@ -205,6 +224,7 @@ KERNEL_SOURCE = {
     MMD: "edrl_tpu_torch/kernels/csrc/mmd_fwd.cu",
     LN: "edrl_tpu_torch/kernels/csrc/layer_norm_fwd.cu",
     LN_BWD: "edrl_tpu_torch/kernels/csrc/layer_norm_bwd.cu",
+    LN_RES: "edrl_tpu_torch/kernels/csrc/layer_norm_bwd.cu",
     MLP: "edrl_tpu_torch/kernels/csrc/fused_mlp_fwd.cu",
     MLP_BWD: "edrl_tpu_torch/kernels/csrc/fused_mlp_bwd.cu",
     B6: "edrl_tpu_torch/kernels/csrc/attention_sublayer_fwd.cu",
@@ -220,6 +240,8 @@ KERNEL_REPLACES = {
     MMD: "edrl_tpu/kernels/mmd_pallas.py:68",
     LN: "edrl_tpu/kernels/layer_norm.py:91",
     LN_BWD: "edrl_tpu/kernels/layer_norm.py:109",
+    # The same Pallas backward, in the role of _v4_bwd's LayerNorm lines.
+    LN_RES: "edrl_tpu/kernels/layer_norm.py:109",
     MLP: "edrl_tpu/kernels/fused_mlp.py:123",
     MLP_BWD: "edrl_tpu/kernels/fused_mlp.py:217",
     B6: "edrl_tpu/kernels/block_attention.py:141",
@@ -240,44 +262,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(torch, fn, reps: int = TIMING_REPS, launches: int = TIMING_LAUNCHES) -> float:
-    """Per-call device time of ``fn`` after warm-up: the median over ``reps``
-    runs of ``launches`` calls enqueued back to back, CUDA events around each
-    run.  A run of many calls keeps the card busy while the host enqueues
-    the next, so the host's dispatch per call is not counted as long as it
-    is shorter than the call's device time (one call between two events
-    counts it).  ``launches=1`` times one call as a caller waits for it."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(launches):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / launches)
-    return statistics.median(times)
-
-
-def enqueue_ms(fn, calls: int = 20) -> float:
-    """Host time per call of ``fn`` to enqueue its work (no synchronisation
-    inside the run; the card runs behind)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    ms = 1000.0 * (time.perf_counter() - t0) / calls
-    torch.cuda.synchronize()
-    return ms
 
 
 def bound(nbytes: float, flops: float, flops_per_s: float):
@@ -313,8 +297,11 @@ def main() -> None:
     from edrl_tpu_torch.models.swin2d import rel_bias_from_table, relative_position_index, shift_attn_mask
     from edrl_tpu_torch.ops.mmd import mk_mmd
     from edrl_tpu_torch.serve.predictor import Predictor
+    from edrl_tpu_torch.tools import mlp_replay as mr
+    from edrl_tpu_torch.tools import profile_layer_norm as pln
     from edrl_tpu_torch.tools import profile_sublayer as psl
     from edrl_tpu_torch.tools import sublayer_dbias as sd
+    from edrl_tpu_torch.tools.timing import enqueue_ms, graph_ms, runs_ms
     from edrl_tpu_torch.train import trainer
 
     def reset_counts():
@@ -390,6 +377,30 @@ def main() -> None:
     check(bwd_lib.edrl_attention_sublayer_bwd_occupancy(occ) == 0, "B6 backward occupancy query")
     print(f"  B6 bwd wgmma: do and dxln products (bf16, f32 out) {occ[0]} and {occ[1]} CTAs per SM, weight "
           f"gradients {occ[2]}, {occ[3]} bytes each", flush=True)
+    # B4's row kernels at the train step's widths: the occupancy calculator's
+    # CTAs per SM must cover the plan's waves (a plan for one SM and many
+    # rows is one SM's share of a wave), and local memory must be 0.
+    if log.exists():
+        ln_regs = sorted(r for e, r in regs.items() if "layer_norm" in e)
+        check(bool(ln_regs), "ptxas reported no B4 kernel")
+        print(f"  ptxas B4: {len(ln_regs)} entries, registers {ln_regs[0]}..{ln_regs[-1]}, "
+              f"spilling: {[line for line in spills if 'layer_norm' in line] or 'none'}", flush=True)
+        check(not [line for line in spills if "layer_norm" in line], "B4's kernels spill")
+    occ = (ctypes.c_int * 5)()
+    ln_widths = {c_ for _, c_ in pln.ln_shapes(EDRLConfig())} | {c_ for _, c_ in pln.residual_shapes(EDRLConfig())}
+    for c_ in sorted(ln_widths):
+        for dtype in (torch.bfloat16, torch.float32):
+            bf16 = int(dtype == torch.bfloat16)
+            for kind, query in (("forward", lambda: bwd_lib.edrl_layer_norm_fwd_occupancy(c_, bf16, occ)),
+                                ("backward", lambda: bwd_lib.edrl_layer_norm_bwd_occupancy(c_, bf16, 0, occ)),
+                                ("residual", lambda: bwd_lib.edrl_layer_norm_bwd_occupancy(c_, bf16, 1, occ))):
+                check(query() == 0, f"B4 {kind} occupancy query")
+                waves = ln.layer_norm_plan(10 ** 7, c_, dtype, 1, kind).ctas
+                if bf16:
+                    print(f"  B4 {kind} bf16 C={c_}: {occ[0]} CTAs of {occ[1]} threads per SM (plan: {waves}), "
+                          f"{occ[3]} registers, {occ[2]} bytes of shared memory, {occ[4]} bytes of local memory",
+                          flush=True)
+                check(occ[4] == 0 and occ[0] >= waves, f"B4 {kind} {dtype} C={c_}: {list(occ)}, plan's waves {waves}")
 
     # -- 3. forward kernels against their plain versions --------------------
     cfg = EDRLConfig()
@@ -577,15 +588,15 @@ def main() -> None:
     with torch.inference_mode():
         q, k, v = vit_inputs(vit_shape, torch.bfloat16)
         scale = (c_vit // h_vit) ** -0.5
-        tk = time_ms(torch, lambda: wa.self_attention_fused(q, k, v, h_vit, scale))
-        tp = time_ms(torch, lambda: wa.self_attention_reference(q, k, v, h_vit, scale))
+        tk = runs_ms(lambda: wa.self_attention_fused(q, k, v, h_vit, scale))
+        tp = runs_ms(lambda: wa.self_attention_reference(q, k, v, h_vit, scale))
         print(f"time {SA} [{b},{mc.oct_tokens},{c_vit}]x{h_vit} bf16: kernel {tk:.4f} ms, "
               f"plain {tp:.4f} ms per call, x{vit_shape['calls']} per forward [{card}]", flush=True)
         for s in swin_shapes:
             qkv, bias = swin_inputs(s, torch.bfloat16)
             scale = (s["c"] // s["heads"]) ** -0.5
-            tk = time_ms(torch, lambda: wa.window_attention_fused_v2(qkv, bias, s["heads"], scale))
-            tp = time_ms(torch, lambda: wa.window_attention_v2_reference(qkv, bias, s["heads"], scale))
+            tk = runs_ms(lambda: wa.window_attention_fused_v2(qkv, bias, s["heads"], scale))
+            tp = runs_ms(lambda: wa.window_attention_v2_reference(qkv, bias, s["heads"], scale))
             print(f"time {V2} {list(qkv.shape)} H={s['heads']} bf16: kernel {tk:.4f} ms, "
                   f"plain {tp:.4f} ms per call, x{s['calls']} per forward [{card}]", flush=True)
 
@@ -593,7 +604,7 @@ def main() -> None:
         o_dev = pred._to_device(o16)
         fwd = {}
         for label, p in (("plain", plain_pred), ("kernel", pred), ("kernel", pred), ("plain", plain_pred)):
-            fwd.setdefault(label, []).append(time_ms(torch, lambda: p._forward(f_dev, o_dev), reps=10, launches=1))
+            fwd.setdefault(label, []).append(runs_ms(lambda: p._forward(f_dev, o_dev), launches=1))
         for label in ("kernel", "plain"):
             ms = statistics.median(fwd[label])
             print(f"time full-width forward, {label} path, batch {b} bf16: {ms:.3f} ms/batch, "
@@ -890,30 +901,11 @@ def main() -> None:
     # of itself between card and CPU (PERF.md, open questions).
     sbatch["label"] = torch.tensor([0, 1, 1, 0], dtype=torch.int32)
 
-    def small_draws(device):
-        r = np.random.default_rng(6)
-        t = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
-        out = []
-        for _ in range(2):
-            masks = []
-            for tokens in (sm.fundus_tokens, sm.oct_tokens):
-                masks.append([t(r.uniform(size=(4, tokens, 2 * sm.z_dim)) < 0.8) for _ in range(2)])
-            out.append({
-                "guided_uniform": tuple(t(r.uniform(size=(4, sm.num_classes, sm.z_dim)).astype(np.float32))
-                                        for _ in range(2)),
-                "eprl_eps": tuple(t(r.normal(size=(sm.num_classes, sm.sample_num, sm.z_dim)).astype(np.float32))
-                                  for _ in range(2)),
-                "dropout_masks": tuple(masks),
-            })
-        return out
-
     reset_counts()
-    g_out = trainer.make_train_step(scfg)(s_gpu, sbatch, seeded(4), draws=small_draws(dev))
+    g_out = trainer.make_train_step(scfg)(s_gpu, sbatch, seeded(4), draws=mr.small_draws(sm, dev))
     small_launches = counts()
-    c_out = trainer.make_train_step(scfg)(s_cpu, sbatch, torch.Generator(), draws=small_draws("cpu"))
-    srels = sorted((rel_err(pg.grad.cpu(), pc.grad), name)
-                   for (name, pg), pc in zip(s_gpu.model.named_parameters(), s_cpu.model.parameters())
-                   if pc.grad.abs().max() > 0 and not name.endswith(".k.bias"))
+    c_out = trainer.make_train_step(scfg)(s_cpu, sbatch, torch.Generator(), draws=mr.small_draws(sm, "cpu"))
+    srels = mr.grad_errors(s_gpu, s_cpu)
     dl = abs(g_out["loss"].item() - c_out["loss"].item())
     print(f"small f32 train step, card vs CPU: loss {g_out['loss'].item():.7g} vs {c_out['loss'].item():.7g} "
           f"(|d| {dl:.3e}, limit 1e-4 relative); per-tensor gradient error outside the key biases: median "
@@ -1008,7 +1000,7 @@ def main() -> None:
             mask = mask.detach().requires_grad_()
             leaves.append(mask)
         out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=mask)
-        return time_ms(torch, lambda: torch.autograd.grad(out, leaves, do4, retain_graph=True))
+        return runs_ms(lambda: torch.autograd.grad(out, leaves, do4, retain_graph=True))
 
     single = {SA: [0.0, 0.0], V2: [0.0, 0.0]}
 
@@ -1017,7 +1009,7 @@ def main() -> None:
         timed every kernel before it timed runs of launches: the host's
         dispatch of the call counts too.  Printed beside the runs' times."""
         for i, fn in enumerate((kernel_fn, library_fn)):
-            single[name][i] += calls * time_ms(torch, fn, launches=1)
+            single[name][i] += calls * runs_ms(fn, launches=1)
 
     # B1 at [32, 216, 768] x 6, bf16.
     s = train_vit
@@ -1027,16 +1019,16 @@ def main() -> None:
     q, k, v, do = vit_inputs(s, torch.bfloat16) + (normal((bsz, n, c), torch.bfloat16),)
     split = lambda x: x.view(bsz, n, heads, hd).transpose(1, 2)  # noqa: E731
     with torch.no_grad():
-        tk = time_ms(torch, lambda: wa.self_attention_fused(q, k, v, heads, scale))
-        tp = time_ms(torch, lambda: wa.self_attention_reference(q, k, v, heads, scale))
-        tl = time_ms(torch, lambda: F.scaled_dot_product_attention(split(q), split(k), split(v), scale=scale))
+        tk = runs_ms(lambda: wa.self_attention_fused(q, k, v, heads, scale))
+        tp = runs_ms(lambda: wa.self_attention_reference(q, k, v, heads, scale))
+        tl = runs_ms(lambda: F.scaled_dot_product_attention(split(q), split(k), split(v), scale=scale))
         single_call(SA, 2 * s["calls"], lambda: wa.self_attention_fused(q, k, v, heads, scale),
                     lambda: F.scaled_dot_product_attention(split(q), split(k), split(v), scale=scale))
     elems = bsz * n * c
     report(SA, f"[{bsz},{n},{c}]x{heads} bf16", 2 * s["calls"], tk, tp, tl, 4 * elems * 2,
            4.0 * bsz * heads * n * n * hd)
-    tk = time_ms(torch, lambda: wa.self_attention_bwd_kernel(q, k, v, do, heads, scale))
-    tp = time_ms(torch, lambda: wa.self_attention_bwd_reference(q, k, v, do, heads, scale))
+    tk = runs_ms(lambda: wa.self_attention_bwd_kernel(q, k, v, do, heads, scale))
+    tp = runs_ms(lambda: wa.self_attention_bwd_reference(q, k, v, do, heads, scale))
     tl = sdpa_bwd_ms(split(q), split(k), split(v), split(do))
     report(SA_BWD, f"[{bsz},{n},{c}]x{heads} bf16", 2 * s["calls"], tk, tp, tl, 7 * elems * 2,
            10.0 * bsz * heads * n * n * hd)
@@ -1055,17 +1047,17 @@ def main() -> None:
         mask = bias.to(torch.bfloat16)[None].expand(bsz, w, heads, n, n).reshape(bsz * w, heads, n, n)
         label = f"{list(qkv.shape)} H={heads} bf16"
         with torch.no_grad():
-            tk = time_ms(torch, lambda: wa.window_attention_fused_v2(qkv, bias, heads, scale))
-            tp = time_ms(torch, lambda: wa.window_attention_v2_reference(qkv, bias, heads, scale))
-            tl = time_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale))
+            tk = runs_ms(lambda: wa.window_attention_fused_v2(qkv, bias, heads, scale))
+            tp = runs_ms(lambda: wa.window_attention_v2_reference(qkv, bias, heads, scale))
+            tl = runs_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale))
             single_call(V2, 2 * s["calls"], lambda: wa.window_attention_fused_v2(qkv, bias, heads, scale),
                         lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale))
         elems = bsz * w * n * c
         bias_bytes = w * heads * n * n * 4
         flops = 1.0 * bsz * w * heads * n * n * hd
         report(V2, label, 2 * s["calls"], tk, tp, tl, 4 * elems * 2 + bias_bytes, 4 * flops)
-        tk = time_ms(torch, lambda: wa.window_attention_v2_bwd_kernel(qkv, bias, do, heads, scale))
-        tp = time_ms(torch, lambda: wa.window_attention_v2_bwd_reference(qkv, bias, do, heads, scale))
+        tk = runs_ms(lambda: wa.window_attention_v2_bwd_kernel(qkv, bias, do, heads, scale))
+        tp = runs_ms(lambda: wa.window_attention_v2_bwd_reference(qkv, bias, do, heads, scale))
         tl = sdpa_bwd_ms(q4, k4, v4, do4, mask)
         report(V2_BWD, label, 2 * s["calls"], tk, tp, tl, 7 * elems * 2 + 2 * bias_bytes, 10 * flops)
         del qkv, bias, do, mask
@@ -1078,35 +1070,29 @@ def main() -> None:
     # B3 at [32, 3072] + [32, 3072] f32.
     src = normal((bt, feat_dim), torch.float32)
     tgt = normal((bt, feat_dim), torch.float32) * 1.1 + 0.05
-    tk = time_ms(torch, lambda: kmmd.mk_mmd_kernel(src, tgt))
-    tp = time_ms(torch, lambda: mk_mmd(src, tgt))
+    tk = runs_ms(lambda: kmmd.mk_mmd_kernel(src, tgt))
+    tp = runs_ms(lambda: mk_mmd(src, tgt))
     report(MMD, f"[{bt},{feat_dim}]+[{bt},{feat_dim}] f32", 1, tk, tp, None, 2 * bt * feat_dim * 4 + 4,
            2.0 * (2 * bt) ** 2 * feat_dim, peak=F32_FLOPS_PER_S)
 
     # == 11-16. The fused-LayerNorm + fused-MLP configuration (B4, B5) ======
     slice_cfg = cfg.replace(model=dataclasses.replace(mc, use_fused_ln=True, use_fused_mlp=True))
 
-    def ln_mlp_shapes(c, b):
-        """B4 calls {(M, C): n} and B5 calls {(M, C, H): n} of one forward of
-        config c at batch b, site by site as the backbones make them."""
-        m_, ln_calls, mlp_calls = c.model, collections.Counter(), collections.Counter()
+    def mlp_shapes(c, b):
+        """B5 calls {(M, C, H): n} of one forward of config c at batch b,
+        site by site as the backbones make them (B4's: pln.ln_shapes)."""
+        m_, mlp_calls = c.model, collections.Counter()
         grid, dim = c.data.fundus_size // 4, m_.swin_embed_dim
-        ln_calls[(b * grid * grid, dim)] += 1  # after the patch embedding
         for stage, depth in enumerate(m_.swin_depths):
-            ln_calls[(b * grid * grid, dim)] += 2 * depth
             mlp_calls[(b * grid * grid, dim, 4 * dim)] += depth
-            if stage != len(m_.swin_depths) - 1:
-                grid //= 2
-                ln_calls[(b * grid * grid, 4 * dim)] += 1  # the patch merge
-                dim *= 2
-        ln_calls[(b * grid * grid, dim)] += 1  # final_norm
-        rows, width = b * m_.oct_tokens, m_.oct_embed_dim
-        ln_calls[(rows, width)] += 2 * m_.vit3d_depth + 1
-        mlp_calls[(rows, width, 4 * width)] += m_.vit3d_depth
-        return ln_calls, mlp_calls
+            grid, dim = grid // 2, dim * 2
+        width = m_.oct_embed_dim
+        mlp_calls[(b * m_.oct_tokens, width, 4 * width)] += m_.vit3d_depth
+        return mlp_calls
 
-    ln_serve, mlp_serve = ln_mlp_shapes(slice_cfg, cfg.data.eval_batch_size)
-    ln_train, mlp_train = ln_mlp_shapes(slice_cfg, bt)
+    b_eval = cfg.data.eval_batch_size
+    ln_serve, mlp_serve = pln.ln_shapes(slice_cfg, b_eval), mlp_shapes(slice_cfg, b_eval)
+    ln_train, mlp_train = pln.ln_shapes(slice_cfg, bt), mlp_shapes(slice_cfg, bt)
     n_ln, n_mlp = sum(ln_train.values()), sum(mlp_train.values())
     check((n_ln, n_mlp) == (54, 24), f"slice: {n_ln} LayerNorms and {n_mlp} MLPs per forward")
 
@@ -1151,6 +1137,23 @@ def main() -> None:
             check(torch.equal(again[1], got[1]) and torch.equal(again[2], got[2]),
                   f"{LN_BWD} {label}: dgamma/dbeta differ between two runs")
 
+    res_train = pln.residual_shapes(cfg, bt)
+
+    def ln_res_case(m, c, dtype, main_path, twice=False):
+        """B4's residual form: an f32 cotangent, a residual in x's dtype."""
+        x, gamma, _, res = ln_inputs(m, c, dtype)
+        dy = torch.randn((m, c), generator=gen, device=dev)
+        bar = BWD_BAR["bf16" if dtype == torch.bfloat16 else "f32"]
+        label = f"[{m},{c}]" + ("" if main_path else " (odd)")
+        got = ln.layer_norm_bwd_residual_kernel(x, dy, gamma, res)
+        want = ln.layer_norm_bwd_residual_reference(x, dy, gamma, res)
+        hold(LN_RES, label, dtype, [(got[0], want[0], bar), (got[1], want[1], BWD_BAR["f32"]),
+                                    (got[2], want[2], BWD_BAR["f32"])], main_path)
+        if twice:
+            again = ln.layer_norm_bwd_residual_kernel(x, dy, gamma, res)
+            check(torch.equal(again[1], got[1]) and torch.equal(again[2], got[2]),
+                  f"{LN_RES} {label}: dgamma/dbeta differ between two runs")
+
     def mlp_case(m, c, h, dtype, main_path, twice=False):
         u, w1, b1, w2, b2, dy = mlp_inputs(m, c, h, dtype)
         bar = BWD_BAR["bf16"] if dtype == torch.bfloat16 else MLP_F32_BAR
@@ -1182,8 +1185,12 @@ def main() -> None:
             for m, c, h in sorted(set(mlp_serve) | set(mlp_train)):
                 mlp_case(m, c, h, dtype, True, twice=first and (m, c, h) in mlp_train)
                 torch.cuda.empty_cache()
-            for m, c in ((37, 128), (1001, 768), (3, 1152)):
+            for m, c in sorted(res_train):
+                ln_res_case(m, c, dtype, True, twice=first)
+            # Ragged M, and M below the plan's CTA count (200 rows of 2048).
+            for m, c in ((37, 128), (1001, 768), (3, 1152), (200, 2048)):
                 ln_case(m, c, dtype, False)
+                ln_res_case(m, c, dtype, False)
             for m, c, h in ((37, 128, 512), (300, 768, 3072), (40, 1024, 4096)):
                 mlp_case(m, c, h, dtype, False)
         for name, fn, args in (
@@ -1300,76 +1307,39 @@ def main() -> None:
 
     # -- 15. a small f32 model of the slice, one step on the card and on the CPU --
     # Widths that route (multiples of 128).  In f32 the fused MLP still rounds
-    # its activation (and dh) to bf16, as the TPU kernel does; card and CPU
-    # sum the hidden in other orders, so a few of those roundings land the
-    # other way, and EPRL's top-k can turn that into a different selection.
-    # So the CPU step replays the card's B5 results, call by call, after
-    # holding each against the plain version on the CPU's own inputs (bar
-    # MLP_F32_BAR); everything else is held as below.  The same comparison
-    # without the replay is printed, not checked.
-    fcfg = tiny_test_config(batch_size=4)
-    fcfg = fcfg.replace(model=dataclasses.replace(
-        fcfg.model, use_fused_attention=True, vit_fused_attention=True, swin_embed_dim=128, swin_heads=(1, 2),
-        fundus_embed_dim=256, oct_embed_dim=128, vit3d_heads=2, use_fused_ln=True, use_fused_mlp=True))
-    f_cpu = trainer.init_state(fcfg, seed=0, device="cpu")
-    f_free = trainer.init_state(fcfg, seed=0, device="cpu")
-    f_gpu = trainer.init_state(fcfg, seed=0, device=dev)
-    f_gpu.model.load_state_dict(f_cpu.model.state_dict())
-    f_free.model.load_state_dict(f_cpu.model.state_dict())
-    fbatch = trainer.random_views(fcfg, seed=5, device="cpu")
-    fbatch["label"] = torch.tensor([0, 1, 1, 0], dtype=torch.int32)
-    recorded = []
-
-    def recording_mlp_fwd(*args):
-        y = kernels_of[2](*args)
-        recorded.append(y.cpu())
-        return y
-
-    def recording_mlp_bwd(*args):
-        out = kernels_of[3](*args)
-        recorded.append(tuple(t.cpu() for t in out))
-        return out
-
-    fm.fused_mlp_fwd_kernel, fm.fused_mlp_bwd_kernel = recording_mlp_fwd, recording_mlp_bwd
+    # its activation (and dy, dh) to bf16, as the TPU kernel does; card and
+    # CPU sum in other orders, so a few of those roundings land the other way,
+    # and EPRL's top-k can turn that into a different selection.  So the CPU
+    # step replays the card's B5 results, call by call (tools/mlp_replay.py),
+    # and each is held at MLP_F32_BAR against the plain version on the inputs
+    # the kernel took, and against the witness: the plain version on the CPU
+    # step's own inputs with each bf16 rounding that lands one bf16 ulp from
+    # the card inputs' taking the card inputs' value.  Printed, not checked:
+    # the distance to the plain version on the CPU's inputs without the
+    # witness (each flip moves a term by 2^-8 of itself), and the comparison
+    # without the replay.  The step's f32 B4 calls are held against their
+    # plain versions on their own inputs; everything else as below.
     reset_counts()
-    try:
-        g_out = trainer.make_train_step(fcfg)(f_gpu, fbatch, seeded(4), draws=small_draws(dev))
-    finally:
-        fm.fused_mlp_fwd_kernel, fm.fused_mlp_bwd_kernel = kernels_of[2:]
+    rp = mr.replay_step(dev)
     f_launches = counts()
     f_routes = dict(fm.MLP_ROUTES)
-    plain_of = (fm.fused_mlp_reference, fm.fused_mlp_bwd_reference)
-    replay = iter(recorded)
-    replay_err = []
+    fcfg, f_gpu, f_cpu, f_free = mr.slice_config(), rp["card"], rp["cpu"], rp["free"]
+    g_out, c_out, free_out = rp["card_out"], rp["cpu_out"], rp["free_out"]
+    rd = rp["readings"]
+    for key, what in (("same", "the plain version on the kernel's inputs"),
+                      ("witness", "the witness on the CPU step's inputs")):
+        check(len(rd[key]) == rp["calls"] and max(rd[key]) <= MLP_F32_BAR,
+              f"small slice step: card B5 vs {what} {max(rd[key])}")
+    check(max(rp["b4"]) <= BWD_BAR["f32"], f"small slice step: card B4 vs its plain version {max(rp['b4'])}")
 
-    def replayed_mlp_fwd(*args):
-        y = next(replay)
-        replay_err.append(rel_err(y, plain_of[0](*args)))
-        return y
-
-    def replayed_mlp_bwd(*args):
-        out = next(replay)
-        replay_err.append(max(rel_err(g, w) for g, w in zip(out, plain_of[1](*args))))
-        return out
-
-    fm.fused_mlp_reference, fm.fused_mlp_bwd_reference = replayed_mlp_fwd, replayed_mlp_bwd
-    try:
-        c_out = trainer.make_train_step(fcfg)(f_cpu, fbatch, torch.Generator(), draws=small_draws("cpu"))
-    finally:
-        fm.fused_mlp_reference, fm.fused_mlp_bwd_reference = plain_of
-    check(next(replay, None) is None and len(replay_err) == len(recorded), "small slice step: B5 calls replayed")
-    check(max(replay_err) <= MLP_F32_BAR, f"small slice step: card B5 vs plain on CPU inputs {max(replay_err)}")
-    free_out = trainer.make_train_step(fcfg)(f_free, fbatch, torch.Generator(), draws=small_draws("cpu"))
-
-    def card_vs(state):
-        return sorted((rel_err(pg.grad.cpu(), pc.grad), name)
-                      for (name, pg), pc in zip(f_gpu.model.named_parameters(), state.model.parameters())
-                      if pc.grad.abs().max() > 0 and not name.endswith(".k.bias"))
-
-    rows, free_rows = card_vs(f_cpu), card_vs(f_free)
+    rows, free_rows = mr.grad_errors(f_gpu, f_cpu), mr.grad_errors(f_gpu, f_free)
     dl = abs(g_out["loss"].item() - c_out["loss"].item())
-    print(f"small f32 slice step, card vs CPU with the card's {len(recorded)} B5 results replayed (each within "
-          f"{max(replay_err):.3e} of the plain version on the CPU's inputs): loss {g_out['loss'].item():.7g} vs "
+    print(f"small f32 slice step, card vs CPU with the card's {rp['calls']} B5 results replayed (each within "
+          f"{max(rd['same']):.3e} of the plain version on its own inputs and {max(rd['witness']):.3e} of the "
+          f"witness on the CPU's, bar {MLP_F32_BAR:.3e}; {max(rd['cpu']):.3e} of the plain version on the CPU's "
+          f"inputs, which lie within {max(rd['inputs']):.3e} of the card's; {sum(rd['flips'])} one-ulp flips, "
+          f"{sum(rd['wider'])} wider; its {len(rp['b4'])} B4 calls within {max(rp['b4']):.3e} of the plain "
+          f"version on their own inputs, bar {BWD_BAR['f32']:g}): loss {g_out['loss'].item():.7g} vs "
           f"{c_out['loss'].item():.7g} (|d| {dl:.3e}, limit 1e-4 relative); per-tensor gradient error outside the "
           f"key biases: median {rows[len(rows) // 2][0]:.3e} (limit 1e-4), worst {rows[-1][0]:.3e} ({rows[-1][1]}; limit "
           f"1e-2). "
@@ -1382,7 +1352,7 @@ def main() -> None:
     # poe.phi in phase 9) carries the inputs' rounding at 1e-3 of itself.
     check(rows[len(rows) // 2][0] <= 1e-4 and rows[-1][0] <= 1e-2,
           f"small slice step gradients card vs CPU: median {rows[len(rows) // 2]}, worst {rows[-1]}")
-    f_ln, f_mlp = (sum(d.values()) for d in ln_mlp_shapes(fcfg, 4))
+    f_ln, f_mlp = sum(pln.ln_shapes(fcfg, 4).values()), sum(mlp_shapes(fcfg, 4).values())
     fm_ = fcfg.model
     want = {name: 0 for name in f_launches}
     want.update({SA: 2 * fm_.vit3d_depth, SA_BWD: 2 * fm_.vit3d_depth, V2: 2 * sum(fm_.swin_depths),
@@ -1390,7 +1360,7 @@ def main() -> None:
                  MLP_BWD: 2 * f_mlp})
     check(f_launches == want, f"small slice launches {f_launches}, expected {want}")
     check(f_routes == {"wgmma": 0, "mma": 4 * f_mlp}, f"small f32 slice step: B5 routes {f_routes}, expected mma")
-    del f_cpu, f_free, f_gpu, recorded
+    del f_cpu, f_free, f_gpu, rp
 
     # -- 16. the slice's step, serving forward and kernels, timed --------------
     ship_state = trainer.init_state(cfg, seed=2, device=dev)
@@ -1422,7 +1392,7 @@ def main() -> None:
     with torch.inference_mode():
         fwd = {}
         for label, p in (("shipped", ship_pred), ("slice", spred), ("slice", spred), ("shipped", ship_pred)):
-            fwd.setdefault(label, []).append(time_ms(torch, lambda: p._forward(f_dev, o_dev), reps=10, launches=1))
+            fwd.setdefault(label, []).append(runs_ms(lambda: p._forward(f_dev, o_dev), launches=1))
     for label in ("slice", "shipped"):
         ms = statistics.median(fwd[label])
         print(f"time full-width forward, {label} config, batch {b} bf16: {ms:.3f} ms/batch, "
@@ -1430,31 +1400,71 @@ def main() -> None:
     del ship_pred, spred
     torch.cuda.empty_cache()
 
-    # The library call takes gamma and beta in x's dtype (F.layer_norm on the
-    # card refuses f32 parameters beside a bf16 x); it still keeps f32
-    # statistics.
-    def ln_library_bwd_ms(x, gamma, beta, dy):
-        leaves = [t.detach().to(x.dtype).requires_grad_() for t in (x, gamma, beta)]
-        out = F.layer_norm(leaves[0], (x.shape[1],), leaves[1], leaves[2], 1e-6)
-        return time_ms(torch, lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True))
+    # The library calls take gamma and beta in x's dtype (F.layer_norm on the
+    # card refuses f32 parameters beside a bf16 x); they keep f32 statistics.
+    # The backward's is the library's LayerNorm backward on the statistics its
+    # forward saved, the one call autograd through F.layer_norm makes, called
+    # directly so that a CUDA graph can hold it.
+    def ln_library(x, gamma, beta, dy):
+        shape, g16, b16 = (x.shape[1],), gamma.to(x.dtype), beta.to(x.dtype)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(x, shape, g16, b16, 1e-6)
+        return (lambda: F.layer_norm(x, shape, g16, b16, 1e-6),
+                lambda: torch.ops.aten.native_layer_norm_backward(dy, x, shape, mean, rstd, g16, b16,
+                                                                  [True, True, True]))
 
+    ln_step = {name: collections.defaultdict(float) for name in (LN, LN_BWD, LN_RES)}
+
+    def ln_timed(name, kind, label, calls, fn, plain_fn, library_fn, m, c, flops):
+        """One B4 shape.  The kernels line takes the device-only times (CUDA
+        graphs of 10 calls) of the kernel, its plain version and the library
+        call alike; printed beside them: the runs-of-10 times of the three,
+        the host's enqueue per call, the device time by kernel, the plan and
+        the partials' share of the bytes."""
+        timed = {"kernel": fn, "plain": plain_fn, "library": library_fn}
+        with torch.no_grad():
+            tg = {k: None if f is None else graph_ms(f) for k, f in timed.items()}
+            tr = {k: None if f is None else runs_ms(f) for k, f in timed.items()}
+            te = enqueue_ms(fn)
+            parts = psl.phase_ms(fn, pln.FWD_PARTS if kind == "forward" else pln.BWD_PARTS, pln.CALLS)
+        nbytes = pln.call_bytes(m, c, kind)
+        report(name, label, calls, tg["kernel"], tg["plain"], tg["library"], nbytes, flops, peak=F32_FLOPS_PER_S)
+        plan = ln.layer_norm_plan(m, c, torch.bfloat16, build.sm_count(dev), kind)
+        share = ln.partial_bytes(plan, c) / nbytes
+        both = lambda t: ", ".join(f"{k} {v:.4f}" for k, v in t.items() if v is not None)  # noqa: E731
+        print(f"  B4 {kind} {label}, ms per call: device-only (CUDA graphs) {both(tg)}; runs of 10 {both(tr)}; "
+              f"host enqueue {te:.4f}; by kernel (torch.profiler) "
+              + ", ".join(f"{p} {t:.4f}" for p, t in parts.items())
+              + f"; plan {tuple(plan)} (threads per row, rows per CTA, CTAs, partials), partials "
+              f"{100 * share:.2f}% of the call's bytes [{card}]", flush=True)
+        check(share <= 0.1, f"B4 {kind} {label}: partials {share:.3f} of the call's bytes")
+        rows = [(f"{k} device-only", v) for k, v in tg.items()] + [(f"{k} runs of 10", v) for k, v in tr.items()]
+        for key, v in (*rows, ("host enqueue", te), *parts.items()):
+            if v is not None:
+                ln_step[name][key] += calls * v
+
+    # ~9 f32 operations per element forward, ~20 backward (21 with the
+    # residual), on the CUDA cores.
     for (m, c), calls in sorted(ln_train.items()):
-        x, gamma, beta, dy = ln_inputs(m, c, torch.bfloat16)
-        with torch.no_grad():
-            tk = time_ms(torch, lambda: ln.layer_norm_fwd_kernel(x, gamma, beta))
-            tp = time_ms(torch, lambda: ln.layer_norm_reference(x, gamma, beta))
-            g16, b16 = gamma.to(x.dtype), beta.to(x.dtype)
-            tl = time_ms(torch, lambda: F.layer_norm(x, (c,), g16, b16, 1e-6))
-        # ~9 f32 operations per element forward, ~20 backward, on the CUDA cores.
-        report(LN, f"[{m},{c}] bf16", 2 * calls, tk, tp, tl, 2 * m * c * 2 + 2 * c * 4, 9.0 * m * c,
-               peak=F32_FLOPS_PER_S)
-        with torch.no_grad():
-            tk = time_ms(torch, lambda: ln.layer_norm_bwd_kernel(x, dy, gamma))
-            tp = time_ms(torch, lambda: ln.layer_norm_bwd_reference(x, dy, gamma))
-        tl = ln_library_bwd_ms(x, gamma, beta, dy)
-        report(LN_BWD, f"[{m},{c}] bf16", 2 * calls, tk, tp, tl, 3 * m * c * 2 + 3 * c * 4, 20.0 * m * c,
-               peak=F32_FLOPS_PER_S)
-        del x, dy
+        x, gamma, beta, dy, _ = pln.inputs(m, c, gen)
+        lib_fwd, lib_bwd = ln_library(x, gamma, beta, dy)
+        ln_timed(LN, "forward", f"[{m},{c}] bf16", 2 * calls, lambda: ln.layer_norm_fwd_kernel(x, gamma, beta),
+                 lambda: ln.layer_norm_reference(x, gamma, beta), lib_fwd, m, c, 9.0 * m * c)
+        ln_timed(LN_BWD, "backward", f"[{m},{c}] bf16", 2 * calls, lambda: ln.layer_norm_bwd_kernel(x, dy, gamma),
+                 lambda: ln.layer_norm_bwd_reference(x, dy, gamma), lib_bwd, m, c, 20.0 * m * c)
+        del x, dy, lib_fwd, lib_bwd
+    # The residual form at the B6 configuration's shapes: no one PyTorch call
+    # computes it (a LayerNorm backward and a sum).
+    for (m, c), calls in sorted(res_train.items()):
+        x, gamma, _, dy, res = pln.inputs(m, c, gen, residual=True)
+        ln_timed(LN_RES, "residual", f"[{m},{c}] bf16 x, f32 dy", 2 * calls,
+                 lambda: ln.layer_norm_bwd_residual_kernel(x, dy, gamma, res),
+                 lambda: ln.layer_norm_bwd_residual_reference(x, dy, gamma, res), None, m, c, 21.0 * m * c)
+        del x, dy, res
+    torch.cuda.empty_cache()
+    for name in (LN, LN_BWD, LN_RES):
+        print(f"B4 {name} per batch-{bt} train step, ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ln_step[name].items()) + f" [{card}]", flush=True)
+
     def shipped_mlp_ms(u, w1, b1, w2, b2, dy):
         """The shipped config's Mlp at B5's shape, on B5's weights: two cuBLAS
         Dense (f32 master weights cast to bf16 per call) around the tanh GELU.
@@ -1465,10 +1475,10 @@ def main() -> None:
             for dense, w_, b_ in ((mlp.Dense_0, w1, b1), (mlp.Dense_1, w2, b2)):
                 dense.weight.copy_(w_.T)
                 dense.bias.copy_(b_)
-            tf = time_ms(torch, lambda: mlp(u))
+            tf = runs_ms(lambda: mlp(u))
         leaves = [u.detach().requires_grad_(), *mlp.parameters()]
         out = mlp(leaves[0])
-        return tf, time_ms(torch, lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True))
+        return tf, runs_ms(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True))
 
     for name in (MLP, MLP_BWD):
         totals[name]["shipped_ms"] = 0.0
@@ -1476,12 +1486,12 @@ def main() -> None:
         u, w1, b1, w2, b2, dy = mlp_inputs(m, c, h, torch.bfloat16)
         weights = 2 * c * h * 4  # f32 master weights, read once
         with torch.no_grad():
-            tk = time_ms(torch, lambda: fm.fused_mlp_fwd_kernel(u, w1, b1, w2, b2))
-            tp = time_ms(torch, lambda: fm.fused_mlp_reference(u, w1, b1, w2, b2))
+            tk = runs_ms(lambda: fm.fused_mlp_fwd_kernel(u, w1, b1, w2, b2))
+            tp = runs_ms(lambda: fm.fused_mlp_reference(u, w1, b1, w2, b2))
             report(MLP, f"[{m},{c}]x{h} bf16", 2 * calls, tk, tp, None,
                    2 * m * c * 2 + weights + (h + c) * 4, 4.0 * m * c * h)
-            tk = time_ms(torch, lambda: fm.fused_mlp_bwd_kernel(u, dy, w1, b1, w2))
-            tp = time_ms(torch, lambda: fm.fused_mlp_bwd_reference(u, dy, w1, b1, w2))
+            tk = runs_ms(lambda: fm.fused_mlp_bwd_kernel(u, dy, w1, b1, w2))
+            tp = runs_ms(lambda: fm.fused_mlp_bwd_reference(u, dy, w1, b1, w2))
             report(MLP_BWD, f"[{m},{c}]x{h} bf16", 2 * calls, tk, tp, None,
                    3 * m * c * 2 + 2 * weights + h * 4 + (h + c) * 4, 10.0 * m * c * h)
         tsf, tsb = shipped_mlp_ms(u, w1, b1, w2, b2, dy)
@@ -1696,6 +1706,7 @@ def main() -> None:
     check(b6_launches == want, f"B6 config train launches {b6_launches}")
     train_launches[B6] = b6_launches[B6]
     train_launches[B6_BWD] = b6_launches[B6_BWD]
+    train_launches[LN_RES] = b6_launches[LN_BWD]
 
     # -- 20. every B6 call of a bf16 step against the plain versions -----------
     held_b6 = {B6: [], "B6 backward": [], "B6 dbias": [], "B6 dbias on the kernel's do": []}
@@ -1748,13 +1759,11 @@ def main() -> None:
     gbatch = trainer.random_views(gcfg, seed=5, device="cpu")
     gbatch["label"] = torch.tensor([0, 1, 1, 0], dtype=torch.int32)
     reset_counts()
-    g_out = trainer.make_train_step(gcfg)(g_gpu, gbatch, seeded(4), draws=small_draws(dev))
+    g_out = trainer.make_train_step(gcfg)(g_gpu, gbatch, seeded(4), draws=mr.small_draws(sm, dev))
     g_launches = counts()
     g_routes = dict(ba.SUBLAYER_ROUTES)
-    c_out = trainer.make_train_step(gcfg)(g_cpu, gbatch, torch.Generator(), draws=small_draws("cpu"))
-    rows = sorted((rel_err(pg.grad.cpu(), pc.grad), name)
-                  for (name, pg), pc in zip(g_gpu.model.named_parameters(), g_cpu.model.parameters())
-                  if pc.grad.abs().max() > 0 and not name.endswith(".k.bias"))
+    c_out = trainer.make_train_step(gcfg)(g_cpu, gbatch, torch.Generator(), draws=mr.small_draws(sm, "cpu"))
+    rows = mr.grad_errors(g_gpu, g_cpu)
     dl = abs(g_out["loss"].item() - c_out["loss"].item())
     print(f"small f32 B6 config step, card vs CPU: loss {g_out['loss'].item():.7g} vs {c_out['loss'].item():.7g} "
           f"(|d| {dl:.3e}, limit 1e-4 relative); per-tensor gradient error outside the key biases: median "
@@ -1799,7 +1808,7 @@ def main() -> None:
     with torch.inference_mode():
         fwd = {}
         for label, p in (("shipped", ship_pred), ("B6", b6_pred), ("B6", b6_pred), ("shipped", ship_pred)):
-            fwd.setdefault(label, []).append(time_ms(torch, lambda: p._forward(f_dev, o_dev), reps=10, launches=1))
+            fwd.setdefault(label, []).append(runs_ms(lambda: p._forward(f_dev, o_dev), launches=1))
     for label in ("B6", "shipped"):
         ms = statistics.median(fwd[label])
         print(f"time full-width forward, {label} config, batch {b} bf16: {ms:.3f} ms/batch, "
@@ -1822,7 +1831,7 @@ def main() -> None:
         the bias), as the shipped config's step runs it."""
         leaves = [t.detach().requires_grad_() for t in (x_, gamma_, beta_, wqkv_t, bqkv_, wproj_t, bproj_, bias_full)]
         out = shipped_sublayer(*leaves, h_, scale_)
-        return time_ms(torch, lambda: torch.autograd.grad(out, leaves, dy_, retain_graph=True))
+        return runs_ms(lambda: torch.autograd.grad(out, leaves, dy_, retain_graph=True))
 
     b6_shipped_bwd_ms = 0.0
     b6_phases = {"forward": collections.defaultdict(float), "backward": collections.defaultdict(float)}
@@ -1833,15 +1842,15 @@ def main() -> None:
         wqkv_t, wproj_t = wqkv_.T.contiguous(), wproj_.T.contiguous()
         bias_full = ba._full_bias(bias_, w_)
         with torch.no_grad():
-            tk = time_ms(torch, lambda: ba.attention_sublayer_fwd_kernel(*args_, h_, scale_))
-            tp = time_ms(torch, lambda: ba.attention_sublayer_reference(*args_, h_, scale_))
-            ts = time_ms(torch, lambda: shipped_sublayer(x_, gamma_, beta_, wqkv_t, bqkv_, wproj_t, bproj_,
+            tk = runs_ms(lambda: ba.attention_sublayer_fwd_kernel(*args_, h_, scale_))
+            tp = runs_ms(lambda: ba.attention_sublayer_reference(*args_, h_, scale_))
+            ts = runs_ms(lambda: shipped_sublayer(x_, gamma_, beta_, wqkv_t, bqkv_, wproj_t, bproj_,
                                                          bias_full, h_, scale_))
             y_, qkv_, xln_ = ba.attention_sublayer_fwd_kernel(*args_, h_, scale_)
             dy_ = normal(tuple(y_.shape), torch.bfloat16)
             res = (x_, xln_, qkv_, gamma_, wqkv_, wproj_, bias_, dy_, h_, scale_)
-            tb = time_ms(torch, lambda: ba.attention_sublayer_bwd_kernel(*res))
-            tbp = time_ms(torch, lambda: ba.attention_sublayer_bwd_reference(*res))
+            tb = runs_ms(lambda: ba.attention_sublayer_bwd_kernel(*res))
+            tbp = runs_ms(lambda: ba.attention_sublayer_bwd_reference(*res))
             phases = {"forward": psl.phase_ms(lambda: ba.attention_sublayer_fwd_kernel(*args_, h_, scale_),
                                               psl.FWD_PHASES),
                       "backward": psl.phase_ms(lambda: ba.attention_sublayer_bwd_kernel(*res), psl.BWD_PHASES)}
@@ -1909,14 +1918,14 @@ def main() -> None:
 
     for q_, k_, v_, bias_, do_ in v1_cases:
         b_, w_, h_, n_, d_ = q_.shape
-        tk = time_ms(torch, lambda: v1_step(q_, k_, v_, bias_, do_))
+        tk = runs_ms(lambda: v1_step(q_, k_, v_, bias_, do_))
         with torch.no_grad():
-            tp = time_ms(torch, lambda: v1_plain(q_, k_, v_, bias_, do_))
+            tp = runs_ms(lambda: v1_plain(q_, k_, v_, bias_, do_))
         q4, k4, v4, do4 = (t.reshape(b_ * w_, h_, n_, d_) for t in (q_, k_, v_, do_))
         mask = bias_.to(torch.bfloat16)[None].expand(b_, w_, h_, n_, n_).reshape(b_ * w_, h_, n_, n_)
         leaves = [t.detach().requires_grad_() for t in (q4, k4, v4, mask)]
         out_ = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
-        tl = time_ms(torch, lambda: (F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0),
+        tl = runs_ms(lambda: (F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0),
                                      torch.autograd.grad(out_, leaves, do4, retain_graph=True)))
         elems = b_ * w_ * h_ * n_ * d_
         bias_bytes = w_ * h_ * n_ * n_ * 4
@@ -1929,7 +1938,7 @@ def main() -> None:
     kernels = []
     for name in KERNEL_SOURCE:
         t = totals[name]
-        peak = F32_FLOPS_PER_S if name in (MMD, LN, LN_BWD) else BF16_FLOPS_PER_S
+        peak = F32_FLOPS_PER_S if name in (MMD, LN, LN_BWD, LN_RES) else BF16_FLOPS_PER_S
         bms, by = bound(t["bytes"], t["flops"], peak)
         kernels.append({
             "name": name,
@@ -1942,14 +1951,18 @@ def main() -> None:
             "plain_ms": t["plain_ms"],
             "bound_ms": bms,
             "bound_by": by,
-            "library_ms": None if name in (MMD, MLP, MLP_BWD, B6, B6_BWD) else t["library_ms"],
+            "library_ms": None if name in (MMD, MLP, MLP_BWD, B6, B6_BWD, LN_RES) else t["library_ms"],
         })
     print("kernels: ms / plain_ms / library_ms / bound_ms are the device time of the launches one "
           f"batch-{bt} train step makes (sum over its shapes; B3 runs once, with use_pallas_mmd; B4 and B5 "
-          f"in the use_fused_ln + use_fused_mlp config; B6 its forward and backward launches in the "
+          f"in the use_fused_ln + use_fused_mlp config, B4's three rows (ms, plain_ms and library_ms "
+          f"alike) the device-only time of CUDA graphs of 10 calls, every other row runs of 10 calls between "
+          f"CUDA events, which count the host where it is slower than the card; B4's residual form, B6's LayerNorm backward, in the "
+          f"use_fused_block_attention config; B6 its forward and backward launches in the "
           f"use_fused_block_attention config, the backward's row the whole composition of B2's kernels, the two "
           f"Dense layers' backwards and B4's; v1 one forward and backward per Swin stage of its own path); "
-          f"launches: the main path's run ({TRAIN_STEPS} steps; B3: its one step; B4, B5, B6: their configs' "
+          f"launches: the main path's run ({TRAIN_STEPS} steps; B3: its one step; B4, B5, B6 and B4's residual "
+          f"form: their configs' "
           f"{TRAIN_STEPS} steps; v1: its path's forward and backward launches); max_abs_err: worst bf16 check "
           f"at the main-path shapes (B3: f32) [{card}]")
     print(json.dumps({"kernels": kernels}))

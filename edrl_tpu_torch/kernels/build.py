@@ -12,6 +12,7 @@ a call that needs a kernel fails, with :class:`KernelBuildError`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -130,8 +131,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "edrl_mk_mmd_fwd": (i32, [ptr, ptr, i32, i32, i32, f32, i32, ptr, ptr, ptr]),
         # x, gamma, beta, y, m, c, eps, is_bf16, stream
         "edrl_layer_norm_fwd": (i32, [ptr, ptr, ptr, ptr, i32, i32, f32, i32, ptr]),
-        # x, dy, gamma, dx, dgamma, dbeta, partial, m, c, blocks, eps, is_bf16, stream
-        "edrl_layer_norm_bwd": (i32, [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, i32, ptr]),
+        # x, dy, gamma, dx, dgb ([2, c]: dgamma, dbeta), partial, m, c, ctas, eps, is_bf16, stream
+        "edrl_layer_norm_bwd": (i32, [ptr] * 6 + [i32, i32, i32, f32, i32, ptr]),
+        # m, c, is_bf16, kind (0 forward, 1 backward, 2 residual), sms, out[4]: threads per
+        # row, rows per CTA, CTAs, partials
+        "edrl_layer_norm_plan": (i32, [i32, i32, i32, i32, i32, ptr]),
+        # c, is_bf16, out[5]: CTAs per SM, threads per CTA, smem bytes, registers, local bytes
+        "edrl_layer_norm_fwd_occupancy": (i32, [i32, i32, ptr]),
+        # c, is_bf16, residual, out[5]: as the forward's
+        "edrl_layer_norm_bwd_occupancy": (i32, [i32, i32, i32, ptr]),
         # u_is_bf16, c, h -> 1 for the wgmma route, 0 for the mma.sync route, -1 refused
         "edrl_fused_mlp_route": (i32, [i32, i32, i32]),
         # out[7]: CTAs per SM and smem bytes of the forward's kernels (two products, fused
@@ -145,8 +153,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # db1_part, db2_part, dw1_part, dw2_part, m, c, h, splits, chunk,
         # u_is_bf16, w_is_bf16, stream
         "edrl_fused_mlp_bwd": (i32, [ptr] * 19 + [i32] * 7 + [ptr]),
-        # x, dy (f32), res, gamma, dx, dgamma, dbeta, partial, m, c, blocks, eps, is_bf16, stream
-        "edrl_layer_norm_bwd_residual": (i32, [ptr] * 8 + [i32, i32, i32, f32, i32, ptr]),
+        # x, dy (f32), res, gamma, dx, dgb, partial, m, c, ctas, eps, is_bf16, stream
+        "edrl_layer_norm_bwd_residual": (i32, [ptr] * 7 + [i32, i32, i32, f32, i32, ptr]),
         # is_bf16, c, heads -> 1 for the wgmma route, 0 for the f32 FMA route, -1 refused
         "edrl_attention_sublayer_route": (i32, [i32, i32, i32]),
         # out[4]: qkv and proj products' CTAs per SM, their smem bytes, threads per CTA
@@ -172,11 +180,19 @@ _LIB: Optional[ctypes.CDLL] = None
 
 def launch(counts: dict, name: str, fn, device, *args) -> None:
     """Call entry point ``fn(*args, stream)`` on ``device``'s current stream,
-    raise if it returns a CUDA error, and count the launch in ``counts[name]``."""
+    raise if it returns a CUDA error, and count the launch in ``counts[name]``.
+
+    The stream is read as a raw handle, and the thread's current device is
+    switched only where ``device`` is another: the host's work per launch is
+    what a host-bound step pays."""
     import torch
 
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     counts[name] += 1
@@ -188,7 +204,9 @@ def aligned16(t):
     return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
+@functools.lru_cache(maxsize=None)
 def sm_count(device) -> int:
+    """The SM count of a CUDA ``device``, asked once per device."""
     import torch
 
     return torch.cuda.get_device_properties(device).multi_processor_count

@@ -26,8 +26,8 @@
 // shared memory.  So the sublayer runs as four launches on one stream, each
 // over a grid that fills the card, reusing the port's device code:
 //
-// (a) B4's LayerNorm forward (edrl_layer_norm_fwd: a warp per row, two-pass
-//     f32 statistics) writes xln, a residual of the backward;
+// (a) B4's LayerNorm forward (edrl_layer_norm_fwd: a persistent grid of row
+//     groups, two-pass f32 statistics) writes xln, a residual of the backward;
 // (b) qkv = xln . wqkv + bqkv, the bias added in f32 and one rounding;
 // (c) the attention of attention_fwd.cuh per (b, w, h, query tile),
 //     reading q, k and v in place from qkv and the bias with window index

@@ -10,43 +10,65 @@
 // it is bound by bytes: 2 * M * C * sizeof(T) over 3.35 TB/s.
 //
 // What the design does about it: one read of x and one write of y, nothing
-// else touches device memory (gamma and beta are 2 * C * 4 bytes, read from
-// L1/L2).  A warp owns a row (layer_norm.cuh): the row sits in registers,
-// both statistics passes run there with warp shuffles, and the loads are 8
-// or 16 bytes per lane, contiguous across the warp.  8 warps (8 rows) per
-// block; a grid of ceil(M / 8) blocks fills the SMs many times over at
-// every shape of the model (M from 4,608 to 294,912 rows).
+// else touches device memory (gamma and beta are read once per thread, into
+// registers).  To reach the card's rate it keeps enough loads in flight and
+// launches few CTAs: a row group of G threads owns a row (layer_norm.cuh;
+// 16-byte loads, G = C / 8, two rows per warp at C = 128), a CTA runs
+// 256 / G row groups, and one persistent wave of 1024 threads per SM strides
+// over the rows.  Each thread issues the next row's loads before it reduces
+// the current row (a register double buffer), so a row's loads are in flight
+// while the last one's sums, shuffles and barriers run: ~16 KB of reads per
+// SM in bf16, above the ~9 KB Little's law asks for the read half of 3.35
+// TB/s at ~0.7 us.  (A ring of two rows ahead measured no faster on the
+// H100.)
 
 #include "layer_norm.cuh"
 
 namespace {
 
-constexpr int kLnFwdWarps = 8;
-
-template <typename T, int CHUNKS>
-__global__ void __launch_bounds__(kLnFwdWarps * 32)
-    layer_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                          const float* __restrict__ beta, T* __restrict__ y, int m, int c,
-                          float eps) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kLnFwdWarps + (threadIdx.x >> 5);
-  if (row >= m) return;
-  const T* xr = x + (size_t)row * c;
-  float v[CHUNKS][4];
+template <typename T, int C>
+__global__ void __launch_bounds__(LnShape<C, kLnForward>::kThreads, ln_ctas_per_sm(C, 1, kLnForward))
+    layer_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
+                          T* __restrict__ y, int m, float eps) {
+  using S = LnShape<C, kLnForward>;
+  constexpr int EPT = S::kEpt, G = S::kGroup, R = S::kRows;
+  __shared__ float scratch[R][S::kScratch];
+  const int group = threadIdx.x / G;
+  const int col = (threadIdx.x % G) * EPT;
+  // The warp's first row group leads its loop, so both halves of a warp at
+  // G = 16 run the same iterations (their shuffles span the warp).
+  const int lead = G >= 32 ? group : (threadIdx.x / 32) * (32 / G);
+  const int stride = gridDim.x * R;
+  float g[EPT], b[EPT];
+  ln_load_f32<EPT>(gamma + col, g);
+  ln_load_f32<EPT>(beta + col, b);
+  int row = blockIdx.x * R + group;
+  int lead_row = blockIdx.x * R + lead;
+  LnRaw<T, EPT> next;
+  if (row < m) ln_load(x + (size_t)row * C + col, next);
+  int slot = 0;
+  for (; lead_row < m; row += stride, lead_row += stride) {
+    float v[EPT];
+    ln_unpack(next, v);
+    if (row + stride < m) ln_load(x + (size_t)(row + stride) * C + col, next);
+    float s[1] = {0.0f};
 #pragma unroll
-  for (int i = 0; i < CHUNKS; ++i) load4(xr + 128 * i + 4 * lane, v[i]);
-  float mean, rstd;
-  row_stats<CHUNKS>(v, c, eps, mean, rstd);
-  T* yr = y + (size_t)row * c;
+    for (int j = 0; j < EPT; ++j) s[0] += v[j];
+    ln_group_sum<G, 1>(s, scratch[group], slot, group);
+    const float mean = s[0] / (float)C;
+    float q[1] = {0.0f};
 #pragma unroll
-  for (int i = 0; i < CHUNKS; ++i) {
-    const int col = 128 * i + 4 * lane;
-    float g[4], b[4], out[4];
-    load4(gamma + col, g);
-    load4(beta + col, b);
+    for (int j = 0; j < EPT; ++j) {
+      const float d = v[j] - mean;
+      q[0] = fmaf(d, d, q[0]);
+    }
+    ln_group_sum<G, 1>(q, scratch[group], slot, group);
+    const float rstd = rsqrtf(q[0] / (float)C + eps);
+    if (row < m) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) out[j] = (v[i][j] - mean) * rstd * g[j] + b[j];
-    store4(yr + col, out);
+      for (int j = 0; j < EPT; ++j) v[j] = (v[j] - mean) * rstd * g[j] + b[j];
+      ln_store(y + (size_t)row * C + col, v);
+    }
   }
 }
 
@@ -56,31 +78,61 @@ struct LaunchFwd {
   const float* gamma;
   const float* beta;
   void* y;
-  int m, c;
+  int m;
   float eps;
+  int ctas;
   cudaStream_t stream;
 
-  template <int CHUNKS>
+  template <int C>
   cudaError_t operator()() const {
-    const unsigned blocks = (unsigned)((m + kLnFwdWarps - 1) / kLnFwdWarps);
-    layer_norm_fwd_kernel<T, CHUNKS><<<blocks, kLnFwdWarps * 32, 0, stream>>>(
-        static_cast<const T*>(x), gamma, beta, static_cast<T*>(y), m, c, eps);
+    layer_norm_fwd_kernel<T, C><<<ctas, LnShape<C, kLnForward>::kThreads, 0, stream>>>(
+        static_cast<const T*>(x), gamma, beta, static_cast<T*>(y), m, eps);
     return cudaGetLastError();
+  }
+};
+
+template <typename T>
+struct FwdOccupancy {
+  int* out;
+
+  template <int C>
+  cudaError_t operator()() const {
+    return ln_occupancy(layer_norm_fwd_kernel<T, C>, LnShape<C, kLnForward>::kThreads, 0, out);
   }
 };
 
 }  // namespace
 
 // x, y: [m, c] in bf16 (is_bf16) or f32; gamma, beta: [c] f32.  c must be a
-// multiple of 128 and at most 2048; pointers 16-byte aligned.
+// multiple of 128 and at most 2048; pointers 16-byte aligned.  The grid is
+// the plan's (edrl_layer_norm_plan) for this device's SM count.
 extern "C" int edrl_layer_norm_fwd(const void* x, const void* gamma, const void* beta, void* y,
                                    int m, int c, float eps, int is_bf16, void* stream) {
-  if (c % 128 != 0 || c / 128 > kMaxLnChunks || m < 1) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  int err = ln_sm_count(&sms);
+  if (err != 0) return err;
+  LnPlan plan;
+  if (!ln_plan(m, c, is_bf16, kLnForward, sms, &plan)) return (int)cudaErrorInvalidValue;
   const float* g = static_cast<const float*>(gamma);
   const float* b = static_cast<const float*>(beta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      is_bf16 ? dispatch_chunks(c, LaunchFwd<__nv_bfloat16>{x, g, b, y, m, c, eps, s})
-              : dispatch_chunks(c, LaunchFwd<float>{x, g, b, y, m, c, eps, s});
-  return (int)err;
+  return (int)(is_bf16 ? ln_dispatch(c, LaunchFwd<__nv_bfloat16>{x, g, b, y, m, eps, plan.ctas, s})
+                       : ln_dispatch(c, LaunchFwd<float>{x, g, b, y, m, eps, plan.ctas, s}));
+}
+
+// The plan of a call (kind 0 forward, 1 backward, 2 residual backward) on a
+// card of `sms` SMs: out[4] = threads per row, rows per CTA, CTAs, partials.
+extern "C" int edrl_layer_norm_plan(int m, int c, int is_bf16, int kind, int sms, int* out) {
+  LnPlan plan;
+  if (!ln_plan(m, c, is_bf16, kind, sms, &plan)) return (int)cudaErrorInvalidValue;
+  out[0] = plan.threads_per_row;
+  out[1] = plan.rows_per_cta;
+  out[2] = plan.ctas;
+  out[3] = plan.partials;
+  return 0;
+}
+
+// The forward kernel at width c: out[5] as ln_occupancy gives it.
+extern "C" int edrl_layer_norm_fwd_occupancy(int c, int is_bf16, int* out) {
+  return (int)(is_bf16 ? ln_dispatch(c, FwdOccupancy<__nv_bfloat16>{out}) : ln_dispatch(c, FwdOccupancy<float>{out}));
 }

@@ -16,8 +16,9 @@ device time per call of each phase, from the names of the kernels that ran:
   proj product (with the bias and the residual);
 - backward: B2's forward (o recomputed) and backward, the products that give
   do and dxln, the weight gradients, the bias gradients, B4's LayerNorm
-  backward, cuBLAS products, and PyTorch's copies, casts, reductions and
-  elementwise kernels;
+  backward (its row kernel and its sums of dgamma/dbeta partials), the bias
+  gradients' sums of partials, cuBLAS products, and PyTorch's copies, casts,
+  reductions and elementwise kernels;
 
 then the same summed over a train step (two forwards and their backwards).
 TF32 is off, as in ``chip_smoke.py``.  It calls only the module's public

@@ -24,9 +24,10 @@ under it, and prints:
   the wgmma mainloop's ``wgmma_gemm_kernel`` (B5's single products, B6's
   forward products and its backward's Dense layers), B5's other kernels, B6's
   f32 products (``sublayer_gemm``) and the bias gradients' column partials,
-  ahead of the cuBLAS row that "gemm" would otherwise match.  B6's LayerNorm,
-  forward and backward, counts under B4's category and its attention under
-  B1/B2's.
+  ahead of the cuBLAS row that "gemm" would otherwise match.  B4's category
+  holds its row kernels and the backward's sums of dgamma/dbeta partials;
+  B6's LayerNorm, forward and backward, counts there too, and its attention
+  under B1/B2's.
 """
 
 from __future__ import annotations
@@ -49,12 +50,13 @@ CATEGORIES = (
     ("attention kernels (B1/B2 fwd)", ("attention_fwd",)),
     ("attention kernels (B1/B2 bwd)", ("attention_bwd",)),
     ("MK-MMD kernel (B3)", ("mmd_",)),
-    ("LayerNorm kernels (B4 fwd/bwd)", ("layer_norm_fwd_kernel", "layer_norm_bwd_kernel")),
+    ("LayerNorm kernels (B4 fwd/bwd)", ("layer_norm_fwd_kernel", "layer_norm_bwd_kernel",
+                                        "layer_norm_bwd_sums_kernel")),
     ("B5 or B6 products (wgmma, mma.sync, f32), weight preps", (
         "fused_mlp_fwd_kernel", "mlp_fwd_fused_wgmma", "wgmma_gemm_kernel", "mlp_bwd_", "mlp_wgrad_kernel",
         "row_tile_sums_kernel", "col_partials_kernel", "transpose_bf16_kernel", "round_bf16_kernel",
         "sublayer_gemm")),
-    ("partial sums (dbias, B4, B5, B6)", ("column_sum_kernel", "column_sum4_kernel")),
+    ("partial sums (dbias, B5, B6)", ("column_sum_kernel", "column_sum4_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "sm90_", "sm80_", "cublas", "Kernel2")),
     ("Adam (multi-tensor)", ("multi_tensor", "adam", "Adam")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),

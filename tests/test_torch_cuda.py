@@ -276,9 +276,19 @@ def _ln_inputs(cuda, m, c, dtype, seed):
     return x, gamma, beta, dy
 
 
+# B4's shapes in a batch-32 train step: the use_fused_ln configuration's
+# LayerNorms, and the residual form's (B6's LayerNorm backward).
+LN_TRAIN = [(294912, 128), (73728, 512), (73728, 256), (18432, 1024), (18432, 512), (4608, 2048), (4608, 1024),
+            (6912, 768)]
+LN_RESIDUAL_TRAIN = [(294912, 128), (73728, 256), (18432, 512), (4608, 1024), (6912, 768)]
+# Ragged M, and M below the plan's CTA count (200 rows of 2048: 7 backward
+# CTAs, 200 of the forward's 528 row groups).
+LN_ODD = [(37, 128), (1000, 768), (3, 1152), (200, 2048)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,c", [(37, 128), (1000, 768), (4608, 2048), (3, 1152)])
+@pytest.mark.parametrize("m,c", LN_TRAIN + LN_ODD)
 def test_layer_norm_kernels_match_plain(cuda, dtype, m, c):
     x, gamma, beta, dy = _ln_inputs(cuda, m, c, dtype, 6)
     y = ln.layer_norm_fwd_kernel(x, gamma, beta)
@@ -296,7 +306,7 @@ def test_layer_norm_kernels_match_plain(cuda, dtype, m, c):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,c", [(37, 128), (1000, 768), (4608, 1024), (3, 1152), (294912, 128), (18432, 512)])
+@pytest.mark.parametrize("m,c", LN_RESIDUAL_TRAIN + LN_ODD)
 def test_layer_norm_bwd_residual_kernel_matches_plain(cuda, dtype, m, c):
     """The residual form (B6's LayerNorm backward): an f32 cotangent, and a
     residual cotangent in x's dtype added before dx is rounded once."""
@@ -314,6 +324,85 @@ def test_layer_norm_bwd_residual_kernel_matches_plain(cuda, dtype, m, c):
     for g, w in zip(got[1:], want[1:]):
         assert _rel_err(g, w) <= 1e-4
     assert all(torch.equal(a, g) for a, g in zip(again, got))  # a fixed summation order
+
+
+@pytest.mark.cuda
+def test_layer_norm_plan_mirrors_the_entry_point(cuda):
+    import ctypes
+
+    from edrl_tpu_torch.kernels import build
+
+    lib, sms = build.load_library(), build.sm_count(cuda)
+    out = (ctypes.c_int * 4)()
+    for m, c in LN_TRAIN + LN_RESIDUAL_TRAIN + LN_ODD + [(100000, 1920), (5, 640)]:
+        for dtype in (torch.bfloat16, torch.float32):
+            for i, kind in enumerate(ln.KINDS):
+                assert lib.edrl_layer_norm_plan(m, c, int(dtype == torch.bfloat16), i, sms, out) == 0
+                assert tuple(out) == ln.layer_norm_plan(m, c, dtype, sms, kind), (m, c, dtype, kind)
+    assert lib.edrl_layer_norm_plan(100, 200, 1, 1, sms, out) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+def test_layer_norm_bwd_entry_refuses_another_partial_count(cuda, residual):
+    """The C backward plans its own grid; a partials buffer of any other row
+    count than that plan's is refused before a launch."""
+    from edrl_tpu_torch.kernels import build
+
+    m, c = 4608, 1024
+    x, gamma, _, dy = _ln_inputs(cuda, m, c, torch.bfloat16, 9)
+    res = dy if residual else None
+    dy = dy.float() if residual else dy
+    plan = ln.layer_norm_plan(m, c, x.dtype, build.sm_count(cuda), "residual" if residual else "backward")
+    lib = build.load_library()
+    entry = lib.edrl_layer_norm_bwd_residual if residual else lib.edrl_layer_norm_bwd
+    dx, dgb = torch.empty_like(x), torch.empty((2, c), device=cuda)
+    head = (x.data_ptr(), dy.data_ptr()) + (() if res is None else (res.data_ptr(),))
+    for parts in (plan.partials - 1, plan.partials + 1):
+        partial = torch.empty((2, parts, c), device=cuda)
+        assert entry(*head, gamma.data_ptr(), dx.data_ptr(), dgb.data_ptr(), partial.data_ptr(), m, c, parts,
+                     1e-6, 1, torch.cuda.current_stream(cuda).cuda_stream) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [128, 384, 768, 1152, 2048])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_kernels_do_not_spill_and_fit_the_plan(cuda, c, dtype):
+    """Each row kernel keeps to its registers (no local memory) and as many
+    CTAs fit on an SM as the plan's waves count on."""
+    import ctypes
+
+    from edrl_tpu_torch.kernels import build
+
+    lib, occ = build.load_library(), (ctypes.c_int * 5)()
+    bf16 = int(dtype == torch.bfloat16)
+    for kind, query in (("forward", lambda: lib.edrl_layer_norm_fwd_occupancy(c, bf16, occ)),
+                        ("backward", lambda: lib.edrl_layer_norm_bwd_occupancy(c, bf16, 0, occ)),
+                        ("residual", lambda: lib.edrl_layer_norm_bwd_occupancy(c, bf16, 1, occ))):
+        assert query() == 0
+        plan = ln.layer_norm_plan(10 ** 6, c, dtype, 1, kind)
+        assert occ[4] == 0, (kind, c, dtype, "spills", occ[4])
+        assert occ[1] == plan.threads_per_row * plan.rows_per_cta
+        waves = plan.ctas if kind == "forward" else ln.layer_norm_plan(10 ** 7, c, dtype, 1, kind).ctas
+        assert occ[0] >= waves, (kind, c, dtype, occ[0], waves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+def test_layer_norm_bwd_makes_two_launches(cuda, residual):
+    x, gamma, _, dy = _ln_inputs(cuda, 18432, 512, torch.bfloat16, 8)
+    if residual:
+        res, dy = dy, dy.float()
+        fn = lambda: ln.layer_norm_bwd_residual_kernel(x, dy, gamma, res)  # noqa: E731
+    else:
+        fn = lambda: ln.layer_norm_bwd_kernel(x, dy, gamma)  # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 2 and "layer_norm_bwd_kernel" in names[0] and "layer_norm_bwd_sums_kernel" in names[1], names
 
 
 @pytest.mark.cuda

@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from edrl_tpu_torch.config import EDRLConfig
+from edrl_tpu_torch.tools import profile_layer_norm as pln
 from edrl_tpu_torch.tools import profile_sublayer as psl
 from edrl_tpu_torch.tools import sublayer_dbias as sd
 from edrl_tpu_torch.tools import profile_train_step as pts
@@ -27,7 +28,9 @@ def test_union_of_kernel_intervals(spans, want):
     ("void (anonymous namespace)::attention_fwd_mma_kernel<18>(AttnParams)", "attention kernels (B1/B2 fwd)"),
     ("nvjet_tst_128x160_64x5_2x1_v_bz_coopA_bias_TNT", "GEMM (cuBLAS)"),
     ("void at::native::vectorized_elementwise_kernel<8, at::native::bfloat16_copy_kernel_cuda>", "copies and casts"),
-    ("void (anonymous namespace)::layer_norm_fwd_kernel<__nv_bfloat16, 1>(const T1 *, const float *)",
+    ("void (anonymous namespace)::layer_norm_fwd_kernel<__nv_bfloat16, 128>(const T1 *, const float *)",
+     "LayerNorm kernels (B4 fwd/bwd)"),
+    ("void (anonymous namespace)::layer_norm_bwd_sums_kernel(const float4 *, float4 *, int, int)",
      "LayerNorm kernels (B4 fwd/bwd)"),
     ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel<c10::BFloat16, float>", "LayerNorm"),
     ("void (anonymous namespace)::mlp_wgrad_kernel<__nv_bfloat16, __nv_bfloat16>(const T1 *)",
@@ -44,13 +47,13 @@ def test_union_of_kernel_intervals(spans, want):
     ("void (anonymous namespace)::col_partials_kernel(const __nv_bfloat16 *, float *, int, int, int)",
      "B5 or B6 products (wgmma, mma.sync, f32), weight preps"),
     ("void (anonymous namespace)::column_sum_kernel(const float *, float *, int, int)",
-     "partial sums (dbias, B4, B5, B6)"),
+     "partial sums (dbias, B5, B6)"),
     ("void (anonymous namespace)::column_sum4_kernel<__nv_bfloat16>(const float4 *, T1 *, int, long long)",
-     "partial sums (dbias, B4, B5, B6)"),
+     "partial sums (dbias, B5, B6)"),
     ("void (anonymous namespace)::sublayer_gemm_f32_kernel<(anonymous namespace)::F32QkvEpilogue>", "B5 or B6 products (wgmma, mma.sync, f32), weight preps"),
     ("void (anonymous namespace)::wgmma_gemm_kernel<(anonymous namespace)::ResidualEpilogue, 128, false, true, 3, 2>"
      "(CUtensorMap, CUtensorMap, (anonymous namespace)::ResidualEpilogue, (anonymous namespace)::TileGrid)", "B5 or B6 products (wgmma, mma.sync, f32), weight preps"),
-    ("void (anonymous namespace)::layer_norm_bwd_kernel<__nv_bfloat16, float, true, 1>(const T1 *, const T2 *)",
+    ("void (anonymous namespace)::layer_norm_bwd_kernel<__nv_bfloat16, float, true, 128>(const T1 *, const T2 *)",
      "LayerNorm kernels (B4 fwd/bwd)"),
     ("some_unknown_kernel", "other"),
 ])
@@ -83,7 +86,8 @@ _WGMMA = "void (anonymous namespace)::wgmma_gemm_kernel<(anonymous namespace)::{
 
 
 @pytest.mark.parametrize("name,phases,want", [
-    ("void (anonymous namespace)::layer_norm_fwd_kernel<__nv_bfloat16, 1>(const T1 *)", psl.FWD_PHASES, "LayerNorm"),
+    ("void (anonymous namespace)::layer_norm_fwd_kernel<__nv_bfloat16, 128>(const T1 *)", psl.FWD_PHASES,
+     "LayerNorm"),
     ("void (anonymous namespace)::transpose_bf16_kernel<__nv_bfloat16>(const T1 *)", psl.FWD_PHASES,
      "weight transposes"),
     ("void (anonymous namespace)::sublayer_gemm_bf16_kernel<(anonymous namespace)::QkvEpilogue<__nv_bfloat16>>",
@@ -99,8 +103,12 @@ _WGMMA = "void (anonymous namespace)::wgmma_gemm_kernel<(anonymous namespace)::{
     (_WGMMA.format("WgradEpilogue", "true"), psl.BWD_PHASES, "weight gradients"),
     ("void (anonymous namespace)::col_partials_kernel(const __nv_bfloat16 *, float *, int, int, int)",
      psl.BWD_PHASES, "bias gradients"),
-    ("void (anonymous namespace)::layer_norm_bwd_kernel<__nv_bfloat16, float, true, 1>(const T1 *)", psl.BWD_PHASES,
+    ("void (anonymous namespace)::layer_norm_bwd_kernel<__nv_bfloat16, float, true, 128>(const T1 *)", psl.BWD_PHASES,
      "LayerNorm backward (B4)"),
+    ("void (anonymous namespace)::layer_norm_bwd_sums_kernel(const float4 *, float4 *, int, int)", psl.BWD_PHASES,
+     "LayerNorm backward (B4)"),
+    ("void (anonymous namespace)::column_sum_kernel(const float *, float *, int, int)", psl.BWD_PHASES,
+     "sums of partials"),
     ("nvjet_tst_128x160_64x5_2x1_v_bz_coopA_bias_TNT", psl.BWD_PHASES, "cuBLAS products"),
     ("void at::native::vectorized_elementwise_kernel<4, at::native::float_copy_kernel>", psl.BWD_PHASES,
      "copies and casts"),
@@ -197,3 +205,28 @@ def test_sublayer_profile_refuses_without_a_card():
         pytest.skip("this machine has a CUDA card")
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         psl.main()
+
+
+def test_layer_norm_profile_shapes_of_the_train_step():
+    """54 B4 calls per forward of the use_fused_ln configuration, and one
+    residual-form call per B6 sublayer (24) of the use_fused_block_attention
+    configuration's backward."""
+    cfg = EDRLConfig()
+    assert sum(pln.ln_shapes(cfg).values()) == 54
+    assert pln.ln_shapes(cfg)[(294912, 128)] == 5 and pln.ln_shapes(cfg)[(6912, 768)] == 25
+    assert dict(pln.residual_shapes(cfg)) == {(294912, 128): 2, (73728, 256): 2, (18432, 512): 6, (4608, 1024): 2,
+                                              (6912, 768): 12}
+
+
+@pytest.mark.parametrize("kind,want", [("forward", 2 * 10 * 128 * 2 + 2 * 128 * 4),
+                                       ("backward", 3 * 10 * 128 * 2 + 3 * 128 * 4),
+                                       ("residual", 10 * 128 * (3 * 2 + 4) + 3 * 128 * 4)])
+def test_layer_norm_profile_counts_each_byte_once(kind, want):
+    assert pln.call_bytes(10, 128, kind) == want
+
+
+def test_layer_norm_profile_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        pln.main()
