@@ -16,7 +16,10 @@ Phases (any failed check raises, so the exit code is nonzero):
    the same for B5's and B6's wgmma kernels, which must not spill; for B4's
    row kernels (forward, backward, residual form) at every width of the
    train step, registers, local memory, shared memory and CTAs per SM, which
-   must cover the plan's waves, and no B4 kernel may spill.
+   must cover the plan's waves, and no B4 kernel may spill; v1's kernels
+   (the attention's, through B2's entry points with v1's strides) at N =
+   144; B3's cluster kernel (registers, shared and local memory, the
+   cluster's size) and its backward kernel.
 3. Check each forward kernel against its plain PyTorch version at every
    serving shape (batch 16) and at the edges of its two routes (those of
    phase 7, biases with -1e9 entries), in bf16 (atol 3e-2) and f32 (atol
@@ -32,7 +35,7 @@ Phases (any failed check raises, so the exit code is nonzero):
 6. Time each forward kernel against its plain version at the serving
    shapes, and the full-width forward at batch 16 on both paths.
 7. Check the forward kernels (the bars of phase 3), the backward kernels
-   (B1, B2) and the MK-MMD kernel (B3) against
+   (B1, B2) and the MK-MMD kernels (B3, forward and backward) against
    their plain versions at every train-step shape of batch 32 (B2 also at
    N = 216, W = 1, as the fused attention sublayer calls it) and at the
    edges of the backward's two routes (bf16 takes the tensor cores at
@@ -42,14 +45,22 @@ Phases (any failed check raises, so the exit code is nonzero):
    must be the C entry points' choice.  Bars, relative to the largest
    magnitude of the plain result: 1e-2 for bf16 results, 1e-4 for f32
    results and dbias; MK-MMD rtol 1e-4.  dqkv and dbias the same bit for bit
-   over two launches at a Swin train shape.
+   over two launches at a Swin train shape.  B3 forward and backward against
+   ``mk_mmd`` and ``mk_mmd_bwd_reference`` at the main shape, n_s != n_t, n = 2
+   and odd n, d % 128 != 0, two rows equal and an n above the cluster route's
+   limit (the split route): value rtol 1e-4, gradients 1e-4 of their largest
+   magnitude, both the same bit for bit over two runs, each call counted
+   under the route the Python mirror predicts, which must be the C entry
+   point's choice.
 8. Train three full-width steps (``EDRLConfig()``: bf16, both fused flags,
    batch 32, seeded weights) on ready-made f32 views from numpy seed 0, and
    check finite losses, changed parameters and BN statistics, and 24
    launches per step of each attention kernel, forward and backward, every
    forward and backward launch on the tensor-core route.  Then
    one step with ``use_pallas_mmd`` against the same step with the plain
-   MMD: B3 launched once, and the two MMD values agree (rtol 1e-4).
+   MMD, in bf16 and in f32: B3's forward and backward launched once each,
+   the MMD and the loss agree (rtol 1e-4), and in f32 every gradient at
+   phase 9's f32 bars.
 9. One step on the kernel path against one on the plain path, same weights,
    batch and draws: in f32 loss (1e-5) and per-tensor gradients (median
    1e-3, worst 1e-2 relative to the tensor's largest gradient, key biases
@@ -67,7 +78,9 @@ Phases (any failed check raises, so the exit code is nonzero):
     its plain version (B1 and B2 forward also one call between two events,
     the dispatch included, with SDPA's time taken the same way), one
     PyTorch call computing the same function (``library_ms``; timed only,
-    never called by the port) and its bound.
+    never called by the port) and its bound; B3's forward and backward
+    device-only (CUDA graphs) beside runs of 10, the host enqueue and one
+    empty kernel's launch.
 
 Then the fused-LayerNorm + fused-MLP configuration (``EDRLConfig()`` with
 ``use_fused_ln`` and ``use_fused_mlp``), whose every backbone LayerNorm and
@@ -140,8 +153,11 @@ residual LayerNorm backward:
     point predict; the bf16 weight and bias gradients the same bit for bit over
     two runs; the bf16 kernel against the TPU kernel's rounding order
     (scores from the f32 qkv) is printed; shapes the kernel refuses raise.
-    The v1 adapter (``window_attention_fused``) against its plain versions,
-    forward and backward, at the Swin train shapes and an odd one.
+    v1 (``window_attention_fused``) against its plain versions, forward and
+    backward, at the Swin train shapes and an odd one; one v1 forward and
+    backward launches only v1's kernels and dbias's column sum
+    (``torch.profiler``: no copy, permute or cat), and its gradients are the
+    same bit for bit over two runs.
 18. Serve the three requests with a full-width ``Predictor`` of the
     configuration: finite probabilities; 24 B6 launches per batch (12 Swin,
     12 ViT), all on the wgmma route, and none of B1 or B2.
@@ -163,10 +179,10 @@ residual LayerNorm backward:
     its bound and the shipped sublayer at that shape (LayerNorm, Dense, B2,
     Dense; its backward through autograd), with B6's device time by phase
     (``tools/profile_sublayer.py``: LayerNorm, the qkv product, the
-    attention, the proj product; the backward's); and the v1 adapter's own
-    path: one forward and backward at each Swin stage of a batch-32 step
-    (its forwards on the tensor cores), against its plain version, SDPA and
-    its bound.
+    attention, the proj product; the backward's); and v1's own path: one
+    forward and backward at each Swin stage of a batch-32 step (its forwards
+    on the tensor cores), device-only (CUDA graphs) beside runs of 10 and the
+    host enqueue, against its plain version, SDPA and its bound.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX
@@ -193,6 +209,9 @@ BF16_ATOL, F32_ATOL = 3e-2, 1e-4
 BWD_BAR = {"bf16": 1e-2, "f32": 1e-4}
 MMD_RTOL = 1e-4
 TRAIN_STEPS = 3
+# torch.profiler now and then records no device time for a profile, at times
+# three in a row in one process: each profile is taken up to this many times.
+PROFILE_ATTEMPTS = 8
 
 # B5's f32 results: the kernel and the plain version sum in other orders, so
 # a value next to a bf16 rounding boundary (the activation, or dh in the
@@ -200,9 +219,9 @@ TRAIN_STEPS = 3
 # enters by one bf16 ulp, 2^-8 of itself; over few terms (M = 40 rows for
 # dW2) it shows as ~2e-3 of the result's largest magnitude.
 MLP_F32_BAR = 2.0 ** -8
-SA, V2, SA_BWD, V2_BWD, MMD = (
+SA, V2, SA_BWD, V2_BWD, MMD, MMD_BWD = (
     "self_attention_fused", "window_attention_fused_v2", "self_attention_fused_bwd",
-    "window_attention_fused_v2_bwd", "mk_mmd_fused",
+    "window_attention_fused_v2_bwd", "mk_mmd_fused", "mk_mmd_fused_bwd",
 )
 LN, LN_BWD, MLP, MLP_BWD = "fused_layer_norm", "fused_layer_norm_bwd", "fused_mlp", "fused_mlp_bwd"
 # B4's backward in its residual form (B6's LayerNorm backward): its own row
@@ -222,6 +241,7 @@ KERNEL_SOURCE = {
     SA_BWD: "edrl_tpu_torch/kernels/csrc/self_attention_bwd.cu",
     V2_BWD: "edrl_tpu_torch/kernels/csrc/window_attention_v2_bwd.cu",
     MMD: "edrl_tpu_torch/kernels/csrc/mmd_fwd.cu",
+    MMD_BWD: "edrl_tpu_torch/kernels/csrc/mmd_bwd.cu",
     LN: "edrl_tpu_torch/kernels/csrc/layer_norm_fwd.cu",
     LN_BWD: "edrl_tpu_torch/kernels/csrc/layer_norm_bwd.cu",
     LN_RES: "edrl_tpu_torch/kernels/csrc/layer_norm_bwd.cu",
@@ -229,7 +249,8 @@ KERNEL_SOURCE = {
     MLP_BWD: "edrl_tpu_torch/kernels/csrc/fused_mlp_bwd.cu",
     B6: "edrl_tpu_torch/kernels/csrc/attention_sublayer_fwd.cu",
     B6_BWD: "edrl_tpu_torch/kernels/csrc/attention_sublayer_bwd.cu",
-    # The v1 adapter launches B2's kernels (this source and window_attention_v2_bwd.cu).
+    # Its forward and backward in one row, through B2's entry points
+    # (window_attention_v2_bwd.cu too) with v1's strides.
     V1: "edrl_tpu_torch/kernels/csrc/window_attention_v2_fwd.cu",
 }
 KERNEL_REPLACES = {
@@ -238,6 +259,8 @@ KERNEL_REPLACES = {
     SA_BWD: "edrl_tpu/kernels/window_attention.py:592",
     V2_BWD: "edrl_tpu/kernels/window_attention.py:390",
     MMD: "edrl_tpu/kernels/mmd_pallas.py:68",
+    # mk_mmd_pallas's custom VJP: the XLA path's VJP, one fused XLA program.
+    MMD_BWD: "edrl_tpu/kernels/mmd_pallas.py:98",
     LN: "edrl_tpu/kernels/layer_norm.py:91",
     LN_BWD: "edrl_tpu/kernels/layer_norm.py:109",
     # The same Pallas backward, in the role of _v4_bwd's LayerNorm lines.
@@ -295,11 +318,12 @@ def main() -> None:
     from edrl_tpu_torch.kernels import window_attention as wa
     from edrl_tpu_torch.models.layers import Mlp
     from edrl_tpu_torch.models.swin2d import rel_bias_from_table, relative_position_index, shift_attn_mask
-    from edrl_tpu_torch.ops.mmd import mk_mmd
+    from edrl_tpu_torch.ops.mmd import mk_mmd, mk_mmd_bwd_reference, mk_mmd_grad_d2
     from edrl_tpu_torch.serve.predictor import Predictor
     from edrl_tpu_torch.tools import mlp_replay as mr
     from edrl_tpu_torch.tools import profile_layer_norm as pln
     from edrl_tpu_torch.tools import profile_sublayer as psl
+    from edrl_tpu_torch.tools import profile_v1_mmd as pv
     from edrl_tpu_torch.tools import sublayer_dbias as sd
     from edrl_tpu_torch.tools.timing import enqueue_ms, graph_ms, runs_ms
     from edrl_tpu_torch.train import trainer
@@ -360,6 +384,34 @@ def main() -> None:
         print(f"  attention bwd tensor cores, {label}, head_dim 128: dq kernel {occ[0]} blocks per SM "
               f"({4 * occ[0]} warps), {occ[2]} bytes of shared memory; dk/dv kernel {occ[1]} blocks per SM "
               f"({4 * occ[1]} warps), {occ[3]} bytes", flush=True)
+    # v1 runs the same device code through B2's entry points with its own
+    # strides: its kernels at the Swin stages' shape.
+    occ = (ctypes.c_int * 4)()
+    check(bwd_lib.edrl_attention_fwd_occupancy(1, 144, 128, 1, occ) == 0, "occupancy query")
+    print(f"  v1 fwd tensor cores, N=144, head_dim 128: {occ[0]} blocks of {occ[2]} warps per SM, {occ[1]} bytes of "
+          f"shared memory per block", flush=True)
+    check(bwd_lib.edrl_attention_bwd_occupancy(1, 144, 128, 1, occ) == 0, "occupancy query")
+    print(f"  v1 bwd tensor cores, N=144, head_dim 128: dq kernel {occ[0]} blocks per SM, {occ[2]} bytes; dk/dv "
+          f"kernel {occ[1]} blocks per SM, {occ[3]} bytes", flush=True)
+    if log.exists():
+        for kernel in ("attention_fwd_tc_kernel", "attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel",
+                       "mmd_cluster_kernel", "mmd_bwd_kernel", "mmd_gram_partial_kernel"):
+            found = sorted({r for e, r in regs.items() if kernel in e})
+            check(bool(found), f"ptxas reported no {kernel}")
+            print(f"  ptxas {kernel} (every source that instantiates it): registers {found}, spilling: "
+                  f"{[line for line in spills if kernel in line] or 'none'}", flush=True)
+    # B3: the cluster kernel's and the backward's registers, shared and local
+    # memory, CTAs per SM; the cluster's size.
+    occ = (ctypes.c_int * 8)()
+    check(bwd_lib.edrl_mk_mmd_fwd_attributes(occ) == 0, "B3 forward attributes query")
+    print(f"  B3 fwd cluster kernel: {occ[0]} registers, {occ[1]} bytes of static shared memory, {occ[2]} bytes of "
+          f"local memory, {occ[3]} threads per CTA, one CTA per SM; a cluster of {occ[7]} CTAs; the split "
+          f"route's Gram-partial kernel {occ[4]} registers, {occ[5]} bytes of shared memory, {occ[6]} of local "
+          f"memory", flush=True)
+    occ = (ctypes.c_int * 4)()
+    check(bwd_lib.edrl_mk_mmd_bwd_attributes(64, occ) == 0, "B3 backward attributes query")
+    print(f"  B3 bwd kernel at n = 64: {occ[0]} registers, {occ[1]} bytes of local memory, {occ[2]} bytes of dynamic "
+          f"shared memory, {occ[3]} CTAs per SM", flush=True)
     # B5's wgmma route: CTAs per SM (occupancy calculator) and shared memory.
     occ = (ctypes.c_int * 7)()
     check(bwd_lib.edrl_fused_mlp_fwd_occupancy(occ) == 0, "B5 forward occupancy query")
@@ -688,17 +740,58 @@ def main() -> None:
         for shape, heads in v2_edges:
             v2_bwd_case(normal(shape, dtype), edge_bias(shape, heads), heads, dtype,
                         f"{list(shape)} H={heads} -1e9 bias (edge)")
+    # B3, forward and backward, against mk_mmd and mk_mmd_bwd_reference: the
+    # main shape; n_s != n_t; n = 2 and odd n; d % 128 != 0; two rows equal
+    # (an exact-0 distance off the diagonal); n above the cluster route's
+    # limit (the split route).  Value rtol 1e-4, gradients 1e-4 of their
+    # largest magnitude; both the same bit for bit over two runs.
     feat_dim = mc.fundus_embed_dim * 3
-    for n_s, n_t, dd in ((bt, bt, feat_dim), (3, 5, 7), (70, 70, 129)):
+
+    def mmd_case(n_s, n_t, dd, duplicate=False):
         src = normal((n_s, dd), torch.float32)
         tgt = normal((n_t, dd), torch.float32) * 1.1 + 0.05
-        got, want = kmmd.mk_mmd_kernel(src, tgt).item(), mk_mmd(src, tgt).item()
+        if duplicate:
+            tgt[1] = src[0]
+        grad = torch.tensor(0.7, device=dev)
+        route = kmmd.mk_mmd_route(n_s + n_t)
+        c_route = {1: "cluster", 0: "split"}[bwd_lib.edrl_mk_mmd_route(n_s + n_t)]
+        check(route == c_route, f"{MMD} n={n_s + n_t}: Python route {route}, C route {c_route}")
+        kmmd.reset_launch_counts()
+        value, state = kmmd.mk_mmd_fwd_kernel(src, tgt)
+        grads = kmmd.mk_mmd_bwd_kernel(src, tgt, state, grad)
+        check(kmmd.LAUNCHES == {MMD: 1, MMD_BWD: 1} and kmmd.MMD_ROUTES[route] == 1,
+              f"{MMD} n={n_s + n_t}: launches {kmmd.LAUNCHES}, routes {kmmd.MMD_ROUTES}")
+        got, want = value.item(), mk_mmd(src, tgt).item()
         err = abs(got - want)
-        print(f"check {MMD} [{n_s},{dd}]+[{n_t},{dd}] f32: {got:.7g} vs plain {want:.7g}, "
-              f"abs err {err:.3e} (rtol {MMD_RTOL:g})", flush=True)
-        check(err <= MMD_RTOL * abs(want) + 1e-7, f"{MMD} [{n_s},{n_t},{dd}]: {got} vs {want}")
-        if (n_s, dd) == (bt, feat_dim):
-            max_err[MMD] = err
+        plain = mk_mmd_bwd_reference(src, tgt, grad)
+        scale = max(p_.abs().max().item() for p_ in plain)
+        if n_s + n_t == 2:
+            # One distance sets the bandwidth, so the MMD does not move with
+            # the inputs and its gradient is 0 but for rounding (the direct
+            # term and the bandwidth's cancel): held relative to the direct
+            # term's gradient, 2 |g| rowsum|H_direct| max|x|.
+            _, total, direct = mk_mmd_grad_d2(src, tgt)
+            scale = (2 * abs(grad.item()) * (direct + direct.T).abs().sum(dim=1).max().item()
+                     * total.abs().max().item())
+        gerr = max((g - p_).abs().max().item() for g, p_ in zip(grads, plain))
+        again = kmmd.mk_mmd_fwd_kernel(src, tgt)
+        same = (torch.equal(again[0], value) and torch.equal(again[1], state)
+                and all(torch.equal(a, g) for a, g in zip(kmmd.mk_mmd_bwd_kernel(src, tgt, state, grad), grads)))
+        label = f"[{n_s},{dd}]+[{n_t},{dd}]" + (" two rows equal" if duplicate else "")
+        print(f"check {MMD} {label} f32, {route} route: {got:.7g} vs plain {want:.7g}, abs err {err:.3e} (rtol "
+              f"{MMD_RTOL:g}); {MMD_BWD}: worst gradient error {gerr / max(scale, 1e-30):.3e} of the largest magnitude "
+              f"{scale:.3e} (bar {MMD_RTOL:g}); value, state and gradients the same bit for bit over two runs: "
+              f"{same}", flush=True)
+        check(err <= MMD_RTOL * abs(want) + 1e-7, f"{MMD} {label}: {got} vs {want}")
+        check(gerr <= MMD_RTOL * scale, f"{MMD_BWD} {label}: gradient error {gerr} of {scale}")
+        check(same, f"{MMD} {label}: two runs differ")
+        if (n_s, n_t, dd, duplicate) == (bt, bt, feat_dim, False):
+            max_err[MMD], max_err[MMD_BWD] = err, gerr
+
+    for n_s, n_t, dd, duplicate in ((bt, bt, feat_dim, False), (bt, bt, feat_dim, True), (40, 24, feat_dim, False),
+                                    (1, 1, 130, False), (3, 4, 7, False), (16, 16, 200, False),
+                                    (70, 50, 129, False)):
+        mmd_case(n_s, n_t, dd, duplicate)
     torch.cuda.synchronize()
 
     # -- 8. the train step at full width ------------------------------------
@@ -745,7 +838,7 @@ def main() -> None:
     for name in (SA, V2, SA_BWD, V2_BWD):
         check(train_launches[name] == per_step * TRAIN_STEPS,
               f"{name} launched {train_launches[name]} times in {TRAIN_STEPS} steps")
-    check(train_launches[MMD] == 0, "B3 is off in the shipped config")
+    check(train_launches[MMD] == train_launches[MMD_BWD] == 0, "B3 is off in the shipped config")
 
     def check_routes(label, routes, launches, kind="backward"):
         print(f"{label}: {kind} launches by route {routes} (expected {launches} on the tensor cores, "
@@ -757,26 +850,45 @@ def main() -> None:
     del state
     torch.cuda.empty_cache()
 
-    # One step through B3 against the same step with the plain MMD.
-    b3_cfg = cfg.replace(train=dataclasses.replace(cfg.train, use_pallas_mmd=True))
-    b3_state = trainer.init_state(b3_cfg, seed=1, device=dev)
-    reset_counts()
-    b3_out = trainer.make_train_step(b3_cfg)(b3_state, batch, seeded(2))
-    torch.cuda.synchronize()
-    b3_launches = counts()[MMD]
-    del b3_state
-    ref_state = trainer.init_state(cfg, seed=1, device=dev)
-    ref_out = train_step(ref_state, batch, seeded(2))
-    del ref_state
-    torch.cuda.empty_cache()
-    m_k, m_p = b3_out["mmd"].item(), ref_out["mmd"].item()
-    l_k, l_p = b3_out["loss"].item(), ref_out["loss"].item()
-    print(f"train step with B3: {b3_launches} launch(es); mmd {m_k:.7g} vs plain MMD {m_p:.7g}; "
-          f"loss {l_k:.7g} vs {l_p:.7g} (rtol {MMD_RTOL:g})", flush=True)
-    check(b3_launches == 1, f"B3 launched {b3_launches} times in one step")
-    check(abs(m_k - m_p) <= MMD_RTOL * abs(m_p) + 1e-7, f"B3 step mmd {m_k} vs {m_p}")
-    check(abs(l_k - l_p) <= MMD_RTOL * abs(l_p) + 1e-7, f"B3 step loss {l_k} vs {l_p}")
-    train_launches[MMD] = b3_launches
+    # One step through B3 against the same step with the plain MMD (same
+    # weights, batch and draws), in the shipped config (bf16) and in f32:
+    # one forward and one backward launch of B3 a step; the MMD and the loss
+    # at rtol 1e-4; in f32 every gradient at phase 9's f32 bars (the two steps
+    # differ only in the MMD's f32 gradient; in bf16 its last bits flip bf16
+    # roundings downstream, so the bf16 gradients are printed, not held).
+    for label, bf16 in (("bf16", True), ("f32", False)):
+        c = cfg.replace(model=dataclasses.replace(mc, use_bfloat16=bf16))
+        b3_cfg = c.replace(train=dataclasses.replace(c.train, use_pallas_mmd=True))
+        b3_state = trainer.init_state(b3_cfg, seed=1, device=dev)
+        reset_counts()
+        b3_out = trainer.make_train_step(b3_cfg)(b3_state, batch, seeded(2))
+        torch.cuda.synchronize()
+        b3_launches = counts()
+        b3_grads = {name: p.grad.clone() for name, p in b3_state.model.named_parameters() if p.grad is not None}
+        del b3_state
+        ref_state = trainer.init_state(c, seed=1, device=dev)
+        ref_out = trainer.make_train_step(c)(ref_state, batch, seeded(2))
+        b3_errs = sorted((((b3_grads[name] - p.grad).abs().max() / p.grad.abs().max()).item(), name)
+                         for name, p in ref_state.model.named_parameters()
+                         if p.grad is not None and name in b3_grads and p.grad.abs().max() > 0)
+        del ref_state, b3_grads
+        torch.cuda.empty_cache()
+        m_k, m_p = b3_out["mmd"].item(), ref_out["mmd"].item()
+        l_k, l_p = b3_out["loss"].item(), ref_out["loss"].item()
+        b3_scored = [(r, n) for r, n in b3_errs if not n.endswith(".k.bias")]
+        print(f"train step with B3, {label}: {b3_launches[MMD]} forward and {b3_launches[MMD_BWD]} backward "
+              f"launch(es); mmd {m_k:.7g} vs plain MMD {m_p:.7g}; loss {l_k:.7g} vs {l_p:.7g} (rtol {MMD_RTOL:g}); "
+              f"per-tensor gradient error relative to the tensor's largest gradient over {len(b3_errs)} tensors: "
+              f"median {b3_errs[len(b3_errs) // 2][0]:.3e}, worst outside the key biases {b3_scored[-1][0]:.3e} "
+              f"({b3_scored[-1][1]})" + ("" if bf16 else " (bars 1e-3 and 1e-2)"), flush=True)
+        check(b3_launches[MMD] == 1 and b3_launches[MMD_BWD] == 1, f"B3 launches in one {label} step: {b3_launches}")
+        check(abs(m_k - m_p) <= MMD_RTOL * abs(m_p) + 1e-7, f"B3 {label} step mmd {m_k} vs {m_p}")
+        check(abs(l_k - l_p) <= MMD_RTOL * abs(l_p) + 1e-7, f"B3 {label} step loss {l_k} vs {l_p}")
+        if bf16:
+            train_launches[MMD], train_launches[MMD_BWD] = b3_launches[MMD], b3_launches[MMD_BWD]
+        else:
+            check(b3_errs[len(b3_errs) // 2][0] <= 1e-3 and b3_scored[-1][0] <= 1e-2,
+                  f"B3 f32 step gradients: median {b3_errs[len(b3_errs) // 2]}, worst {b3_scored[-1]}")
 
     # -- 9. train kernel path against the plain path ----------------------
     # In f32 the two paths must agree closely.  In bf16 (the shipped config)
@@ -1067,13 +1179,36 @@ def main() -> None:
         print(f"time {name} per batch-{bt} train step, one call between two events: kernel {k_ms:.3f} ms, "
               f"SDPA {l_ms:.3f} ms [{card}]", flush=True)
 
-    # B3 at [32, 3072] + [32, 3072] f32.
+    # B3 at [32, 3072] + [32, 3072] f32, forward and backward, each on its
+    # own.  The kernels line takes the device-only times (CUDA graphs of 10
+    # calls) of the kernel and of its plain version; printed beside them the
+    # runs-of-10 times, the host's enqueue per call and one empty kernel's
+    # launch (the floor a one-launch call can reach).  No one PyTorch call
+    # computes either.
     src = normal((bt, feat_dim), torch.float32)
     tgt = normal((bt, feat_dim), torch.float32) * 1.1 + 0.05
-    tk = runs_ms(lambda: kmmd.mk_mmd_kernel(src, tgt))
-    tp = runs_ms(lambda: mk_mmd(src, tgt))
-    report(MMD, f"[{bt},{feat_dim}]+[{bt},{feat_dim}] f32", 1, tk, tp, None, 2 * bt * feat_dim * 4 + 4,
-           2.0 * (2 * bt) ** 2 * feat_dim, peak=F32_FLOPS_PER_S)
+    grad = torch.tensor(1.0, device=dev)
+    n_mmd = 2 * bt
+    _, mmd_state = kmmd.mk_mmd_fwd_kernel(src, tgt)
+    empty = lambda: bwd_lib.edrl_empty_launch(torch._C._cuda_getCurrentRawStream(dev.index or 0))  # noqa: E731
+    floor = {"device-only": graph_ms(empty), "runs of 10": runs_ms(empty), "host enqueue": enqueue_ms(empty)}
+    # Forward: the features read, the value and the state written; the Gram
+    # product.  Backward: the features and the state read, the gradients
+    # written; the [n, n] x [n, d] product.
+    for name, fn, plain_fn, nbytes in (
+            (MMD, lambda: kmmd.mk_mmd_fwd_kernel(src, tgt), lambda: mk_mmd(src, tgt),
+             2 * bt * feat_dim * 4 + 4 * (n_mmd * n_mmd + 3)),
+            (MMD_BWD, lambda: kmmd.mk_mmd_bwd_kernel(src, tgt, mmd_state, grad),
+             lambda: mk_mmd_bwd_reference(src, tgt, grad), 4 * bt * feat_dim * 4 + 4 * (n_mmd * n_mmd + 3))):
+        with torch.no_grad():
+            tg = {"kernel": graph_ms(fn), "plain": graph_ms(plain_fn)}
+            tr = {"kernel": runs_ms(fn), "plain": runs_ms(plain_fn)}
+            te = enqueue_ms(fn)
+        report(name, f"[{bt},{feat_dim}]+[{bt},{feat_dim}] f32", 1, tg["kernel"], tg["plain"], None, nbytes,
+               2.0 * n_mmd * n_mmd * feat_dim, peak=F32_FLOPS_PER_S)
+        print(f"  {name} ms per call: device-only (CUDA graphs) kernel {tg['kernel']:.4f}, plain {tg['plain']:.4f}; "
+              f"runs of 10 kernel {tr['kernel']:.4f}, plain {tr['plain']:.4f}; host enqueue {te:.4f}; one empty "
+              f"kernel's launch: " + ", ".join(f"{k} {v:.4f}" for k, v in floor.items()) + f" [{card}]", flush=True)
 
     # == 11-16. The fused-LayerNorm + fused-MLP configuration (B4, B5) ======
     slice_cfg = cfg.replace(model=dataclasses.replace(mc, use_fused_ln=True, use_fused_mlp=True))
@@ -1425,7 +1560,8 @@ def main() -> None:
             tg = {k: None if f is None else graph_ms(f) for k, f in timed.items()}
             tr = {k: None if f is None else runs_ms(f) for k, f in timed.items()}
             te = enqueue_ms(fn)
-            parts = psl.phase_ms(fn, pln.FWD_PARTS if kind == "forward" else pln.BWD_PARTS, pln.CALLS)
+            parts = psl.phase_ms(fn, pln.FWD_PARTS if kind == "forward" else pln.BWD_PARTS, pln.CALLS,
+                                 attempts=PROFILE_ATTEMPTS)
         nbytes = pln.call_bytes(m, c, kind)
         report(name, label, calls, tg["kernel"], tg["plain"], tg["library"], nbytes, flops, peak=F32_FLOPS_PER_S)
         plan = ln.layer_norm_plan(m, c, torch.bfloat16, build.sm_count(dev), kind)
@@ -1632,6 +1768,26 @@ def main() -> None:
                     f"[{b_},{w_},{h_},{n_},{d_}]", True)
             torch.cuda.empty_cache()
         v1_case(v1_inputs(3, 2, 2, 16, 16, dtype), dtype, "[3,2,2,16,16] (odd)", False)
+    # v1 reads and writes its own layout: forward and backward at a Swin
+    # train shape launch its forward, dq, dk/dv and dbias column-sum kernels
+    # and nothing else (no copy, permute or cat; the launch counts are held
+    # in phase 22, the profiler now and then misses an event); dq, dk, dv and
+    # dbias are the same bit for bit over two runs.
+    v1_args = v1_inputs(*v1_train[1][:5], torch.bfloat16, *v1_train[1][5:])
+    v1_kernels = pv.kernels_of(lambda: pv.v1_step(*v1_args), attempts=PROFILE_ATTEMPTS)
+    v1_own = ("attention_fwd_tc_kernel", "attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel",
+              "column_sum_kernel")
+    print(f"v1 forward + backward {list(v1_args[0].shape)} bf16, device kernels per call (torch.profiler): "
+          + ", ".join(f"{name[:60]} x{n_:g}" for name, (n_, _) in v1_kernels.items()), flush=True)
+    found = sorted(k for name in v1_kernels for k in v1_own if k in name)
+    check(found == sorted(v1_own) and len(v1_kernels) == len(v1_own), f"v1 launches other kernels: {v1_kernels}")
+    first = wa.window_attention_v1_bwd_kernel(*v1_args[:4], v1_args[4])
+    same = all(torch.equal(a_, g_) for a_, g_ in zip(wa.window_attention_v1_bwd_kernel(*v1_args[:4], v1_args[4]),
+                                                     first))
+    print(f"check {V1_BWD} {list(v1_args[0].shape)} bf16: dq, dk, dv and dbias the same bit for bit over two "
+          f"runs: {same}", flush=True)
+    check(same, f"{V1_BWD}: two runs differ")
+    del v1_args, first
     print(f"B6 bf16 against the TPU kernel's rounding order (scores and o from the f32 qkv): worst relative "
           f"error of y {max(tpu_err):.3e}, median {statistics.median(tpu_err):.3e} over {len(tpu_err)} shapes",
           flush=True)
@@ -1852,8 +2008,9 @@ def main() -> None:
             tb = runs_ms(lambda: ba.attention_sublayer_bwd_kernel(*res))
             tbp = runs_ms(lambda: ba.attention_sublayer_bwd_reference(*res))
             phases = {"forward": psl.phase_ms(lambda: ba.attention_sublayer_fwd_kernel(*args_, h_, scale_),
-                                              psl.FWD_PHASES),
-                      "backward": psl.phase_ms(lambda: ba.attention_sublayer_bwd_kernel(*res), psl.BWD_PHASES)}
+                                              psl.FWD_PHASES, attempts=PROFILE_ATTEMPTS),
+                      "backward": psl.phase_ms(lambda: ba.attention_sublayer_bwd_kernel(*res), psl.BWD_PHASES,
+                                               attempts=PROFILE_ATTEMPTS)}
         tsb = shipped_sublayer_bwd_ms(x_, gamma_, beta_, wqkv_t, bqkv_, wproj_t, bproj_, bias_full, h_, scale_, dy_)
         m_ = b_ * w_ * n_
         calls = 2 * s_["calls"]
@@ -1908,37 +2065,42 @@ def main() -> None:
     check(v1_launches == want, f"v1 path launches {v1_launches}, expected {want}")
     train_launches[V1] = v1_launches[V1] + v1_launches[V1_BWD]
 
-    def v1_step(q_, k_, v_, bias_, do_):
-        leaves = [t.detach().requires_grad_() for t in (q_, k_, v_, bias_)]
-        return torch.autograd.grad(wa.window_attention_fused(*leaves), leaves, do_)
-
     def v1_plain(q_, k_, v_, bias_, do_):
         return wa.window_attention_reference(q_, k_, v_, bias_), wa.window_attention_bwd_reference(
             q_, k_, v_, bias_, do_)
 
-    for q_, k_, v_, bias_, do_ in v1_cases:
-        b_, w_, h_, n_, d_ = q_.shape
-        tk = runs_ms(lambda: v1_step(q_, k_, v_, bias_, do_))
-        with torch.no_grad():
-            tp = runs_ms(lambda: v1_plain(q_, k_, v_, bias_, do_))
-        q4, k4, v4, do4 = (t.reshape(b_ * w_, h_, n_, d_) for t in (q_, k_, v_, do_))
-        mask = bias_.to(torch.bfloat16)[None].expand(b_, w_, h_, n_, n_).reshape(b_ * w_, h_, n_, n_)
-        leaves = [t.detach().requires_grad_() for t in (q4, k4, v4, mask)]
-        out_ = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
-        tl = runs_ms(lambda: (F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0),
-                                     torch.autograd.grad(out_, leaves, do4, retain_graph=True)))
+    # The kernels line takes the device-only times (CUDA graphs of 10 calls)
+    # of v1, its plain version and SDPA's forward and backward (the bias as a
+    # bf16 mask) alike; printed beside them their runs-of-10 times and v1's
+    # host enqueue per call.
+    v1_step_ms = collections.defaultdict(float)
+    for case in v1_cases:
+        b_, w_, h_, n_, d_ = case[0].shape
+        timed = {"kernel": lambda: pv.v1_step(*case), "plain": lambda: v1_plain(*case),
+                 "SDPA": lambda: pv.sdpa_step(*case)}
+        tg = {k: graph_ms(f) for k, f in timed.items()}
+        tr = {k: runs_ms(f) for k, f in timed.items()}
+        te = enqueue_ms(timed["kernel"])
         elems = b_ * w_ * h_ * n_ * d_
         bias_bytes = w_ * h_ * n_ * n_ * 4
         # Forward and backward: q, k, v, do and bias read, o, dq, dk, dv and dbias written.
-        report(V1, f"[{b_},{w_},{h_},{n_},{d_}] bf16 forward + backward", 1, tk, tp, tl,
+        report(V1, f"[{b_},{w_},{h_},{n_},{d_}] bf16 forward + backward", 1, tg["kernel"], tg["plain"], tg["SDPA"],
                8 * elems * 2 + 2 * bias_bytes, 14.0 * b_ * w_ * h_ * n_ * n_ * d_)
+        both = lambda t: ", ".join(f"{k} {v:.4f}" for k, v in t.items())  # noqa: E731
+        print(f"  {V1} [{b_},{w_},{h_},{n_},{d_}] ms per call: device-only (CUDA graphs) {both(tg)}; runs of 10 "
+              f"{both(tr)}; host enqueue {te:.4f} [{card}]", flush=True)
+        for key, v in (*((f"{k} device-only", v) for k, v in tg.items()),
+                       *((f"{k} runs of 10", v) for k, v in tr.items()), ("host enqueue", te)):
+            v1_step_ms[key] += v
+    print(f"{V1} per batch-{bt} step (one forward and backward per Swin stage), ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in v1_step_ms.items()) + f" [{card}]", flush=True)
     del v1_cases
     torch.cuda.empty_cache()
 
     kernels = []
     for name in KERNEL_SOURCE:
         t = totals[name]
-        peak = F32_FLOPS_PER_S if name in (MMD, LN, LN_BWD, LN_RES) else BF16_FLOPS_PER_S
+        peak = F32_FLOPS_PER_S if name in (MMD, MMD_BWD, LN, LN_BWD, LN_RES) else BF16_FLOPS_PER_S
         bms, by = bound(t["bytes"], t["flops"], peak)
         kernels.append({
             "name": name,
@@ -1951,20 +2113,21 @@ def main() -> None:
             "plain_ms": t["plain_ms"],
             "bound_ms": bms,
             "bound_by": by,
-            "library_ms": None if name in (MMD, MLP, MLP_BWD, B6, B6_BWD, LN_RES) else t["library_ms"],
+            "library_ms": None if name in (MMD, MMD_BWD, MLP, MLP_BWD, B6, B6_BWD, LN_RES) else t["library_ms"],
         })
     print("kernels: ms / plain_ms / library_ms / bound_ms are the device time of the launches one "
-          f"batch-{bt} train step makes (sum over its shapes; B3 runs once, with use_pallas_mmd; B4 and B5 "
-          f"in the use_fused_ln + use_fused_mlp config, B4's three rows (ms, plain_ms and library_ms "
-          f"alike) the device-only time of CUDA graphs of 10 calls, every other row runs of 10 calls between "
-          f"CUDA events, which count the host where it is slower than the card; B4's residual form, B6's LayerNorm backward, in the "
+          f"batch-{bt} train step makes (sum over its shapes; B3 runs once each way, with use_pallas_mmd; B4 and B5 "
+          f"in the use_fused_ln + use_fused_mlp config, B4's three rows, B3's two and v1's (ms, plain_ms and "
+          f"library_ms alike) the device-only time of CUDA graphs of 10 calls, every other row runs of 10 calls "
+          f"between CUDA events, which count the host where it is slower than the card; B4's residual form, B6's "
+          f"LayerNorm backward, in the "
           f"use_fused_block_attention config; B6 its forward and backward launches in the "
           f"use_fused_block_attention config, the backward's row the whole composition of B2's kernels, the two "
           f"Dense layers' backwards and B4's; v1 one forward and backward per Swin stage of its own path); "
           f"launches: the main path's run ({TRAIN_STEPS} steps; B3: its one step; B4, B5, B6 and B4's residual "
           f"form: their configs' "
           f"{TRAIN_STEPS} steps; v1: its path's forward and backward launches); max_abs_err: worst bf16 check "
-          f"at the main-path shapes (B3: f32) [{card}]")
+          f"at the main-path shapes (B3: f32, its backward's the worst gradient element) [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -118,17 +118,31 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # is_bf16, n, d, with_dbias, out[4]: dq and dk/dv kernels' blocks per SM, then their smem bytes
         "edrl_attention_bwd_occupancy": (i32, [i32, i32, i32, i32, ptr]),
         "edrl_self_attention_fwd": (i32, [ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, i32, ptr]),
-        "edrl_window_attention_v2_fwd": (i32, [ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, i32, ptr]),
+        # q, k, v, bias, o, batch, windows, heads, n, d, q/k/v's group / head / row stride, o's,
+        # scale, is_bf16, stream
+        "edrl_window_attention_fwd": (i32, [ptr] * 5 + [i32] * 5 + [i64, i64, i32] * 2 + [f32, i32, ptr]),
         # q, k, v, dout, dq, dk, dv, stats, batch, n, c, heads, scale, is_bf16, stream
         "edrl_self_attention_bwd": (
             i32, [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, i32, ptr]),
-        # qkv, bias, dout, dqkv, dbias_partial, dbias, stats, batch, windows, n, c,
-        # heads, batch_per_block, scale, is_bf16, stream
-        "edrl_window_attention_v2_bwd": (
-            i32, [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, i32, ptr]),
+        # q, k, v, bias, dout, dq, dk, dv, dbias_partial, dbias, stats, batch, windows, heads, n, d,
+        # q/k/v's (and dq/dk/dv's) group / head / row stride, dout's, batch_per_block, scale, is_bf16,
+        # stream
+        "edrl_window_attention_bwd": (
+            i32, [ptr] * 11 + [i32] * 5 + [i64, i64, i32] * 2 + [i32, f32, i32, ptr]),
+        # n -> 1 for the cluster route, 0 for the split route
+        "edrl_mk_mmd_route": (i32, [i32]),
         "edrl_mk_mmd_scratch_floats": (i64, [i32, i32]),
-        # source, target, n_s, n_t, d, kernel_mul, kernel_num, scratch, out, stream
-        "edrl_mk_mmd_fwd": (i32, [ptr, ptr, i32, i32, i32, f32, i32, ptr, ptr, ptr]),
+        # out[8]: cluster kernel registers, static smem, local bytes, threads; split route's
+        # partial kernel registers, smem, local bytes; the cluster route's CTAs
+        "edrl_mk_mmd_fwd_attributes": (i32, [ptr]),
+        # source, target, n_s, n_t, d, kernel_mul, kernel_num, scratch, out, state, stream
+        "edrl_mk_mmd_fwd": (i32, [ptr, ptr, i32, i32, i32, f32, i32, ptr, ptr, ptr, ptr]),
+        # n, out[4]: registers, local bytes, dynamic smem bytes, CTAs per SM
+        "edrl_mk_mmd_bwd_attributes": (i32, [i32, ptr]),
+        # source, target, state, grad, ds, dt, n_s, n_t, d, kernel_mul, kernel_num, stream
+        "edrl_mk_mmd_bwd": (i32, [ptr] * 6 + [i32, i32, i32, f32, i32, ptr]),
+        # stream: one launch of an empty kernel
+        "edrl_empty_launch": (i32, [ptr]),
         # x, gamma, beta, y, m, c, eps, is_bf16, stream
         "edrl_layer_norm_fwd": (i32, [ptr, ptr, ptr, ptr, i32, i32, f32, i32, ptr]),
         # x, dy, gamma, dx, dgb ([2, c]: dgamma, dbeta), partial, m, c, ctas, eps, is_bf16, stream

@@ -1,5 +1,6 @@
-// Shared backward attention kernels for the two backward entry points in
-// this folder: self_attention_bwd.cu (B1) and window_attention_v2_bwd.cu (B2).
+// Shared backward attention kernels for the backward entry points in this
+// folder: self_attention_bwd.cu (B1) and window_attention_v2_bwd.cu (B2 and
+// v1).
 //
 // For one (group, head) with o = softmax(s) v, s = (q k^T) * scale + bias,
 // and the output's cotangent do, they compute what the Pallas backward
@@ -10,9 +11,12 @@
 //     dp = do v^T,  delta = rowsum(dp * p),  ds = p * (dp - delta)
 //     dv = p^T do,  dq = ds k * scale,  dk = ds^T (q * scale),  dbias = sum_b ds
 //
-// s, p, dp, delta and ds are f32.  dq, dk and dv are written in the input
-// type at the head's columns of their packed outputs (through strides, so no
-// transpose or concatenate happens outside), dbias in f32.
+// s, p, dp, delta and ds are f32.  Every operand is addressed through three
+// strides, between groups, heads and tokens: q, k, v and dout are read in
+// place and dq, dk and dv written in the input type at the head's place in
+// their outputs (the head's columns of a packed [.., N, C] row, head stride
+// D, in B1, B2 and B6; a block of N rows, head stride N*D, in v1's [B, W, H,
+// N, D]), so no transpose or concatenate happens outside; dbias in f32.
 //
 // The TPU kernel runs one program per (b, w, h) and accumulates dbias[w, h]
 // across the batch in an output block that its sequential grid revisits.
@@ -99,6 +103,9 @@ struct AttnBwdParams {
   long long group_stride_in;    // elements between groups in q/k/v
   long long group_stride_dout;  // ... in dout
   long long group_stride_grad;  // ... in dq/dk/dv
+  long long head_stride_in;     // elements between head h and h + 1 in q/k/v (d in packed rows)
+  long long head_stride_dout;   // ... in dout
+  long long head_stride_grad;   // ... in dq/dk/dv
   int row_stride_in;
   int row_stride_dout;
   int row_stride_grad;
@@ -170,12 +177,12 @@ __global__ void __launch_bounds__(kBwdThreads) attention_bwd_dq_kernel(AttnBwdPa
 
   for (int b = b_begin; b < b_end; ++b) {
     const size_t g = (size_t)b * p.windows + w;
-    const size_t col = (size_t)h * d;
-    const T* qg = static_cast<const T*>(p.q) + g * p.group_stride_in + col;
-    const T* kg = static_cast<const T*>(p.k) + g * p.group_stride_in + col;
-    const T* vg = static_cast<const T*>(p.v) + g * p.group_stride_in + col;
-    const T* dog = static_cast<const T*>(p.dout) + g * p.group_stride_dout + col;
-    T* dqg = static_cast<T*>(p.dq) + g * p.group_stride_grad + col;
+    const size_t in_off = g * p.group_stride_in + (size_t)h * p.head_stride_in;
+    const T* qg = static_cast<const T*>(p.q) + in_off;
+    const T* kg = static_cast<const T*>(p.k) + in_off;
+    const T* vg = static_cast<const T*>(p.v) + in_off;
+    const T* dog = static_cast<const T*>(p.dout) + g * p.group_stride_dout + (size_t)h * p.head_stride_dout;
+    T* dqg = static_cast<T*>(p.dq) + g * p.group_stride_grad + (size_t)h * p.head_stride_grad;
 
     // 1. Scaled queries and dout of this tile, transposed; tail rows are zero.
     __syncthreads();  // the previous batch entry's buffers are consumed
@@ -338,11 +345,12 @@ __global__ void __launch_bounds__(kBwdThreads) attention_bwd_dkv_kernel(AttnBwdP
   const int w = (int)(g % p.windows);
   const int k0 = tile * kBwdTile;
   const int r0 = warp * kBwdRows;
-  const size_t col = (size_t)h * d;
-  const T* qg = static_cast<const T*>(p.q) + g * p.group_stride_in + col;
-  const T* kg = static_cast<const T*>(p.k) + g * p.group_stride_in + col;
-  const T* vg = static_cast<const T*>(p.v) + g * p.group_stride_in + col;
-  const T* dog = static_cast<const T*>(p.dout) + g * p.group_stride_dout + col;
+  const size_t in_off = g * p.group_stride_in + (size_t)h * p.head_stride_in;
+  const size_t grad_off = g * p.group_stride_grad + (size_t)h * p.head_stride_grad;
+  const T* qg = static_cast<const T*>(p.q) + in_off;
+  const T* kg = static_cast<const T*>(p.k) + in_off;
+  const T* vg = static_cast<const T*>(p.v) + in_off;
+  const T* dog = static_cast<const T*>(p.dout) + g * p.group_stride_dout + (size_t)h * p.head_stride_dout;
   const float* bias = p.bias ? p.bias + ((size_t)w * p.heads + h) * (size_t)n * n : nullptr;
   const size_t stat0 = (g * p.heads + h) * (size_t)n;
 
@@ -423,8 +431,8 @@ __global__ void __launch_bounds__(kBwdThreads) attention_bwd_dkv_kernel(AttnBwdP
     }
   }
 
-  T* dkg = static_cast<T*>(p.dk) + g * p.group_stride_grad + col;
-  T* dvg = static_cast<T*>(p.dv) + g * p.group_stride_grad + col;
+  T* dkg = static_cast<T*>(p.dk) + grad_off;
+  T* dvg = static_cast<T*>(p.dv) + grad_off;
 #pragma unroll
   for (int j = 0; j < kBwdRows; ++j) {
     const int kr = k0 + r0 + j;
@@ -586,12 +594,12 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_dq_mma_kernel(Att
 
   for (int b = b_begin; b < b_end; ++b) {
     const size_t grp = (size_t)b * p.windows + w;
-    const size_t col = (size_t)h * d;
-    const bf16* qg = static_cast<const bf16*>(p.q) + grp * p.group_stride_in + col;
-    const bf16* kg = static_cast<const bf16*>(p.k) + grp * p.group_stride_in + col;
-    const bf16* vg = static_cast<const bf16*>(p.v) + grp * p.group_stride_in + col;
-    const bf16* dog = static_cast<const bf16*>(p.dout) + grp * p.group_stride_dout + col;
-    bf16* dqg = static_cast<bf16*>(p.dq) + grp * p.group_stride_grad + col;
+    const size_t in_off = grp * p.group_stride_in + (size_t)h * p.head_stride_in;
+    const bf16* qg = static_cast<const bf16*>(p.q) + in_off;
+    const bf16* kg = static_cast<const bf16*>(p.k) + in_off;
+    const bf16* vg = static_cast<const bf16*>(p.v) + in_off;
+    const bf16* dog = static_cast<const bf16*>(p.dout) + grp * p.group_stride_dout + (size_t)h * p.head_stride_dout;
+    bf16* dqg = static_cast<bf16*>(p.dq) + grp * p.group_stride_grad + (size_t)h * p.head_stride_grad;
     const size_t stat0 = (grp * p.heads + h) * (size_t)n;
 
     // Step j of the two walks stages key chunk j % chunks (its keys and
@@ -843,11 +851,12 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_dkv_mma_kernel(At
   const int key_lo = k0 + r0 + g;
   const int key_hi = key_lo + 8;
   const int chunks = (n + kTcStep - 1) / kTcStep;
-  const size_t col = (size_t)h * d;
-  const bf16* qg = static_cast<const bf16*>(p.q) + grp * p.group_stride_in + col;
-  const bf16* kg = static_cast<const bf16*>(p.k) + grp * p.group_stride_in + col;
-  const bf16* vg = static_cast<const bf16*>(p.v) + grp * p.group_stride_in + col;
-  const bf16* dog = static_cast<const bf16*>(p.dout) + grp * p.group_stride_dout + col;
+  const size_t in_off = grp * p.group_stride_in + (size_t)h * p.head_stride_in;
+  const size_t grad_off = grp * p.group_stride_grad + (size_t)h * p.head_stride_grad;
+  const bf16* qg = static_cast<const bf16*>(p.q) + in_off;
+  const bf16* kg = static_cast<const bf16*>(p.k) + in_off;
+  const bf16* vg = static_cast<const bf16*>(p.v) + in_off;
+  const bf16* dog = static_cast<const bf16*>(p.dout) + grp * p.group_stride_dout + (size_t)h * p.head_stride_dout;
   const float* bias = p.bias ? p.bias + ((size_t)w * p.heads + h) * (size_t)n * n : nullptr;
   const size_t stat0 = (grp * p.heads + h) * (size_t)n;
   const bool bias16 = n % 4 == 0;  // bias rows at the block's keys are 16-byte aligned
@@ -982,8 +991,8 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_dkv_mma_kernel(At
     }
   }
 
-  bf16* dkg = static_cast<bf16*>(p.dk) + grp * p.group_stride_grad + col;
-  bf16* dvg = static_cast<bf16*>(p.dv) + grp * p.group_stride_grad + col;
+  bf16* dkg = static_cast<bf16*>(p.dk) + grad_off;
+  bf16* dvg = static_cast<bf16*>(p.dv) + grad_off;
 #pragma unroll
   for (int dn = 0; dn < kBwdMaxHeadDim / 8; ++dn) {
     if (8 * dn < d) {
@@ -1097,7 +1106,10 @@ cudaError_t launch_attention_bwd(AttnBwdParams p, float* dbias_out, cudaStream_t
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (attention_bwd_route_mma(true, p.n, p.d)) {
       if (!aligned16(p.q) || !aligned16(p.k) || !aligned16(p.v) || !aligned16(p.dout) ||
-          !aligned16(p.bias) || !aligned4(p.dq) || !aligned4(p.dk) || !aligned4(p.dv)) {
+          !aligned16(p.bias) || !aligned4(p.dq) || !aligned4(p.dk) || !aligned4(p.dv) ||
+          (p.group_stride_in | p.head_stride_in | p.row_stride_in | p.group_stride_dout |
+           p.head_stride_dout | p.row_stride_dout) % 8 != 0 ||
+          (p.group_stride_grad | p.head_stride_grad | p.row_stride_grad) % 2 != 0) {
         return cudaErrorMisalignedAddress;
       }
       err = launch_attention_bwd_mma(p, stream);

@@ -41,6 +41,23 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Sum of x over a block of THREADS threads, in a fixed order (each warp's
+// lane 0, then the warps in turn), so the same from run to run; every thread
+// gets it.  red holds THREADS / 32 floats.
+template <int THREADS>
+__device__ float block_sum(float x, float* red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  x = warp_sum(x);
+  __syncthreads();  // red is free
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  float total = 0.0f;
+#pragma unroll
+  for (int w = 0; w < THREADS / 32; ++w) total += red[w];
+  return total;
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;

@@ -1,6 +1,6 @@
 // Shared forward attention kernels for the entry points in this folder:
-// self_attention_fwd.cu (B1), window_attention_v2_fwd.cu (B2, and the v1
-// adapter over it) and the attention phase of attention_sublayer_fwd.cu (B6).
+// self_attention_fwd.cu (B1), window_attention_v2_fwd.cu (B2 and v1) and
+// the attention phase of attention_sublayer_fwd.cu (B6).
 //
 // Replaces the forwards of edrl_tpu/kernels/window_attention.py,
 // _sa_fwd_kernel (self_attention_fused) and _attn_fwd_kernel_v2
@@ -9,10 +9,12 @@
 // with the scores, the bias, the row max, exp and the row sum in f32, and o
 // = (p v) / l written in the input type.
 //
-// Layout: q, k and v are read in place from their packed [.., N, row_stride]
-// tensors (head h owns columns [h*D, (h+1)*D)), and o is written to
-// [.., N, row_stride_out] at the same columns, so no transpose happens
-// outside the kernel.  The tail keys past N are masked with -inf, and the
+// Layout: q, k and v are read in place through three strides each, one
+// between groups, one between heads and one between tokens, and o is written
+// through its own three: in the packed [.., N, row_stride] tensors of B1, B2
+// and B6 head h owns columns [h*D, (h+1)*D) (head stride D); in v1's [B, W,
+// H, N, D] a head is a block of N rows (head stride N*D, row stride D).  So
+// no transpose happens outside the kernel.  The tail keys past N are masked with -inf, and the
 // tail queries past N are computed on zeros and never stored.
 //
 // Two routes, chosen per call from the dtype and shape before the launch
@@ -86,6 +88,8 @@ struct AttnParams {
   const float* bias;           // [windows, heads, n, n] f32, or nullptr
   long long group_stride_in;   // elements between consecutive groups in q/k/v
   long long group_stride_out;  // elements between consecutive groups in o
+  long long head_stride_in;    // elements between head h and h + 1 in q/k/v (d in packed rows)
+  long long head_stride_out;   // elements between head h and h + 1 in o
   int row_stride_in;           // elements between consecutive tokens in q/k/v
   int row_stride_out;          // elements between consecutive tokens in o
   int num_groups;              // batch (self-attention) or batch * windows
@@ -138,11 +142,11 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_kernel(AttnParams p) {
   const int h = blockIdx.y;
   const int q0 = tile * kTileQ;
 
-  const size_t in_off = (size_t)g * p.group_stride_in + (size_t)h * d;
+  const size_t in_off = (size_t)g * p.group_stride_in + (size_t)h * p.head_stride_in;
   const T* qg = static_cast<const T*>(p.q) + in_off;
   const T* kg = static_cast<const T*>(p.k) + in_off;
   const T* vg = static_cast<const T*>(p.v) + in_off;
-  T* og = static_cast<T*>(p.o) + (size_t)g * p.group_stride_out + (size_t)h * d;
+  T* og = static_cast<T*>(p.o) + (size_t)g * p.group_stride_out + (size_t)h * p.head_stride_out;
   const float* bias =
       p.bias ? p.bias + ((size_t)(g % p.windows) * p.heads + h) * (size_t)n * n : nullptr;
 
@@ -338,11 +342,11 @@ __global__ void __launch_bounds__(kFwdMaxWarps * 32) attention_fwd_tc_kernel(Att
   const bool with_bias = p.bias != nullptr;
   const int stage_bytes = fwd_stage_bytes(rows, with_bias);
 
-  const size_t in_off = (size_t)grp * p.group_stride_in + (size_t)h * d;
+  const size_t in_off = (size_t)grp * p.group_stride_in + (size_t)h * p.head_stride_in;
   const bf16* qg = static_cast<const bf16*>(p.q) + in_off;
   const bf16* kg = static_cast<const bf16*>(p.k) + in_off;
   const bf16* vg = static_cast<const bf16*>(p.v) + in_off;
-  bf16* og = static_cast<bf16*>(p.o) + (size_t)grp * p.group_stride_out + (size_t)h * d;
+  bf16* og = static_cast<bf16*>(p.o) + (size_t)grp * p.group_stride_out + (size_t)h * p.head_stride_out;
   const float* bias =
       with_bias ? p.bias + ((size_t)(grp % p.windows) * p.heads + h) * (size_t)n * n : nullptr;
 
@@ -597,7 +601,9 @@ cudaError_t launch_attention_fwd(AttnParams p, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (attention_fwd_route_mma(true, p.n, p.d)) {
       if (!aligned16(p.q) || !aligned16(p.k) || !aligned16(p.v) || (p.bias && !aligned16(p.bias)) ||
-          !aligned4(p.o) || p.row_stride_in % 8 != 0 || p.row_stride_out % 2 != 0) {
+          !aligned4(p.o) || p.row_stride_in % 8 != 0 || p.row_stride_out % 2 != 0 ||
+          p.group_stride_in % 8 != 0 || p.head_stride_in % 8 != 0 || p.group_stride_out % 2 != 0 ||
+          p.head_stride_out % 2 != 0) {
         return cudaErrorMisalignedAddress;
       }
       return launch_attention_fwd_mma(p, stream);

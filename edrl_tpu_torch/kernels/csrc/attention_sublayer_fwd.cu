@@ -203,6 +203,8 @@ cudaError_t run_attention(const SublayerArgs& s, cudaStream_t stream) {
   p.bias = s.bias;
   p.group_stride_in = (long long)s.n * 3 * s.c;
   p.group_stride_out = (long long)s.n * s.c;
+  p.head_stride_in = s.c / s.heads;  // heads packed in columns
+  p.head_stride_out = s.c / s.heads;
   p.row_stride_in = 3 * s.c;
   p.row_stride_out = s.c;
   p.num_groups = s.batch * s.windows;

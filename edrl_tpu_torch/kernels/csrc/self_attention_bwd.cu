@@ -71,6 +71,9 @@ extern "C" int edrl_self_attention_bwd(const void* q, const void* k, const void*
   p.group_stride_in = (long long)n * c;
   p.group_stride_dout = (long long)n * c;
   p.group_stride_grad = (long long)n * c;
+  p.head_stride_in = c / heads;  // heads packed in columns
+  p.head_stride_dout = c / heads;
+  p.head_stride_grad = c / heads;
   p.row_stride_in = c;
   p.row_stride_dout = c;
   p.row_stride_grad = c;

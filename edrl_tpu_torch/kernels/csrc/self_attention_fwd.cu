@@ -54,6 +54,8 @@ extern "C" int edrl_self_attention_fwd(const void* q, const void* k, const void*
   p.bias = nullptr;
   p.group_stride_in = (long long)n * c;
   p.group_stride_out = (long long)n * c;
+  p.head_stride_in = c / heads;  // heads packed in columns
+  p.head_stride_out = c / heads;
   p.row_stride_in = c;
   p.row_stride_out = c;
   p.num_groups = batch;

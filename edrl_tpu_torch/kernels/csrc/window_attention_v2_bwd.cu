@@ -1,11 +1,18 @@
-// Fused Swin window attention backward (B2), packed-qkv layout.
+// Fused Swin window attention backward: B2 (packed qkv) and v1 ([B, W, H, N,
+// D]), one entry point addressing its operands through the strides the
+// caller passes (window_attention.attention_strides).
 //
 // Replaces: edrl_tpu/kernels/window_attention.py, window_attention_fused_v2's
-// backward (_v2_bwd / _attn_bwd_kernel_v2).  From the packed qkv [B, W, N, 3C],
-// the bias [W, H, N, N] f32 and the output's cotangent do [B, W, N, C] it
-// recomputes the softmax and writes dq, dk and dv straight into one packed
-// dqkv [B, W, N, 3C] (columns h*D, C + h*D, 2C + h*D: the TPU version needed
-// a concatenate for this) and dbias [W, H, N, N] f32 summed over the batch.
+// backward (_v2_bwd / _attn_bwd_kernel_v2) and window_attention_fused's (v1:
+// _bwd_call / _attn_bwd_kernel).  From q, k, v, the bias [W, H, N, N] f32 and
+// the output's cotangent do it recomputes the softmax and writes dq, dk, dv
+// in q's layout and dbias [W, H, N, N] f32 summed over the batch.  B2: q, k
+// and v are column blocks of the packed qkv [B, W, N, 3C] (head stride D),
+// and dq, dk and dv go straight into one packed dqkv [B, W, N, 3C] (columns
+// h*D, C + h*D, 2C + h*D: the TPU version needed a concatenate for this); do
+// is [B, W, N, C].  v1: q (pre-scaled; scale 1, so dq is unscaled and dk
+// takes the pre-scaled q), k, v, do, dq, dk and dv are [B, W, H, N, D] (head
+// stride N*D), with no packing or unpacking around the kernels.
 //
 // What bounds it on an H100: at N = 144 and head_dim 128, each (b, w, h)
 // needs 5 products of 2 * N^2 * D = 5.3 MFLOP against about 258 KB of qkv,
@@ -31,60 +38,62 @@
 namespace {
 
 template <typename T>
-cudaError_t run(const void* qkv, const float* bias, const void* dout, void* dqkv,
-                float* dbias_partial, float* dbias, float* stats, int batch, int windows, int n,
-                int c, int heads, int batch_per_block, float scale, cudaStream_t stream) {
-  const T* base = static_cast<const T*>(qkv);
-  T* grad = static_cast<T*>(dqkv);
+cudaError_t run(const void* q, const void* k, const void* v, const float* bias, const void* dout, void* dq,
+                void* dk, void* dv, float* dbias_partial, float* dbias, float* stats, int batch, int windows,
+                int heads, int n, int d, long long in_group, long long in_head, int in_row, long long out_group,
+                long long out_head, int out_row, int batch_per_block, float scale, cudaStream_t stream) {
   AttnBwdParams p = {};
-  p.q = base;
-  p.k = base + c;
-  p.v = base + 2 * c;
+  p.q = q;
+  p.k = k;
+  p.v = v;
   p.dout = dout;
-  p.dq = grad;
-  p.dk = grad + c;
-  p.dv = grad + 2 * c;
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
   p.bias = bias;
   p.dbias = dbias_partial;
   const size_t rows = (size_t)batch * windows * heads * n;
   p.row_m = stats;
   p.row_l = stats + rows;
   p.row_delta = stats + 2 * rows;
-  p.group_stride_in = (long long)n * 3 * c;
-  p.group_stride_dout = (long long)n * c;
-  p.group_stride_grad = (long long)n * 3 * c;
-  p.row_stride_in = 3 * c;
-  p.row_stride_dout = c;
-  p.row_stride_grad = 3 * c;
+  p.group_stride_in = p.group_stride_grad = in_group;
+  p.head_stride_in = p.head_stride_grad = in_head;
+  p.row_stride_in = p.row_stride_grad = in_row;
+  p.group_stride_dout = out_group;
+  p.head_stride_dout = out_head;
+  p.row_stride_dout = out_row;
   p.batch = batch;
   p.windows = windows;
   p.batch_per_block = batch_per_block;
   p.heads = heads;
   p.n = n;
-  p.d = c / heads;
+  p.d = d;
   p.scale = scale;
   return launch_attention_bwd<T>(p, dbias, stream);
 }
 
 }  // namespace
 
-// dbias_partial: ceil(batch / batch_per_block) * windows * heads * n * n f32
-// (dbias itself when that is one chunk).  stats: 3 * batch * windows * heads
-// * n f32.
-extern "C" int edrl_window_attention_v2_bwd(const void* qkv, const void* bias, const void* dout,
-                                            void* dqkv, void* dbias_partial, void* dbias,
-                                            void* stats, int batch, int windows, int n, int c,
-                                            int heads, int batch_per_block, float scale,
-                                            int is_bf16, void* stream) {
+// q, k, v, dq, dk and dv share the (group, head, row) strides in_*, dout
+// takes out_*; each pointer is the operand's element (group 0, head 0, token
+// 0, feature 0).  dbias_partial: ceil(batch / batch_per_block) * windows *
+// heads * n * n f32 (dbias itself when that is one chunk).  stats: 3 * batch
+// * windows * heads * n f32.
+extern "C" int edrl_window_attention_bwd(const void* q, const void* k, const void* v, const void* bias,
+                                         const void* dout, void* dq, void* dk, void* dv, void* dbias_partial,
+                                         void* dbias, void* stats, int batch, int windows, int heads, int n, int d,
+                                         long long in_group, long long in_head, int in_row, long long out_group,
+                                         long long out_head, int out_row, int batch_per_block, float scale,
+                                         int is_bf16, void* stream) {
   const float* b = static_cast<const float*>(bias);
   float* part = static_cast<float*>(dbias_partial);
   float* db = static_cast<float*>(dbias);
   float* st = static_cast<float*>(stats);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      is_bf16 ? run<__nv_bfloat16>(qkv, b, dout, dqkv, part, db, st, batch, windows, n, c, heads,
-                                   batch_per_block, scale, s)
-              : run<float>(qkv, b, dout, dqkv, part, db, st, batch, windows, n, c, heads,
-                           batch_per_block, scale, s);
+      is_bf16 ? run<__nv_bfloat16>(q, k, v, b, dout, dq, dk, dv, part, db, st, batch, windows, heads, n, d, in_group,
+                                   in_head, in_row, out_group, out_head, out_row, batch_per_block, scale, s)
+              : run<float>(q, k, v, b, dout, dq, dk, dv, part, db, st, batch, windows, heads, n, d, in_group, in_head,
+                           in_row, out_group, out_head, out_row, batch_per_block, scale, s);
   return (int)err;
 }

@@ -11,11 +11,12 @@ Counterparts of three Pallas kernels of ``edrl_tpu/kernels/window_attention.py``
   with a ``[W, H, N, N]`` f32 bias.  CUDA sources:
   ``csrc/window_attention_v2_fwd.cu`` and ``csrc/window_attention_v2_bwd.cu``.
 - :func:`window_attention_fused` (v1): B2's function in the ``[B, W, H, N,
-  D]`` layout, with q pre-scaled and no scale applied inside.  No model
-  calls it.  It is a layout adapter over the B2 kernels, not a kernel of its
-  own: it packs q, k, v into B2's ``[B, W, N, 3C]``, runs B2 with scale 1
-  and unpacks the result, forward and backward (dq is then unscaled and dk
-  takes the pre-scaled q, as the v1 Pallas backward computes them).
+  D]`` layout, with q pre-scaled and no scale applied inside (dq is then
+  unscaled and dk takes the pre-scaled q, as the v1 Pallas backward computes
+  them).  No model calls it.  The same CUDA entry points as B2's, which
+  address every operand through the (group, head, row) strides the wrapper
+  passes (:func:`attention_strides`), so v1's layout is read and written in
+  place.
 
 Each is a ``torch.autograd.Function``: the forward saves its inputs (not the
 probabilities) and the backward recomputes them, as the JAX VJPs do.  A CPU
@@ -32,8 +33,8 @@ shape in the C entry points and mirrored by :func:`attention_fwd_route` and
 :func:`attention_bwd_route`: ``"mma"`` (bf16, head_dim % 16 == 0, N <= 224:
 tensor cores) or ``"fma"`` (f32, and the other bf16 shapes: CUDA cores).
 Each forward launch also counts under its route in :data:`FWD_ROUTES` (the
-fused attention sublayer's attention phase and the v1 adapter's included),
-each backward launch in :data:`BWD_ROUTES`.
+fused attention sublayer's attention phase and v1's included), each
+backward launch in :data:`BWD_ROUTES`.
 """
 
 from __future__ import annotations
@@ -50,12 +51,11 @@ SELF_ATTENTION_BWD = "self_attention_fused_bwd"
 WINDOW_ATTENTION_V2_BWD = "window_attention_fused_v2_bwd"
 WINDOW_ATTENTION_V1 = "window_attention_fused"
 WINDOW_ATTENTION_V1_BWD = "window_attention_fused_bwd"
-# Kernel launches since the last reset_launch_counts(), by wrapper name.  The
-# v1 adapter counts its launches of the B2 kernels under its own names.
+# Kernel launches since the last reset_launch_counts(), by wrapper name.
 LAUNCHES = {SELF_ATTENTION: 0, WINDOW_ATTENTION_V2: 0, SELF_ATTENTION_BWD: 0, WINDOW_ATTENTION_V2_BWD: 0,
             WINDOW_ATTENTION_V1: 0, WINDOW_ATTENTION_V1_BWD: 0}
-# Forward launches (B1, B2, the v1 adapter's and B6's attention phase) and
-# backward launches (B1, B2 and the v1 adapter's) since the last reset, by route.
+# Forward launches (B1, B2, v1 and B6's attention phase) and backward
+# launches (B1, B2 and v1) since the last reset, by route.
 FWD_ROUTES = {"mma": 0, "fma": 0}
 BWD_ROUTES = {"mma": 0, "fma": 0}
 MAX_HEAD_DIM = 128
@@ -392,6 +392,13 @@ def self_attention_fused(q, k, v, num_heads: int, scale: float):
 # -- B2 ----------------------------------------------------------------------
 
 
+def _packed_qkv(qkv, c: int) -> tuple:
+    """The data pointers of q, k and v in a packed ``[.., 3C]`` tensor:
+    column blocks 0, C and 2C."""
+    base, step = qkv.data_ptr(), c * qkv.element_size()
+    return base, base + step, base + 2 * step
+
+
 def window_attention_v2_fwd_kernel(qkv, bias, num_heads: int, scale: float, name: str = WINDOW_ATTENTION_V2):
     """The B2 forward kernel's ``[B, W, N, C]`` result; CUDA tensors only.
     The launch counts under ``name``."""
@@ -406,9 +413,10 @@ def window_attention_v2_fwd_kernel(qkv, bias, num_heads: int, scale: float, name
     route = attention_fwd_route(qkv.dtype, n, d)
     qkv, bias = _aligned_operands(route, (qkv, bias))
     _launch_fwd(
-        name, route, lib.edrl_window_attention_v2_fwd, qkv.device,
-        qkv.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        b, w, n, c, num_heads, float(scale), int(qkv.dtype == torch.bfloat16),
+        name, route, lib.edrl_window_attention_fwd, qkv.device,
+        *_packed_qkv(qkv, c), bias.data_ptr(), out.data_ptr(), b, w, num_heads, n, d,
+        *attention_strides(n, d, num_heads, 3 * c), *attention_strides(n, d, num_heads, c),
+        float(scale), int(qkv.dtype == torch.bfloat16),
     )
     return out
 
@@ -443,10 +451,11 @@ def window_attention_v2_bwd_kernel(qkv, bias, dout, num_heads: int, scale: float
     partial = dbias if chunks == 1 else torch.empty(
         (chunks, *bias.shape), dtype=torch.float32, device=qkv.device)
     _launch_bwd(
-        name, route, lib.edrl_window_attention_v2_bwd, qkv.device,
-        qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), partial.data_ptr(),
-        dbias.data_ptr(), stats.data_ptr(), b, w, n, c, num_heads, per_block, float(scale),
-        int(qkv.dtype == torch.bfloat16),
+        name, route, lib.edrl_window_attention_bwd, qkv.device,
+        *_packed_qkv(qkv, c), bias.data_ptr(), dout.data_ptr(), *_packed_qkv(dqkv, c), partial.data_ptr(),
+        dbias.data_ptr(), stats.data_ptr(), b, w, num_heads, n, d,
+        *attention_strides(n, d, num_heads, 3 * c), *attention_strides(n, d, num_heads, c),
+        per_block, float(scale), int(qkv.dtype == torch.bfloat16),
     )
     return dqkv, dbias
 
@@ -500,37 +509,106 @@ def window_attention_fused_v2(qkv, bias, num_heads: int, scale: float):
     return _WindowAttentionV2.apply(qkv, bias, num_heads, scale)
 
 
-# -- v1: a layout adapter over the B2 kernels --------------------------------
+# -- v1 ----------------------------------------------------------------------
 
 
-def _pack_qkv(q, k, v):
-    """q, k, v ``[B, W, H, N, D]`` -> qkv ``[B, W, N, 3C]``, columns [q heads | k heads | v heads]."""
+def attention_strides(n: int, d: int, heads: int, row_width=None) -> tuple[int, int, int]:
+    """``(group, head, row)``: the element strides through which the
+    window attention entry points (``edrl_window_attention_fwd`` and
+    ``_bwd``) address an operand, for a group (batch entry and window) of
+    ``heads`` heads of ``n`` tokens of ``d`` features.  B2's and v1's
+    launches take them from here.
+
+    - ``row_width=None``: v1's contiguous ``[.., H, N, D]``, where a head is a
+      block of N rows: ``(H * N * D, N * D, D)``;
+    - ``row_width=w``: packed rows ``[.., N, w]`` with head h in columns
+      ``[h * D, (h + 1) * D)``: ``(N * w, D, w)``; B2's qkv and dqkv (``w =
+      3C``) and its o and do (``w = C``).  B1 and B6 fill in the same packed
+      strides in their own C entry points.
+    """
+    if row_width is None:
+        return heads * n * d, n * d, d
+    return n * row_width, d, row_width
+
+
+def _check_v1_bias(name: str, bias, q) -> None:
     b, w, h, n, d = q.shape
-    return torch.stack((q, k, v), dim=2).permute(0, 1, 4, 2, 3, 5).reshape(b, w, n, 3 * h * d)
+    if (tuple(bias.shape) != (w, h, n, n) or bias.dtype != torch.float32 or bias.device != q.device
+            or not bias.is_contiguous()):
+        raise ValueError(f"{name}: bias must be a contiguous float32 {(w, h, n, n)} tensor on {q.device}")
 
 
-def _pack_heads(x):
-    """``[B, W, H, N, D]`` -> ``[B, W, N, H * D]``."""
-    b, w, h, n, d = x.shape
-    return x.transpose(2, 3).reshape(b, w, n, h * d)
+def window_attention_v1_fwd_kernel(q, k, v, bias):
+    """The v1 forward kernel's ``[B, W, H, N, D]`` result; CUDA tensors only.
+
+    q (pre-scaled), k and v are read in place through
+    :func:`attention_strides` and o written so; scale 1 inside."""
+    if q.dim() != 5 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"{WINDOW_ATTENTION_V1}: q, k, v must share a [B, W, H, N, D] shape")
+    b, w, h, n, d = q.shape
+    _check_cuda_inputs(WINDOW_ATTENTION_V1, (q, k, v), h, h * d, n)
+    _check_v1_bias(WINDOW_ATTENTION_V1, bias, q)
+    lib = build.load_library()
+    _check_smem(WINDOW_ATTENTION_V1, _fwd_smem(lib, q.dtype, n, d, True), n)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    route = attention_fwd_route(q.dtype, n, d)
+    q, k, v, bias = _aligned_operands(route, (q, k, v, bias))
+    strides = attention_strides(n, d, h)
+    _launch_fwd(
+        WINDOW_ATTENTION_V1, route, lib.edrl_window_attention_fwd, q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        b, w, h, n, d, *strides, *strides, 1.0, int(q.dtype == torch.bfloat16),
+    )
+    return out
 
 
-def _unpack_heads(x, num_heads: int):
-    """``[B, W, N, C]`` -> contiguous ``[B, W, H, N, C / H]``."""
-    b, w, n, c = x.shape
-    return x.view(b, w, n, num_heads, c // num_heads).transpose(2, 3).contiguous()
+def window_attention_v1_bwd_kernel(q, k, v, bias, dout):
+    """``(dq, dk, dv, dbias)`` from the v1 backward kernels; CUDA tensors only.
+
+    dq, dk, dv ``[B, W, H, N, D]`` in q's dtype (dq unscaled, dk from the
+    pre-scaled q), written in place through :func:`attention_strides`;
+    dbias ``[W, H, N, N]`` f32, summed over the batch as B2's is."""
+    if q.dim() != 5 or not q.shape == k.shape == v.shape == dout.shape:
+        raise ValueError(f"{WINDOW_ATTENTION_V1_BWD}: q, k, v and dout must share a [B, W, H, N, D] shape")
+    b, w, h, n, d = q.shape
+    _check_cuda_inputs(WINDOW_ATTENTION_V1_BWD, (q, k, v, dout), h, h * d, n)
+    _check_v1_bias(WINDOW_ATTENTION_V1_BWD, bias, q)
+    _check_bwd_shape(WINDOW_ATTENTION_V1_BWD, n)
+    lib = build.load_library()
+    _check_smem(WINDOW_ATTENTION_V1_BWD, lib.edrl_attention_bwd_smem_bytes(n, d, 1), n)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dbias = torch.empty_like(bias)
+    if q.numel() == 0:
+        return dq, dk, dv, dbias.zero_()
+    route = attention_bwd_route(q.dtype, n, d)
+    q, k, v, bias, dout = _aligned_operands(route, (q, k, v, bias, dout))
+    stats = torch.empty((3, b * w * h * n), dtype=torch.float32, device=q.device)
+    slots = _dq_blocks_per_sm(lib, q.device, q.dtype, n, d) * build.sm_count(q.device)
+    per_block, chunks = dbias_chunking(b, w * h * -(-n // _BWD_QUERY_TILE[route]), slots)
+    partial = dbias if chunks == 1 else torch.empty((chunks, *bias.shape), dtype=torch.float32, device=q.device)
+    strides = attention_strides(n, d, h)
+    _launch_bwd(
+        WINDOW_ATTENTION_V1_BWD, route, lib.edrl_window_attention_bwd, q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), dout.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), partial.data_ptr(), dbias.data_ptr(), stats.data_ptr(),
+        b, w, h, n, d, *strides, *strides, per_block, 1.0, int(q.dtype == torch.bfloat16),
+    )
+    return dq, dk, dv, dbias
 
 
 class _WindowAttentionV1(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias):
-        ctx.save_for_backward(q, k, v, bias)
         if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, bias)
             return window_attention_reference(q, k, v, bias)
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        ctx.save_for_backward(q, k, v, bias)
         if any(ctx.needs_input_grad[:4]):
             _check_bwd_shape(WINDOW_ATTENTION_V1_BWD, q.shape[3])
-        o = window_attention_v2_fwd_kernel(_pack_qkv(q, k, v), bias, q.shape[2], 1.0, name=WINDOW_ATTENTION_V1)
-        return _unpack_heads(o, q.shape[2])
+        return window_attention_v1_fwd_kernel(q, k, v, bias)
 
     @staticmethod
     def backward(ctx, dout):
@@ -538,11 +616,7 @@ class _WindowAttentionV1(torch.autograd.Function):
         dout = _grad_output(dout, q)
         if q.device.type == "cpu":
             return window_attention_bwd_reference(q, k, v, bias, dout)
-        heads = q.shape[2]
-        dqkv, dbias = window_attention_v2_bwd_kernel(
-            _pack_qkv(q, k, v), bias, _pack_heads(dout), heads, 1.0, name=WINDOW_ATTENTION_V1_BWD)
-        dq, dk, dv = (_unpack_heads(t, heads) for t in dqkv.chunk(3, dim=-1))
-        return dq, dk, dv, dbias
+        return window_attention_v1_bwd_kernel(q, k, v, bias, dout)
 
 
 def window_attention_fused(q, k, v, bias):
@@ -551,8 +625,8 @@ def window_attention_fused(q, k, v, bias):
     q, k, v: ``[B, W, H, N, D]``, q pre-scaled by 1/sqrt(D); bias ``[W, H, N,
     N]`` f32, its gradient summed over the batch.  Returns ``[B, W, H, N, D]``
     in q's dtype.  CPU tensors take the plain versions
-    (:func:`window_attention_reference` and its backward); CUDA tensors the B2
-    kernels, through a packed ``[B, W, N, 3C]`` copy of q, k and v.
+    (:func:`window_attention_reference` and its backward); CUDA tensors the v1
+    kernels, which read and write this layout in place.
     """
     if q.dim() != 5 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must share a [B, W, H, N, D] shape, got {q.shape}, {k.shape}, {v.shape}")

@@ -224,17 +224,64 @@ def test_v1_gradients_match_pallas_vjp(v1_case):
         assert torch.equal(leaf.grad, p)
 
 
+def _pack_qkv(q, k, v):
+    """q, k, v ``[B, W, H, N, D]`` -> qkv ``[B, W, N, 3C]``, columns [q heads | k heads | v heads]."""
+    b, w, h, n, d = q.shape
+    return torch.stack((q, k, v), dim=2).permute(0, 1, 4, 2, 3, 5).reshape(b, w, n, 3 * h * d)
+
+
+def _pack_heads(x):
+    """``[B, W, H, N, D]`` -> ``[B, W, N, H * D]``."""
+    b, w, h, n, d = x.shape
+    return x.transpose(2, 3).reshape(b, w, n, h * d)
+
+
+def _unpack_heads(x, num_heads: int):
+    """``[B, W, N, C]`` -> contiguous ``[B, W, H, N, C / H]``."""
+    b, w, n, c = x.shape
+    return x.view(b, w, n, num_heads, c // num_heads).transpose(2, 3).contiguous()
+
+
 def test_v1_is_b2_through_the_packed_layout(v1_case):
     """Packing q, k, v into B2's [B, W, N, 3C] and running B2 with scale 1 is
-    v1, forward and backward: what the adapter does on the card."""
+    v1, forward and backward: the v1 kernels run B2's device code on v1's
+    own layout."""
     q, k, v, bias, do = map(_t, v1_case)
-    qkv = wa._pack_qkv(q, k, v)
+    qkv = _pack_qkv(q, k, v)
     o = wa.window_attention_v2_reference(qkv, bias, 2, 1.0)
-    torch.testing.assert_close(wa._unpack_heads(o, 2), wa.window_attention_reference(q, k, v, bias))
-    dqkv, dbias = wa.window_attention_v2_bwd_reference(qkv, bias, wa._pack_heads(do), 2, 1.0)
+    torch.testing.assert_close(_unpack_heads(o, 2), wa.window_attention_reference(q, k, v, bias))
+    dqkv, dbias = wa.window_attention_v2_bwd_reference(qkv, bias, _pack_heads(do), 2, 1.0)
     want = wa.window_attention_bwd_reference(q, k, v, bias, do)
-    for got, w in zip((*(wa._unpack_heads(t, 2) for t in dqkv.chunk(3, dim=-1)), dbias), want):
+    for got, w in zip((*(_unpack_heads(t, 2) for t in dqkv.chunk(3, dim=-1)), dbias), want):
         torch.testing.assert_close(got, w)
+
+
+@pytest.mark.parametrize("b,w,h,n,d", [(2, 3, 2, 16, 8), (32, 64, 1, 144, 128), (32, 1, 8, 144, 128),
+                                       (3, 2, 5, 17, 24)])
+def test_v1_launch_strides_are_the_layouts(b, w, h, n, d):
+    """The (group, head, row) strides the v1 launches pass are those of a
+    contiguous [B, W, H, N, D] tensor, a group being one (batch, window)."""
+    x = torch.empty((b, w, h, n, d), device="meta")
+    sb, sw, sh, sn, sd = x.stride()
+    assert sd == 1 and sb == w * sw
+    assert wa.attention_strides(n, d, h) == (sw, sh, sn)
+
+
+@pytest.mark.parametrize("b,w,h,n,d", [(2, 3, 2, 16, 8), (32, 64, 1, 144, 128), (32, 4, 4, 144, 128),
+                                       (3, 2, 5, 17, 24)])
+def test_packed_launch_strides_are_b2s(b, w, h, n, d):
+    """With head stride D, the same function gives B2's packed qkv [B, W, N,
+    3C] (q, k and v each a [B, W, N, H, D] view of it) and its [B, W, N, C]
+    output: the strides B2's launches pass to the window attention entry
+    points."""
+    c = h * d
+    qkv = torch.empty((b, w, n, 3 * c), device="meta")
+    for part in qkv.view(b, w, n, 3, h, d).unbind(3):
+        sb, sw, sn, sh, sd = part.stride()
+        assert sd == 1 and sb == w * sw
+        assert wa.attention_strides(n, d, h, 3 * c) == (sw, sh, sn)
+    sb, sw, sn, sh, sd = torch.empty((b, w, n, c), device="meta").view(b, w, n, h, d).stride()
+    assert wa.attention_strides(n, d, h, c) == (sw, sh, sn)
 
 
 def test_v1_refuses_shapes_and_devices(v1_case):

@@ -6,21 +6,24 @@ imports no JAX, so it also runs on a card machine that has none:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
 Shapes: the main-path ones, plus odd ones that take the CUDA-core kernel in
-bf16 (head_dim 8 or 24, N above 224) and ragged tails.  B6 (the fused attention sublayer) and the
-v1 adapter are held at the bars of the backwards below, forward and
-backward.  Tolerances: forwards bf16 atol 3e-2, f32
+bf16 (head_dim 8 or 24, N above 224) and ragged tails.  B6 (the fused attention sublayer) and v1
+(window attention in its own [B, W, H, N, D] layout) are held at the bars
+of the backwards below, forward and backward.  Tolerances: forwards bf16 atol 3e-2, f32
 atol 1e-4.  Backwards, relative to the largest magnitude of the plain
 version's result (gradients scale with their inputs): 1e-2 for bf16
 results (one bf16 rounding is 2^-8), 1e-4 for f32 results, dbias included.
-MK-MMD: rtol 1e-4 (``tests/test_kernels.py``'s bar).
+MK-MMD: the value rtol 1e-4 (``tests/test_kernels.py``'s bar), the
+gradients 1e-4 of their largest magnitude against the closed-form plain
+backward (``ops.mmd.mk_mmd_bwd_reference``).
 """
 
 import pytest
 import torch
 
+from edrl_tpu_torch.kernels import build
 from edrl_tpu_torch.kernels import mmd as kmmd
 from edrl_tpu_torch.kernels import window_attention as wa
-from edrl_tpu_torch.ops.mmd import mk_mmd
+from edrl_tpu_torch.ops.mmd import mk_mmd, mk_mmd_bwd_reference, mk_mmd_grad_d2
 
 
 @pytest.fixture
@@ -233,7 +236,37 @@ def test_mmd_kernel_matches_plain(cuda, n_s, n_t, d):
     got = kmmd.mk_mmd_kernel(src, tgt)
     want = mk_mmd(src, tgt)
     assert kmmd.LAUNCHES[kmmd.MK_MMD] == 1
+    route = kmmd.mk_mmd_route(n_s + n_t)
+    assert kmmd.MMD_ROUTES == {r: int(r == route) for r in kmmd.MMD_ROUTES}
+    assert build.load_library().edrl_mk_mmd_route(n_s + n_t) == int(route == "cluster")
     assert abs(got.item() - want.item()) <= 1e-4 * abs(want.item()) + 1e-7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_s,n_t,d", [(32, 32, 3072), (3, 5, 7), (1, 1, 130), (40, 24, 200), (70, 50, 129)])
+def test_mmd_kernels_forward_and_backward_match_plain(cuda, n_s, n_t, d):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    src = torch.randn((n_s, d), generator=gen, device=cuda)
+    tgt = torch.randn((n_t, d), generator=gen, device=cuda) * 1.1 + 0.05
+    if n_s > 2:
+        src[2] = src[1]  # an exact-0 distance off the diagonal
+    grad = torch.tensor(0.7, device=cuda)
+    kmmd.reset_launch_counts()
+    value, state = kmmd.mk_mmd_fwd_kernel(src, tgt)
+    grads = kmmd.mk_mmd_bwd_kernel(src, tgt, state, grad)
+    assert kmmd.LAUNCHES == {kmmd.MK_MMD: 1, kmmd.MK_MMD_BWD: 1}
+    want = mk_mmd(src, tgt)
+    assert abs(value.item() - want.item()) <= 1e-4 * abs(want.item()) + 1e-7
+    plain = mk_mmd_bwd_reference(src, tgt, grad)
+    scale = max(p.abs().max().item() for p in plain)
+    if n_s + n_t == 2:  # the gradient is 0 but for rounding: held to the direct term's
+        _, total, direct = mk_mmd_grad_d2(src, tgt)
+        scale = 2 * grad.item() * (direct + direct.T).abs().sum(dim=1).max().item() * total.abs().max().item()
+    for g, p in zip(grads, plain):
+        assert g.dtype == torch.float32 and (g - p).abs().max().item() <= 1e-4 * scale
+    again = kmmd.mk_mmd_fwd_kernel(src, tgt)
+    assert torch.equal(again[0], value) and torch.equal(again[1], state)
+    assert all(torch.equal(a, g) for a, g in zip(kmmd.mk_mmd_bwd_kernel(src, tgt, state, grad), grads))
 
 
 @pytest.mark.cuda
@@ -241,7 +274,9 @@ def test_mmd_fused_grad_is_the_plain_paths(cuda):
     gen = torch.Generator(device=cuda).manual_seed(5)
     src = torch.randn((8, 64), generator=gen, device=cuda, requires_grad=True)
     tgt = torch.randn((8, 64), generator=gen, device=cuda, requires_grad=True)
+    kmmd.reset_launch_counts()
     kmmd.mk_mmd_fused(src, tgt).backward()
+    assert kmmd.LAUNCHES == {kmmd.MK_MMD: 1, kmmd.MK_MMD_BWD: 1}
     s2, t2 = src.detach().clone().requires_grad_(), tgt.detach().clone().requires_grad_()
     mk_mmd(s2, t2).backward()
     assert torch.allclose(src.grad, s2.grad, rtol=1e-4, atol=1e-7)
@@ -660,6 +695,27 @@ def test_v1_adapter_matches_plain(cuda, dtype, b, w, h, n, d):
     want = wa.window_attention_bwd_reference(q, k, v, bias, do)
     for leaf, w_, bar in zip(leaves, want, (_bwd_bar(dtype),) * 3 + (1e-4,)):
         assert leaf.grad.dtype == w_.dtype and _rel_err(leaf.grad, w_) <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,w,h,n,d", [(32, 16, 2, 144, 128), (3, 2, 3, 17, 24), (2, 3, 2, 225, 32)])
+def test_v1_kernels_match_plain_and_repeat_bit_for_bit(cuda, dtype, b, w, h, n, d):
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    q, k, v, do = (torch.randn((b, w, h, n, d), generator=gen, device=cuda).to(dtype) for _ in range(4))
+    bias = torch.randn((w, h, n, n), generator=gen, device=cuda)
+    bias[..., 1::3] = -1e9
+    route = wa.attention_fwd_route(dtype, n, d)
+    wa.reset_launch_counts()
+    out = wa.window_attention_v1_fwd_kernel(q, k, v, bias)
+    grads = wa.window_attention_v1_bwd_kernel(q, k, v, bias, do)
+    assert wa.FWD_ROUTES[route] == 1 and wa.BWD_ROUTES[wa.attention_bwd_route(dtype, n, d)] == 1
+    assert _rel_err(out, wa.window_attention_reference(q, k, v, bias)) <= _bwd_bar(dtype)
+    want = wa.window_attention_bwd_reference(q, k, v, bias, do)
+    for g, w_, bar in zip(grads, want, (_bwd_bar(dtype),) * 3 + (1e-4,)):
+        assert g.dtype == w_.dtype and _rel_err(g, w_) <= bar
+    again = wa.window_attention_v1_bwd_kernel(q, k, v, bias, do)
+    assert all(torch.equal(a, g) for a, g in zip(again, grads))
 
 
 # The wgmma route of B6 (bf16): the forward's products and the backward's

@@ -1,10 +1,13 @@
 """The port stands on PyTorch alone, and fails loudly where it cannot run."""
 
 import ast
+import ctypes
 import dataclasses
 import inspect
+import re
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -123,3 +126,52 @@ def test_source_hash_names_the_library():
         "mmd_fwd.cu", "mma_common.cuh", "layer_norm.cuh", "layer_norm_fwd.cu", "layer_norm_bwd.cu",
         "fused_mlp.cuh", "fused_mlp_fwd.cu", "fused_mlp_bwd.cu",
     }
+
+
+_ENTRY = re.compile(r'extern "C"\s+(int|long long)\s+(\w+)\s*\(([^)]*)\)\s*\{')
+_CTYPE = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}
+
+
+def _c_entry_points(path: Path) -> dict:
+    """``{name: (restype, argtypes)}`` of the ``extern "C"`` functions in a
+    CUDA source, as ctypes types: a pointer parameter is ``c_void_p``."""
+    found = {}
+    for ret, name, params in _ENTRY.findall(path.read_text()):
+        args = []
+        for param in filter(None, (p.strip() for p in params.split(","))):
+            decl = param.rsplit(None, 1)[0] if "*" not in param else "*"
+            args.append(ctypes.c_void_p if "*" in decl else _CTYPE[decl.replace("const ", "")])
+        found[name] = (_CTYPE[ret], args)
+    return found
+
+
+class _RecordingLibrary:
+    """Stands in for the built library: records what ``build._bind`` sets."""
+
+    def __init__(self):
+        self.fns = {}
+
+    def __getattr__(self, name):
+        return self.fns.setdefault(name, types.SimpleNamespace())
+
+
+@pytest.mark.parametrize("source", sorted(p.name for p in build.CSRC.glob("*.cu")))
+def test_entry_point_signatures_match_the_sources(source):
+    """Every entry point a CUDA source exports is bound in build.py with its
+    C parameters' ctypes types, in order: a mismatch would pass wrong
+    arguments on the card, where no compiler sees both."""
+    bound = build._bind(_RecordingLibrary()).fns
+    entries = _c_entry_points(build.CSRC / source)
+    assert entries, f"{source} exports no entry point"
+    for name, (restype, argtypes) in entries.items():
+        assert name in bound, f"{name} ({source}) is not bound in build.py"
+        assert bound[name].restype is restype, name
+        assert list(bound[name].argtypes) == argtypes, name
+
+
+def test_every_bound_entry_point_is_in_a_source():
+    bound = build._bind(_RecordingLibrary()).fns
+    exported = {}
+    for path in build.CSRC.glob("*.cu"):
+        exported.update(_c_entry_points(path))
+    assert set(bound) == set(exported)

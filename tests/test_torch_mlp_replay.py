@@ -94,3 +94,88 @@ def test_mlp_replay_refuses_without_a_card():
         pytest.skip("a card is present")
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         mr.main([])
+
+
+class _Pick(torch.nn.Module):
+    """Twice the two largest values of each row (a top-k, as EPRL's)."""
+
+    def forward(self, x):
+        return x.topk(2, dim=1).values * 2.0
+
+
+def _traced_step(x):
+    model = torch.nn.Sequential(torch.nn.Identity(), _Pick())
+    leaf = torch.tensor(x, requires_grad=True)
+    records = []
+    with mr.traced(model, records):
+        model(leaf).sum().backward()
+    return records
+
+
+def test_traced_steps_that_agree_show_no_divergence():
+    row = [[3.0, 2.0, 2.0 + 1e-5, 0.0], [1.0, -1.0, 0.5, 0.25]]
+    topk = torch.Tensor.topk
+    dv = mr.first_divergence(_traced_step(row), _traced_step(row))
+    assert torch.Tensor.topk is topk
+    assert dv["forward"] is None and dv["backward"] is None
+    assert [(k, rows) for k, rows, _, _ in dv["topk"]] == [(0, 0)]
+
+
+def test_a_near_tie_in_topk_is_named():
+    """Two values 1e-5 apart trade places between the two steps: the forward
+    agrees (the picked values are the same), the gradient reaching the
+    top-k's input does not, and the top-k's rows and margin say why."""
+    card = _traced_step([[3.0, 2.0, 2.0 + 1e-5, 0.0]])
+    cpu = _traced_step([[3.0, 2.0 + 1e-5, 2.0, 0.0]])
+    dv = mr.first_divergence(card, cpu)
+    assert dv["forward"] is None
+    name, call, err, before = dv["backward"]
+    assert (name, call) == ("0[0]", 0) and err > 0.5 and before == 0.0
+    assert dv["largest"] == dv["backward"][:3]
+    (k, rows, margin_there, margin), = dv["topk"]
+    assert (k, rows) == (0, 1) and 0 < margin_there <= 2e-5 and margin == margin_there
+
+
+class _Kink(torch.nn.Module):
+    """A Dense layer, then a ReLU outside any module (as DILR's attention)."""
+
+    def __init__(self):
+        super().__init__()
+        self.dense = torch.nn.Linear(3, 3)
+        with torch.no_grad():
+            self.dense.weight.copy_(torch.eye(3))
+            self.dense.bias.zero_()
+
+    def forward(self, x):
+        return (torch.relu(self.dense(x)) * torch.tensor([1.0, 5.0, 1.0])).sum()
+
+
+def _kink_step(x):
+    model = _Kink()
+    records = []
+    with mr.traced(model, records):
+        model(torch.tensor(x, requires_grad=True)).backward()
+    return records
+
+
+def test_a_relu_kink_is_named_with_its_sign_flips():
+    """A pre-activation 1e-7 either side of 0: the forward agrees, the
+    gradient at the Dense layer's output does not, and the one element of
+    another sign is counted."""
+    dv = mr.first_divergence(_kink_step([1.0, 1e-7, 2.0]), _kink_step([1.0, -1e-7, 2.0]))
+    assert dv["forward"] is None
+    assert dv["backward"][:2] == ("dense[0]", 0) and dv["backward"][2] > 0.5
+    count, largest = dv["kinks"]
+    assert count == 1 and largest == pytest.approx(1e-7)
+
+
+def test_traced_records_are_copies():
+    """A recorded CPU tensor keeps its value when the step later changes the
+    tensor in place (as Adam changes a parameter that a module returns)."""
+    model = torch.nn.Sequential(torch.nn.Identity())
+    x = torch.ones(3)
+    records = []
+    with mr.traced(model, records):
+        model(x)
+    x.add_(1.0)
+    assert torch.equal(records[0][4][0], torch.ones(3))

@@ -142,7 +142,7 @@ def test_mk_mmd_fused_cpu_counts_no_launch(rng):
     kmmd.reset_launch_counts()
     src, tgt = _features(rng)
     kmmd.mk_mmd_fused(_t(src), _t(tgt))
-    assert kmmd.LAUNCHES == {kmmd.MK_MMD: 0}
+    assert kmmd.LAUNCHES == {kmmd.MK_MMD: 0, kmmd.MK_MMD_BWD: 0}
 
 
 def test_mk_mmd_kernel_needs_cuda(rng):

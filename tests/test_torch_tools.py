@@ -6,10 +6,12 @@ import pytest
 import torch
 
 from edrl_tpu_torch.config import EDRLConfig
+from edrl_tpu_torch.kernels import window_attention as wa
 from edrl_tpu_torch.tools import profile_layer_norm as pln
 from edrl_tpu_torch.tools import profile_sublayer as psl
 from edrl_tpu_torch.tools import sublayer_dbias as sd
 from edrl_tpu_torch.tools import profile_train_step as pts
+from edrl_tpu_torch.tools import profile_v1_mmd as pv
 
 
 @pytest.mark.parametrize("spans,want", [
@@ -230,3 +232,33 @@ def test_layer_norm_profile_refuses_without_a_card():
         pytest.skip("this machine has a CUDA card")
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         pln.main()
+
+
+def test_v1_mmd_profile_shapes_of_the_train_step():
+    """v1 at the four Swin stages of a batch-32 step (one window of 144
+    tokens, heads of 128), B3 over two [32, 3072] feature batches."""
+    cfg = EDRLConfig()
+    assert pv.v1_shapes(cfg) == [(32, 64, 1, 144, 128), (32, 16, 2, 144, 128), (32, 4, 4, 144, 128),
+                                 (32, 1, 8, 144, 128)]
+    assert pv.mmd_shape(cfg) == (32, 3072)
+
+
+def test_v1_mmd_profile_steps_are_v1s_and_sdpas_on_the_cpu():
+    """The timed calls compute v1's forward and backward (the plain versions
+    on the CPU) and SDPA's on the same tensors, the bias as a mask."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, bias, do = pv.v1_inputs((2, 3, 2, 16, 8), gen)
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    want = wa.window_attention_bwd_reference(q, k, v, bias, do)
+    for got, w in zip(pv.v1_step(q, k, v, bias, do), want):
+        torch.testing.assert_close(got, w)
+    sdpa = pv.sdpa_step(q, k, v, bias, do)
+    for got, w in zip(sdpa[:3], want[:3]):
+        torch.testing.assert_close(got.reshape(w.shape), w, atol=1e-5, rtol=1e-4)
+
+
+def test_v1_mmd_profile_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        pv.main()
