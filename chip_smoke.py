@@ -184,6 +184,25 @@ residual LayerNorm backward:
     on the tensor cores), device-only (CUDA graphs) beside runs of 10 and the
     host enqueue, against its plain version, SDPA and its bound.
 
+Then the system's own entry points, in the shipped config:
+
+23. ``python -m edrl_tpu_torch.cli.train`` in this process (``main``): 2
+    epochs at batch 16 over 48 synthetic samples, clean uint8 batches from
+    the host loader, augmented and corrupted on the card in each step
+    (device noise on, the CLI's default), checkpoints and logs in a
+    temporary directory that the phase removes.  Checked: each epoch's Train
+    and Val lines with finite losses, the CSV rows, a ``best`` checkpoint,
+    the Test line, the 10-metric uncertainty suite and the fundus-only and
+    oct-only lines; the model's inputs and parameters on the card; B1's and
+    B2's launches (24 a step forward and backward, 12 an eval batch forward,
+    every one on the tensor-core route) and no other kernel's.  Then
+    ``cli.test`` on that ``best``: the same four lines as the train&test
+    block.  Then the step's input stage on the card against the CPU at
+    batch 16 with the same draws (atol 1e-6).  Printed: train pairs/s per
+    epoch, the host's wait on the loader per batch and its share of the
+    epoch, the seconds of each checkpoint save and restore, the input
+    stage's ms per batch and the kernels it launches.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX
 and nothing of the JAX package.
@@ -2095,6 +2114,212 @@ def main() -> None:
     print(f"{V1} per batch-{bt} step (one forward and backward per Swin stage), ms: "
           + ", ".join(f"{k} {v:.3f}" for k, v in v1_step_ms.items()) + f" [{card}]", flush=True)
     del v1_cases
+    torch.cuda.empty_cache()
+
+    # -- 23. the train and test CLIs at full width ------------------------------
+    # `python -m edrl_tpu_torch.cli.train` in the shipped config on clean uint8
+    # synthetic batches, augmented and corrupted on the card, then
+    # `cli.test` on its `best` checkpoint; checkpoints and logs in a temporary
+    # directory removed afterwards.
+    import io
+    import shutil
+    import tempfile
+
+    from edrl_tpu_torch.cli import test as test_cli
+    from edrl_tpu_torch.cli import train as train_cli
+    from edrl_tpu_torch.data import device_augment as dag
+    from edrl_tpu_torch.data import device_noise as dno
+    from edrl_tpu_torch.models.medfusion import MedFusion
+    from edrl_tpu_torch.train.checkpoint import CheckpointManager
+
+    cli_bt, cli_samples, cli_epochs = 16, 48, 2
+    cli_steps = cli_epochs * (cli_samples // cli_bt)
+    cli_val = -(-cli_samples // cfg.data.eval_batch_size)
+    cli_dir = Path(tempfile.mkdtemp(prefix="edrl_cli_"))
+
+    class TimedLoader:
+        """A loader whose epochs record the host's wait for each batch."""
+
+        def __init__(self, loader):
+            self.loader, self.waits = loader, collections.defaultdict(list)
+
+        def __len__(self):
+            return len(self.loader)
+
+        def epoch(self, epoch):
+            it = self.loader.epoch(epoch)
+            while True:
+                t = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                self.waits[epoch].append(time.perf_counter() - t)
+                yield batch
+
+    class Tee(io.StringIO):
+        def write(self, s):
+            sys.__stdout__.write(s)
+            return super().write(s)
+
+    timed = {}
+    real_make_loaders = train_cli.make_loaders
+
+    def make_timed_loaders(c):
+        tl, vl = real_make_loaders(c)
+        timed["train"] = TimedLoader(tl)
+        return timed["train"], vl
+
+    ckpt_s = collections.defaultdict(list)
+    real_save_best, real_restore = CheckpointManager.save_best, CheckpointManager.restore
+
+    def timed_method(name, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            ckpt_s[name].append(time.perf_counter() - t)
+            return out
+        return call
+
+    seen = collections.defaultdict(set)
+
+    def medfusion_inputs(module, inputs):
+        if isinstance(module, MedFusion):
+            seen["inputs"].update(str(x.device) for x in inputs[:2])
+            seen["dtypes"].update(str(x.dtype) for x in inputs[:2])
+            seen["params"].update(str(p.device) for p in module.parameters())
+
+    cli_args = ["--dataset", "synthetic", "--batch_size", str(cli_bt), "--synthetic_samples", str(cli_samples),
+                "--end_epochs", str(cli_epochs), "--plot_dir", "", "--checkpoint_dir", str(cli_dir / "ckpt"),
+                "--log_dir", str(cli_dir / "log"), "--name", "smoke"]
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(medfusion_inputs)
+    train_cli.make_loaders = make_timed_loaders
+    CheckpointManager.save_best = timed_method("save", real_save_best)
+    CheckpointManager.restore = timed_method("restore", real_restore)
+    try:
+        out_buf = Tee()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out_buf):
+            train_cli.main(cli_args)
+        torch.cuda.synchronize()
+        cli_wall = time.perf_counter() - t0
+        cli_launches, cli_fwd, cli_bwd = counts(), dict(wa.FWD_ROUTES), dict(wa.BWD_ROUTES)
+        train_cli.make_loaders = real_make_loaders
+        reset_counts()
+        t0 = time.perf_counter()
+        test_cli.main(cli_args + ["--checkpoint", str(cli_dir / "ckpt" / "synthetic_0.5_smoke" / "best")])
+        torch.cuda.synchronize()
+        test_wall = time.perf_counter() - t0
+        test_launches = counts()
+        train_log = (cli_dir / "log" / "synthetic_smoke_train.log").read_text()
+        test_log = (cli_dir / "log" / "synthetic_smoke_test.log").read_text()
+        has_best = (cli_dir / "ckpt" / "synthetic_0.5_smoke" / "best").is_dir()
+        csv_rows = (cli_dir / "log" / "synthetic_0.5_smoke.csv").read_text().splitlines()
+    finally:
+        hook.remove()
+        train_cli.make_loaders = real_make_loaders
+        CheckpointManager.save_best, CheckpointManager.restore = real_save_best, real_restore
+        shutil.rmtree(cli_dir, ignore_errors=True)
+    printed = out_buf.getvalue().splitlines()
+    print(f"CLI train&test: {cli_wall:.1f} s, cli.test: {test_wall:.1f} s; model inputs on {sorted(seen['inputs'])} "
+          f"({sorted(seen['dtypes'])}), parameters on {sorted(seen['params'])} [{card}]", flush=True)
+    check(seen["inputs"] == {"cuda:0"} and seen["params"] == {"cuda:0"}, f"CLI devices {dict(seen)}")
+    check(not cli_dir.exists(), "the CLI's temporary directory is removed")
+    pairs_s = {}
+    for epoch in range(1, cli_epochs + 1):
+        tl = [line for line in printed if line.startswith(f"Train Epoch: {epoch} ")]
+        vl = [line for line in printed if line.startswith(f"Val   Epoch: {epoch} ")]
+        check(len(tl) == 1 and len(vl) == 1, f"epoch {epoch}: Train and Val lines {tl} {vl}")
+        for line in (tl[0], vl[0]):
+            loss = float(line.split("Loss: ")[1].split()[0])
+            check(np.isfinite(loss), f"CLI loss: {line}")
+        pairs_s[epoch] = float(tl[0].rsplit("(", 1)[1].split(" pairs/s")[0])
+    check(len(csv_rows) == 1 + cli_epochs, f"CLI CSV rows {csv_rows}")
+    check(has_best and "Best val accuracy" in train_log, "CLI saved a best checkpoint")
+
+    def test_block(log):
+        keys = ("Test: Acc", "Uncertainty suite: ", "Missing-modality [fundus-only]", "Missing-modality [oct-only]")
+        lines = [line.split("===> ", 1)[1] for line in log.splitlines() if any(k in line for k in keys)]
+        check(len(lines) == 4, f"test block lines {lines}")
+        # The dict the CLI printed, with its floats rounded.
+        suite = eval(lines[1].split("Uncertainty suite: ", 1)[1], {"nan": float("nan")})
+        check(len(suite) == 10 and all(np.isfinite(v) for v in suite.values()), f"uncertainty suite {suite}")
+        return lines
+
+    tt_block, test_block_lines = test_block(train_log), test_block(test_log)
+    for line in tt_block:
+        print(f"  train&test: {line}", flush=True)
+    check(tt_block == test_block_lines, f"cli.test on best {test_block_lines} vs the train&test block {tt_block}")
+    print("  cli.test on best prints the same Test, uncertainty and missing-modality lines", flush=True)
+    want = {name: 0 for name in cli_launches}
+    want.update({SA: 24 * cli_steps + 12 * 5 * cli_val, V2: 24 * cli_steps + 12 * 5 * cli_val,
+                 SA_BWD: 24 * cli_steps, V2_BWD: 24 * cli_steps})
+    print(f"CLI train&test launches ({cli_steps} steps, {5 * cli_val} eval batches): {cli_launches} "
+          f"(expected {want})", flush=True)
+    check(cli_launches == want, f"CLI launches {cli_launches}, expected {want}")
+    check_routes("CLI train&test", cli_bwd, 2 * want[SA_BWD])
+    check_routes("CLI train&test", cli_fwd, 2 * want[SA], "forward")
+    want_test = {name: 0 for name in test_launches}
+    want_test.update({SA: 12 * 3 * cli_val, V2: 12 * 3 * cli_val})
+    check(test_launches == want_test, f"cli.test launches {test_launches}, expected {want_test}")
+    waits = timed["train"].waits
+    for epoch in range(1, cli_epochs + 1):
+        epoch_s = (cli_samples // cli_bt) * cli_bt / pairs_s[epoch]
+        w = waits[epoch]
+        print(f"CLI epoch {epoch}: {pairs_s[epoch]:.2f} train pairs/s; host wait on the loader "
+              f"{1000 * sum(w) / len(w):.2f} ms per batch (first {1000 * w[0]:.2f}), {100 * sum(w) / epoch_s:.1f}% of "
+              f"the epoch's {epoch_s:.3f} s [{card}]", flush=True)
+    print(f"checkpoint save (best, {len(ckpt_s['save'])}x): " + ", ".join(f"{s:.2f}" for s in ckpt_s["save"])
+          + " s; restore: " + ", ".join(f"{s:.2f}" for s in ckpt_s["restore"]) + f" s [{card}]", flush=True)
+
+    # The input stage of a step (dequantize, augmentation, both noise views)
+    # on the card against the CPU with the same draws, at the CLI's batch.
+    rng = np.random.default_rng(5)
+    d = cfg.data
+    clean = {"fundus": rng.integers(0, 256, (cli_bt, d.fundus_size, d.fundus_size, 3), dtype=np.uint8),
+             "oct": rng.integers(0, 256, (cli_bt, *d.oct_size, 1), dtype=np.uint8),
+             "label": rng.integers(0, 2, cli_bt).astype(np.int32)}
+    gen_cpu = torch.Generator().manual_seed(6)
+    in_draws = {"fundus_augment": dag.draw_fundus_augment(cli_bt, gen_cpu, "cpu", d.color_jitter_strength),
+                "oct_augment": dag.draw_oct_augment(cli_bt, gen_cpu, "cpu"),
+                "views": dno.draw_views((cli_bt, d.fundus_size, d.fundus_size, 3), (cli_bt, *d.oct_size, 1),
+                                        d.noise, gen_cpu, "cpu")}
+
+    def to_card(m):
+        return {k: (to_card(v) if isinstance(v, dict) else v.to(dev)) for k, v in m.items()}
+
+    cpu_views = trainer.train_views(clean, cfg, "cpu", None, in_draws)
+    card_clean = trainer.to_device(clean, dev)
+    card_draws = to_card(in_draws)
+    card_views = trainer.train_views(card_clean, cfg, dev, None, card_draws)
+    view_err = max((card_views[k].cpu() - cpu_views[k]).abs().max().item() for k in trainer.VIEW_KEYS)
+    print(f"input stage, card vs CPU on the same draws, batch {cli_bt}: max abs err {view_err:.3e} (atol 1e-6)",
+          flush=True)
+    check(view_err <= 1e-6 and all(card_views[k].dtype == torch.float32 for k in trainer.VIEW_KEYS),
+          f"input stage card vs CPU {view_err}")
+    del cpu_views, card_views
+    gen_in = seeded(7)
+    stage = lambda: trainer.train_views(card_clean, cfg, dev, gen_in)  # noqa: E731
+    stage_ms = runs_ms(stage)
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            stage()
+            torch.cuda.synchronize()
+        device_events = [e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+        if device_events:
+            break
+    stage_kernels = [e for e in device_events if "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    stage_dev_ms = sum(e.time_range.elapsed_us() for e in stage_kernels) / 1000.0
+    print(f"input stage per batch of {cli_bt} (dequantize, augmentation, two noise views; device noise on): "
+          f"{stage_ms:.3f} ms (runs of 10), device busy {stage_dev_ms:.3f} ms over {len(stage_kernels)} kernels "
+          f"(torch.profiler) [{card}]", flush=True)
+    check(len(stage_kernels) > 0, "the input stage launched no kernel")
+    del card_clean, card_draws
     torch.cuda.empty_cache()
 
     kernels = []

@@ -8,7 +8,13 @@ Ported so far:
 - the serving forward, ``serve.predictor.Predictor`` ->
   ``models.medfusion.MedFusion`` in eval mode;
 - the dual-view train step, ``train.trainer.make_train_step``: two train-mode
-  forwards, MK-MMD, the backward and Adam with warmup.
+  forwards, MK-MMD, the backward and Adam with warmup, from clean batches
+  augmented and corrupted on the device (``data.device_augment``,
+  ``data.device_noise``) or from ready-made views;
+- the system's entry points, ``cli.train`` and ``cli.test``: the synthetic
+  datasets and the host loader (``data``), ``train.trainer.fit`` (per-epoch
+  train and val, the plateau schedule, resume), metrics, CSV logs and
+  checkpoints (``train.metrics``, ``train.logging``, ``train.checkpoint``).
 
 The ViT-3D and Swin attention (forward and backward) and the fused MK-MMD
 forward run on hand-written CUDA kernels (``kernels/csrc``).

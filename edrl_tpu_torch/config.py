@@ -3,8 +3,9 @@
 A copy of ``edrl_tpu/config.py``: the same classes, field names and
 defaults, so that a config written for the JAX package means the same here.
 ``tests/test_torch_hermetic.py`` holds the two copies equal.  Fields that
-only the JAX package reads (its parallelism, checkpoint, plotting and
-TPU-dispatch knobs) are kept so that the copies stay interchangeable.
+only the JAX package reads (its parallelism and TPU-dispatch knobs, which
+the port refuses by ROADMAP item where they ask for what it has not got) are
+kept so that the copies stay interchangeable.
 """
 
 from __future__ import annotations

@@ -1,1 +1,2 @@
-"""Pieces of the JAX trainer that the serving slice needs."""
+"""The trainer and evaluator (``edrl_tpu.train`` counterparts): the train and
+eval steps and the fit loop, metrics, logging, checkpoints and plots."""

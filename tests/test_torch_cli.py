@@ -1,0 +1,167 @@
+"""The port's train and test CLIs on the CPU, at the tiny config.
+
+The parser is held to the JAX package's (the same dests and defaults, plus
+``--device``).  ``cli.train.main`` and ``cli.test.main`` run end to end with
+the model and input sizes of ``tiny_test_config`` (``config_from_args`` is
+patched; every other setting is the CLI's), and ``cli.test`` on the saved
+``best`` must print the train&test run's test block.  What the port has not
+got refuses by ROADMAP item before any work is done.
+"""
+
+import builtins
+import dataclasses
+import inspect
+import os
+
+import pytest
+import torch
+
+from edrl_tpu.cli import train as jcli
+from edrl_tpu_torch import config as tconfig
+from edrl_tpu_torch.cli import test as test_cli
+from edrl_tpu_torch.cli import train as train_cli
+
+TEST_BLOCK = ("Test: Acc", "Uncertainty suite: ", "Missing-modality [fundus-only]", "Missing-modality [oct-only]")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port's CPU work here: the tiny config's ops
+    are small, and the test workers share the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_parser_matches_the_jax_cli():
+    ours = {a.dest: a.default for a in train_cli.build_parser()._actions}
+    theirs = {a.dest: a.default for a in jcli.build_parser()._actions}
+    assert ours.pop("device") == "cuda"
+    assert ours == theirs
+
+
+@pytest.mark.parametrize("argv", [[], ["--dataset", "synthetic_fusion", "--condition_name", "All",
+                                       "--Condition_SP_Variance_low", "0.01", "--host_noise", "--no_bfloat16",
+                                       "--warmup_steps", "0", "--folder", "folder3", "--num_classes", "4"]])
+def test_config_from_args_matches_the_jax_cli(argv):
+    ours = train_cli.config_from_args(train_cli.build_parser().parse_args(argv + ["--device", "cpu"]))
+    theirs = jcli.config_from_args(jcli.build_parser().parse_args(argv))
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+
+
+@pytest.fixture
+def tiny_cli(monkeypatch, tmp_path):
+    """The CLIs at the tiny config's model and input sizes, on the CPU, with
+    checkpoints and logs under ``tmp_path``; returns ``run(module, *args)``."""
+    real = train_cli.config_from_args
+
+    def tiny(args):
+        cfg = real(args)
+        t = tconfig.tiny_test_config(batch_size=cfg.data.batch_size)
+        data = dataclasses.replace(cfg.data, fundus_size=t.data.fundus_size, oct_size=t.data.oct_size)
+        model = dataclasses.replace(t.model, use_bfloat16=cfg.model.use_bfloat16)
+        return cfg.replace(data=data, model=model)
+
+    monkeypatch.setattr(train_cli, "config_from_args", tiny)
+    base = ["--dataset", "synthetic", "--batch_size", "4", "--synthetic_samples", "12", "--plot_dir", "",
+            "--checkpoint_dir", str(tmp_path / "ckpt"), "--log_dir", str(tmp_path / "log"), "--name", "t",
+            "--device", "cpu"]
+
+    def run(module, *args):
+        module.main(base + list(args))
+        phase = "train" if module is train_cli else "test"
+        with open(tmp_path / "log" / f"synthetic_t_{phase}.log") as f:
+            return f.read()
+
+    run.tmp_path = tmp_path
+    return run
+
+
+def _test_block(log):
+    lines = [line.split("===> ", 1)[1] for line in log.splitlines() if any(k in line for k in TEST_BLOCK)]
+    assert len(lines) == 4, lines
+    return lines
+
+
+def test_train_then_test_cli_agree(tiny_cli, capsys):
+    train_log = tiny_cli(train_cli, "--end_epochs", "2")
+    out = capsys.readouterr().out
+    assert out.count("Train Epoch:") == 2 and out.count("Val   Epoch:") == 2
+    ckpt = tiny_cli.tmp_path / "ckpt" / "synthetic_0.5_t"
+    assert (ckpt / "best").is_dir() and (ckpt / "best.json").is_file()
+    with open(tiny_cli.tmp_path / "log" / "synthetic_0.5_t.csv") as f:
+        assert len(f.read().splitlines()) == 3
+    test_log = tiny_cli(test_cli, "--checkpoint", str(ckpt / "best"))
+    assert _test_block(test_log) == _test_block(train_log)
+    suite = _test_block(train_log)[1]
+    assert suite.count(":") == 11  # the label's and the ten metrics'
+
+
+def test_resume_and_host_noise_through_the_cli(tiny_cli, capsys):
+    tiny_cli(train_cli, "--end_epochs", "1", "--save_latest_every", "1", "--host_noise", "--mode", "train")
+    log = tiny_cli(train_cli, "--end_epochs", "2", "--save_latest_every", "1", "--host_noise", "--resume",
+                   "--mode", "train")
+    assert "Resuming from latest (completed epoch 1" in log
+    out = capsys.readouterr().out
+    assert out.count("Train Epoch: 1") == 1 and out.count("Train Epoch: 2") == 1
+    with open(tiny_cli.tmp_path / "log" / "synthetic_0.5_t.csv") as f:
+        assert [line.split(",")[0] for line in f.read().splitlines()] == ["Epoch", "1", "2"]
+
+
+def test_test_epoch_and_missing_checkpoint(tiny_cli):
+    log = tiny_cli(train_cli, "--end_epochs", "2", "--save_every", "2", "--test_epoch", "2")
+    assert "Evaluating checkpoint epoch_2" in log
+    log = tiny_cli(test_cli)
+    assert len(_test_block(log)) == 4
+    log = tiny_cli(train_cli, "--mode", "test", "--checkpoint_dir", str(tiny_cli.tmp_path / "none"))
+    assert "no checkpoint found" in log
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--dataset", "dr2", "--data_path", "/nonexistent"], "A7"),
+    (["--dataset", "glu2"], "A7"),
+    (["--scan_batches", "4"], "A14"),
+    (["--num_model_shards", "2"], "A11"),
+    (["--zero1"], "A11"),
+    (["--model_name", "Multi_ResNet"], "A9"),
+])
+def test_train_cli_refusals_name_their_items(tmp_path, argv, item):
+    args = ["--plot_dir", "", "--device", "cpu", "--checkpoint_dir", str(tmp_path / "c"), "--log_dir",
+            str(tmp_path / "l")]
+    with pytest.raises(NotImplementedError, match=item):
+        train_cli.main(argv + args)
+
+
+@pytest.mark.parametrize("argv", [["--sweep", "gaussian"], ["--mc_samples", "4"]])
+def test_test_cli_refusals_name_a10(argv):
+    with pytest.raises(NotImplementedError, match="A10"):
+        test_cli.main(argv + ["--device", "cpu"])
+
+
+def test_plots_need_matplotlib_before_training(monkeypatch, tmp_path):
+    real_import = builtins.__import__
+
+    def no_matplotlib(name, *args, **kwargs):
+        if name.split(".")[0] == "matplotlib":
+            raise ImportError("No module named 'matplotlib'")
+        return real_import(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", no_matplotlib)
+    with pytest.raises(RuntimeError, match="needs matplotlib"):
+        train_cli.main(["--device", "cpu", "--plot_dir", str(tmp_path / "plots"), "--log_dir", str(tmp_path / "l"),
+                        "--checkpoint_dir", str(tmp_path / "c")])
+    assert not os.path.exists(tmp_path / "l") and not os.path.exists(tmp_path / "c")
+
+
+def test_cli_runs_on_the_card_by_default(tmp_path):
+    from edrl_tpu_torch.train import trainer
+
+    assert train_cli.build_parser().parse_args([]).device == "cuda"
+    for fn in (trainer.fit, trainer.resume_from_latest):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--plot_dir", "", "--log_dir", str(tmp_path / "l"), "--checkpoint_dir", str(tmp_path / "c")])
+    assert not os.path.exists(tmp_path / "l")

@@ -42,20 +42,21 @@ BATCH = 3
 
 
 @contextlib.contextmanager
-def record_jax_draws(rec):
+def record_jax_draws(rec, convert=np.asarray):
     """Record, in call order, what ``jax.random.uniform`` / ``normal`` return
     and the dropout keep masks (drawn here as flax's ``nn.Dropout`` draws
-    them)."""
+    them), each through ``convert``; under ``jax.jit`` pass ``convert=lambda
+    x: x`` and return the record from the traced function."""
     real_uniform, real_normal = jax.random.uniform, jax.random.normal
 
     def uniform(*args, **kwargs):
         out = real_uniform(*args, **kwargs)
-        rec["uniform"].append(np.asarray(out))
+        rec["uniform"].append(convert(out))
         return out
 
     def normal(*args, **kwargs):
         out = real_normal(*args, **kwargs)
-        rec["normal"].append(np.asarray(out))
+        rec["normal"].append(convert(out))
         return out
 
     def interceptor(next_fun, args, kwargs, context):
@@ -66,7 +67,7 @@ def record_jax_draws(rec):
             if module.rate > 0.0 and not det:
                 keep = 1.0 - module.rate
                 mask = jax.random.bernoulli(module.make_rng("dropout"), keep, x.shape)
-                rec["dropout"].append(np.asarray(mask))
+                rec["dropout"].append(convert(mask))
                 return jax.lax.select(mask, x / keep, jnp.zeros_like(x))
         return next_fun(*args, **kwargs)
 
@@ -381,17 +382,6 @@ def test_eval_step_matches_jax(jax_variables):
     got = trainer.make_eval_step(tcfg)(tstate, batch, draws=draws)
     np.testing.assert_allclose(got["probs"].numpy(), np.asarray(want["probs"]), atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), rtol=1e-4)
-
-
-def test_clean_batches_name_a7():
-    _, tcfg = _configs(False)
-    state = trainer.init_state(tcfg, device="cpu")
-    batch = {"fundus": np.zeros((BATCH, 64, 64, 3), np.uint8), "oct": np.zeros((BATCH, 32, 32, 32, 1), np.uint8),
-             "label": np.zeros((BATCH,), np.int32)}
-    with pytest.raises(NotImplementedError, match="A7"):
-        trainer.make_train_step(tcfg)(state, batch, torch.Generator())
-    with pytest.raises(NotImplementedError, match="A7"):
-        trainer.make_eval_step(tcfg)(state, batch)
 
 
 def test_step_trains_and_updates_running_stats():
