@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path and train step on one NVIDIA GPU, and check them.
+"""Drive the PyTorch port on one NVIDIA GPU (serving, training, the CLIs, the baseline zoo), and check it.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -203,6 +203,35 @@ Then the system's own entry points, in the shipped config:
     epoch, the seconds of each checkpoint save and restore, the input
     stage's ms per batch and the kernels it launches.
 
+Then the baseline zoo (``edrl_tpu_torch.baselines``) and the evaluation
+surfaces over it:
+
+24. Every registry name at full width in the shipped config: one dual-view
+    train step at batch 4 and one eval forward, with a finite loss,
+    probabilities that sum to 1 and the JAX model's feature width
+    (``ZOO_FEATURE_WIDTH``); B1 and B2 launched (in the names with a Swin or
+    ViT), all on the tensor cores.  ``Multi_ResNet`` in f32 with cuDNN's
+    TF32 off (``trainer.set_conv_precision``), on the card against the CPU
+    at batch 2: the eval forward (1e-4 of the largest magnitude), the
+    eval-mode loss's gradients in f64 (1e-10) and a train step in f64 (loss
+    1e-4, gradients at phase 9's f32 bars), the f32 train step's loss
+    (1e-4), and the f32 gradients of the eval-mode loss and of the train
+    step, the card's and the CPU's each against the CPU's f64 ones (the
+    card's within ``ZOO_WITNESS`` times the CPU's or the CPU tests' floors,
+    below 1); then 3 timed
+    steps at batch 32 (ms, pairs/s, peak memory), and the same with TF32
+    on, printed as a finding only.  ``Trans_cross`` in bf16 with the
+    shipped flags at batch 32: every attention call of one step held against
+    its plain version (phase 9's hook), 48 + 48 tensor-core launches a step,
+    3 timed steps.  Then, in a temporary directory under ``build/`` that the
+    phase removes: ``cli.ensemble --members 2`` (``Metric.txt`` with its
+    10 metrics, finite), ``Predictor.from_checkpoints`` over the two members
+    on 21 pairs against the softmax of the mean of the members' logits
+    computed one member at a time (f32 atol 1e-5), ``cli.train --model_name
+    Multi_dropout_ResNet`` and ``cli.test --mc_samples 4 --sweep gaussian
+    --sweep_levels 0.0 0.3`` on its checkpoint (a nonzero mean predictive
+    std, the sweep's 6 cells).
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX
 and nothing of the JAX package.
@@ -238,6 +267,13 @@ PROFILE_ATTEMPTS = 8
 # enters by one bf16 ulp, 2^-8 of itself; over few terms (M = 40 rows for
 # dW2) it shows as ~2e-3 of the result's largest magnitude.
 MLP_F32_BAR = 2.0 ** -8
+# How far from the CPU's f64 results the card's f32 gradients of a CNN
+# baseline may read: within ZOO_WITNESS times the CPU's own f32 distance, or
+# the floors, at the median over the tensors and at the worst, and below 1
+# at the worst.  The CPU tests' rule (tests/test_torch_baselines.py WITNESS,
+# GRAD_REL, GRAD_WORST_REL: a ReLU or max-pool window flipped by f32
+# rounding in one run moves one tensor by a few 1e-2).
+ZOO_WITNESS, ZOO_MEDIAN_FLOOR, ZOO_WORST_FLOOR = 3.0, 1e-3, 5e-2
 SA, V2, SA_BWD, V2_BWD, MMD, MMD_BWD = (
     "self_attention_fused", "window_attention_fused_v2", "self_attention_fused_bwd",
     "window_attention_fused_v2_bwd", "mk_mmd_fused", "mk_mmd_fused_bwd",
@@ -293,6 +329,19 @@ KERNEL_REPLACES = {
 }
 
 
+# Each registry name's feature width at the shipped config, as the JAX model
+# gives it (``jax.eval_shape`` of its eval forward).
+ZOO_FEATURE_WIDTH = {
+    "MedFusion": 3072, "IMDR": 3072, "Res2Net2D": 2048, "ResNet3D": 512, "Multi_ResNet": 2560,
+    "Multi_ResNet_cross": 512, "Multi_EF_ResNet": 512, "Multi_CBAM_ResNet": 2560, "Multi_dropout_ResNet": 2560,
+    "Base_transformer": 768, "2D_transformer": 768, "3D_transformer": 768, "Trans_cross": 1024, "MLC": 2560,
+    "MLC_trans": 1792, "Medical_2DNet": 2048, "Medical_base_dropout_2DNet": 2048, "Medical_3DNet": 512,
+    "Medical_base_dropout_3DNet": 512, "Multi_ensemble_ResNet": 2560, "Multi_ensemble_3D_ResNet": 2560,
+    "Multi_DE1_ResNet": 2560, "Multi_DE2_ResNet": 2560, "Multi_DE3_ResNet": 2560, "Multi_DE4_ResNet": 2560,
+    "Multi_DE5_ResNet": 2560,
+}
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
@@ -325,7 +374,6 @@ def main() -> None:
     card = card_line()
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
     from edrl_tpu_torch.config import EDRLConfig, tiny_test_config
@@ -346,6 +394,8 @@ def main() -> None:
     from edrl_tpu_torch.tools import sublayer_dbias as sd
     from edrl_tpu_torch.tools.timing import enqueue_ms, graph_ms, runs_ms
     from edrl_tpu_torch.train import trainer
+
+    trainer.set_conv_precision()
 
     def reset_counts():
         for module in (wa, kmmd, ln, fm, ba):
@@ -2321,6 +2371,307 @@ def main() -> None:
     check(len(stage_kernels) > 0, "the input stage launched no kernel")
     del card_clean, card_draws
     torch.cuda.empty_cache()
+
+    # -- 24. the baseline zoo at full width -------------------------------------
+    # Every registry name at full width in the shipped config: one dual-view
+    # train step at batch 4 and one eval forward.  Then Multi_ResNet (f32,
+    # TF32 off) on the card against the CPU and timed at batch 32 (TF32 on
+    # beside it); Trans_cross (bf16, shipped flags) at batch 32 with its
+    # attention held call by call; and the evaluation CLIs (deep ensemble,
+    # MC-dropout, the sweep) with the ensemble Predictor, in a temporary
+    # directory under build/ that the phase removes.
+    from edrl_tpu_torch.baselines import ENSEMBLE_LRS, MODEL_REGISTRY
+    from edrl_tpu_torch.cli import ensemble as ensemble_cli
+    from edrl_tpu_torch.train.ensemble import restore_members
+
+    def named(name, c=None):
+        c = c or cfg
+        return c.replace(model=dataclasses.replace(c.model, model_name=name))
+
+    zoo_bt = 4
+    zoo_batch = trainer.random_views(cfg, seed=11, batch_size=zoo_bt, device=dev)
+    zoo_eval = {"fundus_low": zoo_batch["fundus_low"], "oct_low": zoo_batch["oct_low"], "label": zoo_batch["label"]}
+    check(list(MODEL_REGISTRY) == list(ZOO_FEATURE_WIDTH), "the registry's names are the JAX registry's")
+    reset_counts()
+    zoo_fwd_routes0, zoo_bwd_routes0 = dict(wa.FWD_ROUTES), dict(wa.BWD_ROUTES)
+    zoo_t0 = time.perf_counter()
+    for name in MODEL_REGISTRY:
+        ncfg = named(name)
+        t0 = time.perf_counter()
+        st = trainer.init_state(ncfg, seed=0, device=dev)
+        out = trainer.make_train_step(ncfg)(st, zoo_batch, seeded(20))
+        ev = trainer.make_eval_step(ncfg)(st, zoo_eval)
+        with torch.no_grad():
+            feat = trainer._normalize_output(st.model(zoo_eval["fundus_low"], zoo_eval["oct_low"], train=False))[2]
+        loss = out["loss"].item()
+        psum = ev["probs"].sum(-1)
+        torch.cuda.synchronize()
+        print(f"zoo {name}: {sum(p.numel() for p in st.model.parameters())} parameters, train step (batch "
+              f"{zoo_bt}) loss {loss:.6f}, eval probabilities sum to 1 within "
+              f"{(psum - 1).abs().max().item():.1e}, features {tuple(feat.shape)} "
+              f"({time.perf_counter() - t0:.1f} s with the build)", flush=True)
+        check(np.isfinite(loss) and np.isfinite(ev["loss"].item()), f"zoo {name}: loss {loss}")
+        check(bool(torch.isfinite(ev["probs"]).all()) and (psum - 1).abs().max().item() <= 1e-5,
+              f"zoo {name}: eval probabilities {ev['probs']}")
+        check(tuple(feat.shape) == (zoo_bt, ZOO_FEATURE_WIDTH[name]),
+              f"zoo {name}: features {tuple(feat.shape)}, the JAX model's width {ZOO_FEATURE_WIDTH[name]}")
+        del st, out, ev, feat
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    zoo_launches = counts()
+    zoo_fwd = {k: v - zoo_fwd_routes0.get(k, 0) for k, v in wa.FWD_ROUTES.items()}
+    zoo_bwd = {k: v - zoo_bwd_routes0.get(k, 0) for k, v in wa.BWD_ROUTES.items()}
+    print(f"zoo: {len(MODEL_REGISTRY)} registry names stepped and evaluated in {time.perf_counter() - zoo_t0:.1f} s; "
+          f"launches {zoo_launches}; forward routes {zoo_fwd}, backward routes {zoo_bwd}", flush=True)
+    # B1 and B2 run in the 8 names with a Swin or ViT backbone (MedFusion,
+    # IMDR and the six transformer baselines); nothing else launches a kernel.
+    for kname in (SA, V2, SA_BWD, V2_BWD):
+        check(zoo_launches[kname] > 0, f"the zoo's path launched no {kname}")
+    check(zoo_fwd["fma"] == 0 and zoo_bwd["fma"] == 0, f"zoo attention on the CUDA cores: {zoo_fwd} {zoo_bwd}")
+
+    # Multi_ResNet, f32 with TF32 off, the card against the CPU at batch 2
+    # with the same weights and inputs, and against the CPU's f64 results
+    # (``model.double()``) where f32 rounding is amplified:
+    # - the eval forward's logits at 1e-4 of the largest magnitude;
+    # - the eval-mode loss's gradients (BatchNorm on its running statistics)
+    #   in f64 on both at 1e-10 of a tensor's largest, and one train step in
+    #   f64 on both: the loss at 1e-4, the gradients at phase 9's f32 bars;
+    # - the gradients of the eval-mode loss and of the f32 train step, the
+    #   card's and the CPU's each against the CPU's f64 ones, the card's
+    #   within the CPU tests' rule (ZOO_WITNESS times the CPU's distance, the
+    #   train step's the larger of the batch's two orders).  At full width a
+    #   few ReLUs and max-pool windows sit within f32 rounding of their kinks
+    #   and ties even in eval mode; train-mode BatchNorm at random init
+    #   amplifies the rounding itself (the CPU tests' f32 steps read ~1e-2 of
+    #   a tensor's largest gradient at the median against f64).
+    mr_cfg = named("Multi_ResNet")
+    small = trainer.random_views(mr_cfg, seed=12, batch_size=2, device="cpu")
+    init_sd = {k: v.clone() for k, v in trainer.init_state(mr_cfg, seed=3, device="cpu").model.state_dict().items()}
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32, "TF32 is off")
+
+    def mr_state(device, double=False):
+        st = trainer.init_state(mr_cfg, seed=3, device=device)
+        st.model.load_state_dict(init_sd)
+        if double:
+            st.model.double()
+        return st
+
+    def mr_eval(device, double=False):
+        """The eval forward's logits and its loss's gradients (f64, on the host)."""
+        model = mr_state(device, double).model.eval()
+        logits, loss, _ = model(small["fundus_low"].to(device), small["oct_low"].to(device),
+                                small["label"].to(device).long(), train=False)
+        loss.backward()
+        return logits.detach().cpu(), {n: p.grad.cpu().double() for n, p in model.named_parameters()}
+
+    def mr_step(device, double=False, reverse=False):
+        """One train step: its loss, gradients (f64, on the host) and seconds."""
+        st = mr_state(device, double)
+        views = {k: v.flip(0) for k, v in small.items()} if reverse else small
+        t0 = time.perf_counter()
+        out = trainer.make_train_step(mr_cfg)(st, views, torch.Generator(device=device).manual_seed(0))
+        loss = out["loss"].item()
+        return loss, {n: p.grad.cpu().double() for n, p in st.model.named_parameters()}, time.perf_counter() - t0
+
+    def grad_errors64(grads_a, grads_b):
+        """``grad_errors`` of f64 gradients, computed in f64."""
+        return sorted((((grads_a[n] - g).abs().max() / g.abs().max()).item(), n)
+                      for n, g in grads_b.items() if g.abs().max() > 0)
+
+    def witness(card, cpus, ref):
+        """Per-tensor errors against ``ref``: the card's, and the CPU's (the
+        largest over ``cpus``); each sorted."""
+        cpu = sorted((max(rel_err(c[n], g) for c in cpus), n) for n, g in ref.items() if g.abs().max() > 0)
+        return grad_errors(card, ref), cpu
+
+    def within_witness(card, cpu):
+        return (median_err(card) <= max(ZOO_MEDIAN_FLOOR, ZOO_WITNESS * median_err(cpu))
+                and card[-1][0] <= min(max(ZOO_WORST_FLOOR, ZOO_WITNESS * cpu[-1][0]), 1.0))
+
+    (lc, gc_eval), (lg, gg_eval), (_, g64_eval) = mr_eval("cpu"), mr_eval(dev), mr_eval("cpu", double=True)
+    eval64 = grad_errors64(mr_eval(dev, double=True)[1], g64_eval)
+    e_eval = rel_err(lg, lc)
+    eval_direct = grad_errors(gg_eval, gc_eval)
+    eval_card, eval_cpu = witness(gg_eval, [gc_eval], g64_eval)
+    loss64_cpu, g64_cpu, cpu64_s = mr_step("cpu", double=True)
+    loss64_gpu, g64_gpu, _ = mr_step(dev, double=True)
+    errs64 = grad_errors64(g64_gpu, g64_cpu)
+    loss_cpu, g32_cpu, cpu32_s = mr_step("cpu")
+    _, g32_cpu_rev, _ = mr_step("cpu", reverse=True)
+    loss_gpu, g32_gpu, _ = mr_step(dev)
+    card_w, cpu_w = witness(g32_gpu, [g32_cpu, g32_cpu_rev], g64_cpu)
+    dl64, dl = abs(loss64_gpu - loss64_cpu), abs(loss_gpu - loss_cpu)
+
+    def med_worst(errs):
+        return f"median {median_err(errs):.3e}, worst {errs[-1][0]:.3e} ({errs[-1][1]})"
+
+    print(f"Multi_ResNet, card vs CPU at batch 2 over {len(errs64)} gradient tensors: eval logits {e_eval:.3e} of the "
+          f"largest (bar 1e-4); f64 train step: loss {loss64_gpu:.15g} vs {loss64_cpu:.15g} (|d| {dl64:.3e}), "
+          f"gradients {med_worst(errs64)} (bars 1e-3, 1e-2); f64 eval-mode gradients {med_worst(eval64)} (bar 1e-10); f32 "
+          f"eval-mode gradients card vs CPU {med_worst(eval_direct)}"
+          f", against the CPU's f64: the card's {med_worst(eval_card)}, the CPU's {med_worst(eval_cpu)}; f32 train "
+          f"step: loss {loss_gpu:.7g} vs {loss_cpu:.7g} (|d| {dl:.3e}), gradients against the CPU's f64 step: the "
+          f"card's {med_worst(card_w)}, the CPU's (the larger of two orders) {med_worst(cpu_w)}; CPU steps "
+          f"{cpu32_s:.1f} s (f32), {cpu64_s:.1f} s (f64)", flush=True)
+    check(e_eval <= 1e-4, f"Multi_ResNet eval card vs CPU {e_eval}")
+    check(eval64[-1][0] <= 1e-10, f"Multi_ResNet f64 eval-mode gradients card vs CPU: worst {eval64[-1]}")
+    check(dl64 <= 1e-4 * abs(loss64_cpu) and median_err(errs64) <= 1e-3 and errs64[-1][0] <= 1e-2,
+          f"Multi_ResNet f64 step card vs CPU: loss {dl64}, gradients median {median_err(errs64)}, worst {errs64[-1]}")
+    check(within_witness(eval_card, eval_cpu),
+          f"Multi_ResNet eval-mode gradients against f64: the card's {eval_card[len(eval_card) // 2]}, "
+          f"{eval_card[-1]}; the CPU's {eval_cpu[len(eval_cpu) // 2]}, {eval_cpu[-1]}")
+    check(dl <= 1e-4 * abs(loss_cpu), f"Multi_ResNet f32 step loss card vs CPU {dl}")
+    check(within_witness(card_w, cpu_w),
+          f"Multi_ResNet f32 step gradients against f64: the card's {card_w[len(card_w) // 2]}, {card_w[-1]}; "
+          f"the CPU's {cpu_w[len(cpu_w) // 2]}, {cpu_w[-1]}")
+    del gc_eval, gg_eval, g64_eval, g64_cpu, g64_gpu, g32_cpu, g32_cpu_rev, g32_gpu, small, init_sd
+    torch.cuda.empty_cache()
+
+    def timed_steps(c, label, steps=TRAIN_STEPS, tf32=False):
+        """Build, warm with one step, then time ``steps`` steps at batch 32:
+        ms a step, pairs/s, peak memory (``max_memory_allocated``).  With
+        ``tf32`` f32 convolutions run in cuDNN's TF32 (the port's entry
+        points keep them in f32), and in f32 again at the end."""
+        st = trainer.init_state(c, seed=0, device=dev)
+        fn = trainer.make_train_step(c)
+        b32 = trainer.random_views(c, seed=13, device=dev)
+        gen = seeded(21)
+        trainer.set_conv_precision(tf32)
+        fn(st, b32, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        outs_ = [fn(st, b32, gen) for _ in range(steps)]
+        torch.cuda.synchronize()
+        ms = 1000.0 * (time.perf_counter() - t) / steps
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [o["loss"].item() for o in outs_]
+        print(f"{label}: {ms:.1f} ms a step at batch {c.data.batch_size}, {1000.0 * c.data.batch_size / ms:.1f} "
+              f"pairs/s, peak device memory {peak:.2f} GiB; losses {[round(x, 5) for x in losses]} [{card}]",
+              flush=True)
+        check(all(np.isfinite(x) for x in losses), f"{label}: losses {losses}")
+        trainer.set_conv_precision()
+        del st, b32, outs_
+        torch.cuda.empty_cache()
+        return ms, peak
+
+    mr_f32 = mr_cfg.replace(model=dataclasses.replace(mr_cfg.model, use_bfloat16=False))
+    zoo_times = {"Multi_ResNet f32, TF32 off": timed_steps(mr_f32, "Multi_ResNet f32 train step, TF32 off")}
+    zoo_times["Multi_ResNet f32, TF32 on"] = timed_steps(
+        mr_f32, "Multi_ResNet f32 train step, cuDNN TF32 on (a finding only; the port runs f32 convolutions in "
+        "f32)", tf32=True)
+
+    # Trans_cross, bf16 with the shipped flags, batch 32: B1 and B2 on the
+    # tensor cores forward and backward, each attention call of one step held
+    # against its plain version on its own tensors (phase 9's hook).
+    tc_cfg = named("Trans_cross")
+    tc_st = trainer.init_state(tc_cfg, seed=0, device=dev)
+    tc_batch = trainer.random_views(tc_cfg, seed=14, device=dev)
+    tc_fwd0, tc_bwd0 = dict(wa.FWD_ROUTES), dict(wa.BWD_ROUTES)
+    reset_counts()
+    tc_held = {name: [] for name in (SA, SA_BWD, V2, V2_BWD, "dbias")}
+    with held_attention(tc_held):
+        trainer.make_train_step(tc_cfg)(tc_st, tc_batch, seeded(22))
+    torch.cuda.synchronize()
+    del tc_st, tc_batch
+    torch.cuda.empty_cache()
+    reset_counts()
+    tc_fwd0, tc_bwd0 = dict(wa.FWD_ROUTES), dict(wa.BWD_ROUTES)
+    zoo_times["Trans_cross bf16"] = timed_steps(tc_cfg, "Trans_cross bf16 train step (shipped flags)")
+    tc_launches = counts()
+    tc_fwd = {k: (v - tc_fwd0.get(k, 0)) // (TRAIN_STEPS + 1) for k, v in wa.FWD_ROUTES.items()}
+    tc_bwd = {k: (v - tc_bwd0.get(k, 0)) // (TRAIN_STEPS + 1) for k, v in wa.BWD_ROUTES.items()}
+    print(f"Trans_cross per train step: forward routes {tc_fwd}, backward routes {tc_bwd}; launches over "
+          f"{TRAIN_STEPS + 1} steps {dict((k, v) for k, v in tc_launches.items() if v)}", flush=True)
+    check(tc_fwd == {"mma": 2 * per_step, "fma": 0} and tc_bwd == {"mma": 2 * per_step, "fma": 0},
+          f"Trans_cross routes per step {tc_fwd} {tc_bwd}")
+    for kname, bar in ((SA, BWD_BAR["bf16"]), (SA_BWD, BWD_BAR["bf16"]), (V2, BWD_BAR["bf16"]),
+                       (V2_BWD, BWD_BAR["bf16"]), ("dbias", BWD_BAR["f32"])):
+        e = tc_held[kname]
+        print(f"Trans_cross bf16 step, {kname} held against its plain version on the step's own tensors: "
+              f"{len(e)} calls, worst relative error {max(e):.3e} (bar {bar:g})", flush=True)
+        check(len(e) == per_step and max(e) <= bar, f"Trans_cross {kname}: {len(e)} calls, worst {max(e)}")
+
+    # The evaluation CLIs in the shipped config, in-process.
+    zoo_dir = Path(tempfile.mkdtemp(prefix="zoo_cli_", dir=REPO / "build"))
+    zoo_args = ["--dataset", "synthetic", "--batch_size", "16", "--synthetic_samples", "32", "--end_epochs", "1",
+                "--plot_dir", "", "--checkpoint_dir", str(zoo_dir / "ckpt"), "--log_dir", str(zoo_dir / "log")]
+    try:
+        buf = Tee()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            suite = ensemble_cli.main(zoo_args + ["--name", "de", "--members", "2",
+                                                  "--metric_path", str(zoo_dir / "Metric.txt")])
+        ens_s = time.perf_counter() - t0
+        metric_lines = (zoo_dir / "Metric.txt").read_text().splitlines()
+        metric = {line.split(": ")[0]: float(line.split(": ")[1]) for line in metric_lines}
+        de_cfg = train_cli.config_from_args(train_cli.build_parser().parse_args(zoo_args + ["--name", "de"]))
+        member_dirs = [ensemble_cli.member_checkpoint_dir(de_cfg, m) for m in list(ENSEMBLE_LRS)[:2]]
+        ckpt_gb = sum(f.stat().st_size for d_ in member_dirs for f in Path(d_).rglob("*") if f.is_file()) / 2**30
+        print(f"cli.ensemble, 2 members, 1 epoch each: {ens_s:.1f} s; Metric.txt {metric}; member checkpoints "
+              f"{ckpt_gb:.2f} GiB on disk [{card}]", flush=True)
+        keys = ("accuracy", "auc", "aurc", "eaurc", "nll", "brier", "f1", "recall", "kappa", "ece")
+        check(all(k in metric and np.isfinite(metric[k]) for k in keys) and len(suite) == 11,
+              f"Metric.txt {metric_lines}")
+
+        # The ensemble Predictor over the two members: the softmax of the mean
+        # of the members' logits, each member's forward run on its own and the
+        # mean and softmax taken in numpy, at f32 1e-5.
+        rng = np.random.default_rng(15)
+        req = (rng.integers(0, 256, (21, d.fundus_size, d.fundus_size, 3), dtype=np.uint8),
+               rng.integers(0, 256, (21, *d.oct_size, 1), dtype=np.uint8))
+        ens_cfg = named("Multi_DE1_ResNet")
+        ens_pred = Predictor.from_checkpoints(ens_cfg, member_dirs, device=dev)
+        got = ens_pred.predict_probs(*req)
+        members_ = restore_members(ens_cfg, member_dirs, device=dev)
+        with torch.no_grad():
+            fu = torch.from_numpy(req[0]).to(dev).float() / 255.0
+            ou = torch.from_numpy(req[1]).to(dev).float() / 255.0
+            member_logits = [np.concatenate([m(fu[i:i + 7], ou[i:i + 7])[0].cpu().numpy() for i in range(0, 21, 7)])
+                             for m in members_]
+        mean_logits = np.mean(np.stack(member_logits).astype(np.float64), axis=0)
+        want = np.exp(mean_logits - mean_logits.max(-1, keepdims=True))
+        want /= want.sum(-1, keepdims=True)
+        e_pred = float(np.abs(got - want).max())
+        print(f"ensemble Predictor (2 members) on 21 pairs against the members' forwards averaged in numpy: "
+              f"max abs err "
+              f"{e_pred:.3e} (atol 1e-5)", flush=True)
+        check(got.shape == (21, 2) and e_pred <= 1e-5, f"ensemble Predictor {e_pred}")
+        del ens_pred, members_
+        torch.cuda.empty_cache()
+        for d_ in member_dirs:
+            shutil.rmtree(d_, ignore_errors=True)
+
+        # cli.train on Multi_dropout_ResNet, then cli.test with MC-dropout and the sweep.
+        dr_args = zoo_args + ["--name", "dr", "--model_name", "Multi_dropout_ResNet", "--save_latest_every", "1"]
+        buf = Tee()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            train_cli.main(dr_args)
+            train_s = time.perf_counter() - t0
+            ckpt = zoo_dir / "ckpt" / "synthetic_0.5_dr"
+            name_ = "best" if (ckpt / "best").is_dir() else "latest"
+            test_cli.main(dr_args + ["--checkpoint", str(ckpt / name_), "--mc_samples", "4", "--sweep", "gaussian",
+                                     "--sweep_levels", "0.0", "0.3"])
+        test_s = time.perf_counter() - t0 - train_s
+        printed = buf.getvalue().splitlines()
+        test_log = (zoo_dir / "log" / "synthetic_dr_test.log").read_text()
+        mc_lines = [line for line in printed if line.startswith("MC-dropout (K=4): ")]
+        check(len(mc_lines) == 1, f"MC block {mc_lines}")
+        mc_std = float(mc_lines[0].rsplit(" ", 1)[1])
+        grid = [line for line in test_log.splitlines() if "\t" in line]
+        print(f"cli.train Multi_dropout_ResNet 1 epoch: {train_s:.1f} s; cli.test on {name_} with --mc_samples 4 "
+              f"--sweep gaussian: {test_s:.1f} s; {mc_lines[0]}; sweep grid: {grid}", flush=True)
+        check(mc_std > 0.0, f"MC-dropout mean predictive std {mc_std}")
+        check("Robustness sweep [gaussian]:" in test_log and len(grid) == 1 + 3 * 2
+              and all(f"{m}\t{s}\t" in test_log for m in ("both", "fundus-only", "oct-only") for s in ("0", "0.3")),
+              f"sweep grid {grid}")
+    finally:
+        shutil.rmtree(zoo_dir, ignore_errors=True)
+    check(not zoo_dir.exists(), "the zoo CLIs' temporary directory is removed")
+    for label, (ms, peak) in zoo_times.items():
+        print(f"zoo timing, {label}: {ms:.1f} ms a step at batch {bt}, {1000.0 * bt / ms:.1f} pairs/s, peak "
+              f"{peak:.2f} GiB [{card}]", flush=True)
 
     kernels = []
     for name in KERNEL_SOURCE:

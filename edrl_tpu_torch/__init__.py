@@ -14,7 +14,12 @@ Ported so far:
 - the system's entry points, ``cli.train`` and ``cli.test``: the synthetic
   datasets and the host loader (``data``), ``train.trainer.fit`` (per-epoch
   train and val, the plateau schedule, resume), metrics, CSV logs and
-  checkpoints (``train.metrics``, ``train.logging``, ``train.checkpoint``).
+  checkpoints (``train.metrics``, ``train.logging``, ``train.checkpoint``);
+- the baseline zoo (``baselines``: every ``--model_name`` of the JAX
+  registry, on ``models.resnet2d`` / ``resnet3d`` / ``conv``) and the
+  evaluation surfaces over it: MC-dropout (``train.mc_dropout``), the
+  robustness sweep (``train.robustness``) and deep ensembles
+  (``train.ensemble``, ``cli.ensemble``, a ``Predictor`` of members).
 
 The ViT-3D and Swin attention (forward and backward) and the fused MK-MMD
 forward run on hand-written CUDA kernels (``kernels/csrc``).

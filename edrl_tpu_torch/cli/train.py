@@ -5,9 +5,11 @@ unless the caller asks for the CPU).
     python -m edrl_tpu_torch.cli.train --dataset synthetic --batch_size 16 \\
         --end_epochs 2 --synthetic_samples 48 --checkpoint_dir ckpt --log_dir log
 
-The synthetic datasets are ported; the real-data readers (``dr2``, ``glu2``)
-are ROADMAP item A7's second half and refuse by name, as do the baselines
-(A9), ``--scan_batches`` (A14) and ``--num_model_shards`` > 1 and ``--zero1``
+``--model_name`` takes every name of the baseline zoo's registry
+(``baselines.MODEL_REGISTRY``; MedFusion by default); an unknown one raises
+``NameError``.  The synthetic datasets are ported; the real-data readers
+(``dr2``, ``glu2``) are ROADMAP item A7's second half and refuse by name, as
+do ``--scan_batches`` (A14) and ``--num_model_shards`` > 1 and ``--zero1``
 (A11).  With ``--plot_dir`` set (its default), matplotlib must import: the
 run checks that before it trains.
 """
@@ -230,8 +232,10 @@ def main(argv=None):
         make_eval_step,
         resolve_device,
         resume_from_latest,
+        set_conv_precision,
     )
 
+    set_conv_precision()
     check_ported(cfg)
     device = resolve_device(args.device)
     check_plotting(cfg)

@@ -3,7 +3,8 @@
 Conventions carried over from the JAX package:
 
 - parameters are float32; each module computes in its ``dtype`` (bfloat16
-  on the main path), and softmax and normalisation statistics stay float32;
+  on the main path), and softmax and normalisation statistics stay float32
+  (f64 throughout in a model made f64 with ``model.double()``);
 - module and parameter names are flax's (``Dense_0``, ``LayerNorm_0``,
   ``qkv``, ``proj``...), so that ``edrl_tpu_torch.convert`` maps a flax tree
   onto a module by name alone; a flax Dense ``kernel [in, out]`` is a
@@ -28,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from edrl_tpu_torch.kernels.block_attention import attention_sublayer_fused
 from edrl_tpu_torch.kernels.fused_mlp import fused_mlp
+from edrl_tpu_torch.ops import at_least_f32
 from edrl_tpu_torch.kernels.layer_norm import fused_layer_norm, layer_norm_reference
 
 # ---------------------------------------------------------------------------
@@ -98,6 +100,12 @@ def _param(shape, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device))
 
 
+def compute_dtype(dtype: torch.dtype, weight: torch.Tensor) -> torch.dtype:
+    """A module's compute dtype: its ``dtype``, or f64 when its weight is
+    f64 (a model made f64 with ``model.double()``, see ``ops.at_least_f32``)."""
+    return torch.float64 if weight.dtype == torch.float64 else dtype
+
+
 # ---------------------------------------------------------------------------
 # Modules.
 # ---------------------------------------------------------------------------
@@ -119,8 +127,9 @@ class Dense(nn.Module):
             self.bias.zero_()
 
     def forward(self, x):
-        bias = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+        dtype = compute_dtype(self.dtype, self.weight)
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return F.linear(x.to(dtype), self.weight.to(dtype), bias)
 
 
 class LayerNorm(nn.Module):
@@ -220,11 +229,11 @@ def scaled_dot_attention(q, k, v, scale: float, bias: Optional[torch.Tensor] = N
     probabilities cast to the input dtype before the value product, output
     in the input dtype: the casts of ``edrl_tpu.models.layers``.
     """
-    attn = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    attn = torch.matmul(at_least_f32(q), at_least_f32(k).transpose(-1, -2)) * scale
     if bias is not None:
         attn = attn + bias
     attn = torch.softmax(attn, dim=-1).to(q.dtype)
-    return torch.matmul(attn.float(), v.float()).to(q.dtype)
+    return torch.matmul(at_least_f32(attn), at_least_f32(v)).to(q.dtype)
 
 
 class MultiHeadAttention(nn.Module):

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from edrl_tpu_torch.ops import at_least_f32
+
 
 def label_smoothing_cross_entropy(logits, labels, smoothing: float = 0.1):
     """Mean label-smoothed CE over the batch.
@@ -11,7 +13,7 @@ def label_smoothing_cross_entropy(logits, labels, smoothing: float = 0.1):
     The target puts ``1 - smoothing`` on the true class and
     ``smoothing / (num_classes - 1)`` on every other class.
     """
-    logits = logits.float()
+    logits = at_least_f32(logits)
     num_classes = logits.shape[-1]
     off_value = smoothing / max(num_classes - 1, 1)
     true_dist = torch.full_like(logits, off_value)

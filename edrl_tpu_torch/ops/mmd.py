@@ -3,7 +3,7 @@
 The dual-view step's self-distillation loss between the low- and
 high-noise feature batches: a multi-scale RBF kernel over their
 concatenation, its bandwidth set from the mean pairwise distance.  All in
-f32.  This is the plain path; ``kernels.mmd.mk_mmd_fused`` runs the fused
+f32 (f64 for f64 features).  This is the plain path; ``kernels.mmd.mk_mmd_fused`` runs the fused
 forward and backward (B3), whose plain versions are :func:`mk_mmd` and
 :func:`mk_mmd_bwd_reference` (the VJP in closed form).
 """
@@ -11,6 +11,8 @@ forward and backward (B3), whose plain versions are :func:`mk_mmd` and
 from __future__ import annotations
 
 import torch
+
+from edrl_tpu_torch.ops import at_least_f32
 
 
 def _pairwise_sq_dists(total: torch.Tensor) -> torch.Tensor:
@@ -23,7 +25,7 @@ def _pairwise_sq_dists(total: torch.Tensor) -> torch.Tensor:
 
 def gaussian_kernel(source, target, kernel_mul: float = 2.0, kernel_num: int = 5):
     """Summed multi-scale RBF kernel matrix over concat(source, target)."""
-    total = torch.cat([source, target], dim=0).float()
+    total = at_least_f32(torch.cat([source, target], dim=0))
     n = total.shape[0]
     d2 = _pairwise_sq_dists(total)
     length_scale = d2.sum() / float(n * n - n)
@@ -70,7 +72,7 @@ def mk_mmd_grad_d2(source, target, kernel_mul: float = 2.0, kernel_num: int = 5)
     (``jnp.abs``).
     """
     n_s, n_t = source.shape[0], target.shape[0]
-    total = torch.cat([source, target], dim=0).float()
+    total = at_least_f32(torch.cat([source, target], dim=0))
     n = total.shape[0]
     off_diagonal = 1.0 - torch.eye(n, dtype=total.dtype, device=total.device)
     sq = (total * total).sum(dim=1, keepdim=True)

@@ -3,12 +3,16 @@
 Run from the root of a checkout, on a machine with one CUDA card:
 
     python -m edrl_tpu_torch.tools.profile_train_step [--plain] [--fused-ln] [--fused-mlp]
-        [--fused-block-attention]
+        [--fused-block-attention] [--model_name NAME] [--tf32] [--top N]
 
 Builds the shipped ``EDRLConfig()`` (bf16, batch 32) with the flags given:
 ``--plain`` turns both fused-attention flags off, ``--fused-ln`` and
 ``--fused-mlp`` turn on B4 and B5, ``--fused-block-attention`` turns on B6
-(which takes precedence over the fused-attention flags).  With seeded
+(which takes precedence over the fused-attention flags), ``--model_name``
+picks a registry model (MedFusion by default; the CNN baselines compute in
+f32), ``--tf32`` computes f32 convolutions in cuDNN's TF32
+(``trainer.set_conv_precision``; the port's entry points keep them in f32), and ``--top`` prints the N kernels
+that take the most device time.  With seeded
 random weights it feeds the step ``trainer.random_views`` from seed 0, takes
 two warm-up steps, then runs three steps without the profiler and three
 under it, and prints:
@@ -57,6 +61,9 @@ CATEGORIES = (
         "row_tile_sums_kernel", "col_partials_kernel", "transpose_bf16_kernel", "round_bf16_kernel",
         "sublayer_gemm")),
     ("partial sums (dbias, B5, B6)", ("column_sum_kernel", "column_sum4_kernel")),
+    ("convolutions (cuDNN), layout changes", ("fprop", "dgrad", "wgrad", "conv", "implicit", "nchwToNhwc",
+                                              "nhwcToNchw", "Nhwc", "precomputed")),
+    ("pooling", ("pool",)),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "sm90_", "sm80_", "cublas", "Kernel2")),
     ("Adam (multi-tensor)", ("multi_tensor", "adam", "Adam")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
@@ -94,7 +101,7 @@ def config_from_args(args) -> EDRLConfig:
     if args.plain:
         flags.update(use_fused_attention=False, vit_fused_attention=False)
     cfg = EDRLConfig()
-    return cfg.replace(model=dataclasses.replace(cfg.model, **flags))
+    return cfg.replace(model=dataclasses.replace(cfg.model, model_name=args.model_name, **flags))
 
 
 def _label(cfg: EDRLConfig) -> str:
@@ -103,7 +110,7 @@ def _label(cfg: EDRLConfig) -> str:
                                   ("vit_fused_attention", m.vit_fused_attention), ("use_fused_ln", m.use_fused_ln),
                                   ("use_fused_mlp", m.use_fused_mlp),
                                   ("use_fused_block_attention", m.use_fused_block_attention)) if flag]
-    return "flags on: " + (", ".join(on) or "none")
+    return f"{m.model_name}, flags on: " + (", ".join(on) or "none")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -112,15 +119,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--fused-ln", action="store_true", help="use_fused_ln on (B4)")
     parser.add_argument("--fused-mlp", action="store_true", help="use_fused_mlp on (B5)")
     parser.add_argument("--fused-block-attention", action="store_true", help="use_fused_block_attention on (B6)")
+    parser.add_argument("--model_name", default="MedFusion", help="a registry model (baselines.MODEL_REGISTRY)")
+    parser.add_argument("--tf32", action="store_true", help="cuDNN's TF32 on for f32 convolutions")
+    parser.add_argument("--top", type=int, default=0, help="print the N kernels with the most device time")
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> None:
-    cfg = config_from_args(parse_args(argv))
+    args = parse_args(argv)
+    cfg = config_from_args(args)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train_step: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    trainer.set_conv_precision(args.tf32)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     batch = trainer.random_views(cfg, seed=0)
@@ -159,7 +170,9 @@ def main(argv=None) -> None:
     for e in kernels:
         by_cat[_category(e.name)] += e.time_range.elapsed_us()
     per_step = 1000.0 * STEPS  # us over the run -> ms per step
-    print(f"train step, {_label(cfg)}, batch {cfg.data.batch_size} bf16 [{card}]")
+    dtype = "bf16" if cfg.model.use_bfloat16 else "f32"
+    print(f"train step, {_label(cfg)}, batch {cfg.data.batch_size} {dtype}"
+          f"{', cuDNN TF32 on' if args.tf32 else ''} [{card}]")
     print(f"  unprofiled: host clock to sync {wall_ms:.3f} ms/step, host enqueue "
           f"{statistics.median(enqueue_ms):.3f} ms/step (median of {STEPS}), peak device memory {peak_gib:.2f} GiB")
     print(f"  profiled: {len(kernels) // STEPS} kernels/step; device busy {busy_us / per_step:.3f} ms/step, "
@@ -167,6 +180,14 @@ def main(argv=None) -> None:
     print("  device ms/step by category:")
     for label, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"    {us / per_step:9.3f}  {label}")
+    if args.top:
+        by_name = collections.defaultdict(lambda: [0.0, 0])
+        for e in kernels:
+            by_name[e.name][0] += e.time_range.elapsed_us()
+            by_name[e.name][1] += 1
+        print(f"  the {args.top} kernels with the most device time, ms/step (launches/step):")
+        for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]:
+            print(f"    {us / per_step:9.3f}  ({n // STEPS})  {name[:160]}")
 
 
 if __name__ == "__main__":

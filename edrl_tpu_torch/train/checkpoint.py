@@ -151,6 +151,16 @@ class CheckpointManager:
         if pending is not None:
             pending.result()
 
+    def restore_model(self, model: torch.nn.Module, name: str = "latest") -> torch.nn.Module:
+        """Load the weights of checkpoint ``name`` into ``model`` (from
+        ``trainer.make_model`` with the same config) in place, and return it:
+        what serving and evaluation need.  The file is mapped, not read, so
+        the optimizer's moments stay on the disk."""
+        self.wait()
+        snap = torch.load(os.path.join(self._path(name), _FILE), map_location="cpu", weights_only=True, mmap=True)
+        model.load_state_dict(snap["model"])
+        return model
+
     def restore(self, state: TrainState, name: str = "latest") -> TrainState:
         """Load checkpoint ``name`` into ``state`` (from ``init_state`` with
         the same config) in place, and return it."""

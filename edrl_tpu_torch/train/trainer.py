@@ -6,15 +6,18 @@ One train step, as ``make_train_step`` builds it in the JAX package:
    the fundus and OCT augmentations and the low- and high-noise views, on
    the batch's device (``data/device_augment.py``, ``data/device_noise.py``);
    a batch of ready-made views (the host-noise path) skips this;
-1. MedFusion in train mode on the low-noise view;
-2. MedFusion in train mode on the high-noise view, from the batch
+1. the model (any name of ``baselines.MODEL_REGISTRY``; MedFusion by
+   default) in train mode on the low-noise view;
+2. the model in train mode on the high-noise view, from the batch
    statistics the first forward updated (its own loss is dropped);
-3. ``mmd_weight`` x MK-MMD between the two ``[B, 3072]`` feature batches
+3. ``mmd_weight`` x MK-MMD between the two feature batches (``[B, 3072]``
+   for MedFusion)
    (``ops.mmd.mk_mmd``, or the fused kernel B3 with ``use_pallas_mmd``), plus
    the optional JS logit distillation;
 4. the backward (through the B1/B2 backward kernels on the card);
 5. Adam with the weight decay folded into the gradient and a linear warmup
-   of ``min((step + 1) / warmup_steps, 1)`` (``make_optimizer``).
+   of ``min((step + 1) / warmup_steps, 1)`` (``make_optimizer``), at the
+   member's learning rate for a deep-ensemble member (``ENSEMBLE_LRS``).
 
 The −MMD ablation (``mmd_weight == 0``) skips the second forward only when
 the JS weight is 0 as well.
@@ -30,8 +33,8 @@ checkpoints, CSV logs, the plateau schedule, resume.  Each step's noise
 comes from a generator seeded with ``(seed + 1000, step)``, as the JAX loop
 folds the step into its base key, so a resumed run is step-identical to an
 uninterrupted one.  What the port has not got refuses by name
-(``check_ported``): a model other than MedFusion (ROADMAP item A9),
-``scan_batches`` (A14) and a mesh, tensor parallelism or ZeRO-1 (A11).
+(``check_ported``): ``scan_batches`` (ROADMAP item A14) and a mesh, tensor
+parallelism or ZeRO-1 (A11).
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from torch import nn
 
 from edrl_tpu_torch.config import EDRLConfig
 from edrl_tpu_torch.convert import load_flax_variables
@@ -76,6 +81,18 @@ def _dequantize(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def set_conv_precision(tf32: bool = False) -> None:
+    """Settle, for the process, how the card computes f32 convolutions: in
+    full f32 (the default, as the JAX package's f32 CNN baselines compute),
+    or with ``tf32`` through cuDNN's TF32, which rounds their inputs to 10
+    bits of mantissa and is on by default in PyTorch.
+
+    The port's entry points call it once as they start (the CLIs' ``main``,
+    ``Predictor``); nothing else touches the setting, so a caller that wants
+    TF32 calls ``set_conv_precision(True)`` after those."""
+    torch.backends.cudnn.allow_tf32 = tf32
+
+
 def resolve_device(device) -> torch.device:
     """``torch.device(device)``, refusing a CUDA device when there is no card."""
     device = torch.device(device)
@@ -84,17 +101,31 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def _check_model(cfg: EDRLConfig) -> None:
-    if cfg.model.model_name != "MedFusion":
-        raise NotImplementedError(
-            f"model {cfg.model.model_name!r}: the port has MedFusion only; the "
-            "baseline zoo and its per-member learning rates are ROADMAP item A9"
-        )
+def require_device(state: "TrainState", device) -> torch.device:
+    """``resolve_device(device)``, refusing a state whose model lives elsewhere
+    (an evaluation surface runs where its state is, and moves nothing)."""
+    device = resolve_device(device)
+    if state.device.type != device.type:
+        raise ValueError(f"the state's model is on {state.device}, not on {device}")
+    return state.device
+
+
+def make_model(cfg: EDRLConfig, device="cuda") -> nn.Module:
+    """The configured model (``cfg.model.model_name``) from the registry, on
+    ``device``, its parameters not yet filled (``init_state`` fills them);
+    an unknown name raises ``NameError``."""
+    from edrl_tpu_torch.baselines.registry import build_baseline
+
+    return build_baseline(cfg.model.model_name, cfg, device=device)[0]
 
 
 def check_ported(cfg: EDRLConfig, mesh=None) -> None:
-    """Refuse, by ROADMAP item, what the port's training has not got."""
-    _check_model(cfg)
+    """Refuse, by ROADMAP item, what the port's training has not got, and a
+    model name the registry does not know (``NameError``)."""
+    from edrl_tpu_torch.baselines.registry import MODEL_REGISTRY
+
+    if cfg.model.model_name not in MODEL_REGISTRY:
+        raise NameError(f"There is no model named {cfg.model.model_name!r}")
     if cfg.train.scan_batches > 0:
         raise NotImplementedError(
             f"scan_batches={cfg.train.scan_batches}: several steps per call is "
@@ -118,10 +149,14 @@ def warmup_factor(step: int, warmup_steps: int) -> float:
 def make_optimizer(params, cfg: EDRLConfig):
     """``(Adam, LambdaLR)``: Adam(lr, weight_decay) with decay folded into the
     gradient (optax ``add_decayed_weights`` before ``adam``) and the linear
-    warmup as a LambdaLR, stepped once per optimizer step.  The plateau
-    schedule edits the base lr under the warmup (``set_learning_rate``)."""
-    _check_model(cfg)
-    optimizer = torch.optim.Adam(params, lr=cfg.train.lr, weight_decay=cfg.train.weight_decay)
+    warmup as a LambdaLR, stepped once per optimizer step.  A deep-ensemble
+    member (``Multi_DE{i}_ResNet``) takes its own lr from ``ENSEMBLE_LRS``.
+    The plateau schedule edits the base lr under the warmup
+    (``set_learning_rate``)."""
+    from edrl_tpu_torch.baselines.registry import ENSEMBLE_LRS
+
+    lr = ENSEMBLE_LRS.get(cfg.model.model_name, cfg.train.lr)
+    optimizer = torch.optim.Adam(params, lr=lr, weight_decay=cfg.train.weight_decay)
     w = cfg.train.warmup_steps
     scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, lambda step: warmup_factor(step, w))
     return optimizer, scheduler
@@ -131,7 +166,7 @@ def make_optimizer(params, cfg: EDRLConfig):
 class TrainState:
     """The model, its optimizer and warmup schedule, and the step count."""
 
-    model: MedFusion
+    model: nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
     step: int = 0
@@ -185,8 +220,8 @@ class PlateauTracker:
 
 def init_state(cfg: EDRLConfig, seed: int = 0, *, device="cuda",
                variables: Optional[Mapping] = None) -> TrainState:
-    """A MedFusion and its optimizer on ``device`` (the card unless the caller
-    asks for the CPU).
+    """The configured registry model and its optimizer on ``device`` (the card
+    unless the caller asks for the CPU).
 
     ``variables``: ``{"params": ..., "batch_stats": ...}`` flax trees of numpy
     arrays (a JAX ``TrainState``'s), loaded with
@@ -194,8 +229,7 @@ def init_state(cfg: EDRLConfig, seed: int = 0, *, device="cuda",
     init.
     """
     device = resolve_device(device)
-    d = cfg.data
-    model = MedFusion(cfg.model, d.fundus_size, d.oct_size, device=device)
+    model = make_model(cfg, device)
     if variables is None:
         init_parameters(model, torch.Generator(device=device).manual_seed(seed))
     else:
@@ -221,10 +255,11 @@ def to_device(batch: Mapping[str, np.ndarray], device) -> Dict[str, torch.Tensor
     return out
 
 
-def seed_step_generator(generator: torch.Generator, seed: int, step: int) -> torch.Generator:
-    """Seed ``generator`` for train step ``step`` from ``(seed, step)``: the
-    port's counterpart of ``jax.random.fold_in(key(seed), step)``."""
-    return generator.manual_seed(int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]))
+def seed_step_generator(generator: torch.Generator, seed: int, *steps: int) -> torch.Generator:
+    """Seed ``generator`` for train step ``step`` from ``(seed, step)`` (or for
+    any other index tuple, e.g. MC-dropout's ``(seed, batch, k)``): the port's
+    counterpart of ``jax.random.fold_in(key(seed), step)``."""
+    return generator.manual_seed(int(np.random.SeedSequence([seed, *steps]).generate_state(1, np.uint64)[0]))
 
 
 def random_views(cfg: EDRLConfig, seed: int = 0, *, batch_size: Optional[int] = None,
@@ -282,11 +317,12 @@ def make_train_step(cfg: EDRLConfig):
     ``label`` (uint8 or f32; see ``train_views``), or ready-made views
     ``fundus_low``, ``fundus_high``, ``oct_low``, ``oct_high`` and ``label``
     (uint8 views are dequantized).  The step's noise (augmentation and
-    noise draws, guided uniforms, EPRL eps, dropout masks) comes from
-    ``generator``, a ``torch.Generator`` on the model's device, as the JAX
-    step takes a key.  Given tensors override it: ``draws``, one mapping per
-    forward with the keyword arguments ``guided_uniform``, ``eprl_eps`` and
-    ``dropout_masks`` of ``MedFusion.forward``, and ``input_draws``, the
+    noise draws, MedFusion's guided uniforms and EPRL eps, dropout masks)
+    comes from ``generator``, a ``torch.Generator`` on the model's device, as
+    the JAX step takes a key.  Given tensors override it: ``draws``, one
+    mapping per forward with the model's keyword arguments for them
+    (MedFusion: ``guided_uniform``, ``eprl_eps``, ``dropout_masks``; a
+    baseline: ``dropout_masks``), and ``input_draws``, the
     clean batch's augmentation and noise draws (``train_views``).  Without
     a second forward (``mmd_weight`` and the JS weight 0) the step copies
     and builds the low view only.  Returns ``{"loss", "mmd", "probs",
@@ -359,7 +395,9 @@ def make_eval_step(cfg: EDRLConfig):
     *, draws=None)`` -> ``{"loss", "probs"}``.  ``draws``: ``MedFusion.forward``
     keyword arguments (``guided_uniform``, ``eprl_eps``), and under
     ``"low_view"`` the low view's noise (``eval_low_view``); what is absent,
-    the model takes from its eval seed."""
+    the model takes from its eval seed.  The missing-modality mask goes to
+    MedFusion, which excludes the expert; any other model gets the absent
+    modality's input zeroed."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Mapping, modality_mask=None, *,
@@ -367,7 +405,12 @@ def make_eval_step(cfg: EDRLConfig):
         kwargs = dict(draws or {})
         fundus, oct_vol = eval_low_view(batch, cfg, state.device, kwargs.pop("low_view", None))
         if modality_mask is not None:
-            kwargs["modality_mask"] = _as_tensor(modality_mask, state.device)
+            mask = _as_tensor(modality_mask, state.device)
+            if isinstance(state.model, MedFusion):
+                kwargs["modality_mask"] = mask
+            else:
+                fundus = fundus * mask[0].to(fundus.dtype)
+                oct_vol = oct_vol * mask[1].to(oct_vol.dtype)
         label = _as_tensor(batch["label"], state.device).long()
         logits, loss, _, _ = _normalize_output(state.model(fundus, oct_vol, label, train=False, **kwargs))
         return {"loss": loss, "probs": torch.softmax(logits.float(), dim=-1)}

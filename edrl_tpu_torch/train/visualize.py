@@ -11,6 +11,9 @@ import os
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
+
+from edrl_tpu_torch.models.auxiliary import estimate_v
 
 
 def _plt():
@@ -46,14 +49,6 @@ def metrics_plot(series: dict, path: str) -> str:
     return path
 
 
-def estimate_v(z_proxy: np.ndarray, epsilon: float = 1e-8) -> np.ndarray:
-    """Student-t degrees-of-freedom estimate from the sample variance,
-    clamped at 2 (``edrl_tpu/models/auxiliary.py:34-39``, ``fusion_net.py:121-125``)."""
-    var = np.var(z_proxy, axis=1)
-    v = 2.0 * var / (var - 1.0 + epsilon)
-    return np.maximum(v, 2.0)
-
-
 def dump_proxy_distributions(model, model_cfg, epoch: int, out_dir: str) -> Optional[str]:
     """Per-epoch Student-t dump of the EPRL proxies of ``model`` (a MedFusion).
 
@@ -79,7 +74,7 @@ def dump_proxy_distributions(model, model_cfg, epoch: int, out_dir: str) -> Opti
             samples = mu[rows][None] + sigma[rows][None] * rng.standard_normal(
                 (64, len(rows), z)
             ).astype(np.float32)
-            v = float(estimate_v(samples.reshape(64, -1)[None]).mean())
+            v = float(estimate_v(torch.from_numpy(samples.reshape(64, -1)[None])).mean())
             return m, max(s, 1e-4), v
 
         for c in range(num_classes):

@@ -1,0 +1,25 @@
+"""One train step and the eval-mode gradients of the baseline zoo's CNN classes
+against JAX, on the CPU: CBAM fusion and MLC.  The checks, the sizes and the
+bars are ``test_torch_baselines.py``'s (see its docstring); the classes are
+split over files so that they run side by side.
+"""
+
+import pytest
+
+from test_torch_baselines import (  # noqa: F401 (two_torch_threads: the module's fixture)
+    check_eval_gradients,
+    check_train_step,
+    two_torch_threads,
+)
+
+NAMES = ['Multi_CBAM_ResNet', 'MLC']
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_train_step_matches_jax(name):
+    check_train_step(name)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_eval_gradients_match_jax(name):
+    check_eval_gradients(name)

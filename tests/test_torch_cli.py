@@ -118,25 +118,58 @@ def test_test_epoch_and_missing_checkpoint(tiny_cli):
     assert "no checkpoint found" in log
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--dataset", "dr2", "--data_path", "/nonexistent"], "A7"),
-    (["--dataset", "glu2"], "A7"),
-    (["--scan_batches", "4"], "A14"),
-    (["--num_model_shards", "2"], "A11"),
-    (["--zero1"], "A11"),
-    (["--model_name", "Multi_ResNet"], "A9"),
+@pytest.mark.parametrize("argv,error,match", [
+    (["--dataset", "dr2", "--data_path", "/nonexistent"], NotImplementedError, "A7"),
+    (["--dataset", "glu2"], NotImplementedError, "A7"),
+    (["--scan_batches", "4"], NotImplementedError, "A14"),
+    (["--num_model_shards", "2"], NotImplementedError, "A11"),
+    (["--zero1"], NotImplementedError, "A11"),
+    (["--model_name", "NoSuchModel"], NameError, "There is no model named 'NoSuchModel'"),
 ])
-def test_train_cli_refusals_name_their_items(tmp_path, argv, item):
+def test_train_cli_refusals_name_their_items(tmp_path, argv, error, match):
     args = ["--plot_dir", "", "--device", "cpu", "--checkpoint_dir", str(tmp_path / "c"), "--log_dir",
             str(tmp_path / "l")]
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         train_cli.main(argv + args)
 
 
-@pytest.mark.parametrize("argv", [["--sweep", "gaussian"], ["--mc_samples", "4"]])
-def test_test_cli_refusals_name_a10(argv):
-    with pytest.raises(NotImplementedError, match="A10"):
-        test_cli.main(argv + ["--device", "cpu"])
+def test_conv_precision_is_settled_where_the_entry_points_start(monkeypatch, tmp_path):
+    """The CLIs and ``Predictor`` settle f32 convolutions to full f32 as they
+    start; resolving a device, building a state or a batch leaves the setting
+    alone, so a caller's ``set_conv_precision(True)`` holds."""
+    from edrl_tpu_torch.config import tiny_test_config
+    from edrl_tpu_torch.serve.predictor import Predictor
+    from edrl_tpu_torch.train import trainer
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    cfg = tiny_test_config(batch_size=2)
+    trainer.resolve_device("cpu")
+    trainer.init_state(cfg, device="cpu")
+    trainer.random_views(cfg, device="cpu")
+    assert torch.backends.cudnn.allow_tf32
+    with pytest.raises(NameError):
+        train_cli.main(["--model_name", "NoSuchModel", "--plot_dir", "", "--device", "cpu",
+                        "--checkpoint_dir", str(tmp_path / "c"), "--log_dir", str(tmp_path / "l")])
+    assert not torch.backends.cudnn.allow_tf32
+    trainer.set_conv_precision(True)
+    assert torch.backends.cudnn.allow_tf32
+    Predictor(cfg, device="cpu")
+    assert not torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("argv", [["--sweep", "gaussian", "--sweep_levels", "0.0", "0.2"], ["--mc_samples", "2"]])
+def test_test_cli_runs_the_sweep_and_mc_dropout(tiny_cli, capsys, argv):
+    """MedFusion takes no ``mc``: its passes are equal (std 0); the sweep logs
+    its grid."""
+    log = tiny_cli(test_cli, *argv)
+    assert len(_test_block(log)) == 4
+    out = capsys.readouterr().out
+    if "--mc_samples" in argv:
+        mc = [line for line in out.splitlines() if line.startswith("MC-dropout (K=2): ")]
+        assert len(mc) == 1 and mc[0].endswith("mean predictive std 0.0000")
+    else:
+        assert "Robustness sweep [gaussian]:" in log
+        assert sum(f"\t{s}\t" in log for s in ("0", "0.2")) == 2
 
 
 def test_plots_need_matplotlib_before_training(monkeypatch, tmp_path):

@@ -631,5 +631,6 @@ def test_refusals_name_their_roadmap_items():
             trainer.fit(cfg, None, None, device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         trainer.fit(tcfg, None, None, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        trainer.check_ported(tcfg.replace(model=dataclasses.replace(tcfg.model, model_name="Multi_ResNet")))
+    trainer.check_ported(tcfg.replace(model=dataclasses.replace(tcfg.model, model_name="Multi_ResNet")))
+    with pytest.raises(NameError, match="NoSuchModel"):
+        trainer.check_ported(tcfg.replace(model=dataclasses.replace(tcfg.model, model_name="NoSuchModel")))

@@ -89,6 +89,39 @@ def test_entry_points_default_to_cuda():
     assert inspect.signature(trainer.init_state).parameters["device"].default == "cuda"
 
 
+@pytest.mark.parametrize("module,name", [
+    ("edrl_tpu_torch.train.mc_dropout", "mc_dropout_predict"),
+    ("edrl_tpu_torch.train.robustness", "noise_sweep"),
+    ("edrl_tpu_torch.train.ensemble", "ensemble_predict"),
+    ("edrl_tpu_torch.train.ensemble", "evaluate_ensemble"),
+    ("edrl_tpu_torch.train.ensemble", "restore_members"),
+    ("edrl_tpu_torch.cli.ensemble", "run_ensemble"),
+])
+def test_evaluation_entry_points_default_to_cuda(module, name):
+    import importlib
+
+    fn = getattr(importlib.import_module(module), name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_evaluation_entry_points_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    from edrl_tpu_torch.cli import ensemble as ensemble_cli
+    from edrl_tpu_torch.serve.predictor import Predictor
+    from edrl_tpu_torch.train import ensemble, mc_dropout, robustness, trainer
+
+    cfg = tiny_test_config()
+    state = trainer.init_state(cfg, device="cpu")
+    for call in (lambda: mc_dropout.mc_dropout_predict(cfg, state, None),
+                 lambda: robustness.noise_sweep(cfg, state),
+                 lambda: ensemble.ensemble_predict(cfg, [state.model], None),
+                 lambda: Predictor.from_checkpoints(cfg, [str(tmp_path)]),
+                 lambda: ensemble_cli.main(["--skip_train", "--checkpoint_dir", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
 def test_trainer_on_cuda_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")

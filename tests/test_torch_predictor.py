@@ -87,9 +87,24 @@ def test_unported_options_raise(kwargs, item):
         predictor.Predictor(tiny_test_config(), device="meta", **kwargs)
 
 
-def test_ensemble_raises():
-    with pytest.raises(NotImplementedError, match="A10"):
-        predictor.Predictor(tiny_test_config(), [{}, {}], device="meta")
+def test_ensemble_averages_member_logits(served):
+    """Two members (the served variables, and the same with perturbed Dense
+    kernels): the softmax of the mean of their logits, one member at a time."""
+    cfg, variables, u, _ = served
+    other = jax.tree_util.tree_map_with_path(
+        lambda p, a: a * np.float32(1.1) if p[-1].key == "kernel" else a, variables)
+    pred = predictor.Predictor(cfg, [variables, other], device="cpu", guided_uniform=u)
+    assert pred.num_members == 2
+    f, o = _request(cfg, 5, 4)
+    logits = [predictor.Predictor(cfg, v, device="cpu", guided_uniform=u) for v in (variables, other)]
+    want = []
+    for p in logits:
+        fu, ou = (torch.tensor(x / 255.0, dtype=torch.float32) for x in (f, o))
+        with torch.no_grad():
+            want.append(torch.cat([p.model(fu[i:i + 4], ou[i:i + 4], guided_uniform=tuple(
+                t[: len(fu[i:i + 4])] for t in p.guided_uniform))[0] for i in range(0, 5, 4)]))
+    np.testing.assert_allclose(pred.predict_probs(f, o), torch.softmax((want[0] + want[1]) / 2, -1).numpy(),
+                               atol=1e-5)
 
 
 def test_dense_weight_cast_is_exact_in_bf16():

@@ -57,6 +57,11 @@ def test_union_of_kernel_intervals(spans, want):
      "(CUtensorMap, CUtensorMap, (anonymous namespace)::ResidualEpilogue, (anonymous namespace)::TileGrid)", "B5 or B6 products (wgmma, mma.sync, f32), weight preps"),
     ("void (anonymous namespace)::layer_norm_bwd_kernel<__nv_bfloat16, float, true, 128>(const T1 *, const T2 *)",
      "LayerNorm kernels (B4 fwd/bwd)"),
+    ("sm90_xmma_fprop_implicit_gemm_f32f32_tf32f32_f32_ndhwckrsc_nhwc_tilesize128x64x32",
+     "convolutions (cuDNN), layout changes"),
+    ("void cudnn::engines_precompiled::nchwToNhwcKernel<float, float, float, false, true, (cudnnKernelDataType_t)2>",
+     "convolutions (cuDNN), layout changes"),
+    ("void at::native::(anonymous namespace)::max_pool_forward_nhwc<float, float>", "pooling"),
     ("some_unknown_kernel", "other"),
 ])
 def test_kernel_categories(name, want):
@@ -69,6 +74,7 @@ def test_kernel_categories(name, want):
     (["--plain"], dict(use_fused_attention=False, vit_fused_attention=False, use_fused_block_attention=False)),
     (["--fused-ln", "--fused-mlp"], dict(use_fused_ln=True, use_fused_mlp=True, use_fused_block_attention=False)),
     (["--fused-block-attention"], dict(use_fused_block_attention=True, use_fused_ln=False)),
+    (["--model_name", "Multi_ResNet"], dict(model_name="Multi_ResNet", use_fused_attention=True)),
 ])
 def test_configuration_flags(argv, flags):
     cfg = pts.config_from_args(pts.parse_args(argv))
