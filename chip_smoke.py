@@ -232,6 +232,28 @@ surfaces over it:
     --sweep_levels 0.0 0.3`` on its checkpoint (a nonzero mean predictive
     std, the sweep's 6 cells).
 
+Then the serving half of A10, in the shipped config:
+
+25. ``Predictor(quantize_int8=True)`` at full width (seeded weights): every
+    int8 product of one batch (``torch._int_mm``, the M = 16 calls padded)
+    equal to an exact f64 reference of its operands; the three requests
+    against the bf16 ``Predictor`` at the JAX package's int8 bars (top-1
+    agreement >= 0.9, max |dp| < 0.15), the card's int8 against the CPU's on
+    two pairs, B1/B2 12 launches each a batch on the tensor cores; the same
+    with static scales calibrated on the 40-pair request (percentile 100 and
+    99.9); ``chunk_batches=4`` on 70 pairs, bf16, int8 and static int8: equal to the
+    per-batch forward at 1e-6, the graph captured once and replayed, B1/B2's
+    counts = replays x the capture's + the eager tail; the serving forward's
+    ms and pairs/s at batch 16 (section 2's method), device busy and kernels
+    a batch, for bf16, int8 dynamic, int8 static and the three chunk graphs;
+    ``_int_mm`` against bf16 ``F.linear`` (and the whole int8 Dense against
+    the bf16 Dense) at the four heaviest Dense shapes; ``export`` round trips
+    (bf16, int8) with max |d| 0, the loaded program's 12 + 12 B1/B2
+    operators launching the kernels on a second seed's weights equal to a
+    live predictor; ``cli.predict --num 40 --int8 --int8_calibrate 16
+    --chunk_batches 2`` (40 CSV rows) in a temporary directory under
+    ``build/`` that the phase removes.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX
 and nothing of the JAX package.
@@ -359,6 +381,259 @@ def bound(nbytes: float, flops: float, flops_per_s: float):
     """(bound_ms, bound_by): the larger of bytes over HBM rate and ops over peak."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return 1000.0 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def serving_half(cfg, card, requests, reset_counts, counts) -> None:
+    """Phase 25: int8 (dynamic and calibrated), the chunk graph, export and
+    ``cli.predict`` on the shipped config at full width (seeded weights);
+    ``requests`` are phase 4's uint8 requests of 16, 5 and 40 pairs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from edrl_tpu_torch.cli import predict as predict_cli
+    from edrl_tpu_torch.kernels import window_attention as wa
+    from edrl_tpu_torch.models.layers import Dense, init_parameters
+    from edrl_tpu_torch.ops import quantization as quant
+    from edrl_tpu_torch.serve import export
+    from edrl_tpu_torch.serve.predictor import Predictor
+    from edrl_tpu_torch.tools.timing import runs_ms
+    from edrl_tpu_torch.train import trainer
+
+    dev = torch.device("cuda")
+    mc, d = cfg.model, cfg.data
+    b = d.eval_batch_size
+    n_batches = sum(-(-len(f) // b) for f, _ in requests)
+    f16, o16 = requests[0]
+
+    t0 = time.perf_counter()
+    p16 = Predictor(cfg, device=dev, seed=0)
+    ref = np.concatenate([p16.predict_probs(f, o) for f, o in requests])
+    print(f"serving half: bf16 predictor built and served in {time.perf_counter() - t0:.1f} s; its probabilities of "
+          f"class 1 over the {len(ref)} pairs lie in [{ref[:, 1].min():.4f}, {ref[:, 1].max():.4f}]", flush=True)
+
+    def served(label, pred):
+        """Serve the three requests, hold them against bf16 at JAX's int8
+        bars, and check B1/B2's launches (12 each a batch, tensor cores)."""
+        reset_counts()
+        quant.reset_launch_counts()
+        got = np.concatenate([pred.predict_probs(f, o) for f, o in requests])
+        launches, routes = counts(), dict(wa.FWD_ROUTES)
+        agree = float((got.argmax(-1) == ref.argmax(-1)).mean())
+        dp = float(np.abs(got - ref).max())
+        print(f"{label}: against bf16 over {len(got)} pairs top-1 agreement {agree:.4f} (bar 0.9), max |dp| "
+              f"{dp:.4e} (bar 0.15); B1/B2 launches {launches[SA]}/{launches[V2]} over {n_batches} batches, "
+              f"forward routes {routes}; int8 products {dict(quant.INT8_MATMULS)}", flush=True)
+        check(bool(np.isfinite(got).all()) and agree >= 0.9 and dp < 0.15, f"{label} against bf16: {agree} {dp}")
+        check(launches[SA] == launches[V2] == 12 * n_batches and routes == {"mma": 24 * n_batches, "fma": 0},
+              f"{label} launches {launches} routes {routes}")
+        return got
+
+    # int8, dynamic: every product of one batch against its exact reference.
+    t0 = time.perf_counter()
+    p8 = Predictor(cfg, device=dev, seed=0, quantize_int8=True)
+    r = p8.quant_report
+    kept = [n for n, m in p8.model.named_modules() if isinstance(m, Dense)]
+    print(f"int8 predictor built in {time.perf_counter() - t0:.1f} s: {r['dense_modules_quantized']}/"
+          f"{r['dense_modules_seen']} Dense modules quantized (float: {kept}); parameter bytes "
+          f"{r['param_bytes_before']} -> {r['param_bytes_after']}", flush=True)
+    check(r["dense_modules_quantized"] > 0 and r["dense_modules_seen"] == r["dense_modules_quantized"] + len(kept),
+          f"int8 report {r['dense_modules_seen']} {r['dense_modules_quantized']} {kept}")
+    calls = []
+    original = quant.int8_matmul
+
+    def recorded(x_q, w_q):
+        out = original(x_q, w_q)
+        # Exact in f64: |sum| <= K * 127^2 < 2^53.
+        calls.append((tuple(x_q.shape), tuple(w_q.shape), torch.equal(out.double(), x_q.double() @ w_q.double().t())))
+        return out
+
+    quant.int8_matmul = recorded
+    try:
+        p8.predict_probs(f16, o16)
+    finally:
+        quant.int8_matmul = original
+    shapes = sorted({(x[0], x[1], w[0]) for x, w, _ in calls})
+    padded = [c for c in calls if c[0][0] < quant.INT_MM_MIN_ROWS]
+    print(f"int8 products of one batch: {len(calls)} calls at {len(shapes)} shapes (M, K, N) {shapes}; "
+          f"{len(padded)} with M <= 16, padded to {quant.INT_MM_MIN_ROWS} rows; every result equal to the exact "
+          f"reference: {all(c[2] for c in calls)}", flush=True)
+    check(len(calls) >= r["dense_modules_quantized"] and all(c[2] for c in calls) and padded,
+          f"int8 products: {len(calls)} calls, {sum(not c[2] for c in calls)} inexact, {len(padded)} padded")
+    got8 = served("int8 dynamic", p8)
+
+    # The card's int8 against the CPU's on the 5-pair request's first two
+    # pairs (batch 2 on the CPU, the card's guided uniforms of those rows).
+    cpu_cfg = cfg.replace(data=dataclasses.replace(d, eval_batch_size=2))
+    master = trainer.make_model(cfg, dev).eval()
+    init_parameters(master, torch.Generator(device=dev).manual_seed(0))
+    cpu_model = trainer.make_model(cpu_cfg, "cpu").eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in master.state_dict().items()})
+    del master
+    u2 = tuple(t[:2].cpu().numpy() for t in p8.guided_uniform)
+    t0 = time.perf_counter()
+    p8_cpu = Predictor(cpu_cfg, cpu_model, device="cpu", quantize_int8=True, guided_uniform=u2)
+    cpu_probs = p8_cpu.predict_probs(requests[1][0][:2], requests[1][1][:2])
+    card_rows = got8[len(f16):len(f16) + 2]
+    dp_cpu = float(np.abs(cpu_probs - card_rows).max())
+    print(f"int8 dynamic, card against CPU on 2 pairs: max |dp| {dp_cpu:.4e} (bar 0.15), top-1 "
+          f"{(cpu_probs.argmax(-1) == card_rows.argmax(-1)).tolist()}; CPU {time.perf_counter() - t0:.1f} s", flush=True)
+    check(dp_cpu < 0.15, f"int8 card against CPU {dp_cpu}")
+    del p8_cpu, cpu_model
+
+    # int8, static: calibrated on the 40-pair request.
+    static = {}
+    for pct in (100.0, 99.9):
+        t0 = time.perf_counter()
+        ps = Predictor(cfg, device=dev, seed=0, quantize_int8=True, int8_calibration=requests[2],
+                       int8_calib_percentile=pct)
+        print(f"int8 static, percentile {pct}: built and calibrated on 40 pairs in {time.perf_counter() - t0:.1f} s, "
+              f"{ps.quant_report['static_activation_scales']} static activation scales", flush=True)
+        served(f"int8 static p{pct}", ps)
+        static[pct] = ps
+    p8s = static.pop(100.0)
+    del static
+    torch.cuda.empty_cache()
+
+    # chunk_batches = 4 on 70 pairs: one chunk of 4 batches and a tail.
+    rng = np.random.default_rng(25)
+    f70 = rng.integers(0, 256, (70, d.fundus_size, d.fundus_size, 3), dtype=np.uint8)
+    o70 = rng.integers(0, 256, (70, *d.oct_size, 1), dtype=np.uint8)
+    chunked = {}
+    for label, base, kw in (("bf16", p16, {}), ("int8", p8, dict(quantize_int8=True)),
+                            ("int8 static", p8s, dict(quantize_int8=True, int8_calibration=requests[2]))):
+        per_batch = base.predict_probs(f70, o70)
+        pc = Predictor(cfg, device=dev, seed=0, chunk_batches=4, **kw)
+        t0 = time.perf_counter()
+        first = pc.predict_probs(f70, o70)
+        capture_s = time.perf_counter() - t0
+        graph = pc.chunk_graph
+        reset_counts()
+        quant.reset_launch_counts()
+        second = pc.predict_probs(f70, o70)
+        launches, int8_calls = counts(), dict(quant.INT8_MATMULS)
+        captured = graph.launches[0]
+        err = max(float(np.abs(first - per_batch).max()), float(np.abs(second - per_batch).max()))
+        print(f"chunk_batches 4, {label}, 70 pairs (a chunk of 4 batches and a tail): max |dp| against the per-batch "
+              f"forward {err:.3e} (bar 1e-6); the first request {capture_s:.1f} s with the capture; captures 1, "
+              f"replays {graph.replays}; per replay B1/B2 {captured[SA]}/{captured[V2]} launches; the second "
+              f"request's B1/B2 {launches[SA]}/{launches[V2]}, int8 products {int8_calls}", flush=True)
+        check(err <= 1e-6 and pc.chunk_graph is graph and graph.replays == 2, f"chunked {label}: {err}")
+        check(captured[SA] == captured[V2] == 48 and launches[SA] == launches[V2] == 48 + 12,
+              f"chunked {label} launches {captured} {launches}")
+        if kw:
+            check(int8_calls[quant.INT_MM] == graph.launches[-1][quant.INT_MM] * 5 // 4,
+                  f"chunked int8 products {int8_calls} {graph.launches[-1]}")
+        chunked[label] = pc
+        del per_batch, first, second
+
+    # Timings: ms per batch of 16 (PERF.md section 2), device busy and kernels.
+    from torch.profiler import ProfilerActivity, profile
+
+    f_dev, o_dev = p16._to_device(f16), p16._to_device(o16)
+    fc = p16._to_device(f70[:64]).reshape(4, b, *f70.shape[1:])
+    oc = p16._to_device(o70[:64]).reshape(4, b, *o70.shape[1:])
+    paths = {
+        "bf16 eager": (lambda: p16._forward(f_dev, o_dev), 1),
+        "int8 dynamic eager": (lambda: p8._forward(f_dev, o_dev), 1),
+        "int8 static eager": (lambda: p8s._forward(f_dev, o_dev), 1),
+        "bf16 chunk graph": (lambda: chunked["bf16"]._forward_chunk(fc, oc), 4),
+        "int8 dynamic chunk graph": (lambda: chunked["int8"]._forward_chunk(fc, oc), 4),
+        "int8 static chunk graph": (lambda: chunked["int8 static"]._forward_chunk(fc, oc), 4),
+    }
+    times = {label: [] for label in paths}
+    with torch.inference_mode():
+        for label in [*paths, *reversed(paths)]:
+            fn, per = paths[label]
+            times[label].append(runs_ms(fn, launches=1) / per)
+        for label, (fn, per) in paths.items():
+            ms = statistics.median(times[label])
+            busy, kernels = None, 0
+            for _ in range(PROFILE_ATTEMPTS):
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+                events = [e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+                if events:
+                    busy = sum(e.time_range.elapsed_us() for e in events) / 1000.0 / per
+                    kernels = len(events) / per
+                    break
+            print(f"time serving forward, {label}, batch {b}: {ms:.3f} ms/batch, {1000.0 * b / ms:.1f} pairs/s "
+                  f"(runs {[round(t, 3) for t in times[label]]}); device busy "
+                  f"{'not measured' if busy is None else f'{busy:.3f} ms'} over {kernels:.0f} kernels a batch "
+                  f"(torch.profiler) [{card}]", flush=True)
+    del chunked, p8s
+    torch.cuda.empty_cache()
+
+    # _int_mm against bf16 F.linear at the forward's four heaviest Dense shapes.
+    for m, k, n in ((3456, 768, 3072), (3456, 3072, 768), (9216, 512, 2048), (147456, 128, 512)):
+        gen = torch.Generator(device=dev).manual_seed(m + k)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        dense = Dense(k, n, dtype=torch.bfloat16, device=dev)
+        init_parameters(dense, gen)
+        int8_dense = quant.Int8Dense(dense, *quant.quantize_weight(dense.weight))
+        x_q, w_q = quant._dynamic_quantize_rows(x.float())[0], int8_dense.weight
+        w_bf16 = dense.weight.to(torch.bfloat16)
+        with torch.inference_mode():
+            t_int = runs_ms(lambda: torch._int_mm(x_q, w_q.t()))
+            t_bf = runs_ms(lambda: F.linear(x, w_bf16))
+            t_q = runs_ms(lambda: int8_dense(x))
+            t_d = runs_ms(lambda: dense(x))
+        b_int, by_int = bound(m * k + n * k + 4 * m * n, 2.0 * m * k * n, 2 * BF16_FLOPS_PER_S)
+        b_bf, by_bf = bound(2 * (m * k + n * k + m * n), 2.0 * m * k * n, BF16_FLOPS_PER_S)
+        print(f"time [{m},{k}]->{n}: _int_mm {t_int:.4f} ms (bound {b_int:.4f}, {by_int}), bf16 F.linear "
+              f"{t_bf:.4f} ms (bound {b_bf:.4f}, {by_bf}); the whole int8 Dense (quantize, product, rescale) "
+              f"{t_q:.4f} ms against the bf16 Dense {t_d:.4f} ms [{card}]", flush=True)
+        del x, dense, int8_dense, x_q, w_q, w_bf16
+    torch.cuda.empty_cache()
+
+    # Export: the round trip, the program's operators, another seed's weights.
+    f32_in = (f_dev.float() / 255.0, o_dev.float() / 255.0)
+    for label, pred in (("bf16", p16), ("int8", p8)):
+        t0 = time.perf_counter()
+        same, delta = export.roundtrip_check(pred, *f32_in)
+        print(f"export round trip, {label}: same shape and dtype {same}, max |d| {delta} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        check(same and delta == 0.0, f"export round trip {label}: {same} {delta}")
+    blob = export.export_forward(p16)
+    loaded = export.ExportedForward(blob)
+    ops = export.program_ops(loaded.program)
+    other = Predictor(cfg, device=dev, seed=1)
+    reset_counts()
+    served_other = loaded(other.serving_state(), *f32_in)
+    launches = counts()
+    with torch.inference_mode():
+        live_other, live = other._forward(*f32_in), p16._forward(*f32_in)
+    print(f"exported bf16 program: {len(blob) / 2**20:.1f} MiB, no weights in it "
+          f"({len(loaded.program.state_dict)} tensors); it calls {collections.Counter(ops)}; on a second seed's "
+          f"weights B1/B2 launch {launches[SA]}/{launches[V2]} times and the result equals the live predictor's: "
+          f"{torch.equal(served_other, live_other)}", flush=True)
+    check(ops.count("self_attention_fwd") == 12 and ops.count("window_attention_v2_fwd") == 12
+          and not loaded.program.state_dict and loaded.program.example_inputs is None,
+          f"exported program {collections.Counter(ops)}")
+    check(launches[SA] == launches[V2] == 12 and torch.equal(served_other, live_other)
+          and not torch.equal(served_other, live), f"exported program on other weights {launches}")
+    del p16, p8, loaded, other
+    torch.cuda.empty_cache()
+
+    # cli.predict in this process.
+    tmp = Path(tempfile.mkdtemp(prefix="predict_cli_", dir=REPO / "build"))
+    try:
+        t0 = time.perf_counter()
+        predict_cli.main(["--num", "40", "--int8", "--int8_calibrate", "16", "--chunk_batches", "2",
+                          "--output", str(tmp / "probs.csv")])
+        rows = np.loadtxt(tmp / "probs.csv", delimiter=",")
+        print(f"cli.predict --num 40 --int8 --int8_calibrate 16 --chunk_batches 2: {rows.shape[0]} CSV rows in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        check(rows.shape == (40, mc.num_classes) and bool(np.allclose(rows.sum(-1), 1.0, atol=1e-4)),
+              f"cli.predict CSV {rows.shape}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not tmp.exists(), "cli.predict's temporary directory is removed")
 
 
 def main() -> None:
@@ -2672,6 +2947,9 @@ def main() -> None:
     for label, (ms, peak) in zoo_times.items():
         print(f"zoo timing, {label}: {ms:.1f} ms a step at batch {bt}, {1000.0 * bt / ms:.1f} pairs/s, peak "
               f"{peak:.2f} GiB [{card}]", flush=True)
+
+    # -- 25. the serving half: int8, the chunk graph, export, cli.predict -------
+    serving_half(cfg, card, requests, reset_counts, counts)
 
     kernels = []
     for name in KERNEL_SOURCE:

@@ -19,7 +19,12 @@ Ported so far:
   registry, on ``models.resnet2d`` / ``resnet3d`` / ``conv``) and the
   evaluation surfaces over it: MC-dropout (``train.mc_dropout``), the
   robustness sweep (``train.robustness``) and deep ensembles
-  (``train.ensemble``, ``cli.ensemble``, a ``Predictor`` of members).
+  (``train.ensemble``, ``cli.ensemble``, a ``Predictor`` of members);
+- the serving half: W8A8 int8 Dense layers with dynamic or calibrated
+  static activation scales (``ops.quantization``), ``chunk_batches > 1`` as
+  a CUDA graph of the eval forward (``serve.predictor.ChunkGraph``),
+  ``torch.export`` of the serving forward (``serve.export``) and the serving
+  CLI ``cli.predict``.
 
 The ViT-3D and Swin attention (forward and backward) and the fused MK-MMD
 forward run on hand-written CUDA kernels (``kernels/csrc``).

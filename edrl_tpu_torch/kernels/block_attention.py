@@ -54,7 +54,9 @@ tensor the kernels or raises.  The forward counts its launches in
 two Dense launches under ``attention_sublayer_fused_bwd``; each launch also
 counts under its route in :data:`SUBLAYER_ROUTES`.  The attention phase
 counts under its route in ``window_attention.FWD_ROUTES``; the backward's B2
-and B4 launches count under their own names.
+and B4 launches count under their own names.  The forward is also the
+operator ``torch.ops.edrl_tpu_torch.attention_sublayer_fwd``
+(:func:`attention_sublayer_fwd`; ``window_attention`` says why).
 """
 
 from __future__ import annotations
@@ -266,17 +268,32 @@ def attention_sublayer_bwd_kernel(x, xln, qkv, gamma, wqkv, wproj, bias, dy, num
     return dx.view(x.shape), dgamma, dbeta, dwqkv, dbqkv, dwproj, dbproj, dbias
 
 
+@torch.library.custom_op(
+    f"{build.OP_NAMESPACE}::attention_sublayer_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor x, Tensor gamma, Tensor beta, Tensor wqkv, Tensor bqkv, Tensor wproj, Tensor bproj, "
+           "Tensor bias, int num_heads, float scale) -> (Tensor, Tensor, Tensor)")
+def attention_sublayer_fwd(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads, scale):
+    """B6's forward as an operator, ``(y, qkv, xln)``
+    (``window_attention.self_attention_fwd`` says why)."""
+    return attention_sublayer_fwd_kernel(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads, scale)
+
+
+@attention_sublayer_fwd.register_kernel("cpu")
+def _(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads, scale):
+    return attention_sublayer_reference(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads, scale)
+
+
+@attention_sublayer_fwd.register_fake
+def _(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads, scale):
+    return torch.empty_like(x), x.new_empty((*x.shape[:-1], 3 * x.shape[-1])), torch.empty_like(x)
+
+
 class _AttentionSublayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads, scale):
-        if x.device.type == "cpu":
-            y, qkv, xln = attention_sublayer_reference(
-                x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads, scale)
-        else:
-            if any(ctx.needs_input_grad[:8]):
-                wa._check_bwd_shape(ATTENTION_SUBLAYER, x.shape[2])
-            y, qkv, xln = attention_sublayer_fwd_kernel(
-                x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads, scale)
+        if x.device.type == "cuda" and any(ctx.needs_input_grad[:8]):
+            wa._check_bwd_shape(ATTENTION_SUBLAYER, x.shape[2])
+        y, qkv, xln = attention_sublayer_fwd(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads, scale)
         ctx.save_for_backward(x, xln, qkv, gamma, wqkv, wproj, bias)
         ctx.num_heads, ctx.scale = num_heads, scale
         ctx.dtypes = (beta.dtype, bqkv.dtype, bproj.dtype)
@@ -308,4 +325,6 @@ def attention_sublayer_fused(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num
         raise ValueError(f"{ATTENTION_SUBLAYER}: no kernel for device {x.device}")
     if x.device.type == "cuda":
         x = x.contiguous()
+    if not build.needs_grad(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias):
+        return attention_sublayer_fwd(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads, scale)[0]
     return _AttentionSublayer.apply(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads, scale)

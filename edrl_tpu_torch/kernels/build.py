@@ -190,6 +190,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 _LIB: Optional[ctypes.CDLL] = None
+# The namespace of the forward kernels' operators (``torch.ops.edrl_tpu_torch.*``),
+# which each kernel module registers as it is imported.
+OP_NAMESPACE = "edrl_tpu_torch"
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors``: a wrapper calls its
+    ``autograd.Function`` then, and its forward operator alone otherwise."""
+    import torch
+
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def launch(counts: dict, name: str, fn, device, *args) -> None:

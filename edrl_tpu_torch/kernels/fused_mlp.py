@@ -14,7 +14,9 @@ added in f32, and the backward rounds dy and dh to bf16 where the kernel
 does.  :func:`fused_mlp` is a ``torch.autograd.Function`` that saves
 ``(u, w1, b1, w2)``, not the hidden, as the JAX VJP does.  A CPU tensor takes
 the plain versions; a CUDA tensor launches the kernels or raises.  Each
-kernel wrapper counts its launches in :data:`LAUNCHES`.
+kernel wrapper counts its launches in :data:`LAUNCHES`.  The forward is also
+the operator ``torch.ops.edrl_tpu_torch.fused_mlp_fwd`` (:func:`fused_mlp_fwd`;
+``window_attention`` says why).
 
 The kernels take one of two routes, forward and backward alike, chosen in
 the C entry points from u's dtype and mirrored by :func:`fused_mlp_route`:
@@ -242,14 +244,28 @@ def fused_mlp_bwd_kernel(u, dy, w1, b1, w2):
     return du, dw1, db1, dw2, db2
 
 
+@torch.library.custom_op(f"{build.OP_NAMESPACE}::fused_mlp_fwd", mutates_args=(), device_types="cuda",
+                         schema="(Tensor u, Tensor w1, Tensor b1, Tensor w2, Tensor b2) -> Tensor")
+def fused_mlp_fwd(u, w1, b1, w2, b2):
+    """B5's forward as an operator (``window_attention.self_attention_fwd``
+    says why)."""
+    return fused_mlp_fwd_kernel(u, w1, b1, w2, b2)
+
+
+@fused_mlp_fwd.register_kernel("cpu")
+def _(u, w1, b1, w2, b2):
+    return fused_mlp_reference(u, w1, b1, w2, b2)
+
+
+fused_mlp_fwd.register_fake(lambda u, w1, b1, w2, b2: torch.empty_like(u))
+
+
 class _FusedMlp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, u, w1, b1, w2, b2):
         ctx.save_for_backward(u, w1, b1, w2)
         ctx.b2_dtype = b2.dtype
-        if u.device.type == "cpu":
-            return fused_mlp_reference(u, w1, b1, w2, b2)
-        return fused_mlp_fwd_kernel(u, w1, b1, w2, b2)
+        return fused_mlp_fwd(u, w1, b1, w2, b2)
 
     @staticmethod
     def backward(ctx, dy):
@@ -273,5 +289,7 @@ def fused_mlp(u, w1, b1, w2, b2):
         raise ValueError(f"{FUSED_MLP}: no kernel for device {u.device}")
     if u.device.type == "cuda":
         u = u.contiguous()
+    if not build.needs_grad(u, w1, b1, w2, b2):
+        return fused_mlp_fwd(u, w1, b1, w2, b2)
     return _FusedMlp.apply(u, w1, b1, w2, b2)
 

@@ -12,7 +12,9 @@ the backward's partials, and the C side refuses a count that is not its own.
 x and gamma, the backward recomputes the statistics, as the JAX VJP does.  A
 CPU tensor takes the plain versions (:func:`layer_norm_reference`,
 :func:`layer_norm_bwd_reference`); a CUDA tensor launches the kernels or
-raises.  Each kernel wrapper counts its launches in :data:`LAUNCHES`.
+raises.  Each kernel wrapper counts its launches in :data:`LAUNCHES`.  The
+forward is also the operator ``torch.ops.edrl_tpu_torch.layer_norm_fwd``
+(:func:`layer_norm_fwd`; ``window_attention`` says why).
 
 The backward also has a residual form (:func:`layer_norm_bwd_residual_kernel`,
 :func:`layer_norm_bwd_residual_reference`), the LayerNorm part of the fused
@@ -221,14 +223,28 @@ def layer_norm_bwd_residual_kernel(x, dy, gamma, res, eps: float = 1e-6):
     return _bwd_kernel(x, dy, res, gamma, eps)
 
 
+@torch.library.custom_op(f"{build.OP_NAMESPACE}::layer_norm_fwd", mutates_args=(), device_types="cuda",
+                         schema="(Tensor x, Tensor gamma, Tensor beta, float eps) -> Tensor")
+def layer_norm_fwd(x, gamma, beta, eps):
+    """B4's forward as an operator (``window_attention.self_attention_fwd``
+    says why)."""
+    return layer_norm_fwd_kernel(x, gamma, beta, eps)
+
+
+@layer_norm_fwd.register_kernel("cpu")
+def _(x, gamma, beta, eps):
+    return layer_norm_reference(x, gamma, beta, eps)
+
+
+layer_norm_fwd.register_fake(lambda x, gamma, beta, eps: torch.empty_like(x))
+
+
 class _FusedLayerNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):
         ctx.save_for_backward(x, gamma)
         ctx.eps = eps
-        if x.device.type == "cpu":
-            return layer_norm_reference(x, gamma, beta, eps)
-        return layer_norm_fwd_kernel(x, gamma, beta, eps)
+        return layer_norm_fwd(x, gamma, beta, eps)
 
     @staticmethod
     def backward(ctx, dy):
@@ -251,4 +267,6 @@ def fused_layer_norm(x, gamma, beta, eps: float = 1e-6):
         raise ValueError(f"{LAYER_NORM}: no kernel for device {x.device}")
     if x.device.type == "cuda":
         x = x.contiguous()
+    if not build.needs_grad(x, gamma, beta):
+        return layer_norm_fwd(x, gamma, beta, eps)
     return _FusedLayerNorm.apply(x, gamma, beta, eps)

@@ -26,6 +26,14 @@ backward (:func:`self_attention_bwd_reference`,
 :func:`window_attention_v2_bwd_reference`); a CUDA tensor launches the
 hand-written kernels or raises.
 
+B1's and B2's forwards are also operators, ``torch.ops.edrl_tpu_torch.
+self_attention_fwd`` and ``window_attention_v2_fwd`` (:func:`self_attention_fwd`,
+:func:`window_attention_v2_fwd`): the kernel for CUDA tensors, the plain
+version for CPU ones, shapes alone under tracing, so that ``torch.export``
+keeps the kernels in a program (``serve.export``).  The autograd Functions'
+forwards call them, and a call that autograd does not record calls them
+alone.
+
 Each kernel wrapper counts its launches in :data:`LAUNCHES`, so that a run
 can show that its main path went through the kernels.  The forward and the
 backward kernels each take one of two routes, chosen from the dtype and
@@ -352,16 +360,33 @@ def self_attention_bwd_kernel(q, k, v, dout, num_heads: int, scale: float):
     return dq, dk, dv
 
 
+@torch.library.custom_op(f"{build.OP_NAMESPACE}::self_attention_fwd", mutates_args=(), device_types="cuda",
+                         schema="(Tensor q, Tensor k, Tensor v, int num_heads, float scale) -> Tensor")
+def self_attention_fwd(q, k, v, num_heads, scale):
+    """B1's forward as an operator: the kernel for CUDA tensors, the plain
+    version for CPU ones, and a shape-only version for tracing, so that
+    ``torch.export`` keeps the kernel in the program it exports."""
+    return _self_attention_fwd_kernel(q, k, v, num_heads, scale)
+
+
+@self_attention_fwd.register_kernel("cpu")
+def _(q, k, v, num_heads, scale):
+    # The plain version is looked up at the call, as the CUDA implementation's
+    # kernel is, so that a caller may wrap either (tools/mlp_replay.py does).
+    return self_attention_reference(q, k, v, num_heads, scale)
+
+
+self_attention_fwd.register_fake(lambda q, k, v, num_heads, scale: torch.empty_like(q))
+
+
 class _SelfAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, num_heads, scale):
         ctx.save_for_backward(q, k, v)
         ctx.num_heads, ctx.scale = num_heads, scale
-        if q.device.type == "cpu":
-            return self_attention_reference(q, k, v, num_heads, scale)
-        if any(ctx.needs_input_grad[:3]):
+        if q.device.type == "cuda" and any(ctx.needs_input_grad[:3]):
             _check_bwd_shape(SELF_ATTENTION_BWD, q.shape[1])
-        return _self_attention_fwd_kernel(q, k, v, num_heads, scale)
+        return self_attention_fwd(q, k, v, num_heads, scale)
 
     @staticmethod
     def backward(ctx, dout):
@@ -386,6 +411,8 @@ def self_attention_fused(q, k, v, num_heads: int, scale: float):
         raise ValueError(f"q, k, v must share a [B, N, C] shape, got {q.shape}, {k.shape}, {v.shape}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{SELF_ATTENTION}: no kernel for device {q.device}")
+    if not build.needs_grad(q, k, v):
+        return self_attention_fwd(q, k, v, num_heads, scale)
     return _SelfAttention.apply(q, k, v, num_heads, scale)
 
 
@@ -460,16 +487,30 @@ def window_attention_v2_bwd_kernel(qkv, bias, dout, num_heads: int, scale: float
     return dqkv, dbias
 
 
+@torch.library.custom_op(f"{build.OP_NAMESPACE}::window_attention_v2_fwd", mutates_args=(), device_types="cuda",
+                         schema="(Tensor qkv, Tensor bias, int num_heads, float scale) -> Tensor")
+def window_attention_v2_fwd(qkv, bias, num_heads, scale):
+    """B2's forward as an operator (as :func:`self_attention_fwd`)."""
+    return window_attention_v2_fwd_kernel(qkv, bias, num_heads, scale)
+
+
+@window_attention_v2_fwd.register_kernel("cpu")
+def _(qkv, bias, num_heads, scale):
+    return window_attention_v2_reference(qkv, bias, num_heads, scale)
+
+
+window_attention_v2_fwd.register_fake(
+    lambda qkv, bias, num_heads, scale: qkv.new_empty((*qkv.shape[:-1], qkv.shape[-1] // 3)))
+
+
 class _WindowAttentionV2(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, bias, num_heads, scale):
         ctx.save_for_backward(qkv, bias)
         ctx.num_heads, ctx.scale = num_heads, scale
-        if qkv.device.type == "cpu":
-            return window_attention_v2_reference(qkv, bias, num_heads, scale)
-        if any(ctx.needs_input_grad[:2]):
+        if qkv.device.type == "cuda" and any(ctx.needs_input_grad[:2]):
             _check_bwd_shape(WINDOW_ATTENTION_V2_BWD, qkv.shape[2])
-        return window_attention_v2_fwd_kernel(qkv, bias, num_heads, scale)
+        return window_attention_v2_fwd(qkv, bias, num_heads, scale)
 
     @staticmethod
     def backward(ctx, dout):
@@ -506,6 +547,8 @@ def window_attention_fused_v2(qkv, bias, num_heads: int, scale: float):
         raise ValueError(
             f"{WINDOW_ATTENTION_V2}: bias must be a contiguous float32 tensor on {qkv.device}"
         )
+    if not build.needs_grad(qkv, bias):
+        return window_attention_v2_fwd(qkv, bias, num_heads, scale)
     return _WindowAttentionV2.apply(qkv, bias, num_heads, scale)
 
 

@@ -42,13 +42,13 @@ def restore_members(cfg: EDRLConfig, checkpoint_dirs: Sequence[str], name: Optio
 
 
 def member_logits_mean(models: Sequence[nn.Module], fundus, oct_vol, y=None, *,
-                       guided_uniform=None) -> torch.Tensor:
+                       guided_uniform=None, eprl_eps=None) -> torch.Tensor:
     """The mean of the members' f32 eval logits, summed on the device one
-    member at a time.  ``guided_uniform`` goes to MedFusion members only
-    (``Predictor``'s fixed eval draws)."""
+    member at a time.  ``guided_uniform`` and ``eprl_eps`` go to MedFusion
+    members only (``Predictor``'s fixed eval draws)."""
     total = None
     for model in models:
-        kwargs = {"guided_uniform": guided_uniform} if isinstance(model, MedFusion) else {}
+        kwargs = dict(guided_uniform=guided_uniform, eprl_eps=eprl_eps) if isinstance(model, MedFusion) else {}
         logits = _normalize_output(model(fundus, oct_vol, y, train=False, **kwargs))[0].float()
         total = logits if total is None else total + logits
     return total / len(models)

@@ -18,6 +18,7 @@ import torch
 
 from edrl_tpu.cli import train as jcli
 from edrl_tpu_torch import config as tconfig
+from edrl_tpu_torch.cli import predict as predict_cli
 from edrl_tpu_torch.cli import test as test_cli
 from edrl_tpu_torch.cli import train as train_cli
 
@@ -75,6 +76,7 @@ def tiny_cli(monkeypatch, tmp_path):
             return f.read()
 
     run.tmp_path = tmp_path
+    run.base = base
     return run
 
 
@@ -198,3 +200,44 @@ def test_cli_runs_on_the_card_by_default(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--plot_dir", "", "--log_dir", str(tmp_path / "l"), "--checkpoint_dir", str(tmp_path / "c")])
     assert not os.path.exists(tmp_path / "l")
+
+
+@pytest.mark.parametrize("source", ["synthetic", "npz"])
+def test_predict_cli_agrees_with_the_predictor(tiny_cli, capsys, source):
+    """``cli.predict`` at the tiny config, int8 calibrated on the first 4 pairs,
+    in chunks of 2 batches: one CSV row per pair, the probabilities of the
+    ``Predictor`` built as the CLI builds it (the CSV's 6 decimals)."""
+    import numpy as np
+
+    from edrl_tpu_torch.serve.predictor import Predictor
+
+    tmp = tiny_cli.tmp_path
+    args = [*tiny_cli.base, "--int8", "--int8_calibrate", "4", "--chunk_batches", "2", "--output", str(tmp / "p.csv")]
+    cfg = train_cli.config_from_args(predict_cli.build_parser().parse_args(args))
+    d = cfg.data
+    if source == "npz":
+        rng = np.random.default_rng(7)
+        fundus = rng.random((5, d.fundus_size, d.fundus_size, 3), dtype=np.float32)
+        oct_vol = rng.random((5, *d.oct_size, 1), dtype=np.float32)
+        np.savez(tmp / "pairs.npz", fundus=fundus, oct=oct_vol)
+        args += ["--input", str(tmp / "pairs.npz"), "--transport", "f32"]
+    else:
+        rng = np.random.default_rng(cfg.train.seed)
+        fundus = (rng.uniform(size=(6, d.fundus_size, d.fundus_size, 3)) * 255).astype(np.uint8)
+        oct_vol = (rng.uniform(size=(6, *d.oct_size, 1)) * 255).astype(np.uint8)
+        args += ["--num", "6"]
+    predict_cli.main(args)
+    out = capsys.readouterr().out
+    assert "no --checkpoint: serving randomly initialized weights" in out and "static activation scales" in out
+    got = np.loadtxt(tmp / "p.csv", delimiter=",")
+    want = Predictor(cfg, seed=cfg.train.seed, device="cpu", quantize_int8=True,
+                     int8_calibration=(fundus[:4], oct_vol[:4]), chunk_batches=2,
+                     transport="f32" if source == "npz" else "uint8").predict_probs(fundus, oct_vol)
+    assert got.shape == (len(fundus), cfg.model.num_classes)
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+def test_predict_cli_calibrate_without_int8_errors(tiny_cli, capsys):
+    with pytest.raises(SystemExit):
+        predict_cli.main([*tiny_cli.base, "--num", "4", "--int8_calibrate", "2"])
+    assert "--int8_calibrate requires --int8" in capsys.readouterr().err

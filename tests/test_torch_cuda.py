@@ -789,3 +789,101 @@ def test_attention_sublayer_counts_its_routes(cuda, dtype, route):
     assert ba.SUBLAYER_ROUTES == {"wgmma": (1 + bwd) * (route == "wgmma"), "fma": int(route == "fma")}
     assert ln.LAUNCHES == {ln.LAYER_NORM: 0, ln.LAYER_NORM_BWD: 1}
     assert all(torch.isfinite(a.grad).all() for a in leaves)
+
+
+# -- The serving half: the forward kernels as operators (export), the int8
+# products, the chunk graph. ---------------------------------------------------
+
+from edrl_tpu_torch.ops import quantization as quant  # noqa: E402
+
+
+def _operator_cases(cuda):
+    """Each forward operator, its plain version and bf16 inputs at a serving shape."""
+    gen = torch.Generator(device=cuda).manual_seed(20)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=cuda)).to(dtype)
+
+    f32 = torch.float32
+    bias = randn(16, 2, 144, 144, dtype=f32)
+    return {
+        "self_attention_fwd": (wa.self_attention_fwd, wa.self_attention_reference,
+                               (randn(4, 216, 768), randn(4, 216, 768), randn(4, 216, 768), 6, 128 ** -0.5)),
+        "window_attention_v2_fwd": (wa.window_attention_v2_fwd, wa.window_attention_v2_reference,
+                                    (randn(2, 16, 144, 768), bias, 2, 128 ** -0.5)),
+        "layer_norm_fwd": (ln.layer_norm_fwd, ln.layer_norm_reference,
+                           (randn(512, 768), randn(768, dtype=f32), randn(768, dtype=f32), 1e-6)),
+        "fused_mlp_fwd": (fm.fused_mlp_fwd, fm.fused_mlp_reference,
+                          (randn(512, 256), randn(256, 1024, scale=256 ** -0.5), randn(1024, dtype=f32),
+                           randn(1024, 256, scale=1024 ** -0.5), randn(256, dtype=f32))),
+        "attention_sublayer_fwd": (ba.attention_sublayer_fwd, ba.attention_sublayer_reference,
+                                   (*_sublayer_inputs(cuda, 2, 4, 144, 128, 1, 1, torch.bfloat16, 21), 1,
+                                    128 ** -0.5)),
+    }
+
+
+def _all_launches():
+    return sum(sum(m.LAUNCHES.values()) for m in (wa, ln, fm, ba, kmmd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["self_attention_fwd", "window_attention_v2_fwd", "layer_norm_fwd", "fused_mlp_fwd",
+                                  "attention_sublayer_fwd"])
+def test_forward_operator_launches_its_kernel(cuda, name):
+    """The operator's CUDA implementation is the kernel: one launch, the
+    plain version's result at the bf16 bar."""
+    op, reference, args = _operator_cases(cuda)[name]
+    before = _all_launches()
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert _all_launches() == before + 1
+    want = reference(*args)
+    for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+        assert g.dtype == w.dtype and g.shape == w.shape and _rel_err(g, w) <= _bwd_bar(torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_int_mm_pads_sixteen_rows(cuda):
+    """The card's torch._int_mm refuses M = 16 (the serving batch's per-sample
+    Dense layers); int8_matmul pads to 17 rows and stays exact."""
+    gen = torch.Generator(device=cuda).manual_seed(30)
+    x = torch.randint(-127, 128, (16, 1024), generator=gen, device=cuda, dtype=torch.int8)
+    w = torch.randint(-127, 128, (512, 1024), generator=gen, device=cuda, dtype=torch.int8)
+    with pytest.raises(RuntimeError):
+        torch._int_mm(x, w.t())
+    quant.reset_launch_counts()
+    got = quant.int8_matmul(x, w)
+    assert got.dtype == torch.int32 and got.shape == (16, 512)
+    # Exact in f64: |sum| <= 1024 * 127^2 < 2^53.
+    assert torch.equal(got.double(), x.double() @ w.double().t())
+    assert quant.INT8_MATMULS == {quant.INT_MM: 1, quant.INT_MM_PADDED: 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+def test_chunk_graph_replays_the_eager_forward(cuda, int8):
+    """13 pairs at batch 4 in chunks of 3: one graph replay and one eager
+    batch, equal to the per-batch forward at 1e-6; B2's launches (2 a
+    forward at the tiny config) count the warm-up, the replay and the tail."""
+    import dataclasses
+
+    import numpy as np
+
+    from edrl_tpu_torch.config import tiny_test_config
+    from edrl_tpu_torch.serve.predictor import Predictor
+
+    cfg = tiny_test_config(4)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, use_fused_attention=True))
+    rng = np.random.default_rng(31)
+    d = cfg.data
+    f = rng.integers(0, 256, (13, d.fundus_size, d.fundus_size, 3), dtype=np.uint8)
+    o = rng.integers(0, 256, (13, *d.oct_size, 1), dtype=np.uint8)
+    kw = dict(device="cuda", quantize_int8=int8, min_dim=32)
+    per_batch = Predictor(cfg, **kw).predict_probs(f, o)
+    pred = Predictor(cfg, chunk_batches=3, **kw)
+    wa.reset_launch_counts()
+    got = pred.predict_probs(f, o)
+    assert pred.chunk_graph is not None and pred.chunk_graph.replays == 1
+    np.testing.assert_allclose(got, per_batch, atol=1e-6, rtol=0)
+    assert wa.LAUNCHES[wa.WINDOW_ATTENTION_V2] == 2 * (3 + 3 + 1)
+    assert pred.chunk_graph.launches[0][wa.WINDOW_ATTENTION_V2] == 6

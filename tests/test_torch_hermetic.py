@@ -59,6 +59,24 @@ def test_no_source_imports_jax():
     assert offenders == []
 
 
+# The serving half of A10: int8, the chunk graph, export and the serving CLI.
+SERVING_MODULES = ("edrl_tpu_torch.ops.quantization", "edrl_tpu_torch.serve.predictor",
+                   "edrl_tpu_torch.serve.export", "edrl_tpu_torch.cli.predict")
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_serving_modules_import_no_jax(module):
+    """Neither the module's own imports nor what importing it loads include
+    JAX, triton or the JAX package."""
+    path = PACKAGE.parent / (module.replace(".", "/") + ".py")
+    assert [n for n in _imported_names(path) if n.split(".")[0] in FORBIDDEN] == []
+    code = (f"import sys, {module}\n"
+            f"print(','.join(sorted({{n.split('.')[0] for n in sys.modules}} & set({sorted(FORBIDDEN)!r}))))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True,
+                         cwd=PACKAGE.parent, timeout=120)
+    assert out.stdout.strip() == ""
+
+
 @pytest.mark.parametrize("name", CONFIG_CLASSES)
 def test_config_copy_matches_the_jax_package(name):
     """Same dataclasses, field names, order and defaults, so the copy cannot drift."""
@@ -129,6 +147,28 @@ def test_trainer_on_cuda_raises_without_a_card():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trainer.init_state(tiny_test_config())
+
+
+def test_serving_entry_points_default_to_cuda():
+    from edrl_tpu_torch.cli import predict
+    from edrl_tpu_torch.serve.predictor import Predictor
+
+    assert predict.build_parser().parse_args([]).device == "cuda"
+    assert inspect.signature(Predictor.__init__).parameters["device"].default == "cuda"
+
+
+def test_serving_entry_points_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    from edrl_tpu_torch.cli import predict
+    from edrl_tpu_torch.serve.predictor import Predictor
+
+    for call in (lambda: Predictor(tiny_test_config(), quantize_int8=True),
+                 lambda: Predictor(tiny_test_config(), chunk_batches=2),
+                 lambda: predict.main(["--num", "2", "--int8", "--output", str(tmp_path / "p.csv")])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not (tmp_path / "p.csv").exists()
 
 
 def test_predictor_on_cuda_raises_without_a_card():

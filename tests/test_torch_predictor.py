@@ -78,13 +78,23 @@ def test_uint8_transport_warns_on_clipping():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(quantize_int8=True), "A10"),
-    (dict(chunk_batches=2), "A10"),
     (dict(mesh=object()), "A11"),
 ])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         predictor.Predictor(tiny_test_config(), device="meta", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [dict(quantize_int8=True, min_dim=32), dict(chunk_batches=2)],
+                         ids=["int8", "chunked"])
+def test_serving_options_run(served, kwargs):
+    """int8 and chunked serving (A10's serving half; ``test_torch_serve.py``
+    holds them against JAX and the per-batch forward) serve a request."""
+    cfg, variables, u, _ = served
+    f, o = _request(cfg, 9, 5)
+    probs = predictor.Predictor(cfg, variables, device="cpu", guided_uniform=u, **kwargs).predict_probs(f, o)
+    assert probs.shape == (9, cfg.model.num_classes) and np.isfinite(probs).all()
+    np.testing.assert_allclose(probs.sum(-1), 1.0, atol=1e-5)
 
 
 def test_ensemble_averages_member_logits(served):
