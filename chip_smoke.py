@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA GPU (serving, training, the CLIs, the baseline zoo), and check it.
+"""Drive the PyTorch port on one NVIDIA GPU (serving, training, the CLIs, the baseline zoo, real data), and check it.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -254,6 +254,28 @@ Then the serving half of A10, in the shipped config:
     --chunk_batches 2`` (40 CSV rows) in a temporary directory under
     ``build/`` that the phase removes.
 
+Then the real-data path (ROADMAP A7's second half), in the shipped config:
+
+26. A GAMMA tree in a temporary directory under ``build/``, written by the
+    port's own writers (no cv2, PIL or pandas): 40 samples, each a
+    2000x2992x3 fundus PNG (smooth and structured, its rows cycling the
+    five filter types) and a (256, 256, 200) f32 OCT NIfTI; every third id
+    zero-padded on disk, one ``processed_data_`` fallback; xlsx labels for
+    dr2 (two rows with no directory), csv labels for glu2 in a shuffled
+    order.  Checked: a decoded fundus equals the pixels written;
+    ``tools.verify_dataset --deep`` (four samples) exits 0, and 1 on a copy
+    of three samples with a planted bad CRC, naming the file;
+    ``tools.build_cache --workers 2`` caches half the ids; ``cli.train
+    --dataset dr2`` (fold 0: 32 train, 8 val; batch 16, 2 epochs) reads
+    both cache hits and misses in epoch 1, and each miss equals its cached
+    read byte for byte; ``cli.test`` on its best (with a 2-level sweep over
+    every sample) prints the train run's test block; ``cli.train --dataset
+    glu2`` (1 epoch, 80/20 in the csv's order); B1's and B2's launches in
+    each run at phase 23's per-step counts, all tensor-core; no module of
+    cv2, PIL or pandas imported.  Printed: ms per sample of each cache-miss
+    stage (PNG decode, cubic resize, NIfTI read, volume zoom), ms per cache
+    hit, each epoch's train pairs/s and the loader's wait as a share of it.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX
 and nothing of the JAX package.
@@ -264,6 +286,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import io
 import json
 import statistics
 import subprocess
@@ -381,6 +404,48 @@ def bound(nbytes: float, flops: float, flops_per_s: float):
     """(bound_ms, bound_by): the larger of bytes over HBM rate and ops over peak."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return 1000.0 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+class TimedLoader:
+    """A loader whose epochs record the host's wait for each batch."""
+
+    def __init__(self, loader):
+        self.loader, self.dataset, self.waits = loader, loader.dataset, collections.defaultdict(list)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def epoch(self, epoch):
+        it = self.loader.epoch(epoch)
+        while True:
+            t = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.waits[epoch].append(time.perf_counter() - t)
+            yield batch
+
+
+class Tee(io.StringIO):
+    """Captures what is printed and passes it on."""
+
+    def write(self, s):
+        sys.__stdout__.write(s)
+        return super().write(s)
+
+
+def test_block(log):
+    """The Test, uncertainty-suite and missing-modality lines of a CLI log."""
+    import numpy as np
+
+    keys = ("Test: Acc", "Uncertainty suite: ", "Missing-modality [fundus-only]", "Missing-modality [oct-only]")
+    lines = [line.split("===> ", 1)[1] for line in log.splitlines() if any(k in line for k in keys)]
+    check(len(lines) == 4, f"test block lines {lines}")
+    # The dict the CLI printed, with its floats rounded.
+    suite = eval(lines[1].split("Uncertainty suite: ", 1)[1], {"nan": float("nan")})
+    check(len(suite) == 10 and all(np.isfinite(v) for v in suite.values()), f"uncertainty suite {suite}")
+    return lines
 
 
 def serving_half(cfg, card, requests, reset_counts, counts) -> None:
@@ -636,7 +701,294 @@ def serving_half(cfg, card, requests, reset_counts, counts) -> None:
     check(not tmp.exists(), "cli.predict's temporary directory is removed")
 
 
+# Phase 26, the real-data path: the tree it writes (a GAMMA layout at the
+# sizes the reference's readers are written for) and what it samples.
+REAL_SAMPLES = 40
+REAL_FUNDUS = (2000, 2992)        # the clip window's scan (edrl_tpu/data/gamma.py:269-270)
+REAL_OCT_HWD = (256, 256, 200)    # stored (H, W, D); 200 x 256 x 256 after the transpose (SURVEY.md:79)
+
+
+def _fundus_photo(seed: int):
+    """A smooth, structured fundus-like RGB image (a lit field, a bright disc,
+    vessel-like ridges and sensor grain), so that it compresses as a
+    photograph does."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = REAL_FUNDUS
+    y = np.linspace(-1.0, 1.0, h, dtype=np.float32)[:, None]
+    x = np.linspace(-1.5, 1.5, w, dtype=np.float32)[None, :]
+    lum = 150.0 * np.exp(-(x * x + y * y) * rng.uniform(0.8, 1.2))
+    lum = lum + 90.0 * np.exp(-((x - rng.uniform(0.3, 0.6)) ** 2 + (y - rng.uniform(-0.2, 0.2)) ** 2) / 0.01)
+    lum = lum + 25.0 * np.sin(20.0 * x + 13.0 * y + rng.uniform(0, 6)) * np.sin(9.0 * y - 4.0 * x)
+    img = lum[..., None] * np.array([1.0, 0.55, 0.3], np.float32) + rng.normal(0, 2, (h, w, 3)).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def real_data_path(cfg, card, reset_counts, counts, check_routes) -> None:
+    """Phase 26: the real-data path (a GAMMA tree written by the port's own
+    writers; the dataset tools; ``cli.train`` / ``cli.test`` on ``dr2`` and
+    ``glu2``) at full width, in a temporary directory under ``build/``."""
+    import concurrent.futures
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from edrl_tpu_torch.cli import test as test_cli
+    from edrl_tpu_torch.cli import train as train_cli
+    from edrl_tpu_torch.data import gamma
+    from edrl_tpu_torch.data.nifti import read_nifti, write_nifti
+    from edrl_tpu_torch.data.png import read_png, write_png
+    from edrl_tpu_torch.data.transforms import resize_image, resize_volume
+    from edrl_tpu_torch.data.xlsx import write_xlsx
+    from edrl_tpu_torch.kernels import window_attention as wa
+    from edrl_tpu_torch.tools import build_cache, verify_dataset
+
+    (REPO / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="edrl_real_", dir=REPO / "build"))
+    root = work / "data"
+    ids = list(range(1, REAL_SAMPLES + 1))
+
+    def on_disk(i):  # every third id zero-padded on disk, the others not
+        return f"{i:05d}" if i % 3 == 0 else str(i)
+
+    def write_sample(i):
+        sid = on_disk(i)
+        (root / sid).mkdir(parents=True)
+        fundus = _fundus_photo(i)
+        write_png(str(root / sid / f"data_{sid}_fundus.png"), fundus)  # rows cycle filters 0..4
+        vol = np.random.default_rng(1000 + i).integers(0, 256, REAL_OCT_HWD, dtype=np.uint8).astype(np.float32)
+        write_nifti(str(root / sid / (f"processed_data_{sid}.nii" if i == 5 else f"data_{sid}.nii")), vol)
+        return fundus if i == 1 else None
+
+    real_load = gamma.GammaDataset._load_raw
+    loads, misses = [], {}
+
+    def recording_load(self, sid):
+        hit = os.path.exists(self.cache_path(sid))
+        t = time.perf_counter()
+        out = real_load(self, sid)
+        loads.append((sid, hit, time.perf_counter() - t))
+        if not hit:
+            misses[sid] = tuple(np.array(a, copy=True) for a in out)
+        return out
+
+    timed = {}
+    real_make_loaders = train_cli.make_loaders
+
+    def make_timed_loaders(c):
+        tl, vl = real_make_loaders(c)
+        timed["train"] = TimedLoader(tl)
+        return timed["train"], vl
+
+    try:
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            written = [f for f in pool.map(write_sample, ids) if f is not None][0]
+        labels = [[f"{i:05d}" if i % 2 else i, i % 2, 1 - i % 2] for i in ids]
+        # dr2: xlsx, ids padded and numeric, two rows with no directory; glu2:
+        # csv in a shuffled order (its split follows the file).
+        write_xlsx(str(work / "dr2.xlsx"), ["data", "class_0", "class_1"], labels + [[41, 1, 0], ["00042", 0, 1]])
+        order = np.random.default_rng(0).permutation(REAL_SAMPLES)
+        (work / "glu2.csv").write_text("data,class_0,class_1\n" + "".join(
+            f"{labels[k][0]},{labels[k][1]},{labels[k][2]}\n" for k in order))
+        (work / "half.csv").write_text("data,class_0,class_1\n" + "".join(
+            f"{a},{b},{c}\n" for a, b, c in labels[: REAL_SAMPLES // 2]))
+        write_s = time.perf_counter() - t0
+        png_mb = sum((root / on_disk(i) / f"data_{on_disk(i)}_fundus.png").stat().st_size for i in ids) / 2 ** 20
+        raw_mb = REAL_SAMPLES * np.prod(REAL_FUNDUS) * 3 / 2 ** 20
+        print(f"real-data tree: {REAL_SAMPLES} samples, fundus PNG {REAL_FUNDUS[0]}x{REAL_FUNDUS[1]}x3 "
+              f"({png_mb / REAL_SAMPLES:.2f} MiB each, {png_mb / raw_mb:.3f} of raw), OCT NIfTI f32 {REAL_OCT_HWD}; "
+              f"written in {write_s:.1f} s (8 threads)", flush=True)
+        first = root / on_disk(1) / f"data_{on_disk(1)}_fundus.png"
+        check(np.array_equal(read_png(str(first)), written), "a decoded fundus equals the pixels written")
+
+        # Each stage of a cache miss, one sample at a time, on four samples.
+        stage_ms = collections.defaultdict(list)
+        for i in ids[:4]:
+            sid = on_disk(i)
+            nii = root / sid / (f"processed_data_{sid}.nii" if i == 5 else f"data_{sid}.nii")
+            t = time.perf_counter()
+            fundus = read_png(str(root / sid / f"data_{sid}_fundus.png"))
+            stage_ms["PNG decode"].append(time.perf_counter() - t)
+            t = time.perf_counter()
+            resize_image(fundus / 255.0, cfg.data.fundus_size)
+            stage_ms["cubic resize"].append(time.perf_counter() - t)
+            t = time.perf_counter()
+            vol = read_nifti(str(nii))
+            stage_ms["NIfTI read"].append(time.perf_counter() - t)
+            t = time.perf_counter()
+            resize_volume(np.transpose(vol, (2, 0, 1)), cfg.data.oct_size)
+            stage_ms["volume zoom"].append(time.perf_counter() - t)
+        print("cache-miss stages, ms per sample (4 samples, one thread): " + ", ".join(
+            f"{k} {1000 * statistics.mean(v):.1f}" for k, v in stage_ms.items()) + f" [{card}]", flush=True)
+
+        # The preflight verifier: the tree is ready (every sample at the
+        # default depth, timed; deep on four); a copy of three samples with
+        # one bad CRC is not.
+        def verify(data_path, label_file, *extra):
+            buf = Tee()
+            with contextlib.redirect_stdout(buf):
+                rc = verify_dataset.main(["--dataset", "dr2", "--data_path", str(data_path), "--label_file",
+                                          str(label_file), *extra])
+            return rc, buf.getvalue()
+
+        sizes = ["--fundus_size", str(cfg.data.fundus_size), "--oct_size", str(cfg.data.oct_size[0])]
+        t0 = time.perf_counter()
+        rc, out = verify(root, work / "dr2.xlsx", *sizes)
+        verify_s = time.perf_counter() - t0
+        check(rc == 0 and f"checked {REAL_SAMPLES}; 0 errors" in out, f"verify_dataset on every sample: rc {rc}")
+        t0 = time.perf_counter()
+        rc, out = verify(root, work / "dr2.xlsx", "--deep", "--max_samples", "4", *sizes)
+        deep_s = time.perf_counter() - t0
+        check(rc == 0 and "READY: --dataset dr2 will load 40 samples" in out, f"verify_dataset --deep: rc {rc}")
+        faulty = work / "faulty"
+        for i in ids[:3]:
+            shutil.copytree(root / on_disk(i), faulty / on_disk(i), copy_function=os.link)
+        bad = faulty / on_disk(2) / f"data_{on_disk(2)}_fundus.png"
+        raw = bytearray(bad.read_bytes())
+        raw[raw.index(b"IDAT") + 100] ^= 0xFF
+        bad.unlink()  # a hard link: write a new file
+        bad.write_bytes(bytes(raw))
+        rc, out = verify(faulty, work / "dr2.xlsx")
+        check(rc == 1 and f"undecodable image {bad}" in out and "bad CRC" in out,
+              f"verify_dataset on a planted bad CRC: rc {rc}")
+        print(f"verify_dataset: the tree exits 0, all {REAL_SAMPLES} samples in {verify_s:.2f} s "
+              f"({1000 * verify_s / REAL_SAMPLES:.1f} ms a sample), --deep on 4 in {deep_s:.2f} s; a copy with "
+              f"one bad CRC exits 1, naming the file [{card}]", flush=True)
+
+        # tools.build_cache on half the ids (two processes).
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(Tee()):
+            rc = build_cache.main(["--data_path", str(root), "--label_file", str(work / "half.csv"),
+                                   "--workers", "2", *sizes])
+        build_s = time.perf_counter() - t0
+        cached = {p.parent.name for p in root.rglob("_edrl_cache8_*.npz")}
+        check(rc == 0 and len(cached) >= REAL_SAMPLES // 2, f"build_cache: rc {rc}, {len(cached)} cached")
+        print(f"build_cache --workers 2: {REAL_SAMPLES // 2} samples in {build_s:.1f} s; {len(cached)} of "
+              f"{REAL_SAMPLES} cached before training [{card}]", flush=True)
+
+        # cli.train --dataset dr2 (fold 0: 32 train, 8 val), cli.test --sweep
+        # on its best, cli.train --dataset glu2.
+        bt, epochs = 16, 2
+        base = ["--batch_size", str(bt), "--plot_dir", "", "--checkpoint_dir", str(work / "ckpt"), "--log_dir",
+                str(work / "log"), "--name", "smoke", "--data_path", str(root)]
+        dr2 = base + ["--dataset", "dr2", "--label_file", str(work / "dr2.xlsx")]
+        gamma.GammaDataset._load_raw = recording_load
+        train_cli.make_loaders = make_timed_loaders
+        out_buf = Tee()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out_buf):
+            train_cli.main(dr2 + ["--end_epochs", str(epochs)])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches, train_fwd, train_bwd = counts(), dict(wa.FWD_ROUTES), dict(wa.BWD_ROUTES)
+        train_cli.make_loaders = real_make_loaders
+        gamma.GammaDataset._load_raw = real_load
+        steps, val_batches = epochs * (32 // bt), 1
+        reset_counts()
+        t0 = time.perf_counter()
+        test_cli.main(dr2 + ["--checkpoint", str(work / "ckpt" / "dr2_0.5_smoke" / "best"), "--sweep", "gaussian",
+                             "--sweep_levels", "0.0", "0.3"])
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        test_launches = counts()
+        shutil.rmtree(work / "ckpt")  # one full-width checkpoint on disk at a time
+        reset_counts()
+        t0 = time.perf_counter()
+        glu2_buf = Tee()
+        with contextlib.redirect_stdout(glu2_buf):
+            train_cli.main(base + ["--dataset", "glu2", "--label_file", str(work / "glu2.csv"), "--end_epochs", "1"])
+        torch.cuda.synchronize()
+        glu2_s = time.perf_counter() - t0
+        glu2_launches = counts()
+        logs = {n: (work / "log" / f"{n}.log").read_text()
+                for n in ("dr2_smoke_train", "dr2_smoke_test", "glu2_smoke_train")}
+
+        # Every sample read on a miss equals its cached read, byte for byte.
+        ds = gamma.GammaDataset(dataclasses.replace(cfg.data, dataset="dr2", data_path=str(root),
+                                                    label_file=str(work / "dr2.xlsx"), device_noise=True,
+                                                    uint8_transport=True), mode="val")
+        hit_s = []
+        for sid, (fundus_u8, oct_u8) in sorted(misses.items()):
+            t = time.perf_counter()
+            f2, o2 = ds._load_raw(sid)
+            hit_s.append(time.perf_counter() - t)
+            check(f2.dtype == fundus_u8.dtype == np.uint8 and np.array_equal(f2, fundus_u8)
+                  and np.array_equal(o2, oct_u8), f"sample {sid}: the cached read differs from the miss")
+    finally:
+        gamma.GammaDataset._load_raw = real_load
+        train_cli.make_loaders = real_make_loaders
+        shutil.rmtree(work, ignore_errors=True)
+    check(not work.exists(), "the real-data phase's directory is removed")
+
+    first_read = {}
+    for sid, hit, _ in loads:
+        first_read.setdefault(sid, hit)
+    n_hit = sum(first_read.values())
+    check(len(first_read) == REAL_SAMPLES and 0 < n_hit < REAL_SAMPLES
+          and set(misses) == {sid for sid, hit in first_read.items() if not hit},
+          f"dr2: first reads {len(first_read)}, {n_hit} cache hits, misses {sorted(misses)}")
+    print(f"dr2 epoch 1: {n_hit} cache hits, {len(misses)} misses; each miss equals its cached read byte for "
+          f"byte; ms per cache hit {1000 * statistics.mean(hit_s):.2f} (one thread), per miss in the loader "
+          f"{1000 * statistics.mean(s for _, h, s in loads if not h):.1f} (8 threads) [{card}]", flush=True)
+    printed = out_buf.getvalue().splitlines()
+    waits = timed["train"].waits
+    for epoch in range(1, epochs + 1):
+        tl = [line for line in printed if line.startswith(f"Train Epoch: {epoch} ")]
+        vl = [line for line in printed if line.startswith(f"Val   Epoch: {epoch} ")]
+        check(len(tl) == 1 and len(vl) == 1, f"dr2 epoch {epoch}: Train and Val lines {tl} {vl}")
+        check(all(np.isfinite(float(line.split("Loss: ")[1].split()[0])) for line in (tl[0], vl[0])),
+              f"dr2 epoch {epoch}: losses {tl} {vl}")
+        pairs_s = float(tl[0].rsplit("(", 1)[1].split(" pairs/s")[0])
+        epoch_s = (32 // bt) * bt / pairs_s
+        w = waits[epoch]
+        print(f"dr2 epoch {epoch}: {pairs_s:.2f} train pairs/s; host wait on the loader {1000 * sum(w) / len(w):.1f} "
+              f"ms per batch, {100 * sum(w) / epoch_s:.1f}% of the epoch's {epoch_s:.3f} s [{card}]", flush=True)
+    hint = f"{len(misses)} of {REAL_SAMPLES} samples have no decoded cache yet"
+    check(logs["dr2_smoke_train"].count(hint) == 1 and "no decoded cache" not in logs["glu2_smoke_train"],
+          "cli.train names the uncached samples once on dr2, and not on glu2 (all cached by then)")
+    tt_block, test_block_lines = test_block(logs["dr2_smoke_train"]), test_block(logs["dr2_smoke_test"])
+    check(tt_block == test_block_lines, f"dr2: cli.test on best {test_block_lines} vs the train&test block {tt_block}")
+    sweep = logs["dr2_smoke_test"].split("Robustness sweep [gaussian]:", 1)[-1]
+    check(sum(f"\t{s}\t" in sweep for s in ("0", "0.3")) == 2, "dr2: the sweep's grid")
+    glu2_lines = glu2_buf.getvalue().splitlines()
+    check(sum(line.startswith("Train Epoch: 1 ") for line in glu2_lines) == 1 and len(
+        test_block(logs["glu2_smoke_train"])) == 4, "glu2: one epoch and its test block")
+
+    def want(**n):
+        w = {name: 0 for name in train_launches}
+        w.update(n)
+        return w
+
+    sa, v2, sa_bwd, v2_bwd = ("self_attention_fused", "window_attention_fused_v2", "self_attention_fused_bwd",
+                              "window_attention_fused_v2_bwd")
+    fwd = 24 * steps + 12 * 5 * val_batches
+    check(train_launches == want(**{sa: fwd, v2: fwd, sa_bwd: 24 * steps, v2_bwd: 24 * steps}),
+          f"dr2 cli.train launches {train_launches}")
+    check_routes("dr2 cli.train", train_bwd, 2 * 24 * steps)
+    check_routes("dr2 cli.train", train_fwd, 2 * fwd, "forward")
+    sweep_fwd = 12 * 3 * val_batches + 12 * 2 * 3 * -(-REAL_SAMPLES // cfg.data.eval_batch_size)
+    check(test_launches == want(**{sa: sweep_fwd, v2: sweep_fwd}), f"dr2 cli.test --sweep launches {test_launches}")
+    glu2_fwd = 24 * (32 // bt) + 12 * 4 * val_batches
+    check(glu2_launches == want(**{sa: glu2_fwd, v2: glu2_fwd, sa_bwd: 24 * (32 // bt), v2_bwd: 24 * (32 // bt)}),
+          f"glu2 cli.train launches {glu2_launches}")
+    print(f"real-data launches, B1 / B2 forward and backward (all tensor-core): dr2 cli.train ({steps} steps, "
+          f"{5 * val_batches} eval batches) {fwd} / {fwd} and {24 * steps} / {24 * steps}; cli.test with a 2-level "
+          f"sweep {sweep_fwd} / {sweep_fwd}; glu2 cli.train (1 epoch) {glu2_fwd} / {glu2_fwd} and {24 * (32 // bt)} / "
+          f"{24 * (32 // bt)}; wall s: dr2 train {train_s:.1f}, test {test_s:.1f}, glu2 {glu2_s:.1f} [{card}]",
+          flush=True)
+    loaded = sorted(n for n in sys.modules if n.split(".")[0] in ("cv2", "PIL", "pandas"))
+    check(not loaded, f"the real-data path imported {loaded}")
+    print("real-data path: no module of cv2, PIL or pandas was imported", flush=True)
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     if not (REPO / "edrl_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py: no edrl_tpu_torch/ beside this script; run it from a checkout")
     sys.path.insert(0, str(REPO))
@@ -2446,7 +2798,6 @@ def main() -> None:
     # synthetic batches, augmented and corrupted on the card, then
     # `cli.test` on its `best` checkpoint; checkpoints and logs in a temporary
     # directory removed afterwards.
-    import io
     import shutil
     import tempfile
 
@@ -2461,31 +2812,6 @@ def main() -> None:
     cli_steps = cli_epochs * (cli_samples // cli_bt)
     cli_val = -(-cli_samples // cfg.data.eval_batch_size)
     cli_dir = Path(tempfile.mkdtemp(prefix="edrl_cli_"))
-
-    class TimedLoader:
-        """A loader whose epochs record the host's wait for each batch."""
-
-        def __init__(self, loader):
-            self.loader, self.waits = loader, collections.defaultdict(list)
-
-        def __len__(self):
-            return len(self.loader)
-
-        def epoch(self, epoch):
-            it = self.loader.epoch(epoch)
-            while True:
-                t = time.perf_counter()
-                try:
-                    batch = next(it)
-                except StopIteration:
-                    return
-                self.waits[epoch].append(time.perf_counter() - t)
-                yield batch
-
-    class Tee(io.StringIO):
-        def write(self, s):
-            sys.__stdout__.write(s)
-            return super().write(s)
 
     timed = {}
     real_make_loaders = train_cli.make_loaders
@@ -2563,15 +2889,6 @@ def main() -> None:
         pairs_s[epoch] = float(tl[0].rsplit("(", 1)[1].split(" pairs/s")[0])
     check(len(csv_rows) == 1 + cli_epochs, f"CLI CSV rows {csv_rows}")
     check(has_best and "Best val accuracy" in train_log, "CLI saved a best checkpoint")
-
-    def test_block(log):
-        keys = ("Test: Acc", "Uncertainty suite: ", "Missing-modality [fundus-only]", "Missing-modality [oct-only]")
-        lines = [line.split("===> ", 1)[1] for line in log.splitlines() if any(k in line for k in keys)]
-        check(len(lines) == 4, f"test block lines {lines}")
-        # The dict the CLI printed, with its floats rounded.
-        suite = eval(lines[1].split("Uncertainty suite: ", 1)[1], {"nan": float("nan")})
-        check(len(suite) == 10 and all(np.isfinite(v) for v in suite.values()), f"uncertainty suite {suite}")
-        return lines
 
     tt_block, test_block_lines = test_block(train_log), test_block(test_log)
     for line in tt_block:
@@ -2950,6 +3267,13 @@ def main() -> None:
 
     # -- 25. the serving half: int8, the chunk graph, export, cli.predict -------
     serving_half(cfg, card, requests, reset_counts, counts)
+
+    # -- 26. the real-data path: a GAMMA tree, the tools, dr2 and glu2 ---------
+    t_real = time.perf_counter()
+    real_data_path(cfg, card, reset_counts, counts, check_routes)
+    t_end = time.perf_counter()
+    print(f"wall s: phase 26 {t_end - t_real:.1f}, the script {t_end - t_start:.1f} (its kernels' builds "
+          f"included) [{card}]", flush=True)
 
     kernels = []
     for name in KERNEL_SOURCE:

@@ -12,7 +12,10 @@ Ported so far:
   augmented and corrupted on the device (``data.device_augment``,
   ``data.device_noise``) or from ready-made views;
 - the system's entry points, ``cli.train`` and ``cli.test``: the synthetic
-  datasets and the host loader (``data``), ``train.trainer.fit`` (per-epoch
+  datasets, the GAMMA / Harvard readers (``data.gamma``, with no cv2, PIL
+  or pandas on the ``dr2`` / ``glu2`` path) with their preflight verifier
+  and cache tool (``tools.verify_dataset``, ``tools.build_cache``), and
+  the host loader (``data``), ``train.trainer.fit`` (per-epoch
   train and val, the plateau schedule, resume), metrics, CSV logs and
   checkpoints (``train.metrics``, ``train.logging``, ``train.checkpoint``);
 - the baseline zoo (``baselines``: every ``--model_name`` of the JAX

@@ -7,17 +7,19 @@ unless the caller asks for the CPU).
 
 ``--model_name`` takes every name of the baseline zoo's registry
 (``baselines.MODEL_REGISTRY``; MedFusion by default); an unknown one raises
-``NameError``.  The synthetic datasets are ported; the real-data readers
-(``dr2``, ``glu2``) are ROADMAP item A7's second half and refuse by name, as
-do ``--scan_batches`` (A14) and ``--num_model_shards`` > 1 and ``--zero1``
-(A11).  With ``--plot_dir`` set (its default), matplotlib must import: the
-run checks that before it trains.
+``NameError``.  ``--dataset`` takes the synthetic datasets and the
+GAMMA-layout trees (``dr2``, ``glu2``: ``--data_path``, ``--label_file``;
+preflight them with ``python -m edrl_tpu_torch.tools.verify_dataset``).
+``--scan_batches`` (A14), ``--num_model_shards`` > 1 and ``--zero1`` (A11)
+refuse by name.  With ``--plot_dir`` set (its default), matplotlib must
+import: the run checks that before it trains.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+from typing import Optional
 
 import numpy as np
 
@@ -150,18 +152,33 @@ def config_from_args(args) -> EDRLConfig:
 
 def make_loaders(cfg: EDRLConfig):
     """The train loader (shuffled, drop_last) and the val loader (in order,
-    the remainder kept) of the configured dataset."""
-    from edrl_tpu_torch.data import SYNTHETIC_DATASETS, BatchLoader
+    the remainder kept) of the configured dataset: a synthetic one, or a
+    GAMMA-layout tree (``glu2``: the sequential 80/20 split in label-file
+    order, ``fusion_train.py:619-631``; ``dr2`` and the others: the shuffled
+    5-fold split of the sorted directory, ``fusion_train.py:564``)."""
+    from edrl_tpu_torch.data import SYNTHETIC_DATASETS, BatchLoader, GammaDataset, kfold_split
+    from edrl_tpu_torch.data.gamma import csv_ids
+    from edrl_tpu_torch.data.xlsx import read_xlsx_dict
 
-    if cfg.data.dataset not in SYNTHETIC_DATASETS:
-        raise NotImplementedError(
-            f"dataset {cfg.data.dataset!r}: the port has the synthetic datasets "
-            f"({', '.join(SYNTHETIC_DATASETS)}); the real-data readers (GAMMA layout, "
-            "NIfTI, xlsx) are ROADMAP item A7's second half"
-        )
-    ds_cls = SYNTHETIC_DATASETS[cfg.data.dataset]
-    train_ds = ds_cls(cfg.data, mode="train")
-    val_ds = ds_cls(cfg.data, mode="val")
+    if cfg.data.dataset in SYNTHETIC_DATASETS:
+        ds_cls = SYNTHETIC_DATASETS[cfg.data.dataset]
+        train_ds = ds_cls(cfg.data, mode="train")
+        val_ds = ds_cls(cfg.data, mode="val")
+    elif cfg.data.dataset == "glu2":
+        if cfg.data.label_file.endswith(".csv"):
+            raw_ids = csv_ids(cfg.data.label_file)
+        else:
+            raw_ids = [str(x) for x in read_xlsx_dict(cfg.data.label_file)["data"]]
+        ids = [str(x).split(".")[0].zfill(5) for x in raw_ids]
+        n_train = int(len(ids) * 0.8)
+        train_ds = GammaDataset(cfg.data, mode="train", filelists=ids[:n_train])
+        val_ds = GammaDataset(cfg.data, mode="val", filelists=ids[n_train:])
+    else:
+        filelists = sorted(os.listdir(cfg.data.data_path))
+        folds = kfold_split(filelists, cfg.data.folds, cfg.data.split_seed)
+        train_files, val_files = folds[cfg.data.fold]
+        train_ds = GammaDataset(cfg.data, mode="train", filelists=list(train_files))
+        val_ds = GammaDataset(cfg.data, mode="val", filelists=list(val_files))
     u8 = cfg.data.device_noise and cfg.data.uint8_transport
     train_loader = BatchLoader(
         train_ds, cfg.data.batch_size, shuffle=True, drop_last=True, seed=cfg.train.seed, uint8_transport=u8)
@@ -170,6 +187,24 @@ def make_loaders(cfg: EDRLConfig):
         val_ds, min(cfg.data.eval_batch_size, max(len(val_ds), 1)), shuffle=False, drop_last=False,
         uint8_transport=u8)
     return train_loader, val_loader
+
+
+def uncached_hint(cfg: EDRLConfig, *loaders) -> Optional[str]:
+    """A line for a run whose GAMMA samples are not all decoded to their
+    caches yet: the loader's threads decode a miss about one at a time (the
+    decode holds the interpreter's lock), so a fresh tree's first epoch is
+    slow, and ``tools.build_cache`` fills the caches ahead in processes."""
+    from edrl_tpu_torch.data import GammaDataset
+
+    sets = [loader.dataset for loader in loaders if isinstance(loader.dataset, GammaDataset) and loader.dataset.cache]
+    missing = sum(not os.path.exists(ds.cache_path(sid)) for ds in sets for sid, _ in ds.samples)
+    if not missing:
+        return None
+    return (f"{missing} of {sum(len(ds) for ds in sets)} samples have no decoded cache yet; the first epoch "
+            "decodes them in the loader's threads, about one at a time. To fill the caches ahead in N processes: "
+            f"python -m edrl_tpu_torch.tools.build_cache --data_path {cfg.data.data_path} --label_file "
+            f"{cfg.data.label_file} --fundus_size {cfg.data.fundus_size} --oct_size {cfg.data.oct_size[0]} "
+            "--workers N")
 
 
 def check_plotting(cfg: EDRLConfig) -> None:
@@ -241,6 +276,9 @@ def main(argv=None):
     check_plotting(cfg)
     emit = setup_cli_logging(cfg, args, "train")
     train_loader, val_loader = make_loaders(cfg)
+    hint = uncached_hint(cfg, train_loader, val_loader)
+    if hint and cfg.train.mode in ("train", "train&test"):
+        emit(hint)
     ckpt_dir = os.path.join(cfg.train.checkpoint_dir,
                             f"{cfg.data.dataset}_{cfg.data.noise.gaussian_high}_{cfg.train.name}")
     mgr = CheckpointManager(ckpt_dir)

@@ -4,8 +4,11 @@ The torchvision transform stacks of the reference's ``GAMMA_dataset``
 (``code/data_harvard.py:621-645``): fundus train = ColorJitter(0.2, 0.2,
 0.2, 0.1) @ p=0.8, RandomGrayscale @ p=0.2, RandomHorizontalFlip; OCT train =
 RandomHorizontalFlip; val = identity.  All randomness flows through an
-explicit ``np.random.Generator``.  The resizes the real-data readers need
-(``resize_image``, ``resize_volume``) come with those readers.
+explicit ``np.random.Generator``.
+
+The resizes of the real-data readers (``:130-172``): ``resize_image`` is
+OpenCV's ``INTER_CUBIC`` in numpy (the JAX package calls ``cv2.resize``),
+``_zoom_indices`` and ``resize_volume`` are copied.
 """
 
 from __future__ import annotations
@@ -126,3 +129,69 @@ def oct_train_augment(
     if rng.random() < hflip_prob:
         vol = vol[:, :, ::-1].copy()
     return vol
+
+
+def _cubic_taps(src: int, dst: int, dtype) -> tuple:
+    """OpenCV's ``INTER_CUBIC`` taps for one axis: the source indices [dst, 4]
+    (clamped to the border) and their weights [dst, 4] in ``dtype``.
+
+    Output i samples source x = (i + 0.5) * src / dst - 0.5; the weights are
+    the cubic convolution kernel with A = -0.75 at the four nearest samples,
+    computed in float64 and rounded to ``dtype``."""
+    x = (np.arange(dst) + 0.5) * (src / dst) - 0.5
+    left = np.floor(x)
+    t = (x - left)[:, None] + np.array([1.0, 0.0, -1.0, -2.0])  # distance to each tap
+    d = np.abs(t)
+    a = -0.75
+    w = np.where(d <= 1.0, ((a + 2.0) * d - (a + 3.0)) * d * d + 1.0,
+                 ((a * d - 5.0 * a) * d + 8.0 * a) * d - 4.0 * a)
+    idx = np.clip(left.astype(np.int64)[:, None] + np.arange(-1, 3), 0, src - 1)
+    return idx, w.astype(dtype)
+
+
+def resize_image(img: np.ndarray, size: int) -> np.ndarray:
+    """Square resize of an [H, W, C] float image, as ``cv2.resize(img, (size,
+    size), interpolation=cv2.INTER_CUBIC)`` gives it (parity with
+    ``scale_image``, ``code/data_harvard.py:169-174``): separable, the
+    horizontal pass first, each pass's four products summed in order in the
+    image's float type (float32 unless it is float64).  Not
+    ``torch.nn.functional.interpolate(mode="bicubic")``, whose results are
+    not OpenCV's."""
+    dtype = np.float64 if img.dtype == np.float64 else np.float32
+    img = np.asarray(img, dtype)
+    h, w = img.shape[:2]
+    if (h, w) == (size, size):
+        return img.copy()
+    for axis, n in ((1, w), (0, h)):
+        idx, wt = _cubic_taps(n, size, dtype)
+        shape = (-1,) + (1,) * (img.ndim - 1 - axis)
+        out = np.take(img, idx[:, 0], axis=axis) * wt[:, 0].reshape(shape)
+        for k in range(1, 4):
+            out += np.take(img, idx[:, k], axis=axis) * wt[:, k].reshape(shape)
+        img = out
+    return img
+
+
+def _zoom_indices(d: int, od: int) -> np.ndarray:
+    """ndimage.zoom(order=0)'s exact source-index map for one axis.
+
+    scipy samples at ``round_half_up(i * (d-1)/(od-1))`` — verified
+    empirically against scipy for up/downsampling and half-way cases
+    (``tests/test_data.py``).  A plain ``floor(i*d/od)`` map picks a
+    different source voxel for ~99.98% of outputs on a 256->96 downsample
+    and never samples the last input slices.
+    """
+    if od <= 1:
+        return np.zeros(max(od, 0), dtype=np.int64)
+    x = np.arange(od) * ((d - 1) / (od - 1))
+    return np.minimum(np.floor(x + 0.5).astype(np.int64), d - 1)
+
+
+def resize_volume(vol: np.ndarray, out_shape) -> np.ndarray:
+    """Nearest-neighbor zoom of a [D, H, W] volume to ``out_shape`` — parity
+    with ``resize_oct_data_trans``/``ndimage.zoom(order=0)``
+    (``code/data_harvard.py:176-183``), dependency-free."""
+    d, h, w = vol.shape
+    od, oh, ow = out_shape
+    di, hi, wi = _zoom_indices(d, od), _zoom_indices(h, oh), _zoom_indices(w, ow)
+    return vol[np.ix_(di, hi, wi)].astype(np.float32)

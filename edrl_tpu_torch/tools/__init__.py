@@ -1,1 +1,1 @@
-"""Measurement tools of the port, run as scripts (``python -m ...``)."""
+"""Measurement and dataset tools of the port, run as scripts (``python -m ...``)."""

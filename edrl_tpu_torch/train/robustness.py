@@ -16,7 +16,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 
 from edrl_tpu_torch.config import EDRLConfig
-from edrl_tpu_torch.data import SYNTHETIC_DATASETS, BatchLoader
+from edrl_tpu_torch.data import SYNTHETIC_DATASETS, BatchLoader, GammaDataset
 from edrl_tpu_torch.train.trainer import TrainState, make_eval_step, require_device, run_eval
 
 DEFAULT_SIGMAS = (0.0, 0.1, 0.2, 0.3, 0.4, 0.5)
@@ -46,10 +46,12 @@ def _cfg_for(cfg: EDRLConfig, level: float, kind: str = "gaussian") -> EDRLConfi
 
 
 def _dataset_for(cfg: EDRLConfig, level: float, kind: str = "gaussian"):
-    if cfg.data.dataset not in SYNTHETIC_DATASETS:
-        raise NotImplementedError(
-            f"dataset {cfg.data.dataset!r}: the real-data readers are ROADMAP item A7's second half")
-    return SYNTHETIC_DATASETS[cfg.data.dataset](_cfg_for(cfg, level, kind).data, mode="val")
+    """The probe's dataset: the synthetic one's val split, or every labeled
+    sample of a GAMMA-layout tree (``edrl_tpu/train/robustness.py:56-66``)."""
+    data_cfg = _cfg_for(cfg, level, kind).data
+    if cfg.data.dataset in SYNTHETIC_DATASETS:
+        return SYNTHETIC_DATASETS[cfg.data.dataset](data_cfg, mode="val")
+    return GammaDataset(data_cfg, mode="val")
 
 
 def noise_sweep(cfg: EDRLConfig, state: TrainState, sigmas: Sequence[float] = DEFAULT_SIGMAS,

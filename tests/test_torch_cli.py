@@ -4,8 +4,10 @@ The parser is held to the JAX package's (the same dests and defaults, plus
 ``--device``).  ``cli.train.main`` and ``cli.test.main`` run end to end with
 the model and input sizes of ``tiny_test_config`` (``config_from_args`` is
 patched; every other setting is the CLI's), and ``cli.test`` on the saved
-``best`` must print the train&test run's test block.  What the port has not
-got refuses by ROADMAP item before any work is done.
+``best`` must print the train&test run's test block, on the synthetic data
+and on written GAMMA-layout trees (``dr2``, ``glu2``).  What the port has
+not got refuses by ROADMAP item before any work is done; a dataset path
+that is not there raises what the JAX CLI raises.
 """
 
 import builtins
@@ -121,8 +123,9 @@ def test_test_epoch_and_missing_checkpoint(tiny_cli):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--dataset", "dr2", "--data_path", "/nonexistent"], NotImplementedError, "A7"),
-    (["--dataset", "glu2"], NotImplementedError, "A7"),
+    (["--dataset", "dr2", "--data_path", "/nonexistent"], FileNotFoundError,
+     "No such file or directory: '/nonexistent'"),
+    (["--dataset", "glu2"], FileNotFoundError, "No such file or directory: ''"),
     (["--scan_batches", "4"], NotImplementedError, "A14"),
     (["--num_model_shards", "2"], NotImplementedError, "A11"),
     (["--zero1"], NotImplementedError, "A11"),
@@ -133,6 +136,74 @@ def test_train_cli_refusals_name_their_items(tmp_path, argv, error, match):
             str(tmp_path / "l")]
     with pytest.raises(error, match=match):
         train_cli.main(argv + args)
+    if "--dataset" in argv:
+        # The JAX CLI raises the same where it builds its loaders.
+        with pytest.raises(error, match=match):
+            jcli.make_loaders(jcli.config_from_args(jcli.build_parser().parse_args(argv)))
+
+
+def _gamma_tree(root, n=10):
+    """A GAMMA-layout tree at the tiny config's sizes (fundus 70 x 90 resized
+    to 64, OCT stored (36, 34, 40) zoomed to 32^3): ids 1..n, the even ones
+    zero-padded on disk; xlsx and csv labels in id order."""
+    import numpy as np
+
+    from edrl_tpu_torch.data.nifti import write_nifti
+    from edrl_tpu_torch.data.png import write_png
+    from edrl_tpu_torch.data.xlsx import write_xlsx
+
+    rng = np.random.default_rng(3)
+    rows = []
+    for i in range(1, n + 1):
+        sid = str(i).zfill(5) if i % 2 == 0 else str(i)
+        (root / sid).mkdir(parents=True)
+        write_png(str(root / sid / f"data_{sid}_fundus.png"), rng.integers(0, 256, (70, 90, 3), dtype=np.uint8))
+        write_nifti(str(root / sid / f"data_{sid}.nii"), rng.integers(0, 256, (36, 34, 40)).astype(np.float32))
+        rows.append([str(i).zfill(5), i % 2, 1 - i % 2])
+    write_xlsx(str(root.parent / "labels.xlsx"), ["data", "class_0", "class_1"], rows)
+    (root.parent / "labels.csv").write_text("data,class_0,class_1\n" + "".join(f"{a},{b},{c}\n" for a, b, c in rows))
+
+
+@pytest.mark.parametrize("dataset,labels", [("dr2", "labels.xlsx"), ("glu2", "labels.csv")])
+def test_real_data_through_the_clis(tiny_cli, monkeypatch, capsys, dataset, labels):
+    """``--dataset dr2`` (shuffled 5-fold) and ``glu2`` (80/20 in label-file
+    order) through ``cli.train`` and ``cli.test --sweep``: the train and val
+    ids are the JAX CLI's, ``cli.test`` prints the train run's test block and
+    the sweep reads ``GammaDataset``."""
+    from edrl_tpu_torch.data import GammaDataset
+    from edrl_tpu_torch.train import robustness
+
+    tmp = tiny_cli.tmp_path
+    _gamma_tree(tmp / "data")
+    argv = [*tiny_cli.base, "--dataset", dataset, "--data_path", str(tmp / "data"), "--label_file",
+            str(tmp / labels)]
+    cfg = train_cli.config_from_args(train_cli.build_parser().parse_args(argv))
+    jargv = argv[: argv.index("--device")] + argv[argv.index("--device") + 2:]
+    jcfg = jcli.config_from_args(jcli.build_parser().parse_args(jargv))
+    for ours, theirs in zip(train_cli.make_loaders(cfg), jcli.make_loaders(jcfg)):
+        assert [s[0] for s in ours.dataset.samples] == [s[0] for s in theirs.dataset.samples]
+    assert [len(loader.dataset) for loader in train_cli.make_loaders(cfg)] == [8, 2]
+
+    seen = []
+    real = robustness._dataset_for
+
+    def spy(*a, **kw):
+        seen.append(real(*a, **kw))
+        return seen[-1]
+
+    monkeypatch.setattr(robustness, "_dataset_for", spy)
+    train_cli.main(argv + ["--end_epochs", "2"])
+    ckpt = tmp / "ckpt" / f"{dataset}_0.5_t" / "best"
+    test_cli.main(argv + ["--checkpoint", str(ckpt), "--sweep", "gaussian", "--sweep_levels", "0.0", "0.2"])
+    logs = {phase: (tmp / "log" / f"{dataset}_t_{phase}.log").read_text() for phase in ("train", "test")}
+    assert _test_block(logs["test"]) == _test_block(logs["train"])
+    # A fresh tree: the train run names the uncached samples and the tool
+    # that fills their caches ahead; the caches then serve cli.test.
+    assert logs["train"].count("10 of 10 samples have no decoded cache yet") == 1
+    assert "tools.build_cache" in logs["train"] and "no decoded cache" not in logs["test"]
+    assert capsys.readouterr().out.count("Train Epoch:") == 2
+    assert "Robustness sweep [gaussian]:" in logs["test"]
+    assert len(seen) == 2 and all(type(ds) is GammaDataset and len(ds) == 10 for ds in seen)
 
 
 def test_conv_precision_is_settled_where_the_entry_points_start(monkeypatch, tmp_path):
