@@ -276,6 +276,32 @@ Then the real-data path (ROADMAP A7's second half), in the shipped config:
     stage (PNG decode, cubic resize, NIfTI read, volume zoom), ms per cache
     hit, each epoch's train pairs/s and the loader's wait as a share of it.
 
+Then data parallelism (ROADMAP A11's first half), on the one card, in the
+shipped config at full width made f32 (the bars of a step's results):
+
+27. (a) World 1 over NCCL (a TCP store on a free localhost port): for plain
+    MK-MMD, B3's, and ZeRO-1 (``ZeroRedundancyOptimizer`` built directly:
+    on one rank ``make_optimizer`` keeps the plain Adam, as the JAX package
+    shards nothing on one device), 3 steps at global batch 32 through the
+    mesh's step path (the data axis current, ``gather_rows`` before the
+    MK-MMD, DILR's summed BatchNorm statistics and gathered Barlow, the
+    flat all-reduce of the gradients) held against the step with no mesh on
+    the same inputs and draws, loss, MMD, probabilities and every gradient
+    at atol 2e-4 / rtol 1e-3, with B1's and B2's launches equal on both;
+    the ZeRO-1 state saved through the mesh's checkpoint manager
+    (consolidated) restores on one card.  (b) World 2 on the same card, two
+    spawned processes over gloo, 16 rows each: each collective the step
+    uses is first tried on CUDA tensors, and the part is left out, naming
+    the collective, where gloo refuses one; else the first step is held
+    against (a)'s at the same bars, and a ZeRO-1 state with a 0-d parameter
+    (as EPRL's ``alpha``), saved consolidated and restored on both ranks,
+    steps on exactly as the state never saved.  (c) ``cli.train`` (1 epoch, batch 16)
+    and ``cli.test`` on its best with ``torchrun``'s environment at
+    ``WORLD_SIZE=1``: they join no process group and build no mesh (the JAX
+    CLI's rule: a mesh only over more than one device), equal test blocks,
+    B1 and B2 launched.  The CLIs' mesh branch needs two cards (NCCL takes
+    one rank a card); ``tools/profile_data_parallel.py`` drives it on four.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX
 and nothing of the JAX package.
@@ -779,8 +805,8 @@ def real_data_path(cfg, card, reset_counts, counts, check_routes) -> None:
     timed = {}
     real_make_loaders = train_cli.make_loaders
 
-    def make_timed_loaders(c):
-        tl, vl = real_make_loaders(c)
+    def make_timed_loaders(c, *mesh):
+        tl, vl = real_make_loaders(c, *mesh)
         timed["train"] = TimedLoader(tl)
         return timed["train"], vl
 
@@ -985,6 +1011,280 @@ def real_data_path(cfg, card, reset_counts, counts, check_routes) -> None:
     loaded = sorted(n for n in sys.modules if n.split(".")[0] in ("cv2", "PIL", "pandas"))
     check(not loaded, f"the real-data path imported {loaded}")
     print("real-data path: no module of cv2, PIL or pandas was imported", flush=True)
+
+
+DP_BATCH = 32                     # phase 27's global batch
+DP_STEPS = 3
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _dp_config():
+    """Phase 27's config: the shipped one at full width, in f32 (the bars a
+    whole step's results are held to)."""
+    from edrl_tpu_torch.config import EDRLConfig
+
+    base = EDRLConfig()
+    return base.replace(model=dataclasses.replace(base.model, use_bfloat16=False))
+
+
+def _dp_zero1_resume(mesh, dev, directory: str) -> float:
+    """A ZeRO-1 state of a 0-d parameter (as EPRL's ``alpha``) and a vector,
+    one a rank, after two Adam steps: saved through the mesh's checkpoint
+    manager (consolidated on rank 0), restored on every rank into a fresh
+    ZeRO-1 state, and stepped once more beside the state never saved.  The
+    largest |difference| of their parameters (0 when the resume is exact)."""
+    import torch
+
+    from edrl_tpu_torch import parallel
+    from edrl_tpu_torch.train import trainer
+    from edrl_tpu_torch.train.checkpoint import CheckpointManager
+
+    def fresh():
+        model = torch.nn.ParameterDict({"alpha": torch.nn.Parameter(torch.tensor(0.5, device=dev)),
+                                        "w": torch.nn.Parameter(torch.linspace(-1.0, 1.0, 8, device=dev))})
+        optimizer = parallel.zero1_optimizer(model.parameters(), mesh, lr=0.1)
+        return trainer.TrainState(model, optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, lambda i: 1.0))
+
+    def step(state, i):
+        state.optimizer.zero_grad()
+        (state.model["alpha"] * (i + 1) + state.model["w"].square().sum()).backward()
+        state.optimizer.step()
+
+    kept, saved = fresh(), fresh()
+    for i in range(2):
+        step(kept, i)
+        step(saved, i)
+    manager = CheckpointManager(directory, mesh=mesh)
+    manager.save(saved, "latest")
+    resumed = manager.restore(fresh(), "latest")
+    step(kept, 2)
+    step(resumed, 2)
+    torch.cuda.synchronize()
+    return max(float((a - b).detach().abs().max()) for a, b in zip(kept.model.parameters(), resumed.model.parameters()))
+
+
+def _dp_world2_rank(rank: int, port: int, outbox, grads_path: str) -> None:
+    """Phase 27(b): one of two ranks on the one card, the group on gloo.  It
+    first runs each collective the step uses on CUDA tensors; where gloo
+    refuses one it posts the collective's name and stops.  Else it runs the
+    first step of phase 27(a) on its 16 rows of the global 32 and posts the
+    global results (rank 0 writes the averaged gradients to ``grads_path``),
+    with :func:`_dp_zero1_resume`'s reading."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from edrl_tpu_torch import parallel
+    from edrl_tpu_torch.train import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer.set_conv_precision()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    store = dist.TCPStore("127.0.0.1", port, 2, rank == 0)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=2)
+    try:
+        x = torch.ones(4, device=dev)
+        for name, call in (("all_reduce", lambda: dist.all_reduce(x.clone())),
+                           ("all_gather", lambda: dist.all_gather([torch.empty_like(x) for _ in range(2)], x)),
+                           ("broadcast", lambda: dist.broadcast(x.clone(), src=0)),
+                           ("barrier", dist.barrier)):
+            try:
+                call()
+                torch.cuda.synchronize()
+            except (RuntimeError, ValueError) as exc:
+                outbox.put((rank, "refused", f"{name}: {exc}"))
+                return
+        mesh = parallel.make_mesh(device="cuda")
+        cfg = _dp_config()
+        state = trainer.init_state(cfg, seed=0, device=dev, mesh=mesh)
+        batch = parallel.shard_batch(trainer.random_views(cfg, seed=31, device=dev), mesh)
+        out = trainer.make_train_step(cfg, mesh)(state, batch, torch.Generator(device=dev).manual_seed(40))
+        if rank == 0:
+            torch.save({n: p.grad.detach().cpu() for n, p in state.model.named_parameters()}, grads_path)
+        del state
+        resume = _dp_zero1_resume(mesh, dev, grads_path + ".zero1")
+        # numpy, which the queue copies: a tensor would be shared by a
+        # handle that dies with this process.
+        outbox.put((rank, "done", dict({k: v.detach().cpu().numpy() for k, v in out.items()}, zero1_resume=resume)))
+    finally:
+        dist.destroy_process_group()
+
+
+def data_parallel_path(card, reset_counts, counts) -> None:
+    """27. Data parallelism on the one card (see the module docstring)."""
+    import multiprocessing
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from edrl_tpu_torch import parallel
+    from edrl_tpu_torch.cli import test as test_cli
+    from edrl_tpu_torch.cli import train as train_cli
+    from edrl_tpu_torch.kernels import window_attention as wa
+    from edrl_tpu_torch.train import trainer
+    from edrl_tpu_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = _dp_config()
+    batch = trainer.random_views(cfg, seed=31, device=dev, batch_size=DP_BATCH)
+    atol, rtol = 2e-4, 1e-3          # the port's f32 bars for a step's results
+
+    def attention(launches):
+        """B1's and B2's launches, forward and backward."""
+        return (launches[wa.SELF_ATTENTION] + launches[wa.WINDOW_ATTENTION_V2],
+                launches[wa.SELF_ATTENTION_BWD] + launches[wa.WINDOW_ATTENTION_V2_BWD])
+
+    def worst(a, b):
+        """The largest |a - b| over atol + rtol |b|: at most 1 is within the bars."""
+        a, b = a.detach().double(), b.detach().double().to(a.device)
+        return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+    # -- (a) world 1 over NCCL, held against the step with no mesh -------------
+    store = dist.TCPStore("127.0.0.1", _free_port(), 1, True)
+    parallel.init_distributed("cuda", store=store)
+    mesh = parallel.make_mesh(device="cuda")
+    first = None
+    work = Path(tempfile.mkdtemp(prefix="edrl_dp_", dir=REPO / "build"))
+    try:
+        for label, train in (("plain MK-MMD", {}), ("B3's MK-MMD", {"use_pallas_mmd": True}),
+                             ("ZeRO-1", {"zero1": True})):
+            c = cfg.replace(train=dataclasses.replace(cfg.train, **train))
+            plain = trainer.init_state(c, seed=0, device=dev)
+            ranks = trainer.init_state(c, seed=0, device=dev, mesh=mesh)
+            if c.train.zero1:
+                # One rank: make_optimizer keeps the plain Adam, as the JAX
+                # package shards nothing on one device; ZeRO-1's library
+                # path is built here on purpose, to run it over NCCL.
+                ranks.optimizer = parallel.zero1_optimizer(ranks.model.parameters(), mesh, lr=c.train.lr,
+                                                           weight_decay=c.train.weight_decay)
+                ranks.scheduler = torch.optim.lr_scheduler.LambdaLR(
+                    ranks.optimizer, lambda i: trainer.warmup_factor(i, c.train.warmup_steps))
+            step_plain, step_ranks = trainer.make_train_step(c), trainer.make_train_step(c, mesh)
+            errs = collections.defaultdict(float)
+            for i in range(DP_STEPS):
+                reset_counts()
+                out_p = step_plain(plain, batch, torch.Generator(device=dev).manual_seed(40 + i))
+                launches_p = counts()
+                reset_counts()
+                out_r = step_ranks(ranks, batch, torch.Generator(device=dev).manual_seed(40 + i))
+                launches_r = counts()
+                check(launches_r == launches_p and min(attention(launches_r)) > 0,
+                      f"{label} step {i}: launches {launches_r} against {launches_p}")
+                for key in ("loss", "mmd", "probs"):
+                    errs[key] = max(errs[key], worst(out_r[key], out_p[key]))
+                errs["grads"] = max(errs["grads"], max(worst(a.grad, b.grad) for a, b in zip(
+                    ranks.model.parameters(), plain.model.parameters())))
+                if i == 0 and not train:
+                    first = ({k: v.detach().cpu() for k, v in out_r.items()},
+                             {n: p.grad.detach().cpu() for n, p in ranks.model.named_parameters()})
+            print(f"data parallel, world 1 over NCCL, {label}: {DP_STEPS} f32 steps at batch {DP_BATCH} against the "
+                  f"step with no mesh, worst |err| / (atol + rtol |want|) {dict(errs)} (at most 1 passes; "
+                  f"B1 + B2 launches a step, forward / backward, {attention(launches_r)}, the same on both)",
+                  flush=True)
+            check(max(errs.values()) <= 1.0, f"{label}: {dict(errs)}")
+            if c.train.zero1:
+                # The consolidated ZeRO-1 checkpoint restores on one card.
+                mgr = CheckpointManager(str(work / "ckpt"), mesh=mesh)
+                mgr.save(ranks, "latest")
+                mgr.wait()
+                one = CheckpointManager(str(work / "ckpt")).restore(trainer.init_state(c, device=dev), "latest")
+                same = all(torch.equal(a, b) for a, b in zip(ranks.model.parameters(), one.model.parameters()))
+                moments = sum(len(s) for s in one.optimizer.state_dict()["state"].values())
+                print(f"  ZeRO-1 checkpoint consolidated over NCCL and restored on one card: parameters "
+                      f"{'equal' if same else 'DIFFER'}, {moments} moment entries", flush=True)
+                check(same and moments > 0, "ZeRO-1 checkpoint restore")
+                del one
+            del plain, ranks, step_plain, step_ranks
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+
+    # -- (b) world 2 on the one card, over gloo, where gloo takes CUDA tensors -
+    grads_path = REPO / "build" / "dp_world2_grads.pt"
+    ctx = multiprocessing.get_context("spawn")
+    outbox = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_dp_world2_rank, args=(r, port, outbox, str(grads_path))) for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        posted = [outbox.get(timeout=600) for _ in range(2)]
+        for p in procs:
+            p.join(timeout=120)
+            check(p.exitcode == 0, f"phase 27(b) rank exited with {p.exitcode}")
+        refused = [msg for _, what, msg in posted if what == "refused"]
+        if refused:
+            print(f"data parallel, world 2 on one card over gloo: left out, gloo refuses CUDA tensors in "
+                  f"{refused}", flush=True)
+        else:
+            out2 = {r: m for r, _, m in posted}[0]
+            grads2 = torch.load(grads_path, weights_only=True)
+            e_out = {k: worst(torch.from_numpy(out2[k]), first[0][k]) for k in ("loss", "mmd", "probs")}
+            e_grad = max(worst(grads2[n], g) for n, g in first[1].items())
+            print(f"data parallel, world 2 on one card over gloo (16 rows each of {DP_BATCH}), its first step "
+                  f"against (a)'s: worst |err| / (atol + rtol |want|) {e_out}, gradients {e_grad:.3f} "
+                  f"({time.perf_counter() - t0:.1f} s with the ranks' start)", flush=True)
+            check(max(e_out.values()) <= 1.0 and e_grad <= 1.0, f"world 2 against world 1: {e_out} {e_grad}")
+            resumed = [m["zero1_resume"] for _, _, m in posted]
+            print(f"data parallel, world 2 on one card over gloo: a ZeRO-1 state with a 0-d parameter saved "
+                  f"consolidated, restored on both ranks and stepped beside the state never saved: largest "
+                  f"|difference| {resumed} (0 passes)", flush=True)
+            check(resumed == [0.0, 0.0], f"ZeRO-1 resume at world 2: {resumed}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        grads_path.unlink(missing_ok=True)
+        shutil.rmtree(f"{grads_path}.zero1", ignore_errors=True)
+
+    # -- (c) cli.train and cli.test with torchrun's environment at WORLD_SIZE=1 --
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    cli_dir = Path(tempfile.mkdtemp(prefix="edrl_dp_cli_", dir=REPO / "build"))
+    args = ["--dataset", "synthetic", "--batch_size", "16", "--synthetic_samples", "32", "--end_epochs", "1",
+            "--plot_dir", "", "--checkpoint_dir", str(cli_dir / "ckpt"), "--log_dir", str(cli_dir / "log"),
+            "--name", "dp"]
+    try:
+        t0 = time.perf_counter()
+        reset_counts()
+        with contextlib.redirect_stdout(Tee()):
+            train_cli.main(args)
+            joined = dist.is_initialized()
+            test_cli.main(args + ["--checkpoint", str(cli_dir / "ckpt" / "synthetic_0.5_dp" / "best")])
+            joined = joined or dist.is_initialized()
+        launches = counts()
+        blocks = [test_block((cli_dir / "log" / f"synthetic_dp_{p}.log").read_text()) for p in ("train", "test")]
+        print(f"data parallel, cli.train (1 epoch, batch 16) and cli.test on its best with torchrun's environment "
+              f"at WORLD_SIZE=1: {time.perf_counter() - t0:.1f} s, a process group joined: {joined} (no mesh on "
+              f"one process, as the JAX CLI on one device; the mesh branch runs in tools/profile_data_parallel.py "
+              f"on 4 cards), B1 + B2 launches forward / backward {attention(launches)}, test blocks equal: "
+              f"{blocks[0] == blocks[1]}", flush=True)
+        check(not joined and blocks[0] == blocks[1] and min(attention(launches)) > 0, "phase 27(c)")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(cli_dir, ignore_errors=True)
+    print(f"wall s: phase 27 {time.perf_counter() - t_phase:.1f} [{card}]", flush=True)
 
 
 def main() -> None:
@@ -2816,8 +3116,8 @@ def main() -> None:
     timed = {}
     real_make_loaders = train_cli.make_loaders
 
-    def make_timed_loaders(c):
-        tl, vl = real_make_loaders(c)
+    def make_timed_loaders(c, *mesh):
+        tl, vl = real_make_loaders(c, *mesh)
         timed["train"] = TimedLoader(tl)
         return timed["train"], vl
 
@@ -3271,8 +3571,11 @@ def main() -> None:
     # -- 26. the real-data path: a GAMMA tree, the tools, dr2 and glu2 ---------
     t_real = time.perf_counter()
     real_data_path(cfg, card, reset_counts, counts, check_routes)
+
+    # -- 27. data parallelism on the one card: world 1 over NCCL, world 2 over gloo, the CLIs at world 1
+    data_parallel_path(card, reset_counts, counts)
     t_end = time.perf_counter()
-    print(f"wall s: phase 26 {t_end - t_real:.1f}, the script {t_end - t_start:.1f} (its kernels' builds "
+    print(f"wall s: phases 26-27 {t_end - t_real:.1f}, the script {t_end - t_start:.1f} (its kernels' builds "
           f"included) [{card}]", flush=True)
 
     kernels = []

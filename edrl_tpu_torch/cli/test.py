@@ -7,7 +7,10 @@ evaluates only.
 ``--mc_samples N`` first runs MC-dropout over N forwards (the models that
 take ``mc``: ``Multi_dropout_ResNet`` and the dropout feature extractors;
 any other gives a predictive std of 0).  ``--sweep`` then runs the noise x
-modality robustness grid (``train.robustness``).
+modality robustness grid (``train.robustness``).  Under ``torchrun`` with
+more than one process the evaluation and the sweep run across the ranks,
+as ``cli.train``'s do (rank 0 prints; MC-dropout runs on rank 0 over the
+whole set).
 """
 
 from __future__ import annotations
@@ -55,21 +58,22 @@ def main(argv=None):
 
     from edrl_tpu_torch.train.checkpoint import CheckpointManager
     from edrl_tpu_torch.train.metrics import compute_epoch_metrics, compute_uncertainty_metrics
-    from edrl_tpu_torch.train.trainer import init_state, make_eval_step, resolve_device, set_conv_precision
+    from edrl_tpu_torch.train.trainer import init_state, make_eval_step, set_conv_precision
 
     set_conv_precision()
-    device = resolve_device(args.device)
-    emit = train_cli.setup_cli_logging(cfg, args, "test")
-    _, val_loader = train_cli.make_loaders(cfg)
+    device, mesh, quiet, leave = train_cli.data_parallel(cfg, args)
+    emit = quiet or train_cli.setup_cli_logging(cfg, args, "test")
+    _, val_loader = train_cli.make_loaders(cfg, mesh)
     state = init_state(cfg, cfg.train.seed, device=device)
     if args.checkpoint:
         directory, name = os.path.split(args.checkpoint.rstrip("/"))
-        state = CheckpointManager(directory or ".").restore(state, name)
+        state = CheckpointManager(directory or ".", mesh=mesh).restore(state, name)
 
-    if args.mc_samples > 0:
+    if args.mc_samples > 0 and quiet is None:
         from edrl_tpu_torch.train.mc_dropout import mc_dropout_predict
 
-        pred = mc_dropout_predict(cfg, state, val_loader, num_samples=args.mc_samples, seed=cfg.train.seed,
+        mc_loader = val_loader if mesh is None else train_cli.make_loaders(cfg)[1]
+        pred = mc_dropout_predict(cfg, state, mc_loader, num_samples=args.mc_samples, seed=cfg.train.seed,
                                   device=device)
         em = compute_epoch_metrics(pred["targets"], pred["probs"], 0.0)
         print(f"MC-dropout (K={args.mc_samples}): Acc {em.accuracy:.4f} AUC {em.auc:.4f} F1 {em.f1:.4f} "
@@ -77,7 +81,7 @@ def main(argv=None):
         mc_suite = compute_uncertainty_metrics(pred["targets"], pred["probs"])
         print("MC-dropout suite:", {k: round(v, 4) for k, v in mc_suite.items()})
 
-    train_cli.report_eval(emit, cfg, state, make_eval_step(cfg), val_loader)
+    train_cli.report_eval(emit, cfg, state, make_eval_step(cfg), val_loader, mesh)
 
     if args.sweep:
         from edrl_tpu_torch.train.robustness import DEFAULT_SIGMAS, DEFAULT_SP_LEVELS, format_sweep, noise_sweep
@@ -86,9 +90,10 @@ def main(argv=None):
         for kind in kinds:
             levels = resolve_sweep_levels(args.sweep, kind, args.sweep_levels, args.sp_sweep_levels,
                                           DEFAULT_SIGMAS, DEFAULT_SP_LEVELS)
-            res = noise_sweep(cfg, state, sigmas=levels, kind=kind, device=device)
+            res = noise_sweep(cfg, state, sigmas=levels, kind=kind, device=device, mesh=mesh)
             emit(f"Robustness sweep [{kind}]:")
             emit(format_sweep(res))
+    leave()
 
 
 if __name__ == "__main__":

@@ -10,9 +10,21 @@ unless the caller asks for the CPU).
 ``NameError``.  ``--dataset`` takes the synthetic datasets and the
 GAMMA-layout trees (``dr2``, ``glu2``: ``--data_path``, ``--label_file``;
 preflight them with ``python -m edrl_tpu_torch.tools.verify_dataset``).
-``--scan_batches`` (A14), ``--num_model_shards`` > 1 and ``--zero1`` (A11)
-refuse by name.  With ``--plot_dir`` set (its default), matplotlib must
-import: the run checks that before it trains.
+``--scan_batches`` (A14) and ``--num_model_shards`` > 1 (tensor
+parallelism, A11's second half) refuse by name.  With ``--plot_dir`` set
+(its default), matplotlib must import: the run checks that before it
+trains.
+
+Data parallelism: started by ``torchrun`` with more than one process
+(``WORLD_SIZE`` > 1, the JAX CLI's "more than one device"), the CLI joins
+the process group (NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device
+cpu``), builds the data mesh and trains and evaluates across the ranks;
+``--batch_size`` is the global batch.  Rank 0 alone prints and writes.
+``--zero1`` shards Adam's moments over the ranks (on one rank it is the
+plain step, as in the JAX package).
+
+    python -m torch.distributed.run --nproc_per_node 4 -m edrl_tpu_torch.cli.train \
+        --dataset synthetic --batch_size 32 --end_epochs 2 --plot_dir ""
 """
 
 from __future__ import annotations
@@ -84,7 +96,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--num_model_shards", type=int, default=1)
-    p.add_argument("--zero1", action="store_true", help="ZeRO-1 (ROADMAP item A11; refused)")
+    p.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1: Adam's moments sharded over the data ranks (under torchrun)")
     p.add_argument("--scan_batches", type=int, default=0)
     p.add_argument("--no_bfloat16", action="store_true")
     p.add_argument("--remat", action="store_true")
@@ -150,12 +163,13 @@ def config_from_args(args) -> EDRLConfig:
     return EDRLConfig(data=data, model=model, train=train)
 
 
-def make_loaders(cfg: EDRLConfig):
+def make_loaders(cfg: EDRLConfig, mesh=None):
     """The train loader (shuffled, drop_last) and the val loader (in order,
     the remainder kept) of the configured dataset: a synthetic one, or a
     GAMMA-layout tree (``glu2``: the sequential 80/20 split in label-file
     order, ``fusion_train.py:619-631``; ``dr2`` and the others: the shuffled
-    5-fold split of the sorted directory, ``fusion_train.py:564``)."""
+    5-fold split of the sorted directory, ``fusion_train.py:564``).  With
+    ``mesh``, this rank's rows of every batch."""
     from edrl_tpu_torch.data import SYNTHETIC_DATASETS, BatchLoader, GammaDataset, kfold_split
     from edrl_tpu_torch.data.gamma import csv_ids
     from edrl_tpu_torch.data.xlsx import read_xlsx_dict
@@ -180,12 +194,16 @@ def make_loaders(cfg: EDRLConfig):
         train_ds = GammaDataset(cfg.data, mode="train", filelists=list(train_files))
         val_ds = GammaDataset(cfg.data, mode="val", filelists=list(val_files))
     u8 = cfg.data.device_noise and cfg.data.uint8_transport
+    ranks = {} if mesh is None else {"rank": mesh.get_local_rank("data"), "world": mesh.size(0)}
     train_loader = BatchLoader(
-        train_ds, cfg.data.batch_size, shuffle=True, drop_last=True, seed=cfg.train.seed, uint8_transport=u8)
-    # Eval keeps the remainder batch: every sample is scored.
+        train_ds, cfg.data.batch_size, shuffle=True, drop_last=True, seed=cfg.train.seed, uint8_transport=u8,
+        **ranks)
+    # Eval keeps the remainder batch: every sample is scored.  Its batch is
+    # cut to the set's size (a multiple of the ranks: a padded remainder).
+    eval_batch = min(cfg.data.eval_batch_size, max(len(val_ds), 1))
+    world = ranks.get("world", 1)
     val_loader = BatchLoader(
-        val_ds, min(cfg.data.eval_batch_size, max(len(val_ds), 1)), shuffle=False, drop_last=False,
-        uint8_transport=u8)
+        val_ds, -(-eval_batch // world) * world, shuffle=False, drop_last=False, uint8_transport=u8, **ranks)
     return train_loader, val_loader
 
 
@@ -236,13 +254,13 @@ def setup_cli_logging(cfg, args, phase: str):
     return logger.info
 
 
-def report_eval(emit, cfg, state, eval_step, val_loader):
+def report_eval(emit, cfg, state, eval_step, val_loader, mesh=None):
     """The test-phase report of both CLIs: the overall metrics, the 10-metric
     uncertainty suite and the missing-modality sweep."""
     from edrl_tpu_torch.train.metrics import compute_uncertainty_metrics
     from edrl_tpu_torch.train.trainer import run_eval
 
-    m, targets, probs = run_eval(state, eval_step, val_loader)
+    m, targets, probs = run_eval(state, eval_step, val_loader, mesh=mesh)
     emit(
         f"Test: Acc {m.accuracy:.4f} AUC {m.auc:.4f} F1 {m.f1:.4f} "
         f"Precision {m.precision:.4f} Recall {m.recall:.4f} "
@@ -251,8 +269,29 @@ def report_eval(emit, cfg, state, eval_step, val_loader):
     suite = compute_uncertainty_metrics(targets, probs)
     emit(f"Uncertainty suite: {({k: round(v, 4) for k, v in suite.items()})}")
     for mask, label in ((np.array([True, False]), "fundus-only"), (np.array([False, True]), "oct-only")):
-        mm, _, _ = run_eval(state, eval_step, val_loader, modality_mask=mask)
+        mm, _, _ = run_eval(state, eval_step, val_loader, modality_mask=mask, mesh=mesh)
         emit(f"Missing-modality [{label}]: Acc {mm.accuracy:.4f} AUC {mm.auc:.4f}")
+
+
+def data_parallel(cfg: EDRLConfig, args):
+    """``(device, mesh, emit, leave)``: under a launcher with ``WORLD_SIZE`` >
+    1, this rank's device, the data mesh over the ranks, off rank 0 an
+    ``emit`` that says nothing, and ``leave``, which leaves the process group
+    if this call joined it (a caller that joined it first keeps it); else
+    the device, no mesh, ``None`` and a ``leave`` that does nothing."""
+    import torch.distributed as dist
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        from edrl_tpu_torch.train.trainer import resolve_device
+
+        return resolve_device(args.device), None, None, lambda: None
+    from edrl_tpu_torch.parallel import init_distributed, is_writer, make_mesh
+
+    joined = not dist.is_initialized()
+    device = init_distributed(args.device)
+    mesh = make_mesh(device=device.type)
+    return (device, mesh, None if is_writer(mesh) else (lambda *a, **k: None),
+            dist.destroy_process_group if joined else (lambda: None))
 
 
 def main(argv=None):
@@ -265,35 +304,34 @@ def main(argv=None):
         fit,
         init_state,
         make_eval_step,
-        resolve_device,
         resume_from_latest,
         set_conv_precision,
     )
 
     set_conv_precision()
     check_ported(cfg)
-    device = resolve_device(args.device)
+    device, mesh, quiet, leave = data_parallel(cfg, args)
     check_plotting(cfg)
-    emit = setup_cli_logging(cfg, args, "train")
-    train_loader, val_loader = make_loaders(cfg)
+    emit = quiet or setup_cli_logging(cfg, args, "train")
+    train_loader, val_loader = make_loaders(cfg, mesh)
     hint = uncached_hint(cfg, train_loader, val_loader)
     if hint and cfg.train.mode in ("train", "train&test"):
         emit(hint)
     ckpt_dir = os.path.join(cfg.train.checkpoint_dir,
                             f"{cfg.data.dataset}_{cfg.data.noise.gaussian_high}_{cfg.train.name}")
-    mgr = CheckpointManager(ckpt_dir)
+    mgr = CheckpointManager(ckpt_dir, mesh=mesh)
 
     if cfg.train.mode in ("train", "train&test"):
         state, initial_best, initial_best_epoch = None, 0.0, -1
         if cfg.train.resume:
-            resumed = resume_from_latest(cfg, mgr, train_loader, device=device)
+            resumed = resume_from_latest(cfg, mgr, train_loader, device=device, mesh=mesh)
             if resumed is not None:
                 state, cfg, initial_best, done = resumed
                 binfo = mgr.best_info()
                 if binfo is not None:
                     initial_best_epoch = int(binfo["epoch"])
                 emit(f"Resuming from latest (completed epoch {done}, best {initial_best:.4f})")
-        state, result = fit(cfg, train_loader, val_loader, state=state, checkpoint_manager=mgr,
+        state, result = fit(cfg, train_loader, val_loader, state=state, mesh=mesh, checkpoint_manager=mgr,
                             initial_best=initial_best, initial_best_epoch=initial_best_epoch, device=device)
         emit(f"Best val accuracy {result.best_acc:.4f} at epoch {result.best_epoch}")
         del state
@@ -317,7 +355,8 @@ def main(argv=None):
         else:
             emit(f"WARNING: no checkpoint found under {ckpt_dir}; evaluating RANDOMLY INITIALIZED weights — "
                  "metrics below are not a trained model's")
-        report_eval(emit, cfg, state, make_eval_step(cfg), val_loader)
+        report_eval(emit, cfg, state, make_eval_step(cfg), val_loader, mesh)
+    leave()
 
 
 if __name__ == "__main__":

@@ -8,8 +8,9 @@ the JAX package, the jitter's order is fixed (brightness, contrast,
 saturation, hue) and every draw is per sample.
 
 Each augmentation is a *draw* (``draw_fundus_augment``, ``draw_oct_augment``:
-``[B]`` tensors from a ``torch.Generator``) and an *apply* that takes the
-draws.  The JAX package draws from threefry keys, which torch cannot replay;
+``[B]`` tensors from a ``torch.Generator``; under a data axis, this rank's
+rows of the global batch's, ``parallel.draw_rows``) and an *apply* that
+takes the draws.  The JAX package draws from threefry keys, which torch cannot replay;
 its draws, recorded in call order (``apply``, ``f_b``, ``f_c``, ``f_s``,
 ``f_h``, ``to_gray``, ``flip``, then the OCT's ``flip``), go into the apply
 unchanged, which is how the tests hold the two to each other.
@@ -20,6 +21,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from edrl_tpu_torch.parallel.mesh import draw_rows
 
 FUNDUS_DRAWS = ("apply", "f_b", "f_c", "f_s", "f_h", "to_gray", "flip")
 _GRAY = (0.299, 0.587, 0.114)
@@ -79,7 +82,7 @@ def draw_fundus_augment(batch: int, generator: torch.Generator, device,
     out = {}
     for name in FUNDUS_DRAWS:
         lo, hi = bounds[name]
-        out[name] = torch.rand(batch, generator=generator, device=device) * (hi - lo) + lo
+        out[name] = draw_rows(torch.rand, (batch,), generator, device) * (hi - lo) + lo
     return out
 
 
@@ -127,7 +130,7 @@ def augment_fundus_batch(x: torch.Tensor, generator: Optional[torch.Generator], 
 
 def draw_oct_augment(batch: int, generator: torch.Generator, device) -> Dict[str, torch.Tensor]:
     """The OCT flip's gate, ``[B]``."""
-    return {"flip": torch.rand(batch, generator=generator, device=device)}
+    return {"flip": draw_rows(torch.rand, (batch,), generator, device)}
 
 
 def apply_oct_augment(x: torch.Tensor, draws: Dict[str, torch.Tensor], hflip_prob: float = 0.5) -> torch.Tensor:

@@ -21,6 +21,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 
 from edrl_tpu_torch.config import NoiseConfig
+from edrl_tpu_torch.parallel.mesh import draw_rows
 
 
 def _kinds(cfg: NoiseConfig, sigma: float, amount: float) -> Tuple[str, ...]:
@@ -36,14 +37,15 @@ def draw_corruption(fundus_shape, oct_shape, cfg: NoiseConfig, sigma: float, amo
                     generator: torch.Generator, device) -> Dict[str, torch.Tensor]:
     """One view's noise: a standard normal of each input's shape for the
     Gaussian, a uniform of its shape less the channel axis (kept as 1) for
-    salt-and-pepper."""
+    salt-and-pepper; under a data axis, this rank's rows of the global
+    batch's (``parallel.draw_rows``)."""
     out = {}
     for name, shape in (("fundus", tuple(fundus_shape)), ("oct", tuple(oct_shape))):
         for kind in _kinds(cfg, sigma, amount):
             if kind == "gaussian":
-                out[f"{name}_gaussian"] = torch.randn(shape, generator=generator, device=device)
+                out[f"{name}_gaussian"] = draw_rows(torch.randn, shape, generator, device)
             else:
-                out[f"{name}_salt_pepper"] = torch.rand(shape[:-1] + (1,), generator=generator, device=device)
+                out[f"{name}_salt_pepper"] = draw_rows(torch.rand, shape[:-1] + (1,), generator, device)
     return out
 
 

@@ -6,6 +6,13 @@ fixed-shape numpy batches behind a bounded prefetch queue, with epoch-indexed
 shuffles and uint8 transport of clean batches.  The threads touch numpy
 only; the trainer copies each batch to the card (pinned, ``non_blocking``).
 
+With ``world`` above 1 (data parallelism, ``edrl_tpu_torch.parallel``) every
+rank shuffles in the same seeded order and reads and decodes only its rows
+of each global batch; a remainder batch (``drop_last`` off) is first padded
+to a multiple of ``world`` by repeating its last sample, as the JAX
+package's ``run_eval`` pads it, and ``rows`` says how many of its rows are
+real.
+
 ``kfold_split`` reproduces the reference's 5-fold file split,
 ``KFold(n_splits=5, shuffle=True, random_state=10)`` (``fusion_train.py:564``),
 with sklearn's shuffling.
@@ -64,7 +71,8 @@ def _stack_batch(
 
 
 class BatchLoader:
-    """Iterate fixed-shape batches with shuffling, drop_last, and prefetch."""
+    """Iterate fixed-shape batches with shuffling, drop_last, and prefetch;
+    with ``world`` > 1, rank ``rank``'s rows of each."""
 
     def __init__(
         self,
@@ -76,7 +84,13 @@ class BatchLoader:
         num_workers: int = 8,
         prefetch: int = 2,
         uint8_transport: bool = False,
+        rank: int = 0,
+        world: int = 1,
     ):
+        if batch_size % world:
+            raise ValueError(f"batch_size {batch_size} does not split over {world} data ranks")
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} is not in a world of {world}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -85,10 +99,25 @@ class BatchLoader:
         self.num_workers = num_workers
         self.prefetch = prefetch
         self.uint8_transport = uint8_transport
+        self.rank = rank
+        self.world = world
 
     def __len__(self) -> int:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def rows(self, b: int) -> int:
+        """The real samples of global batch ``b`` (the rest are padding)."""
+        return min(self.batch_size, len(self.dataset) - b * self.batch_size)
+
+    def _indices(self, order: np.ndarray, b: int) -> np.ndarray:
+        """The samples of global batch ``b`` that this rank reads."""
+        idxs = order[b * self.batch_size : (b + 1) * self.batch_size]
+        if self.world == 1:
+            return idxs
+        idxs = np.concatenate([idxs, np.repeat(idxs[-1:], (-len(idxs)) % self.world)])
+        per = len(idxs) // self.world
+        return idxs[self.rank * per : (self.rank + 1) * per]
 
     def epoch(self, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         n = len(self.dataset)
@@ -107,7 +136,7 @@ class BatchLoader:
                     for b in range(num_batches):
                         if stop.is_set():
                             return
-                        idxs = order[b * self.batch_size : (b + 1) * self.batch_size]
+                        idxs = self._indices(order, b)
                         samples = list(
                             pool.map(lambda i: self.dataset.get(int(i), epoch), idxs)
                         )

@@ -25,6 +25,11 @@ contiguous channel-last tensor is handed to cuDNN as the ``channels_last``
   running variance toward the unbiased one.  The statistics are computed
   once, and one autograd node saves only the input.
 
+Under a data axis (``parallel.use_mesh``) train mode's statistics are the
+global batch's: the forward sums the per-channel sums and sums of squares
+over the ranks (one all-reduce), the backward its two sums (one more); the
+node still saves only the input.
+
 ``model.double()`` makes a CNN baseline its own f64 reference: Conv, Dense
 and BatchNorm then compute in f64 (``layers.compute_dtype``).  Train-mode
 BatchNorm at random init amplifies f32 rounding by 1e4-1e5 in a deep stack
@@ -42,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from edrl_tpu_torch.models.layers import _TRUNC_STD, _param, compute_dtype, trunc_normal_
+from edrl_tpu_torch.parallel.mesh import all_reduce_sum, current_axis, global_rows, sum_over
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -128,24 +134,29 @@ def avg_pool(x: torch.Tensor, kernel: Sequence[int], stride: Sequence[int]) -> t
 class _BatchNormTrain(torch.autograd.Function):
     """``(x - mean) * (invstd * scale) + bias`` with the batch's statistics,
     differentiated through them (the closed-form BatchNorm backward); saves
-    ``x`` and the per-channel statistics only."""
+    ``x`` and the per-channel statistics only.  Under a data ``axis`` the
+    statistics are the global batch's: dx takes the two sums over every
+    rank's rows (one all-reduce); scale and bias take this rank's, which the
+    average of the gradients over the ranks sums."""
 
     @staticmethod
-    def forward(ctx, x, mean, invstd, scale, bias):
+    def forward(ctx, x, mean, invstd, scale, bias, axis):
         ctx.save_for_backward(x, mean, invstd, scale)
+        ctx.axis = axis
         return (x - mean) * (invstd * scale) + bias
 
     @staticmethod
     def backward(ctx, dy):
         x, mean, invstd, scale = ctx.saved_tensors
         dims = tuple(range(x.dim() - 1))
-        n = x.numel() // x.shape[-1]
+        n = x.numel() // x.shape[-1] * (1 if ctx.axis is None else ctx.axis.size)
         dy = dy.float()
         xhat = (x - mean) * invstd
-        sum_dy = dy.sum(dim=dims)
-        sum_dy_xhat = (dy * xhat).sum(dim=dims)
-        dx = (invstd * scale) * (dy - sum_dy / n - xhat * (sum_dy_xhat / n))
-        return dx, None, None, sum_dy_xhat, sum_dy
+        sums = torch.cat([dy.sum(dim=dims), (dy * xhat).sum(dim=dims)])
+        sum_dy, sum_dy_xhat = sums.chunk(2)
+        all_dy, all_dy_xhat = sum_over(sums, ctx.axis).chunk(2)
+        dx = (invstd * scale) * (dy - all_dy / n - xhat * (all_dy_xhat / n))
+        return dx, None, None, sum_dy_xhat, sum_dy, None
 
 
 class BatchNorm(nn.Module):
@@ -176,9 +187,10 @@ class BatchNorm(nn.Module):
             return (x - self.running_mean) * mul + self.bias
         dims = tuple(range(x.dim() - 1))
         with torch.no_grad():
-            mean = x.mean(dim=dims)
-            var = (x.square().mean(dim=dims) - mean.square()).clamp_min(0.0)
+            sums = all_reduce_sum(torch.cat([x.sum(dim=dims), x.square().sum(dim=dims)]))
+            mean, mean_sq = (sums / global_rows(x.numel() // x.shape[-1])).chunk(2)
+            var = (mean_sq - mean.square()).clamp_min(0.0)
             self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
             self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
             invstd = torch.rsqrt(var + self.eps)
-        return _BatchNormTrain.apply(x, mean, invstd, self.weight, self.bias)
+        return _BatchNormTrain.apply(x, mean, invstd, self.weight, self.bias, current_axis())

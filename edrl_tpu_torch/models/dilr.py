@@ -2,7 +2,10 @@
 
 The affine-free BatchNorms standardise with the batch's statistics in train
 mode, and update their running statistics, and with the running statistics
-in eval mode.
+in eval mode.  Under a data axis (``parallel.use_mesh``) the batch is the
+global one: the BatchNorms sum their statistics over the ranks and the
+Barlow correlation runs on the gathered ``z1``, ``z2`` with the divisor
+``B_global x 4``, as XLA makes them global under the JAX package's mesh.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from torch import nn
 
 from edrl_tpu_torch.models.layers import Dense, LayerNorm, MultiHeadAttention
 from edrl_tpu_torch.ops.correlation import barlow_block_loss
+from edrl_tpu_torch.parallel.mesh import all_reduce_sum, gather_rows, global_rows
 
 
 class AttentionModel(nn.Module):
@@ -58,8 +62,9 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if not train:
             return (xf - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
-        mean = xf.mean(dim=0)
-        var = (xf.square().mean(dim=0) - mean.square()).clamp_min(0.0)
+        sums = all_reduce_sum(torch.cat([xf.sum(dim=0), xf.square().sum(dim=0)]))
+        mean, mean_sq = (sums / global_rows(xf.shape[0])).chunk(2)
+        var = (mean_sq - mean.square()).clamp_min(0.0)
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
             self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
@@ -94,7 +99,6 @@ class DILR(nn.Module):
     def forward(self, fundus_tokens, oct_tokens, shared_features, fundus_guided, oct_guided,
                 train: bool = False):
         half = self.feature_dim // 2
-        b = fundus_tokens.shape[0]
         y1 = self.projector1(fundus_tokens)
         y2 = self.projector2(oct_tokens)
         y1_unique, y1_common = y1[..., :half], y1[..., half:]
@@ -111,10 +115,11 @@ class DILR(nn.Module):
 
         z1 = self.bn1(torch.cat([y1_com, y1_uni], dim=1), train)
         z2 = self.bn2(torch.cat([y2_com, y2_uni], dim=1), train)
+        z1_all, z2_all = gather_rows(z1), gather_rows(z2)
         loss, _, _ = barlow_block_loss(
-            z1, z2,
+            z1_all, z2_all,
             common_dim=int(self.common_ratio * self.feature_dim),
-            batch_divisor=float(b) * self.batch_divisor_mult,
+            batch_divisor=float(z1_all.shape[0]) * self.batch_divisor_mult,
             off_diag_weight=self.off_diag_weight,
         )
         combined = torch.cat([z1[:, half:], (y1_com + y2_com).float(), z2[:, half:]], dim=1)

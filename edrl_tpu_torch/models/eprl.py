@@ -20,6 +20,7 @@ from torch import nn
 
 from edrl_tpu_torch.models.layers import Dense, xavier_uniform_
 from edrl_tpu_torch.ops.distributions import entropy_regularization
+from edrl_tpu_torch.parallel.mesh import draw_rows
 
 EVAL_SEED = 1
 DROPOUT = 0.2
@@ -44,11 +45,12 @@ def dropout(x, rate: float, mask: Optional[torch.Tensor] = None,
     """flax ``nn.Dropout`` in train mode: ``where(mask, x / keep, 0)``.
 
     ``mask`` is the boolean keep mask (True keeps), drawn as U[0, 1) < keep
-    from ``generator`` when absent.
+    from ``generator`` when absent (at the global batch under a data axis,
+    ``parallel.draw_rows``).
     """
     keep = 1.0 - rate
     if mask is None:
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        mask = draw_rows(torch.rand, x.shape, generator, x.device) < keep
     return torch.where(mask.to(x.device), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -18,6 +18,8 @@ torch cannot replay.  Train mode draws all of them per call, there from the
 step's keys and here from the ``generator`` the caller passes.  ``forward``
 takes every draw as an optional tensor (``guided_uniform=(u_f, u_o)``,
 ``eprl_eps``, ``dropout_masks``), so that parity tests can inject JAX's.
+Under a data axis (``parallel.use_mesh``) the per-row draws are drawn at
+the global batch and each rank keeps its rows (``parallel.draw_rows``).
 """
 
 from __future__ import annotations
@@ -37,15 +39,16 @@ from edrl_tpu_torch.models.swin2d import SwinTransformer2D
 from edrl_tpu_torch.models.vit3d import ViT3D
 from edrl_tpu_torch.ops.distributions import kl_to_standard_normal
 from edrl_tpu_torch.ops.losses import label_smoothing_cross_entropy
+from edrl_tpu_torch.parallel.mesh import draw_rows
 
 
 def eval_guided_uniform(batch: int, num_classes: int, z_dim: int, device):
     """The eval-mode guided uniforms ``(u_f, u_o)``, each ``[B, C, z]``, from a
-    generator seeded with 1 (not the JAX package's draw)."""
+    generator seeded with 1 (not the JAX package's draw); under a data axis,
+    this rank's rows of the global batch's."""
     gen = torch.Generator(device=device).manual_seed(EVAL_SEED)
     shape = (batch, num_classes, z_dim)
-    return (torch.rand(shape, generator=gen, device=device),
-            torch.rand(shape, generator=gen, device=device))
+    return (draw_rows(torch.rand, shape, gen, device), draw_rows(torch.rand, shape, gen, device))
 
 
 class MedFusion(nn.Module):
@@ -132,8 +135,7 @@ class MedFusion(nn.Module):
         if guided_uniform is None:
             if train:
                 shape = (b, c, z_dim)
-                guided_uniform = tuple(
-                    torch.rand(shape, generator=generator, device=fundus.device) for _ in range(2))
+                guided_uniform = tuple(draw_rows(torch.rand, shape, generator, fundus.device) for _ in range(2))
             else:
                 guided_uniform = eval_guided_uniform(b, c, z_dim, fundus.device)
         u_f, u_o = guided_uniform

@@ -23,8 +23,15 @@ and are dequantized on the device.
 
 The eval draws of a MedFusion member (its guided uniforms and EPRL's eps)
 are drawn once, as the model would draw them, and passed to every forward,
-so that a graph replays them and an exported program holds them.  Mesh
-serving is ROADMAP item A11 and raises.
+so that a graph replays them and an exported program holds them.
+
+With ``mesh`` (data parallelism, ``parallel.make_mesh``; one process per
+card, each given the whole request) every rank runs its rows of each padded
+serving batch, its rows of the eval draws with them, and the
+probabilities are all-gathered once per request: every rank returns the
+whole result.  int8 (each rank calibrates on the whole calibration set, so
+the scales agree) and chunks (a rank's graph holds its rows) compose with
+it, as with the JAX package's mesh predictor.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from edrl_tpu_torch.models.eprl import eval_eps
 from edrl_tpu_torch.models.layers import cast_dense_weights_, init_parameters
 from edrl_tpu_torch.models.medfusion import MedFusion, eval_guided_uniform
 from edrl_tpu_torch.ops import quantization
+from edrl_tpu_torch.parallel.mesh import data_axis_of, gather_batches, rows_of
 from edrl_tpu_torch.train.ensemble import member_logits_mean, restore_members
 from edrl_tpu_torch.train.trainer import TrainState, _dequantize, make_model, resolve_device, set_conv_precision
 
@@ -164,7 +172,8 @@ class Predictor:
         counts): static per-tensor activation scales at the
         ``int8_calib_percentile``-th percentile of |x| (100: the abs-max).
     chunk_batches: batches per chunk (1: batch by batch).
-    mesh: ROADMAP item A11; raises.
+    mesh: data-parallel serving (see the module docstring); the serving
+        batch must split over the data ranks (``ValueError``).
 
     Dense weights that stay float are stored in the compute dtype
     (``layers.cast_dense_weights_``): the same products, fewer launches.
@@ -188,8 +197,6 @@ class Predictor:
         chunk_batches: int = 1,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("mesh serving is ROADMAP item A11")
         if transport not in ("uint8", "f32"):
             raise ValueError(f"transport must be 'uint8' or 'f32', got {transport!r}")
         if int8_calibration is not None and not quantize_int8:
@@ -200,6 +207,12 @@ class Predictor:
         self.transport = transport
         self.batch_size = cfg.data.eval_batch_size
         self.chunk_batches = max(1, int(chunk_batches))
+        self.mesh = mesh
+        if mesh is not None and self.batch_size % mesh.size(0):
+            raise ValueError(f"eval_batch_size {self.batch_size} not divisible by the mesh data axis "
+                             f"({mesh.size(0)})")
+        # This rank's rows of each serving batch (all of it without a mesh).
+        self.rows = slice(None) if mesh is None else rows_of(self.batch_size, data_axis_of(mesh))
         members = list(variables) if isinstance(variables, (list, tuple)) else [variables]
         if not members:
             raise ValueError("an ensemble needs at least one member")
@@ -213,7 +226,7 @@ class Predictor:
             self._quantize(models, int8_calibration, int8_calib_percentile, min_dim)
         self.members = [cast_dense_weights_(m) for m in models]
         self.model = self.members[0]
-        self.serving = ServingForward(self.members, self.draws)
+        self.serving = ServingForward(self.members, self.draws if mesh is None else self._rank_draws())
         self.chunk_graph: Optional[ChunkGraph] = None
 
     @property
@@ -225,7 +238,16 @@ class Predictor:
         """Serve with other guided uniforms (tensors on the device); a chunk
         graph captured with the old ones is dropped."""
         self.draws["guided_uniform"] = tuple(u)
+        if self.mesh is not None:
+            self.serving.draws = self._rank_draws()
         self.chunk_graph = None
+
+    def _rank_draws(self) -> dict:
+        """The eval draws of this rank's rows (EPRL's eps is not per row)."""
+        draws = dict(self.draws)
+        if "guided_uniform" in draws:
+            draws["guided_uniform"] = tuple(u[self.rows] for u in draws["guided_uniform"])
+        return draws
 
     def _member(self, variables, seed: int) -> nn.Module:
         """A member's model on the device, in eval mode, with float32 weights
@@ -362,20 +384,24 @@ class Predictor:
             fundus = np.concatenate([fundus, np.repeat(fundus[-1:], pad, 0)])
             oct_vol = np.concatenate([oct_vol, np.repeat(oct_vol[-1:], pad, 0)])
         num_batches = (n + pad) // b
+        # [batches, B, ...] -> this rank's rows of each batch.
+        fundus = fundus.reshape(num_batches, b, *fundus.shape[1:])[:, self.rows]
+        oct_vol = oct_vol.reshape(num_batches, b, *oct_vol.shape[1:])[:, self.rows]
         probs = []
         with torch.inference_mode():
             i = 0
             while i < num_batches:
                 if c > 1 and num_batches - i >= c:
-                    f = self._to_device(fundus[i * b:(i + c) * b]).reshape(c, b, *fundus.shape[1:])
-                    o = self._to_device(oct_vol[i * b:(i + c) * b]).reshape(c, b, *oct_vol.shape[1:])
-                    probs.append(self._forward_chunk(f, o).reshape(c * b, -1))
+                    probs.append(self._forward_chunk(self._to_device(fundus[i:i + c]),
+                                                     self._to_device(oct_vol[i:i + c])).flatten(0, 1))
                     i += c
                 else:
-                    probs.append(self._forward(self._to_device(fundus[i * b:(i + 1) * b]),
-                                               self._to_device(oct_vol[i * b:(i + 1) * b])))
+                    probs.append(self._forward(self._to_device(fundus[i]), self._to_device(oct_vol[i])))
                     i += 1
-            out = torch.cat(probs).cpu().numpy()  # one host sync per request
+            out = torch.cat(probs)
+            if self.mesh is not None:
+                out = gather_batches(out, fundus.shape[1], self.mesh)
+            out = out.cpu().numpy()  # one host sync per request
         return out[:n]
 
     def predict_labels(self, fundus: np.ndarray, oct_vol: np.ndarray) -> np.ndarray:

@@ -17,6 +17,14 @@ background thread: ``save`` copies the state to the host (the next train
 step may then change it on the card) and the thread writes the copy while
 training goes on.  At most one write is in flight; ``wait`` drains it,
 ``save_best`` and ``restore`` wait for it.
+
+Under data parallelism (``mesh``) every rank calls every method in the same
+order: data rank 0 alone copies and writes, the others wait for it at a
+barrier in ``wait`` (so a checkpoint is there for every rank once ``wait``
+or ``restore`` returns, and ``best.json`` and ``latest.json`` once the next
+``wait`` does), and every rank restores.  A ZeRO-1
+optimizer's moments are consolidated on rank 0 before it copies them, so
+the checkpoint is the one-card format, and one card can resume it.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from edrl_tpu_torch.parallel.mesh import barrier, is_writer, is_zero1, load_optimizer_state
 from edrl_tpu_torch.train.trainer import TrainState
 
 _FILE = "state.pt"
@@ -98,11 +107,15 @@ def _write_json(path: str, obj: dict) -> None:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, mesh=None):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.mesh = mesh
+        self.writes = is_writer(mesh)
+        if self.writes:
+            os.makedirs(self.directory, exist_ok=True)
         self._pool = ThreadPoolExecutor(max_workers=1)
         self._pending: Optional[Future] = None
+        self.wait()
 
     def _path(self, name: str) -> str:
         return os.path.join(self.directory, name)
@@ -112,7 +125,10 @@ class CheckpointManager:
         # One write in flight at most: it bounds host memory at one extra
         # copy of the state, and a write never races another to one path.
         self.wait()
-        self._pending = self._pool.submit(_write, path, _snapshot(state))
+        if is_zero1(state.optimizer):
+            state.optimizer.consolidate_state_dict(to=0)
+        if self.writes:
+            self._pending = self._pool.submit(_write, path, _snapshot(state))
         return path
 
     def save_best(self, state: TrainState, epoch: int, accuracy: float) -> str:
@@ -120,14 +136,16 @@ class CheckpointManager:
         # best.json only after its directory is in place: resume trusts its
         # accuracy as the watermark to beat.
         self.wait()
-        _write_json(self._path("best.json"), {"epoch": epoch, "accuracy": accuracy})
+        if self.writes:
+            _write_json(self._path("best.json"), {"epoch": epoch, "accuracy": accuracy})
         return path
 
     def save_latest(self, state: TrainState, epoch: int) -> str:
         """The rolling preemption checkpoint, and an advisory epoch tag.
         Resume derives the completed epochs from the restored ``step``."""
         path = self.save(state, "latest")
-        _write_json(self._path("latest.json"), {"epoch": epoch})
+        if self.writes:
+            _write_json(self._path("latest.json"), {"epoch": epoch})
         return path
 
     def latest_info(self) -> Optional[dict]:
@@ -146,10 +164,12 @@ class CheckpointManager:
 
     def wait(self) -> None:
         """Block until the write in flight, if any, is in place (and raise
-        what it raised)."""
+        what it raised); under a mesh, every rank until then."""
         pending, self._pending = self._pending, None
         if pending is not None:
             pending.result()
+        if self.mesh is not None:
+            barrier(self.mesh)
 
     def restore_model(self, model: torch.nn.Module, name: str = "latest") -> torch.nn.Module:
         """Load the weights of checkpoint ``name`` into ``model`` (from
@@ -169,7 +189,7 @@ class CheckpointManager:
         # its parameter's device, and Adam's step counts stay on the host.
         snap = torch.load(os.path.join(self._path(name), _FILE), map_location="cpu", weights_only=True)
         state.model.load_state_dict(snap["model"])
-        state.optimizer.load_state_dict(snap["optimizer"])
+        load_optimizer_state(state.optimizer, snap["optimizer"])
         state.scheduler.load_state_dict(snap["scheduler"])
         state.step = int(snap["step"])
         return state

@@ -60,18 +60,19 @@ def noise_sweep(cfg: EDRLConfig, state: TrainState, sigmas: Sequence[float] = DE
     """``{modality: {level: metrics as a dict, with num_samples}}``.  The eval
     step is rebuilt per level (its low view reads the level from the config);
     every sample is scored (the remainder batch is kept).  ``device``: where
-    ``state`` is (the card unless the caller asks for the CPU)."""
-    if mesh is not None:
-        raise NotImplementedError("a sharded sweep is ROADMAP item A11 (data parallel)")
+    ``state`` is (the card unless the caller asks for the CPU).  ``mesh``:
+    each rank reads and scores its rows (``run_eval``'s data parallelism)
+    and every rank gets the whole grid."""
     require_device(state, device)
+    rank, world = (0, 1) if mesh is None else (mesh.get_local_rank("data"), mesh.size(0))
     modalities = list(modalities or MODALITY_GRID)
     results: Dict[str, Dict[float, dict]] = {m: {} for m in modalities}
     for sigma in sigmas:
         eval_step = make_eval_step(_cfg_for(cfg, sigma, kind))
         loader = BatchLoader(_dataset_for(cfg, sigma, kind), cfg.data.eval_batch_size, shuffle=False,
-                             drop_last=False, num_workers=4)
+                             drop_last=False, num_workers=4, rank=rank, world=world)
         for modality in modalities:
-            m, targets, _ = run_eval(state, eval_step, loader, modality_mask=MODALITY_GRID[modality])
+            m, targets, _ = run_eval(state, eval_step, loader, modality_mask=MODALITY_GRID[modality], mesh=mesh)
             cell = m.as_dict()
             cell["num_samples"] = int(targets.shape[0])
             results[modality][sigma] = cell

@@ -33,8 +33,20 @@ checkpoints, CSV logs, the plateau schedule, resume.  Each step's noise
 comes from a generator seeded with ``(seed + 1000, step)``, as the JAX loop
 folds the step into its base key, so a resumed run is step-identical to an
 uninterrupted one.  What the port has not got refuses by name
-(``check_ported``): ``scan_batches`` (ROADMAP item A14) and a mesh, tensor
-parallelism or ZeRO-1 (A11).
+(``check_ported``): ``scan_batches`` (ROADMAP item A14) and tensor
+parallelism (A11's second half).
+
+Data parallelism (``mesh``: ``parallel.make_mesh``'s, one process per card):
+each rank steps on its rows of the global batch with the data axis current
+(``parallel.use_mesh``), so the MK-MMD, DILR's Barlow and the BatchNorms see
+the global batch and every per-row draw is the global draw's rows; the
+gradients are then averaged over the ranks in one flat all-reduce, before
+the clip and Adam, or ZeRO-1's sharded Adam (``cfg.train.zero1``, above one
+rank).  The step returns the global loss and probabilities, ``run_eval``
+the global metrics (a remainder batch padded as the JAX package pads it),
+and ``fit`` prints, logs and plots on data rank 0 alone.  World N at global
+batch B trains on the numbers of one card at batch B, to within the order
+of the sums.
 """
 
 from __future__ import annotations
@@ -56,6 +68,8 @@ from edrl_tpu_torch.models.layers import init_parameters
 from edrl_tpu_torch.models.medfusion import MedFusion
 from edrl_tpu_torch.ops.distributions import js_divergence
 from edrl_tpu_torch.ops.mmd import mk_mmd
+from edrl_tpu_torch.parallel.mesh import (
+    AXES, all_reduce_mean_, gather_batches, gather_rows, is_writer, use_mesh, zero1_optimizer)
 from edrl_tpu_torch.train import metrics as metrics_lib
 from edrl_tpu_torch.train.logging import AverageMeter, CsvMetricWriter
 
@@ -120,8 +134,9 @@ def make_model(cfg: EDRLConfig, device="cuda") -> nn.Module:
 
 
 def check_ported(cfg: EDRLConfig, mesh=None) -> None:
-    """Refuse, by ROADMAP item, what the port's training has not got, and a
-    model name the registry does not know (``NameError``)."""
+    """Refuse, by ROADMAP item, what the port's training has not got, a
+    model name the registry does not know (``NameError``) and a ``mesh``
+    that is not a ``(data, model)`` ``DeviceMesh`` (``TypeError``)."""
     from edrl_tpu_torch.baselines.registry import MODEL_REGISTRY
 
     if cfg.model.model_name not in MODEL_REGISTRY:
@@ -131,12 +146,18 @@ def check_ported(cfg: EDRLConfig, mesh=None) -> None:
             f"scan_batches={cfg.train.scan_batches}: several steps per call is "
             "ROADMAP item A14 (whole-step capture)"
         )
-    t = cfg.train
-    if mesh is not None or t.num_model_shards > 1 or t.num_data_shards > 1 or t.zero1:
+    if cfg.train.num_model_shards > 1:
         raise NotImplementedError(
-            "a device mesh, tensor parallelism (num_model_shards > 1) and ZeRO-1 "
-            "are ROADMAP item A11 (data parallel); the port trains on one card"
-        )
+            f"num_model_shards={cfg.train.num_model_shards}: tensor parallelism is ROADMAP item "
+            "A11's second half (tensor parallel); the port's mesh has a data axis only")
+    if mesh is None:
+        return
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh) or tuple(mesh.mesh_dim_names or ()) != AXES:
+        raise TypeError(f"mesh must be parallel.make_mesh's (data, model) DeviceMesh, not {mesh!r}")
+    if mesh.size(1) > 1:
+        raise NotImplementedError("a model axis above 1: tensor parallelism is ROADMAP item A11's second half")
 
 
 def warmup_factor(step: int, warmup_steps: int) -> float:
@@ -146,17 +167,23 @@ def warmup_factor(step: int, warmup_steps: int) -> float:
     return min((step + 1.0) / warmup_steps, 1.0)
 
 
-def make_optimizer(params, cfg: EDRLConfig):
+def make_optimizer(params, cfg: EDRLConfig, mesh=None):
     """``(Adam, LambdaLR)``: Adam(lr, weight_decay) with decay folded into the
     gradient (optax ``add_decayed_weights`` before ``adam``) and the linear
     warmup as a LambdaLR, stepped once per optimizer step.  A deep-ensemble
     member (``Multi_DE{i}_ResNet``) takes its own lr from ``ENSEMBLE_LRS``.
     The plateau schedule edits the base lr under the warmup
-    (``set_learning_rate``)."""
+    (``set_learning_rate``).  With ``cfg.train.zero1`` and a mesh of more
+    than one data rank, Adam's moments are sharded over them
+    (``parallel.zero1_optimizer``); on one rank ZeRO-1 is the plain Adam,
+    as the JAX package shards nothing on one device."""
     from edrl_tpu_torch.baselines.registry import ENSEMBLE_LRS
 
     lr = ENSEMBLE_LRS.get(cfg.model.model_name, cfg.train.lr)
-    optimizer = torch.optim.Adam(params, lr=lr, weight_decay=cfg.train.weight_decay)
+    if cfg.train.zero1 and mesh is not None and mesh.size(0) > 1:
+        optimizer = zero1_optimizer(params, mesh, lr=lr, weight_decay=cfg.train.weight_decay)
+    else:
+        optimizer = torch.optim.Adam(params, lr=lr, weight_decay=cfg.train.weight_decay)
     w = cfg.train.warmup_steps
     scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, lambda step: warmup_factor(step, w))
     return optimizer, scheduler
@@ -219,9 +246,11 @@ class PlateauTracker:
 
 
 def init_state(cfg: EDRLConfig, seed: int = 0, *, device="cuda",
-               variables: Optional[Mapping] = None) -> TrainState:
+               variables: Optional[Mapping] = None, mesh=None) -> TrainState:
     """The configured registry model and its optimizer on ``device`` (the card
-    unless the caller asks for the CPU).
+    unless the caller asks for the CPU); ``mesh``: the data ranks a ZeRO-1
+    optimizer shards over (``make_optimizer``).  Every rank makes the same
+    seeded init.
 
     ``variables``: ``{"params": ..., "batch_stats": ...}`` flax trees of numpy
     arrays (a JAX ``TrainState``'s), loaded with
@@ -234,7 +263,7 @@ def init_state(cfg: EDRLConfig, seed: int = 0, *, device="cuda",
         init_parameters(model, torch.Generator(device=device).manual_seed(seed))
     else:
         load_flax_variables(model, variables["params"], variables.get("batch_stats"))
-    optimizer, scheduler = make_optimizer(model.parameters(), cfg)
+    optimizer, scheduler = make_optimizer(model.parameters(), cfg, mesh)
     return TrainState(model=model, optimizer=optimizer, scheduler=scheduler)
 
 
@@ -309,8 +338,12 @@ def train_views(batch: Mapping, cfg: EDRLConfig, device, generator: Optional[tor
     return {"fundus_low": f_low, "oct_low": o_low, "label": label}
 
 
-def make_train_step(cfg: EDRLConfig):
-    """The dual-view train step for ``cfg``.
+def make_train_step(cfg: EDRLConfig, mesh=None):
+    """The dual-view train step for ``cfg``; with ``mesh``, a data-parallel
+    rank's (see the module docstring): ``batch`` holds this rank's rows,
+    the draws are the global batch's rows (``draws`` and ``input_draws``
+    given ones: this rank's rows, EPRL's eps whole), and the result is the
+    global batch's.
 
     Returns ``train_step(state, batch, generator, *, draws=None, input_draws=None)``.
     ``batch`` (numpy arrays or tensors) holds a clean ``fundus``, ``oct`` and
@@ -339,29 +372,32 @@ def make_train_step(cfg: EDRLConfig):
                    draws: Optional[Sequence[Mapping]] = None,
                    input_draws: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
         model = state.model
-        views = train_views(batch, cfg, state.device, generator, input_draws, two_views=two_views)
-        y = views["label"]
         d1, d2 = (*(draws or ()), {}, {})[:2]
         state.optimizer.zero_grad(set_to_none=True)
-
-        logits, loss, feat1, aux = _normalize_output(model(
-            views["fundus_low"], views["oct_low"], y, train=True, generator=generator, **d1))
-        mmd = torch.zeros((), device=loss.device)
-        if two_views:
-            logits2, _, feat2, _ = _normalize_output(model(
-                views["fundus_high"], views["oct_high"], y, train=True, generator=generator, **d2))
-            mmd = t.mmd_weight * mmd_fn(feat1, feat2, t.mmd_kernel_mul, t.mmd_kernel_num)
-            loss = loss + mmd
-            if t.js_distillation_weight > 0.0:
-                js = js_divergence(torch.softmax(logits, dim=-1), torch.softmax(logits2, dim=-1))
-                loss = loss + t.js_distillation_weight * js
-        loss.backward()
+        with use_mesh(mesh):
+            views = train_views(batch, cfg, state.device, generator, input_draws, two_views=two_views)
+            y = views["label"]
+            logits, loss, feat1, aux = _normalize_output(model(
+                views["fundus_low"], views["oct_low"], y, train=True, generator=generator, **d1))
+            mmd = torch.zeros((), device=loss.device)
+            if two_views:
+                logits2, _, feat2, _ = _normalize_output(model(
+                    views["fundus_high"], views["oct_high"], y, train=True, generator=generator, **d2))
+                mmd = t.mmd_weight * mmd_fn(gather_rows(feat1), gather_rows(feat2), t.mmd_kernel_mul,
+                                            t.mmd_kernel_num)
+                loss = loss + mmd
+                if t.js_distillation_weight > 0.0:
+                    js = js_divergence(torch.softmax(logits, dim=-1), torch.softmax(logits2, dim=-1))
+                    loss = loss + t.js_distillation_weight * js
+            loss.backward()
         params = [p for group in state.optimizer.param_groups for p in group["params"]]
         for p in params:
             # Parameters the loss does not reach (the train-mode pseudo-label
             # branch) still take Adam's decay, as their zero JAX gradients do.
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if mesh is not None:
+            all_reduce_mean_([p.grad for p in params], mesh)
         if t.grad_clip_norm > 0:
             torch.nn.utils.clip_grad_norm_(params, t.grad_clip_norm)
         state.optimizer.step()
@@ -370,9 +406,21 @@ def make_train_step(cfg: EDRLConfig):
         out = {"loss": loss.detach(), "mmd": mmd.detach(),
                "probs": torch.softmax(logits.detach().float(), dim=-1)}
         out.update({k: v.detach() for k, v in aux.items()})
-        return out
+        return out if mesh is None else _global_outputs(out, mesh)
 
     return train_step
+
+
+def _global_outputs(out: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """A data-parallel step's results as the global batch's: each scalar
+    (a mean over this rank's rows, or a global term) averaged over the
+    ranks in one all-reduce, the probabilities gathered in rank order."""
+    keys = [k for k in out if k != "probs"]
+    scalars = torch.stack([out[k].float() for k in keys])
+    all_reduce_mean_([scalars], mesh)
+    result = dict(zip(keys, scalars.unbind()))
+    result["probs"] = gather_batches(out["probs"], out["probs"].shape[0], mesh)
+    return result
 
 
 def eval_low_view(batch: Mapping, cfg: EDRLConfig, device,
@@ -426,21 +474,48 @@ class FitResult:
     best_epoch: int
 
 
+def _check_loader(loader, mesh) -> None:
+    """A data-parallel pass needs this rank's loader of the mesh's world."""
+    world = 1 if mesh is None else mesh.size(0)
+    if getattr(loader, "world", 1) != world:
+        raise ValueError(f"the loader splits its batches over {getattr(loader, 'world', 1)} ranks, "
+                         f"the mesh has {world}")
+
+
 def run_eval(state: TrainState, eval_step, loader, epoch: int = 0,
-             modality_mask: Optional[np.ndarray] = None) -> Tuple[metrics_lib.EpochMetrics, np.ndarray, np.ndarray]:
+             modality_mask: Optional[np.ndarray] = None,
+             mesh=None) -> Tuple[metrics_lib.EpochMetrics, np.ndarray, np.ndarray]:
     """One pass of ``eval_step`` over ``loader``: the epoch metrics, targets
     and probabilities.  The epoch loss weights each batch by its rows (the
     remainder batch counts only its own); losses and probabilities stay on
-    the device until the pass ends.  An empty loader gives NaN metrics."""
+    the device until the pass ends.  An empty loader gives NaN metrics.
+
+    With ``mesh``, ``loader`` gives this rank's rows (``BatchLoader(...,
+    rank, world)``, a remainder batch padded by repeating its last sample);
+    each rank evaluates them with the data axis current, and every rank
+    gets the global batch's probabilities, targets and loss (the padded
+    rows' probabilities dropped, the loss averaged over them as the JAX
+    package's mesh ``run_eval`` averages it)."""
+    _check_loader(loader, mesh)
     targets, dev_probs, dev_losses, real_sizes = [], [], [], []
     loss_meter = AverageMeter()
-    for batch in loader.epoch(epoch):
+    for i, batch in enumerate(loader.epoch(epoch)):
         arrays = to_device(batch, state.device)
-        out = eval_step(state, arrays) if modality_mask is None else eval_step(state, arrays, modality_mask)
-        targets.append(np.asarray(batch["label"]))
-        real_sizes.append(int(batch["label"].shape[0]))
-        dev_probs.append(out["probs"])
-        dev_losses.append(out["loss"])
+        with use_mesh(mesh):
+            out = eval_step(state, arrays) if modality_mask is None else eval_step(state, arrays, modality_mask)
+        if mesh is None:
+            targets.append(np.asarray(batch["label"]))
+            real_sizes.append(int(batch["label"].shape[0]))
+            dev_probs.append(out["probs"])
+            dev_losses.append(out["loss"])
+            continue
+        n, rows = loader.rows(i), out["probs"].shape[0]
+        targets.append(gather_batches(arrays["label"], rows, mesh)[:n])
+        real_sizes.append(n)
+        dev_probs.append(gather_batches(out["probs"], rows, mesh)[:n])
+        loss = out["loss"].float().reshape(1)
+        all_reduce_mean_([loss], mesh)
+        dev_losses.append(loss[0])
     if not targets:
         nan = float("nan")
         empty = metrics_lib.EpochMetrics(nan, nan, nan, nan, nan, nan, nan)
@@ -448,11 +523,11 @@ def run_eval(state: TrainState, eval_step, loader, epoch: int = 0,
     probs = torch.cat(dev_probs).cpu().numpy()
     for loss, n in zip(torch.stack(dev_losses).float().cpu().tolist(), real_sizes):
         loss_meter.update(loss, n=n)
-    targets = np.concatenate(targets)
+    targets = np.concatenate(targets) if mesh is None else torch.cat(targets).cpu().numpy()
     return metrics_lib.compute_epoch_metrics(targets, probs, loss_meter.avg), targets, probs
 
 
-def resume_from_latest(cfg: EDRLConfig, checkpoint_manager, train_loader, *, device="cuda"):
+def resume_from_latest(cfg: EDRLConfig, checkpoint_manager, train_loader, *, device="cuda", mesh=None):
     """Preemption resume: restore the rolling ``latest`` checkpoint and work
     out where to go on.
 
@@ -462,10 +537,11 @@ def resume_from_latest(cfg: EDRLConfig, checkpoint_manager, train_loader, *, dev
     restored step count (one step per batch, ``len(train_loader)`` per
     epoch).  The loader's shuffles are epoch-indexed and each step's noise
     is seeded from the step, so the resumed run is step-identical to an
-    uninterrupted one; the plateau tracker starts from the restored lr."""
+    uninterrupted one; the plateau tracker starts from the restored lr.
+    With ``mesh`` every rank restores (and a ZeRO-1 rank keeps its shard)."""
     if checkpoint_manager.latest_info() is None:
         return None
-    state = checkpoint_manager.restore(init_state(cfg, cfg.train.seed, device=device), "latest")
+    state = checkpoint_manager.restore(init_state(cfg, cfg.train.seed, device=device, mesh=mesh), "latest")
     done = state.step // max(1, len(train_loader))
     best = checkpoint_manager.best_info()
     initial_best = float(best["accuracy"]) if best else 0.0
@@ -492,20 +568,28 @@ def fit(
 
     ``state``: where to start (a fresh ``init_state`` on ``device`` if
     ``None``).  ``initial_best``/``initial_best_epoch``: the best val
-    accuracy (and its epoch) to beat, set on resume.  ``mesh`` is refused
-    (ROADMAP item A11).
+    accuracy (and its epoch) to beat, set on resume.  ``mesh``: data
+    parallelism (see the module docstring); the loaders are this rank's
+    (``BatchLoader(..., rank, world)``), every rank calls the checkpoint
+    manager (``CheckpointManager(..., mesh=mesh)``: rank 0 writes), and data
+    rank 0 alone prints, writes the CSV and plots.
     """
     check_ported(cfg, mesh)
+    _check_loader(train_loader, mesh)
+    if checkpoint_manager is not None and getattr(checkpoint_manager, "mesh", None) is not mesh:
+        raise ValueError("the checkpoint manager must be made with fit's mesh: under a mesh rank 0 alone writes")
     if state is None:
-        state = init_state(cfg, cfg.train.seed, device=device)
+        state = init_state(cfg, cfg.train.seed, device=device, mesh=mesh)
     device = state.device
-    train_step = make_train_step(cfg)
+    train_step = make_train_step(cfg, mesh)
     eval_step = make_eval_step(cfg)
     generator = torch.Generator(device=device)
     base_seed = cfg.train.seed + 1000
+    writes = is_writer(mesh)
+    verbose = verbose and writes
 
     writer = None
-    if cfg.train.log_dir:
+    if cfg.train.log_dir and writes:
         os.makedirs(cfg.train.log_dir, exist_ok=True)
         writer = CsvMetricWriter(os.path.join(
             cfg.train.log_dir, f"{cfg.data.dataset}_{cfg.data.noise.gaussian_high}_{cfg.train.name}.csv"))
@@ -536,8 +620,12 @@ def fit(
         probs = torch.cat(dev_probs).cpu().numpy()
         for loss in torch.stack(dev_losses).float().cpu().tolist():
             loss_meter.update(loss)
-        epoch_time = time.time() - t0
         targets = np.concatenate(targets)
+        if mesh is not None:
+            # One gather of the epoch's labels, each batch's in rank order.
+            local = torch.from_numpy(targets).to(device)
+            targets = gather_batches(local, train_loader.batch_size // mesh.size(0), mesh).cpu().numpy()
+        epoch_time = time.time() - t0
         em = metrics_lib.compute_epoch_metrics(targets, probs, loss_meter.avg)
         train_hist.append(em)
         if writer:
@@ -547,7 +635,7 @@ def fit(
                   f"Accuracy: {em.accuracy:.4f} \tAUC: {em.auc:.4f} \t"
                   f"({len(targets) / max(epoch_time, 1e-9):.2f} pairs/s)", flush=True)
 
-        vm, _, _ = run_eval(state, eval_step, val_loader, epoch)
+        vm, _, _ = run_eval(state, eval_step, val_loader, epoch, mesh=mesh)
         val_hist.append(vm)
         if verbose:
             print(f"Val   Epoch: {epoch} \tLoss: {vm.loss:.6f} \t"
@@ -569,12 +657,12 @@ def fit(
                 set_learning_rate(state, new_lr)
                 if verbose:
                     print(f"Plateau: reducing lr to {new_lr:g}", flush=True)
-        if cfg.train.plot_dir and cfg.train.student_t_every > 0 and epoch % cfg.train.student_t_every == 0:
+        if writes and cfg.train.plot_dir and cfg.train.student_t_every > 0 and epoch % cfg.train.student_t_every == 0:
             from edrl_tpu_torch.train.visualize import dump_proxy_distributions
 
             dump_proxy_distributions(state.model, cfg.model, epoch, cfg.train.plot_dir)
 
-    if cfg.train.plot_dir and train_hist:
+    if writes and cfg.train.plot_dir and train_hist:
         # End-of-run curves (``fusion_train.py:771-772``); the acc curve is the
         # per-epoch val accuracy.
         from edrl_tpu_torch.train.visualize import loss_plot, metrics_plot

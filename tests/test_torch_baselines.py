@@ -359,7 +359,7 @@ def _bn_backward_without_its_variance_term(ctx, dy):
     xhat = (x - mean) * invstd
     sum_dy = dy.sum(dim=dims)
     dx = (invstd * scale) * (dy - sum_dy / (x.numel() // x.shape[-1]))
-    return dx, None, None, (dy * xhat).sum(dim=dims), sum_dy
+    return dx, None, None, (dy * xhat).sum(dim=dims), sum_dy, None  # no gradient for the data axis
 
 
 # Faults a port could make, each with the part of the check that must catch

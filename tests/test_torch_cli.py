@@ -128,7 +128,6 @@ def test_test_epoch_and_missing_checkpoint(tiny_cli):
     (["--dataset", "glu2"], FileNotFoundError, "No such file or directory: ''"),
     (["--scan_batches", "4"], NotImplementedError, "A14"),
     (["--num_model_shards", "2"], NotImplementedError, "A11"),
-    (["--zero1"], NotImplementedError, "A11"),
     (["--model_name", "NoSuchModel"], NameError, "There is no model named 'NoSuchModel'"),
 ])
 def test_train_cli_refusals_name_their_items(tmp_path, argv, error, match):
@@ -140,6 +139,15 @@ def test_train_cli_refusals_name_their_items(tmp_path, argv, error, match):
         # The JAX CLI raises the same where it builds its loaders.
         with pytest.raises(error, match=match):
             jcli.make_loaders(jcli.config_from_args(jcli.build_parser().parse_args(argv)))
+
+
+def test_zero1_on_one_rank_is_the_plain_step(tiny_cli):
+    """``--zero1`` with no launcher: one rank, so JAX's unsharded step (its
+    ``train_state_shardings`` runs only on a mesh of more than one device):
+    the same test block as the run without it."""
+    plain = tiny_cli(train_cli, "--end_epochs", "1")
+    both = tiny_cli(train_cli, "--end_epochs", "1", "--zero1", "--checkpoint_dir", str(tiny_cli.tmp_path / "z"))
+    assert _test_block(both[len(plain):]) == _test_block(plain)
 
 
 def _gamma_tree(root, n=10):

@@ -623,14 +623,26 @@ def test_proxy_distribution_dump_matches_jax(jax_variables, monkeypatch, tmp_pat
     np.testing.assert_allclose(np.array(captured["port"]), np.array(captured["jax"]), rtol=1e-5, atol=1e-7)
 
 
-def test_refusals_name_their_roadmap_items():
+def test_refusals_name_their_roadmap_items(tmp_path):
+    """scan_batches (A14) and tensor parallelism (A11's second half) refuse;
+    a mesh that is not a DeviceMesh is a TypeError; ZeRO-1 with no mesh is
+    one rank's plain step (a one-epoch fit equal to the run without it)."""
     _, tcfg = _configs(False)
-    for train, item in ((dict(scan_batches=2), "A14"), (dict(num_model_shards=2), "A11"), (dict(zero1=True), "A11")):
+    for train, item in ((dict(scan_batches=2), "A14"), (dict(num_model_shards=2), "A11")):
         cfg = tcfg.replace(train=dataclasses.replace(tcfg.train, **train))
         with pytest.raises(NotImplementedError, match=item):
             trainer.fit(cfg, None, None, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         trainer.fit(tcfg, None, None, mesh=object(), device="cpu")
+    data = dataclasses.replace(tcfg.data, num_synthetic_samples=6, device_noise=True)
+    states = []
+    for zero1 in (False, True):
+        cfg = tcfg.replace(data=data, train=dataclasses.replace(tcfg.train, zero1=zero1, end_epochs=1, log_dir="",
+                                                                plot_dir=""))
+        loader = BatchLoader(SyntheticGammaDataset(data, "train"), BATCH, num_workers=1, uint8_transport=True)
+        states.append(trainer.fit(cfg, loader, loader, verbose=False, device="cpu")[0])
+    assert isinstance(states[1].optimizer, torch.optim.Adam)
+    _assert_states_equal(*states)
     trainer.check_ported(tcfg.replace(model=dataclasses.replace(tcfg.model, model_name="Multi_ResNet")))
     with pytest.raises(NameError, match="NoSuchModel"):
         trainer.check_ported(tcfg.replace(model=dataclasses.replace(tcfg.model, model_name="NoSuchModel")))

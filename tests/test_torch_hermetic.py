@@ -77,6 +77,18 @@ def test_serving_modules_import_no_jax(module):
     assert out.stdout.strip() == ""
 
 
+# Data parallelism (A11's first half): the package and the 4-card tool.
+PARALLEL_MODULES = ("edrl_tpu_torch.parallel.__init__", "edrl_tpu_torch.parallel.mesh",
+                    "edrl_tpu_torch.tools.profile_data_parallel")
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_parallel_modules_import_no_jax(module):
+    """As the serving modules: no JAX, triton or JAX package, imported or
+    loaded."""
+    test_serving_modules_import_no_jax(module)
+
+
 @pytest.mark.parametrize("name", CONFIG_CLASSES)
 def test_config_copy_matches_the_jax_package(name):
     """Same dataclasses, field names, order and defaults, so the copy cannot drift."""

@@ -77,12 +77,22 @@ def test_uint8_transport_warns_on_clipping():
         )
 
 
+class _TwoDataRanks:
+    """What the Predictor reads of a 2-rank data mesh before it serves."""
+
+    def size(self, dim=None):
+        return 2
+
+
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(mesh=object()), "A11"),
+    (dict(mesh=_TwoDataRanks()), "not divisible by the mesh data axis"),
 ])
 def test_unported_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        predictor.Predictor(tiny_test_config(), device="meta", **kwargs)
+    """A serving batch (3) that does not split over the mesh's data ranks
+    raises ValueError, as the JAX package's mesh Predictor does
+    (``tests/test_torch_parallel.py`` serves over a real mesh)."""
+    with pytest.raises(ValueError, match=item):
+        predictor.Predictor(tiny_test_config(batch_size=3), device="meta", **kwargs)
 
 
 @pytest.mark.parametrize("kwargs", [dict(quantize_int8=True, min_dim=32), dict(chunk_batches=2)],
