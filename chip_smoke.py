@@ -276,7 +276,7 @@ Then the real-data path (ROADMAP A7's second half), in the shipped config:
     stage (PNG decode, cubic resize, NIfTI read, volume zoom), ms per cache
     hit, each epoch's train pairs/s and the loader's wait as a share of it.
 
-Then data parallelism (ROADMAP A11's first half), on the one card, in the
+Then data and tensor parallelism (ROADMAP A11), on the one card, in the
 shipped config at full width made f32 (the bars of a step's results):
 
 27. (a) World 1 over NCCL (a TCP store on a free localhost port): for plain
@@ -301,6 +301,20 @@ shipped config at full width made f32 (the bars of a step's results):
     CLI's rule: a mesh only over more than one device), equal test blocks,
     B1 and B2 launched.  The CLIs' mesh branch needs two cards (NCCL takes
     one rank a card); ``tools/profile_data_parallel.py`` drives it on four.
+28. Tensor parallelism on the one card: two spawned processes over gloo on
+    CUDA tensors as a ``(1, 2)`` mesh (each collective the model axis uses
+    tried first on CUDA tensors; a refusal fails the phase, naming it).
+    The shipped model at full width and depth, f32, global batch 8: two
+    steps against one card's (loss, MMD, probabilities, every gradient
+    gathered to full shape, at atol 2e-4 / rtol 1e-3), the replicated
+    parameters' gradients equal over the ranks bit for bit, B1 and B2
+    launched a step on each rank on both routes (Swin's stage 0 of 1 head
+    gathered, its other stages and ViT's 6 heads head-local, forward and
+    backward); the checkpoint saved through the mesh (full shapes) restored
+    in one process equal to the sharded state; the ``(1, 2)`` ``Predictor``
+    against one card's on a 16-pair request, bf16 at 2e-2 and int8 at 1e-4.
+    ``tools/profile_data_parallel.py --num_model_shards 2 4`` drives
+    ``(2, 2)`` and ``(1, 4)`` on four cards.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX
@@ -1285,6 +1299,205 @@ def data_parallel_path(card, reset_counts, counts) -> None:
                 os.environ[k] = v
         shutil.rmtree(cli_dir, ignore_errors=True)
     print(f"wall s: phase 27 {time.perf_counter() - t_phase:.1f} [{card}]", flush=True)
+
+
+TP_BATCH = 8                      # phase 28's global batch
+TP_STEPS = 2
+# B1's and B2's launches by route that each step of phase 28 must make
+# (forward and backward): ViT's 6 heads split 3 and 3, Swin's stage 0 of 1
+# head gathered, its other stages split.
+TP_ROUTE_KEYS = ("self_attention_fused/head_local", "self_attention_fused_bwd/head_local",
+                 "window_attention_fused_v2/gathered", "window_attention_fused_v2_bwd/gathered",
+                 "window_attention_fused_v2/head_local", "window_attention_fused_v2_bwd/head_local")
+
+
+def _tp_request():
+    """Phase 28's serving request: 16 uint8 pairs of the shipped sizes (numpy seed 28)."""
+    import numpy as np
+
+    d = _dp_config().data
+    rng = np.random.default_rng(28)
+    return (rng.integers(0, 256, (16, d.fundus_size, d.fundus_size, 3), dtype=np.uint8),
+            rng.integers(0, 256, (16, *d.oct_size, 1), dtype=np.uint8))
+
+
+def _tp_rank(rank: int, port: int, outbox, ref_path: str, work: str) -> None:
+    """Phase 28: one of two ranks on the one card, the group on gloo, the
+    ``(1, 2)`` mesh.  It first runs each collective the model axis uses on
+    CUDA tensors (a refusal is posted by name, and fails the phase); then
+    two f32 steps of the shipped model at global batch 8 held against the
+    one-card steps in ``ref_path`` (rank 0 reads them), B1's and B2's
+    launches a step by route, the replicated gradients' spread over the two
+    ranks, a checkpoint saved through the mesh and restored in one process
+    (rank 0), and the (1, 2) ``Predictor`` in bf16 and int8."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from edrl_tpu_torch import parallel
+    from edrl_tpu_torch.config import EDRLConfig
+    from edrl_tpu_torch.kernels import window_attention as wa
+    from edrl_tpu_torch.parallel import tensor
+    from edrl_tpu_torch.serve.predictor import Predictor
+    from edrl_tpu_torch.tools.profile_data_parallel import replicated_spread
+    from edrl_tpu_torch.train import trainer
+    from edrl_tpu_torch.train.checkpoint import CheckpointManager
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer.set_conv_precision()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    store = dist.TCPStore("127.0.0.1", port, 2, rank == 0)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=2)
+    try:
+        x = torch.ones(4, device=dev)
+        for name, call in (("all_reduce", lambda: dist.all_reduce(x.clone())),
+                           ("all_reduce max", lambda: dist.all_reduce(x.clone(), op=dist.ReduceOp.MAX)),
+                           ("all_reduce int32", lambda: dist.all_reduce(x.int())),
+                           ("all_gather", lambda: dist.all_gather([torch.empty_like(x) for _ in range(2)], x)),
+                           ("broadcast", lambda: dist.broadcast(x.clone(), src=0)), ("barrier", dist.barrier)):
+            try:
+                call()
+                torch.cuda.synchronize()
+            except (RuntimeError, ValueError) as exc:
+                outbox.put((rank, "refused", f"{name}: {exc}"))
+                return
+        atol, rtol = 2e-4, 1e-3
+
+        def worst(a, b):
+            a, b = a.detach().double(), b.detach().double().to(a.device)
+            return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+        mesh = parallel.make_mesh(2, device="cuda")
+        cfg = _dp_config()
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=TP_BATCH))
+        ref = torch.load(ref_path, weights_only=True) if rank == 0 else None
+        t0 = time.perf_counter()
+        state = trainer.init_state(cfg, seed=0, device=dev, mesh=mesh)
+        step = trainer.make_train_step(cfg, mesh)
+        result = {"errs": collections.defaultdict(float), "routes": [], "spread": 0.0,
+                  "param_gib": sum(p.numel() * p.element_size() for p in state.model.parameters()) / 2**30}
+        for i in range(TP_STEPS):
+            batch = trainer.random_views(cfg, seed=81 + i, device=dev)
+            wa.reset_launch_counts()
+            out = step(state, batch, torch.Generator(device=dev).manual_seed(90 + i))
+            result["routes"].append({k: wa.TP_ROUTES[k] for k in wa.TP_ROUTES if wa.TP_ROUTES[k]})
+            full = tensor.gather_full(state.model, {n: p.grad for n, p in state.model.named_parameters()})
+            result["spread"] = max(result["spread"], replicated_spread(state.model, mesh))
+            if rank == 0:
+                for key in ("loss", "mmd", "probs"):
+                    result["errs"][key] = max(result["errs"][key], worst(out[key], ref["out"][i][key]))
+                result["errs"]["grads"] = max(result["errs"]["grads"], max(
+                    worst(full[n], g) for n, g in ref["grads"][i].items()))
+                result["grads_compared"] = len(ref["grads"][i]) == len(full)
+            del full
+        torch.cuda.synchronize()
+        result["steps_s"] = time.perf_counter() - t0
+        del ref
+        manager = CheckpointManager(work, mesh=mesh)
+        manager.save(state, "latest")
+        manager.wait()
+        full = tensor.gather_full(state.model, state.model.state_dict())
+        if rank == 0:
+            one = CheckpointManager(work).restore(trainer.init_state(cfg, device=dev), "latest")
+            mine = one.model.state_dict()
+            result["restored_equal"] = set(mine) == set(full) and all(torch.equal(v, full[k]) for k, v in mine.items())
+            result["restored_step"] = one.step
+            del one, mine
+        del state, full
+        torch.cuda.empty_cache()
+        fundus, oct_vol = _tp_request()
+        shipped = EDRLConfig()
+        result["probs"] = {mode: Predictor(shipped, seed=0, device=dev, mesh=mesh, **kw).predict_probs(fundus, oct_vol)
+                           for mode, kw in (("bf16", {}), ("int8", {"quantize_int8": True}))}
+        outbox.put((rank, "done", dict(result, errs=dict(result["errs"]))))
+    finally:
+        dist.destroy_process_group()
+
+
+def tensor_parallel_path(card) -> None:
+    """28. Tensor parallelism on the one card (see the module docstring)."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from edrl_tpu_torch.config import EDRLConfig
+    from edrl_tpu_torch.serve.predictor import Predictor
+    from edrl_tpu_torch.train import trainer
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = _dp_config()
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=TP_BATCH))
+    # One card's references: the two f32 steps, and the bf16 and int8 Predictor.
+    one = trainer.init_state(cfg, seed=0, device=dev)
+    step = trainer.make_train_step(cfg)
+    ref = {"out": [], "grads": []}
+    for i in range(TP_STEPS):
+        out = step(one, trainer.random_views(cfg, seed=81 + i, device=dev),
+                   torch.Generator(device=dev).manual_seed(90 + i))
+        ref["out"].append({k: v.detach().cpu() for k, v in out.items()})
+        ref["grads"].append({n: p.grad.detach().cpu() for n, p in one.model.named_parameters()})
+    del one, step
+    fundus, oct_vol = _tp_request()
+    shipped = EDRLConfig()
+    want = {mode: Predictor(shipped, seed=0, device=dev, **kw).predict_probs(fundus, oct_vol)
+            for mode, kw in (("bf16", {}), ("int8", {"quantize_int8": True}))}
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="edrl_tp_", dir=REPO / "build"))
+    ref_path = work / "one_card.pt"
+    torch.save(ref, ref_path)
+    del ref
+    t_ref = time.perf_counter() - t_phase
+
+    ctx = multiprocessing.get_context("spawn")
+    outbox = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_tp_rank, args=(r, port, outbox, str(ref_path), str(work / "ckpt")))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        posted = {r: (what, msg) for r, what, msg in (outbox.get(timeout=600) for _ in range(2))}
+        for p in procs:
+            p.join(timeout=120)
+            check(p.exitcode == 0, f"phase 28 rank exited with {p.exitcode}")
+        refused = [msg for what, msg in posted.values() if what == "refused"]
+        check(not refused, f"phase 28: gloo refuses CUDA tensors in {refused}")
+        ranks = [posted[r][1] for r in range(2)]
+        errs = ranks[0]["errs"]
+        print(f"tensor parallel, (1, 2) mesh on one card over gloo, the shipped model in f32: {TP_STEPS} steps at "
+              f"batch {TP_BATCH} against one card's, worst |err| / (atol + rtol |want|) {errs} (at most 1 passes; "
+              f"every gradient gathered to full shape: {ranks[0]['grads_compared']}); replicated gradients' largest "
+              f"|difference| over the ranks {max(r['spread'] for r in ranks)} (0 passes); a rank's parameters "
+              f"{ranks[0]['param_gib']:.3f} GiB; the ranks' steps {ranks[0]['steps_s']:.1f} s", flush=True)
+        check(max(errs.values()) <= 1.0 and ranks[0]["grads_compared"], f"tensor parallel step: {errs}")
+        check(all(r["spread"] == 0.0 for r in ranks), "replicated gradients differ over the model ranks")
+        for rank, r in enumerate(ranks):
+            print(f"  rank {rank}: B1 and B2 launches a step by route (forward and backward): {r['routes']}",
+                  flush=True)
+            for routes in r["routes"]:
+                check(all(routes.get(k, 0) > 0 for k in TP_ROUTE_KEYS) and "self_attention_fused/gathered" not in routes,
+                      f"rank {rank}: launches by route {routes}")
+        print(f"  checkpoint saved on (1, 2) (full shapes) and restored in one process: equal "
+              f"{ranks[0]['restored_equal']}, step {ranks[0]['restored_step']}", flush=True)
+        check(ranks[0]["restored_equal"] and ranks[0]["restored_step"] == TP_STEPS, "tensor-parallel checkpoint")
+        for mode, bar in (("bf16", 2e-2), ("int8", 1e-4)):
+            diff = max(float(np.abs(r["probs"][mode] - want[mode]).max()) for r in ranks)
+            print(f"  Predictor on (1, 2), {mode}, a request of 16: max |probabilities - one card's| {diff:.2e} "
+                  f"(bar {bar})", flush=True)
+            check(diff <= bar and ranks[0]["probs"][mode].shape == (16, 2), f"tensor-parallel {mode} serving")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"wall s: phase 28 {time.perf_counter() - t_phase:.1f} (one card's references {t_ref:.1f}, the ranks "
+          f"{time.perf_counter() - t0:.1f}) [{card}]", flush=True)
 
 
 def main() -> None:
@@ -3574,8 +3787,11 @@ def main() -> None:
 
     # -- 27. data parallelism on the one card: world 1 over NCCL, world 2 over gloo, the CLIs at world 1
     data_parallel_path(card, reset_counts, counts)
+
+    # -- 28. tensor parallelism on the one card: a (1, 2) mesh over gloo -------
+    tensor_parallel_path(card)
     t_end = time.perf_counter()
-    print(f"wall s: phases 26-27 {t_end - t_real:.1f}, the script {t_end - t_start:.1f} (its kernels' builds "
+    print(f"wall s: phases 26-28 {t_end - t_real:.1f}, the script {t_end - t_start:.1f} (its kernels' builds "
           f"included) [{card}]", flush=True)
 
     kernels = []

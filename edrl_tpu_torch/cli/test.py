@@ -64,22 +64,26 @@ def main(argv=None):
     device, mesh, quiet, leave = train_cli.data_parallel(cfg, args)
     emit = quiet or train_cli.setup_cli_logging(cfg, args, "test")
     _, val_loader = train_cli.make_loaders(cfg, mesh)
-    state = init_state(cfg, cfg.train.seed, device=device)
+    state = init_state(cfg, cfg.train.seed, device=device, mesh=mesh)
     if args.checkpoint:
         directory, name = os.path.split(args.checkpoint.rstrip("/"))
         state = CheckpointManager(directory or ".", mesh=mesh).restore(state, name)
 
-    if args.mc_samples > 0 and quiet is None:
+    # MC-dropout over the whole set on rank (0, 0); under a model axis above
+    # 1 on every rank, whose sharded forwards it takes part in.
+    sharded = mesh is not None and mesh.size(1) > 1
+    if args.mc_samples > 0 and (quiet is None or sharded):
         from edrl_tpu_torch.train.mc_dropout import mc_dropout_predict
 
         mc_loader = val_loader if mesh is None else train_cli.make_loaders(cfg)[1]
         pred = mc_dropout_predict(cfg, state, mc_loader, num_samples=args.mc_samples, seed=cfg.train.seed,
                                   device=device)
-        em = compute_epoch_metrics(pred["targets"], pred["probs"], 0.0)
-        print(f"MC-dropout (K={args.mc_samples}): Acc {em.accuracy:.4f} AUC {em.auc:.4f} F1 {em.f1:.4f} "
-              f"mean predictive std {pred['predictive_std'].mean():.4f}")
-        mc_suite = compute_uncertainty_metrics(pred["targets"], pred["probs"])
-        print("MC-dropout suite:", {k: round(v, 4) for k, v in mc_suite.items()})
+        if quiet is None:
+            em = compute_epoch_metrics(pred["targets"], pred["probs"], 0.0)
+            print(f"MC-dropout (K={args.mc_samples}): Acc {em.accuracy:.4f} AUC {em.auc:.4f} F1 {em.f1:.4f} "
+                  f"mean predictive std {pred['predictive_std'].mean():.4f}")
+            mc_suite = compute_uncertainty_metrics(pred["targets"], pred["probs"])
+            print("MC-dropout suite:", {k: round(v, 4) for k, v in mc_suite.items()})
 
     train_cli.report_eval(emit, cfg, state, make_eval_step(cfg), val_loader, mesh)
 

@@ -10,10 +10,8 @@ unless the caller asks for the CPU).
 ``NameError``.  ``--dataset`` takes the synthetic datasets and the
 GAMMA-layout trees (``dr2``, ``glu2``: ``--data_path``, ``--label_file``;
 preflight them with ``python -m edrl_tpu_torch.tools.verify_dataset``).
-``--scan_batches`` (A14) and ``--num_model_shards`` > 1 (tensor
-parallelism, A11's second half) refuse by name.  With ``--plot_dir`` set
-(its default), matplotlib must import: the run checks that before it
-trains.
+``--scan_batches`` (A14) refuses by name.  With ``--plot_dir`` set (its
+default), matplotlib must import: the run checks that before it trains.
 
 Data parallelism: started by ``torchrun`` with more than one process
 (``WORLD_SIZE`` > 1, the JAX CLI's "more than one device"), the CLI joins
@@ -21,10 +19,14 @@ the process group (NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device
 cpu``), builds the data mesh and trains and evaluates across the ranks;
 ``--batch_size`` is the global batch.  Rank 0 alone prints and writes.
 ``--zero1`` shards Adam's moments over the ranks (on one rank it is the
-plain step, as in the JAX package).
+plain step, as in the JAX package).  ``--num_model_shards M`` splits the
+world into ``(WORLD_SIZE // M, M)``: M ranks a data row shard MedFusion's
+kernels over the model axis (``parallel.tensor``), and ``--zero1`` then
+shards each model rank's moments over its data group; ``WORLD_SIZE`` must be
+a multiple of M.
 
     python -m torch.distributed.run --nproc_per_node 4 -m edrl_tpu_torch.cli.train \
-        --dataset synthetic --batch_size 32 --end_epochs 2 --plot_dir ""
+        --dataset synthetic --batch_size 32 --end_epochs 2 --plot_dir "" --num_model_shards 2
 """
 
 from __future__ import annotations
@@ -275,21 +277,27 @@ def report_eval(emit, cfg, state, eval_step, val_loader, mesh=None):
 
 def data_parallel(cfg: EDRLConfig, args):
     """``(device, mesh, emit, leave)``: under a launcher with ``WORLD_SIZE`` >
-    1, this rank's device, the data mesh over the ranks, off rank 0 an
-    ``emit`` that says nothing, and ``leave``, which leaves the process group
-    if this call joined it (a caller that joined it first keeps it); else
-    the device, no mesh, ``None`` and a ``leave`` that does nothing."""
+    1, this rank's device, the ``(data, model)`` mesh over the ranks (a model
+    axis of ``cfg.train.num_model_shards``), off rank (0, 0) an ``emit``
+    that says nothing, and ``leave``, which leaves the process group if this
+    call joined it (a caller that joined it first keeps it); else the
+    device, no mesh, ``None`` and a ``leave`` that does nothing.  A model
+    axis above 1 needs a launcher: with none it raises ``ValueError``."""
     import torch.distributed as dist
 
+    shards = cfg.train.num_model_shards
     if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
         from edrl_tpu_torch.train.trainer import resolve_device
 
+        if shards > 1:
+            raise ValueError(f"--num_model_shards {shards} needs a multiple of {shards} ranks: start them with "
+                             "torchrun")
         return resolve_device(args.device), None, None, lambda: None
     from edrl_tpu_torch.parallel import init_distributed, is_writer, make_mesh
 
     joined = not dist.is_initialized()
     device = init_distributed(args.device)
-    mesh = make_mesh(device=device.type)
+    mesh = make_mesh(shards, device=device.type)
     return (device, mesh, None if is_writer(mesh) else (lambda *a, **k: None),
             dist.destroy_process_group if joined else (lambda: None))
 
@@ -336,7 +344,7 @@ def main(argv=None):
         emit(f"Best val accuracy {result.best_acc:.4f} at epoch {result.best_epoch}")
         del state
     if cfg.train.mode in ("test", "train&test"):
-        state = init_state(cfg, cfg.train.seed, device=device)
+        state = init_state(cfg, cfg.train.seed, device=device, mesh=mesh)
         # ``--test_epoch`` (``fusion_train.py:517``): that epoch's checkpoint
         # when one was kept (--save_every), else best, else the rolling latest;
         # and say so loudly when nothing can be restored.

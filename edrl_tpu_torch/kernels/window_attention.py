@@ -42,11 +42,17 @@ shape in the C entry points and mirrored by :func:`attention_fwd_route` and
 tensor cores) or ``"fma"`` (f32, and the other bf16 shapes: CUDA cores).
 Each forward launch also counts under its route in :data:`FWD_ROUTES` (the
 fused attention sublayer's attention phase and v1's included), each
-backward launch in :data:`BWD_ROUTES`.
+backward launch in :data:`BWD_ROUTES`.  Under tensor parallelism
+(``parallel.tensor``) a model names the route its attention takes over the
+model axis (:func:`tensor_parallel_route`: ``"head_local"``, each rank its
+H/M heads, or ``"gathered"``, every rank all heads), and each B1 and B2
+launch, forward and backward, also counts under it in :data:`TP_ROUTES`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 
 import torch
@@ -66,6 +72,11 @@ LAUNCHES = {SELF_ATTENTION: 0, WINDOW_ATTENTION_V2: 0, SELF_ATTENTION_BWD: 0, WI
 # launches (B1, B2 and v1) since the last reset, by route.
 FWD_ROUTES = {"mma": 0, "fma": 0}
 BWD_ROUTES = {"mma": 0, "fma": 0}
+# B1's and B2's launches under tensor parallelism, by "<wrapper name>/<route>".
+TP_ROUTE_NAMES = ("head_local", "gathered")
+TP_ROUTES = {f"{name}/{route}": 0 for name in (SELF_ATTENTION, SELF_ATTENTION_BWD, WINDOW_ATTENTION_V2,
+                                               WINDOW_ATTENTION_V2_BWD) for route in TP_ROUTE_NAMES}
+_TP_ROUTE: contextvars.ContextVar = contextvars.ContextVar("edrl_tpu_torch_tp_route", default=None)
 MAX_HEAD_DIM = 128
 MAX_BWD_TOKENS = 256  # the CUDA-core backward keeps [32, N] f32 score rows per block in shared memory
 MMA_MAX_TOKENS = 224  # the tensor-core routes, forward and backward, take the same calls
@@ -75,9 +86,30 @@ _DQ_BLOCKS_PER_SM: dict = {}  # (device index, dtype, n, d) -> resident dq block
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, FWD_ROUTES, BWD_ROUTES):
+    for counts in (LAUNCHES, FWD_ROUTES, BWD_ROUTES, TP_ROUTES):
         for name in counts:
             counts[name] = 0
+
+
+@contextlib.contextmanager
+def tensor_parallel_route(route):
+    """Count the B1 and B2 launches made inside (and in the backward of the
+    calls made inside) under ``route`` in :data:`TP_ROUTES`; ``None``
+    counts nothing there."""
+    if route is not None and route not in TP_ROUTE_NAMES:
+        raise ValueError(f"no tensor-parallel route {route!r}")
+    token = _TP_ROUTE.set(route)
+    try:
+        yield
+    finally:
+        _TP_ROUTE.reset(token)
+
+
+def _count_tp_route(name: str) -> None:
+    route = _TP_ROUTE.get()
+    key = f"{name}/{route}"
+    if route is not None and key in TP_ROUTES:
+        TP_ROUTES[key] += 1
 
 
 def attention_fwd_route(dtype, n: int, d: int) -> str:
@@ -271,11 +303,13 @@ def _aligned_operands(route: str, tensors):
 def _launch_fwd(name: str, route: str, fn, device, *args) -> None:
     build.launch(LAUNCHES, name, fn, device, *args)
     FWD_ROUTES[route] += 1
+    _count_tp_route(name)
 
 
 def _launch_bwd(name: str, route: str, fn, device, *args) -> None:
     build.launch(LAUNCHES, name, fn, device, *args)
     BWD_ROUTES[route] += 1
+    _count_tp_route(name)
 
 
 def _fwd_smem(lib, dtype, n: int, d: int, with_bias: bool) -> int:
@@ -383,7 +417,7 @@ class _SelfAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, num_heads, scale):
         ctx.save_for_backward(q, k, v)
-        ctx.num_heads, ctx.scale = num_heads, scale
+        ctx.num_heads, ctx.scale, ctx.tp_route = num_heads, scale, _TP_ROUTE.get()
         if q.device.type == "cuda" and any(ctx.needs_input_grad[:3]):
             _check_bwd_shape(SELF_ATTENTION_BWD, q.shape[1])
         return self_attention_fwd(q, k, v, num_heads, scale)
@@ -395,7 +429,8 @@ class _SelfAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             grads = self_attention_bwd_reference(q, k, v, dout, ctx.num_heads, ctx.scale)
         else:
-            grads = self_attention_bwd_kernel(q, k, v, dout, ctx.num_heads, ctx.scale)
+            with tensor_parallel_route(ctx.tp_route):
+                grads = self_attention_bwd_kernel(q, k, v, dout, ctx.num_heads, ctx.scale)
         return (*grads, None, None)
 
 
@@ -507,7 +542,7 @@ class _WindowAttentionV2(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, bias, num_heads, scale):
         ctx.save_for_backward(qkv, bias)
-        ctx.num_heads, ctx.scale = num_heads, scale
+        ctx.num_heads, ctx.scale, ctx.tp_route = num_heads, scale, _TP_ROUTE.get()
         if qkv.device.type == "cuda" and any(ctx.needs_input_grad[:2]):
             _check_bwd_shape(WINDOW_ATTENTION_V2_BWD, qkv.shape[2])
         return window_attention_v2_fwd(qkv, bias, num_heads, scale)
@@ -519,7 +554,8 @@ class _WindowAttentionV2(torch.autograd.Function):
         if qkv.device.type == "cpu":
             dqkv, dbias = window_attention_v2_bwd_reference(qkv, bias, dout, ctx.num_heads, ctx.scale)
         else:
-            dqkv, dbias = window_attention_v2_bwd_kernel(qkv, bias, dout, ctx.num_heads, ctx.scale)
+            with tensor_parallel_route(ctx.tp_route):
+                dqkv, dbias = window_attention_v2_bwd_kernel(qkv, bias, dout, ctx.num_heads, ctx.scale)
         return dqkv, dbias, None, None
 
 

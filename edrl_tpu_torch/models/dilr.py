@@ -31,6 +31,13 @@ class AttentionModel(nn.Module):
         self.Dense_0 = Dense(embed_dim, 3 * embed_dim, dtype=dtype, device=device)
         self.Dense_1 = Dense(3 * embed_dim, embed_dim, dtype=dtype, device=device)
 
+    def tensor_parallel_(self, axis, dims) -> None:
+        """The FFN's Dense_0 column-parallel, ReLU on the split hidden,
+        Dense_1 row-parallel (``parallel.tensor``)."""
+        from edrl_tpu_torch.parallel.tensor import shard_pair_
+
+        shard_pair_(self, "Dense_0", "Dense_1", axis, dims)
+
     def forward(self, q, k, v):
         x = self.LayerNorm_0(q + self.MultiHeadAttention_0(q, k, v))
         return F.relu(x + self.Dense_1(F.relu(self.Dense_0(x))))

@@ -8,6 +8,12 @@ depends on it there.  Eval mode takes the pseudo-labels, the argmax of the
 confidence-blended distribution, and returns the entropy regularizer.
 Normalisation is over the feature axis, and the token-mean attention
 divides by the token count, as in the JAX package.
+
+Under tensor parallelism (:meth:`EPRL.tensor_parallel_`) enc1 is
+column-parallel and gathered, enc2 column-parallel feeding enc3
+row-parallel on the split activation: the second dropout mask is drawn (or
+given) at full width and this rank's columns of it are kept, so M ranks
+drop what one card drops.
 """
 
 from __future__ import annotations
@@ -41,16 +47,23 @@ def eval_eps(num_classes: int, sample_num: int, z_dim: int, device) -> torch.Ten
 
 
 def dropout(x, rate: float, mask: Optional[torch.Tensor] = None,
-            generator: Optional[torch.Generator] = None):
+            generator: Optional[torch.Generator] = None, columns=None):
     """flax ``nn.Dropout`` in train mode: ``where(mask, x / keep, 0)``.
 
     ``mask`` is the boolean keep mask (True keeps), drawn as U[0, 1) < keep
     from ``generator`` when absent (at the global batch under a data axis,
-    ``parallel.draw_rows``).
+    ``parallel.draw_rows``).  ``columns``: the model axis over which ``x``'s
+    last dimension is split; the mask is then drawn (or given) at full width
+    and this rank's columns of it are kept.
     """
     keep = 1.0 - rate
     if mask is None:
-        mask = draw_rows(torch.rand, x.shape, generator, x.device) < keep
+        width = x.shape[-1] * (1 if columns is None else columns.size)
+        mask = draw_rows(torch.rand, (*x.shape[:-1], width), generator, x.device) < keep
+    if columns is not None:
+        from edrl_tpu_torch.parallel.tensor import scatter_to_model
+
+        mask = scatter_to_model(mask, columns)
     return torch.where(mask.to(x.device), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -69,10 +82,20 @@ class EPRL(nn.Module):
         self.proxies = nn.Parameter(torch.empty((num_classes, 2 * z_dim), device=device))
         self.token_mlp = Dense(num_tokens, num_classes, dtype=torch.float32, device=device)
         self.alpha = nn.Parameter(torch.empty((), device=device))
+        self.split_axis = None  # the model axis enc2's output is split over
 
     def flax_init_(self, generator):
         xavier_uniform_(self.proxies, generator)
         self.alpha.fill_(0.5)
+
+    def tensor_parallel_(self, axis, dims) -> None:
+        """enc2 column-parallel, ReLU and the second dropout on its split
+        output, enc3 row-parallel; enc1 is left to ``parallel.tensor``'s
+        default (column-parallel, gathered for enc2)."""
+        from edrl_tpu_torch.parallel.tensor import shard_pair_
+
+        if shard_pair_(self, "enc2", "enc3", axis, dims):
+            self.split_axis = axis
 
     def forward(self, x, y=None, *, train: bool = False, eps: Optional[torch.Tensor] = None,
                 dropout_masks: Optional[Sequence[torch.Tensor]] = None,
@@ -95,7 +118,8 @@ class EPRL(nn.Module):
         masks = list(dropout_masks) if dropout_masks is not None else [None] * 2
 
         def drop(h, site):
-            return dropout(h, DROPOUT, masks[site], generator) if train else h
+            columns = self.split_axis if site == 1 else None
+            return dropout(h, DROPOUT, masks[site], generator, columns) if train else h
 
         h = drop(F.relu(self.enc1(x)), 0)
         h = drop(F.relu(self.enc2(h)), 1)

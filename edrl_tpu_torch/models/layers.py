@@ -204,6 +204,13 @@ class Mlp(nn.Module):
             self.b1.zero_()
             self.b2.zero_()
 
+    def tensor_parallel_(self, axis, dims) -> None:
+        """Dense_0 column-parallel, GELU on the split hidden, Dense_1
+        row-parallel (``parallel.tensor``)."""
+        from edrl_tpu_torch.parallel.tensor import shard_pair_
+
+        shard_pair_(self, "Dense_0", "Dense_1", axis, dims)
+
     def forward(self, x):
         if self.fused:
             c = x.shape[-1]
@@ -241,7 +248,9 @@ class MultiHeadAttention(nn.Module):
 
     ``use_fused`` routes equal, 8-aligned query/key token counts through the
     fused self-attention (the CUDA kernel on the card, its plain version on
-    the CPU).
+    the CPU).  Under tensor parallelism (:meth:`tensor_parallel_`) it
+    attends over this rank's heads (``local_heads``) or over all of them
+    (``parallel.tensor``'s two routes).
     """
 
     def __init__(self, dim: int, num_heads: int, *, qkv_bias: bool = True,
@@ -249,25 +258,49 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         self.dim = dim
         self.num_heads = num_heads
+        self.local_heads = num_heads
+        self.tp_route = None
         self.use_fused = use_fused
         for name in ("q", "k", "v"):
             setattr(self, name, Dense(dim, dim, use_bias=qkv_bias, dtype=dtype, device=device))
         self.proj = Dense(dim, dim, dtype=dtype, device=device)
 
+    def tensor_parallel_(self, axis, dims) -> None:
+        """q, k, v column-parallel and proj row-parallel: head-local where
+        all four are split and the heads divide the model axis (q, k and v
+        have head-major columns, so a contiguous split is by heads), else
+        gathered (``parallel.tensor``)."""
+        from edrl_tpu_torch.parallel.tensor import ColumnParallelDense, RowParallelDense
+
+        names = ("q", "k", "v")
+        col = [dims.pop(getattr(self, n), None) == 0 for n in names]
+        row = dims.pop(self.proj, None) == 1
+        local = all(col) and row and self.num_heads % axis.size == 0
+        for name, split in zip(names, col):
+            if split:
+                setattr(self, name, ColumnParallelDense(getattr(self, name), axis, gather_output=not local))
+        if row:
+            self.proj = RowParallelDense(self.proj, axis, input_split=local)
+        if local:
+            self.local_heads = self.num_heads // axis.size
+        self.tp_route = "head_local" if local else "gathered"
+
     def forward(self, q_in, k_in, v_in):
         head_dim = self.dim // self.num_heads
         scale = head_dim ** -0.5
-        q, k, v = self.q(q_in), self.k(k_in), self.v(v_in)  # [B, N, C]
+        heads, width = self.local_heads, self.local_heads * head_dim
+        q, k, v = self.q(q_in), self.k(k_in), self.v(v_in)  # [B, N, width]
         if self.use_fused and q.shape[1] == k.shape[1] and q.shape[1] % 8 == 0:
-            from edrl_tpu_torch.kernels.window_attention import self_attention_fused
+            from edrl_tpu_torch.kernels.window_attention import self_attention_fused, tensor_parallel_route
 
-            out = self_attention_fused(q, k, v, self.num_heads, scale)
+            with tensor_parallel_route(self.tp_route):
+                out = self_attention_fused(q, k, v, heads, scale)
         else:
             def split(y):
-                return y.reshape(y.shape[0], y.shape[1], self.num_heads, head_dim).transpose(1, 2)
+                return y.reshape(y.shape[0], y.shape[1], heads, head_dim).transpose(1, 2)
 
             out = scaled_dot_attention(split(q), split(k), split(v), scale)
-            out = out.transpose(1, 2).reshape(out.shape[0], -1, self.dim)
+            out = out.transpose(1, 2).reshape(out.shape[0], -1, width)
         return self.proj(out)
 
 

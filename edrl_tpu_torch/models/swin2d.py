@@ -103,6 +103,9 @@ class WindowAttention(nn.Module):
         self.dim = dim
         self.window = window
         self.num_heads = num_heads
+        self.local_heads = num_heads
+        self.tp_route = None
+        self.table_axis = None  # the model axis of a head-local rank
         self.use_fused = use_fused
         self.dtype = dtype
         self.qkv = Dense(dim, 3 * dim, dtype=dtype, device=device)
@@ -116,30 +119,59 @@ class WindowAttention(nn.Module):
     def flax_init_(self, generator):
         trunc_normal_(self.rel_bias_table, 0.02, generator)
 
+    def tensor_parallel_(self, axis, dims) -> None:
+        """qkv column-parallel and proj row-parallel: head-local where both
+        are split and the heads divide the model axis (qkv's outputs permuted
+        so that each rank's block holds q, k and v of its heads; the bias
+        table read at their columns), else gathered (``parallel.tensor``)."""
+        from edrl_tpu_torch.parallel.tensor import ColumnParallelDense, RowParallelDense, head_major_permutation
+
+        col, row = dims.pop(self.qkv, None) == 0, dims.pop(self.proj, None) == 1
+        local = col and row and self.num_heads % axis.size == 0
+        if col:
+            perm = head_major_permutation(self.dim, self.num_heads, axis.size) if local else None
+            self.qkv = ColumnParallelDense(self.qkv, axis, gather_output=not local, permutation=perm)
+        if row:
+            self.proj = RowParallelDense(self.proj, axis, input_split=local)
+        if local:
+            self.local_heads = self.num_heads // axis.size
+            self.table_axis = axis
+        self.tp_route = "head_local" if local else "gathered"
+
+    def _table(self):
+        """The relative-bias table's columns of this rank's heads (all of it
+        off the head-local route); their gradient summed over the model ranks."""
+        if self.table_axis is None:
+            return self.rel_bias_table
+        from edrl_tpu_torch.parallel.tensor import copy_to_model
+
+        first = self.table_axis.rank * self.local_heads
+        return copy_to_model(self.rel_bias_table, self.table_axis)[:, first:first + self.local_heads]
+
     def forward(self, x, mask=None):
         """x: [B, nW, N, C]; mask: [nW, N, N] additive f32 or None."""
         b, nw, n, _ = x.shape
         head_dim = self.dim // self.num_heads
         scale = head_dim ** -0.5
+        heads = self.local_heads
         qkv = self.qkv(x)
-        bias = rel_bias_from_table(self.rel_bias_table, self.rel_index, self.num_heads, self.dtype)
+        bias = rel_bias_from_table(self._table(), self.rel_index, heads, self.dtype)
         if self.use_fused:
-            from edrl_tpu_torch.kernels.window_attention import window_attention_fused_v2
+            from edrl_tpu_torch.kernels.window_attention import tensor_parallel_route, window_attention_fused_v2
 
-            full_bias = bias[None].expand(nw, self.num_heads, n, n)
+            full_bias = bias[None].expand(nw, heads, n, n)
             if mask is not None:
                 full_bias = full_bias + mask[:, None]
-            out = window_attention_fused_v2(
-                qkv, full_bias.contiguous(), self.num_heads, scale
-            )
+            with tensor_parallel_route(self.tp_route):
+                out = window_attention_fused_v2(qkv, full_bias.contiguous(), heads, scale)
         else:
-            qkv = qkv.reshape(b, nw, n, 3, self.num_heads, head_dim)
+            qkv = qkv.reshape(b, nw, n, 3, heads, head_dim)
             q, k, v = (qkv[..., i, :, :].transpose(2, 3) for i in range(3))  # [B, nW, H, N, D]
             attn_bias = bias[None, None]
             if mask is not None:
                 attn_bias = attn_bias + mask[None, :, None]
             out = scaled_dot_attention(q, k, v, scale, bias=attn_bias)
-            out = out.transpose(2, 3).reshape(b, nw, n, self.dim)
+            out = out.transpose(2, 3).reshape(b, nw, n, heads * head_dim)
         return self.proj(out)
 
 

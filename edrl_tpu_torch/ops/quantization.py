@@ -35,6 +35,15 @@ What differs from the JAX module, and why:
   stage exceeds at batch 16: :func:`linear_percentile` interpolates linearly
   between the two neighbouring order statistics (``kthvalue``), as
   ``jnp.percentile``'s default does.
+
+Under tensor parallelism (``parallel.tensor``) the full f32 weight is
+quantized first, each scale's max running over the whole ``in`` dimension,
+and :func:`apply_int8_` then slices the int8 weight and its scales as the
+parallel Dense it replaces is sliced.  A row-parallel :class:`Int8Dense`
+takes the dynamic per-row activation scale as the max over the model ranks
+of their slices' maxima, and sums the int32 partial products over the
+ranks, which is exact: its output equals one card's.  A static scale is the
+same on every rank.
 """
 
 from __future__ import annotations
@@ -110,9 +119,13 @@ def quantize_dense_params(model: nn.Module, dense_paths: Sequence[str], min_dim:
     return weights, scales
 
 
-def _dynamic_quantize_rows(x32: torch.Tensor):
-    """Per-row (last axis) symmetric int8 of f32 activations: ``(q, scale [..., 1])``."""
-    s = torch.clamp_min(x32.abs().amax(dim=-1, keepdim=True), 1e-12) / 127.0
+def _dynamic_quantize_rows(x32: torch.Tensor, axis=None):
+    """Per-row (last axis) symmetric int8 of f32 activations: ``(q, scale [..., 1])``;
+    with ``axis`` (a model axis over which the rows are split), each row's
+    max over all the ranks' slices."""
+    from edrl_tpu_torch.parallel.tensor import max_over_model
+
+    s = torch.clamp_min(max_over_model(x32.abs().amax(dim=-1, keepdim=True), axis), 1e-12) / 127.0
     return torch.clamp(torch.round(x32 / s), -127, 127).to(torch.int8), s
 
 
@@ -143,11 +156,21 @@ class Int8Dense(nn.Module):
     (``make_int8_interceptor``) operation for operation: quantize x (per row,
     or with the static scale, saturating at +-127), the int32 product,
     ``acc * x_scale * w_scale`` in f32, ``+ bias`` in f32, cast to the
-    Dense's compute dtype."""
+    Dense's compute dtype.
+
+    In place of a column- or row-parallel Dense (``parallel.tensor``) it
+    takes ``w_q`` and ``w_scale`` at full shape and keeps that Dense's slice
+    and collectives (see the module docstring)."""
 
     def __init__(self, dense: Dense, w_q: torch.Tensor, w_scale: torch.Tensor,
                  act_scale: Optional[torch.Tensor] = None):
         super().__init__()
+        self.parallel = getattr(dense, "kind", None)  # "column", "row" or None
+        self.axis = getattr(dense, "axis", None)
+        self.gather_output = getattr(dense, "gather_output", False)
+        self.input_split = getattr(dense, "input_split", True)
+        if self.parallel is not None:
+            w_q, w_scale = dense.local(w_q), dense.local(w_scale)
         out_features, in_features = dense.weight.shape
         self.in_features, self.out_features = in_features, out_features
         self.dtype = compute_dtype(dense.dtype, dense.weight)
@@ -161,9 +184,14 @@ class Int8Dense(nn.Module):
                              else act_scale.to(device=device, dtype=torch.float32).reshape(()))
 
     def forward(self, x):
+        from edrl_tpu_torch.parallel.tensor import gather_from_model, reduce_from_model, scatter_to_model
+
+        row = self.parallel == "row"
+        if row and not self.input_split:
+            x = scatter_to_model(x, self.axis)
         x32 = x.float()
         if self.act_scale is None:
-            x_q, x_scale = _dynamic_quantize_rows(x32)
+            x_q, x_scale = _dynamic_quantize_rows(x32, self.axis if row else None)
         else:
             x_scale = self.act_scale
             x_q = torch.clamp(torch.round(x32 / x_scale), -127, 127).to(torch.int8)
@@ -172,10 +200,13 @@ class Int8Dense(nn.Module):
         if self.weight.shape[1] != self.in_features:
             x_q = F.pad(x_q, (0, self.weight.shape[1] - self.in_features))
         acc = int8_matmul(x_q, self.weight)[:, :self.out_features].reshape(*lead, self.out_features)
+        if row:
+            acc = reduce_from_model(acc, self.axis)
         y = acc.float() * x_scale * self.w_scale
         if self.bias is not None:
             y = y + self.bias.float()
-        return y.to(self.dtype)
+        y = y.to(self.dtype)
+        return gather_from_model(y, self.axis) if self.gather_output else y
 
 
 def apply_int8_(model: nn.Module, weights: Mapping[str, torch.Tensor], scales: Mapping[str, torch.Tensor]):

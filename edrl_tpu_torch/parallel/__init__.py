@@ -1,5 +1,7 @@
-"""Data parallelism over ``torch.distributed`` (``edrl_tpu/parallel/``): the
-mesh, the batch-coupled collectives and ZeRO-1 (see ``parallel.mesh``)."""
+"""Data and tensor parallelism over ``torch.distributed`` (``edrl_tpu/parallel/``):
+the ``(data, model)`` mesh, the batch-coupled collectives, ZeRO-1 and the
+tensor-parallel rules (see ``parallel.mesh``), and the column- and
+row-parallel Dense layers and their collectives (``parallel.tensor``)."""
 
 from edrl_tpu_torch.parallel.mesh import (
     all_reduce_mean_,
@@ -10,7 +12,9 @@ from edrl_tpu_torch.parallel.mesh import (
     init_distributed,
     is_writer,
     make_mesh,
+    param_shardings,
     shard_batch,
+    sharded_byte_fraction,
     use_mesh,
     zero1_optimizer,
 )
@@ -24,7 +28,9 @@ __all__ = [
     "init_distributed",
     "is_writer",
     "make_mesh",
+    "param_shardings",
     "shard_batch",
+    "sharded_byte_fraction",
     "use_mesh",
     "zero1_optimizer",
 ]

@@ -1,9 +1,9 @@
-"""Data parallelism on ``torch.distributed`` (``edrl_tpu/parallel/mesh.py``).
+"""Data and tensor parallelism on ``torch.distributed`` (``edrl_tpu/parallel/mesh.py``).
 
 One process per card, started by ``torchrun`` (``python -m
 torch.distributed.run``): NCCL on ``cuda:LOCAL_RANK``, or gloo when the
-caller asks for the CPU.  Each rank holds the whole model and its rows of
-every global batch.  The JAX package jits its step over a ``(data, model)``
+caller asks for the CPU.  On the data axis each rank holds the whole model
+(or its model-axis shards, below) and its rows of every global batch.  The JAX package jits its step over a ``(data, model)``
 mesh and XLA makes every batch-coupled quantity global; here the modules
 that couple a batch ask for it by name:
 
@@ -23,8 +23,19 @@ terms, contribute once: world N at global batch B trains on the numbers of
 one card at batch B, to within the order of the sums.
 
 ZeRO-1 (:func:`zero1_optimizer`) shards Adam's moments over the data ranks,
-whole tensors to a rank, with ``ZeroRedundancyOptimizer``.  Tensor
-parallelism (a ``model`` axis above 1) is ROADMAP item A11's second half.
+whole tensors to a rank, with ``ZeroRedundancyOptimizer``.
+
+Tensor parallelism: :func:`make_mesh` lays the world out as ``(WORLD //
+M, M)`` with rank = d * M + m, as the JAX package's ``make_mesh`` lays out
+its devices, so the M ranks of a data row are consecutive.  The ``model``
+axis (:class:`ModelAxis`) splits the kernels that :data:`TP_RULES` names
+(the port's copy of ``edrl_tpu/parallel/mesh.py``'s ``_TP_RULES``, matched
+on the converter's flax names; :func:`param_shardings`), and
+``parallel.tensor`` turns them into column- and row-parallel Dense layers.
+Everything above stays on the data axis: the M ranks of a data row draw
+alike and hold the same rows, each model rank averages its local
+parameters (its shards and the replicas) over its own data group, and
+ZeRO-1 shards them over that group.
 """
 
 from __future__ import annotations
@@ -33,7 +44,8 @@ import contextlib
 import contextvars
 import dataclasses
 import os
-from typing import Iterator, List, Mapping, Optional, Sequence
+import re
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -48,6 +60,21 @@ class DataAxis:
     group: object
     rank: int
     size: int
+
+    def __deepcopy__(self, memo):
+        return self  # a process group is shared, never copied
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """This rank's place on the mesh's model axis (tensor parallelism)."""
+
+    group: object
+    rank: int
+    size: int
+
+    def __deepcopy__(self, memo):
+        return self
 
 
 _AXIS: contextvars.ContextVar = contextvars.ContextVar("edrl_tpu_torch_data_axis", default=None)
@@ -84,13 +111,17 @@ def init_distributed(device="cuda", *, store=None) -> torch.device:
     return device
 
 
-def make_mesh(*, device="cuda"):
+def make_mesh(num_model: int = 1, *, device="cuda"):
     """The ``(data, model)`` ``DeviceMesh`` over the default process group
-    (:func:`init_distributed` first): every rank on the data axis, a model
-    axis of 1 (tensor parallelism is ROADMAP item A11's second half)."""
+    (:func:`init_distributed` first): ``(WORLD_SIZE // num_model,
+    num_model)``, rank = d * num_model + m (the JAX package's layout).  A
+    model axis that does not divide the world raises ``ValueError``."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    ranks = torch.arange(dist.get_world_size()).reshape(-1, 1)
+    world = dist.get_world_size()
+    if num_model < 1 or world % num_model:
+        raise ValueError(f"a model axis of {num_model} does not divide the world of {world} ranks")
+    ranks = torch.arange(world).reshape(-1, num_model)
     return DeviceMesh(torch.device(device).type, ranks, mesh_dim_names=AXES)
 
 
@@ -99,15 +130,25 @@ def data_axis_of(mesh) -> DataAxis:
     return DataAxis(mesh.get_group("data"), mesh.get_local_rank("data"), mesh.size(0))
 
 
+def model_axis_of(mesh) -> Optional[ModelAxis]:
+    """The mesh's model axis as this rank sees it, or None where it is 1
+    (or there is no mesh)."""
+    if mesh is None or mesh.size(1) == 1:
+        return None
+    return ModelAxis(mesh.get_group("model"), mesh.get_local_rank("model"), mesh.size(1))
+
+
 def is_writer(mesh) -> bool:
-    """True on the rank that prints and writes files: data rank 0, or the
-    only process when there is no mesh."""
-    return mesh is None or mesh.get_local_rank("data") == 0
+    """True on the rank that prints and writes files: rank (0, 0) of the
+    mesh, or the only process when there is no mesh."""
+    return mesh is None or (mesh.get_local_rank("data") == 0 and mesh.get_local_rank("model") == 0)
 
 
 @contextlib.contextmanager
 def use_mesh(mesh) -> Iterator[None]:
-    """Make ``mesh``'s data axis current (nothing when ``mesh`` is None)."""
+    """Make ``mesh``'s data axis current (nothing when ``mesh`` is None);
+    the tensor-parallel layers keep the model axis they were sharded over
+    (``parallel.tensor``)."""
     if mesh is None:
         yield
         return
@@ -283,4 +324,78 @@ def load_optimizer_state(optimizer, state_dict: dict) -> None:
 
 
 def barrier(mesh) -> None:
-    dist.barrier(group=mesh.get_group("data"))
+    """Every rank of the mesh (the whole world) waits for the others."""
+    dist.barrier()
+
+
+# ---------------------------------------------------------------------------
+# The tensor-parallel rules (``edrl_tpu/parallel/mesh.py``'s ``_TP_RULES``).
+# ---------------------------------------------------------------------------
+
+COLUMN, ROW = 1, 0  # the split axis of a flax [in, out] kernel
+# (flax path regex, the split axis of the flax kernel), first match wins: up-
+# projections split their outputs (column-parallel), down-projections their
+# inputs (row-parallel).
+TP_RULES = (
+    (re.compile(r"Mlp_\d+/Dense_0/kernel"), COLUMN),
+    (re.compile(r"Mlp_\d+/Dense_1/kernel"), ROW),
+    (re.compile(r"Mlp_\d+/w1"), COLUMN),
+    (re.compile(r"Mlp_\d+/w2"), ROW),
+    (re.compile(r"qkv/kernel"), COLUMN),
+    (re.compile(r"/(q|k|v)/kernel"), COLUMN),
+    (re.compile(r"proj/kernel"), ROW),
+    (re.compile(r"patch_embed/kernel"), COLUMN),
+    (re.compile(r"enc[12]/kernel"), COLUMN),
+    (re.compile(r"enc3/kernel"), ROW),
+    (re.compile(r"(shared_|guided_)?projector\d?/kernel"), COLUMN),
+    (re.compile(r"(self|cross)_attn\d/Dense_0/kernel"), COLUMN),
+    (re.compile(r"(self|cross)_attn\d/Dense_1/kernel"), ROW),
+    (re.compile(r"fc_fundus/kernel"), COLUMN),
+)
+
+
+def flax_path(name: str) -> str:
+    """The flax path (``/``-joined, without ``params/``) of the port's
+    parameter ``name``, as ``convert`` maps them: a Dense's ``weight`` is its
+    ``kernel``.  (Only the 2-D leaves the rules can match need it: a
+    LayerNorm's 1-D ``weight`` is flax's ``scale``.)"""
+    parts = name.split(".")
+    return "/".join(parts[:-1] + [{"weight": "kernel"}.get(parts[-1], parts[-1])])
+
+
+def param_shardings(model: torch.nn.Module, mesh: Union[int, object]) -> Dict[str, Optional[int]]:
+    """Each parameter of ``model`` (full shapes) -> the dimension of its torch
+    tensor that the model axis splits, or None (replicated), by
+    :data:`TP_RULES` under JAX's rule: a 2-D leaf that a rule's pattern
+    matches is split where that dimension divides the model axis (``mesh``:
+    a ``DeviceMesh`` or the axis's size), else the next rule is tried; one
+    that no rule splits is replicated, and everything is replicated on a
+    model axis of 1.  A Dense ``weight`` is the flax kernel transposed, so a
+    column split is its dimension 0 and a row split its dimension 1; a fused
+    MLP's ``w1``/``w2`` keep flax's layout."""
+    m = mesh if isinstance(mesh, int) else mesh.size(1)
+    out: Dict[str, Optional[int]] = {}
+    for name, param in model.named_parameters():
+        out[name] = None
+        if param.dim() != 2 or m <= 1:
+            continue
+        path = flax_path(name)
+        transposed = path.endswith("/kernel")
+        for pattern, flax_axis in TP_RULES:
+            dim = 1 - flax_axis if transposed else flax_axis
+            if pattern.search(path) and param.shape[dim] % m == 0:
+                out[name] = dim
+                break
+    return out
+
+
+def sharded_byte_fraction(model: torch.nn.Module, shardings: Mapping[str, Optional[int]]) -> float:
+    """The share of ``model``'s parameter bytes (full shapes) that
+    ``shardings`` splits: the JAX package's ``sharded_byte_fraction``."""
+    total = sharded = 0
+    for name, param in model.named_parameters():
+        nbytes = param.numel() * param.element_size()
+        total += nbytes
+        if shardings.get(name) is not None:
+            sharded += nbytes
+    return sharded / max(total, 1)

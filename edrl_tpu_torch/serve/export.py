@@ -50,7 +50,12 @@ class _StateAsArgument(nn.Module):
 
 
 def export_program(predictor) -> torch.export.ExportedProgram:
-    """``torch.export`` of the predictor's forward of one serving batch."""
+    """``torch.export`` of the predictor's forward of one serving batch.  A
+    predictor sharded over a model axis above 1 refuses: its program would
+    hold the axis's collectives (``NotImplementedError``)."""
+    if predictor.mesh is not None and predictor.mesh.size(1) > 1:
+        raise NotImplementedError(f"export of a predictor sharded over a model axis of {predictor.mesh.size(1)}: "
+                                  "a program with the model axis's collectives is not ported")
     d = predictor.cfg.data
     b, device = predictor.batch_size, predictor.device
     args = (predictor.serving_state(),

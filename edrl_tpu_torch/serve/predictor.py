@@ -31,7 +31,12 @@ serving batch, its rows of the eval draws with them, and the
 probabilities are all-gathered once per request: every rank returns the
 whole result.  int8 (each rank calibrates on the whole calibration set, so
 the scales agree) and chunks (a rank's graph holds its rows) compose with
-it, as with the JAX package's mesh predictor.
+it, as with the JAX package's mesh predictor.  A mesh with a model axis
+above 1 shards every member over it (``parallel.tensor``; the ranks of a
+data row serve the same rows), in bf16 and in int8 (quantized from the full
+f32 weights, then sliced).  There a chunk graph would have to hold the
+model axis's collectives: ``chunk_batches > 1`` refuses by name, as
+``serve.export`` does.
 """
 
 from __future__ import annotations
@@ -50,9 +55,11 @@ from edrl_tpu_torch.models.eprl import eval_eps
 from edrl_tpu_torch.models.layers import cast_dense_weights_, init_parameters
 from edrl_tpu_torch.models.medfusion import MedFusion, eval_guided_uniform
 from edrl_tpu_torch.ops import quantization
+from edrl_tpu_torch.parallel import tensor
 from edrl_tpu_torch.parallel.mesh import data_axis_of, gather_batches, rows_of
 from edrl_tpu_torch.train.ensemble import member_logits_mean, restore_members
-from edrl_tpu_torch.train.trainer import TrainState, _dequantize, make_model, resolve_device, set_conv_precision
+from edrl_tpu_torch.train.trainer import (
+    TrainState, _dequantize, check_tensor_parallel, make_model, resolve_device, set_conv_precision)
 
 
 def _to_uint8_transport(x: np.ndarray) -> np.ndarray:
@@ -78,7 +85,7 @@ def launch_counters() -> Tuple[dict, ...]:
     """Every launch counter of the port's kernel wrappers and of the int8
     products: what a CUDA graph's replays add to."""
     return (window_attention.LAUNCHES, window_attention.FWD_ROUTES, window_attention.BWD_ROUTES,
-            mmd.LAUNCHES, mmd.MMD_ROUTES, layer_norm.LAUNCHES, fused_mlp.LAUNCHES, fused_mlp.MLP_ROUTES,
+            window_attention.TP_ROUTES, mmd.LAUNCHES, mmd.MMD_ROUTES, layer_norm.LAUNCHES, fused_mlp.LAUNCHES, fused_mlp.MLP_ROUTES,
             block_attention.LAUNCHES, block_attention.SUBLAYER_ROUTES, quantization.INT8_MATMULS)
 
 
@@ -172,8 +179,8 @@ class Predictor:
         counts): static per-tensor activation scales at the
         ``int8_calib_percentile``-th percentile of |x| (100: the abs-max).
     chunk_batches: batches per chunk (1: batch by batch).
-    mesh: data-parallel serving (see the module docstring); the serving
-        batch must split over the data ranks (``ValueError``).
+    mesh: data- and tensor-parallel serving (see the module docstring); the
+        serving batch must split over the data ranks (``ValueError``).
 
     Dense weights that stay float are stored in the compute dtype
     (``layers.cast_dense_weights_``): the same products, fewer launches.
@@ -211,6 +218,13 @@ class Predictor:
         if mesh is not None and self.batch_size % mesh.size(0):
             raise ValueError(f"eval_batch_size {self.batch_size} not divisible by the mesh data axis "
                              f"({mesh.size(0)})")
+        sharded = mesh is not None and mesh.size(1) > 1
+        if sharded:
+            check_tensor_parallel(cfg, mesh.size(1))
+            if self.chunk_batches > 1:
+                raise NotImplementedError(
+                    f"chunk_batches={self.chunk_batches} over a model axis of {mesh.size(1)}: a chunk graph that "
+                    "holds the model axis's collectives is ROADMAP item A14 (whole-step capture)")
         # This rank's rows of each serving batch (all of it without a mesh).
         self.rows = slice(None) if mesh is None else rows_of(self.batch_size, data_axis_of(mesh))
         members = list(variables) if isinstance(variables, (list, tuple)) else [variables]
@@ -222,8 +236,12 @@ class Predictor:
         self.quantized = bool(quantize_int8)
         self.quant_report: dict = {}
         self.scales: list = [{} for _ in models]
-        if quantize_int8:
-            self._quantize(models, int8_calibration, int8_calib_percentile, min_dim)
+        quantized = self._quantize(models, int8_calibration, int8_calib_percentile, min_dim) if quantize_int8 else ()
+        if sharded:
+            for m in models:
+                tensor.shard_model_(m, mesh)
+        for model, (weights, scales, _) in zip(models, quantized):
+            quantization.apply_int8_(model, weights, scales)
         self.members = [cast_dense_weights_(m) for m in models]
         self.model = self.members[0]
         self.serving = ServingForward(self.members, self.draws if mesh is None else self._rank_draws())
@@ -261,7 +279,8 @@ class Predictor:
         if variables is None:
             init_parameters(model, torch.Generator(device=self.device).manual_seed(seed))
         elif isinstance(variables, TrainState):
-            model.load_state_dict(variables.model.state_dict())
+            # A sharded state is gathered to full shapes (its model group's ranks all serve).
+            model.load_state_dict(tensor.gather_full(variables.model, variables.model.state_dict()))
         else:
             load_flax_variables(model, variables["params"], variables.get("batch_stats"))
         return model
@@ -281,9 +300,11 @@ class Predictor:
                 raise ValueError(f"guided_uniform entries must be {shape}")
         return {"guided_uniform": u, "eprl_eps": eval_eps(m.num_classes, m.sample_num, m.z_dim, self.device)}
 
-    def _quantize(self, models, calibration, percentile: float, min_dim: int) -> None:
-        """Quantize each member from its float32 weights (calibrating first,
-        on the float model, where a calibration set is given)."""
+    def _quantize(self, models, calibration, percentile: float, min_dim: int) -> list:
+        """Each member's ``(int8 weights, scales, report)`` from its float32
+        weights at full shape (calibrated first, on the float model, where a
+        calibration set is given); :func:`quantization.apply_int8_` applies
+        them."""
         d = self.cfg.data
         example = (torch.zeros((2, d.fundus_size, d.fundus_size, 3), device=self.device),
                    torch.zeros((2, *d.oct_size, 1), device=self.device),
@@ -301,9 +322,8 @@ class Predictor:
                 quantized[i] = (quantized[i][0], combined, quantized[i][2])
             self.quant_report = dict(self.quant_report, static_activation_scales=sum(
                 k.endswith(quantization.ACT_SUFFIX) for k in quantized[0][1]))
-        for model, (weights, scales, _) in zip(models, quantized):
-            quantization.apply_int8_(model, weights, scales)
         self.scales = [q[1] for q in quantized]
+        return quantized
 
     def _calibration_chunks(self, calibration):
         """The calibration set as batches of the serving size (the last wraps

@@ -19,12 +19,16 @@ training goes on.  At most one write is in flight; ``wait`` drains it,
 ``save_best`` and ``restore`` wait for it.
 
 Under data parallelism (``mesh``) every rank calls every method in the same
-order: data rank 0 alone copies and writes, the others wait for it at a
-barrier in ``wait`` (so a checkpoint is there for every rank once ``wait``
-or ``restore`` returns, and ``best.json`` and ``latest.json`` once the next
-``wait`` does), and every rank restores.  A ZeRO-1
-optimizer's moments are consolidated on rank 0 before it copies them, so
-the checkpoint is the one-card format, and one card can resume it.
+order: rank (0, 0) alone writes, the others wait for it at a barrier in
+``wait`` (so a checkpoint is there for every rank once ``wait`` or
+``restore`` returns, and ``best.json`` and ``latest.json`` once the next
+``wait`` does), and every rank restores.  A ZeRO-1 optimizer's moments are
+consolidated on data rank 0 (over each data group) before it copies them;
+under tensor parallelism the ranks of data row 0 then gather their shards
+over the model group (``parallel.tensor.gather_full``: full shapes in JAX's
+column order, qkv's permutation undone), the other rows entering no
+collective there.  So the checkpoint is the one-card format, one card can
+resume it, and a sharded state restores it by slicing.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from typing import Optional
 
 import torch
 
+from edrl_tpu_torch.parallel import tensor
 from edrl_tpu_torch.parallel.mesh import barrier, is_writer, is_zero1, load_optimizer_state
 from edrl_tpu_torch.train.trainer import TrainState
 
@@ -56,13 +61,19 @@ def _to_host(obj):
 
 
 def _snapshot(state: TrainState) -> dict:
-    """The host copy of ``state`` that a checkpoint holds."""
-    return _to_host({
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
-        "scheduler": state.scheduler.state_dict(),
-        "step": state.step,
-    })
+    """What a checkpoint holds of ``state``, at full shapes (under tensor
+    parallelism a collective over the model group), still on the device."""
+    model, optimizer = state.model.state_dict(), state.optimizer.state_dict()
+    if tensor.model_axis_of_model(state.model) is not None:
+        model = tensor.gather_full(state.model, model)
+        optimizer = tensor.gather_optimizer_state(state.model, optimizer)
+    return {"model": model, "optimizer": optimizer, "scheduler": state.scheduler.state_dict(), "step": state.step}
+
+
+def _load_model(model: torch.nn.Module, full: dict) -> None:
+    """A checkpoint's full-shape state dict into ``model``, sliced where the
+    model is sharded."""
+    model.load_state_dict(tensor.shard_full(model, full))
 
 
 def _write(path: str, snap: dict) -> None:
@@ -111,6 +122,8 @@ class CheckpointManager:
         self.directory = os.path.abspath(directory)
         self.mesh = mesh
         self.writes = is_writer(mesh)
+        # The ranks that copy the state: data rank 0 (with its model group).
+        self.copies = mesh is None or mesh.get_local_rank("data") == 0
         if self.writes:
             os.makedirs(self.directory, exist_ok=True)
         self._pool = ThreadPoolExecutor(max_workers=1)
@@ -127,8 +140,9 @@ class CheckpointManager:
         self.wait()
         if is_zero1(state.optimizer):
             state.optimizer.consolidate_state_dict(to=0)
+        snap = _snapshot(state) if self.copies else None
         if self.writes:
-            self._pending = self._pool.submit(_write, path, _snapshot(state))
+            self._pending = self._pool.submit(_write, path, _to_host(snap))
         return path
 
     def save_best(self, state: TrainState, epoch: int, accuracy: float) -> str:
@@ -178,7 +192,7 @@ class CheckpointManager:
         the optimizer's moments stay on the disk."""
         self.wait()
         snap = torch.load(os.path.join(self._path(name), _FILE), map_location="cpu", weights_only=True, mmap=True)
-        model.load_state_dict(snap["model"])
+        _load_model(model, snap["model"])
         return model
 
     def restore(self, state: TrainState, name: str = "latest") -> TrainState:
@@ -188,8 +202,8 @@ class CheckpointManager:
         # Loaded on the host: the model and the optimizer move each tensor to
         # its parameter's device, and Adam's step counts stay on the host.
         snap = torch.load(os.path.join(self._path(name), _FILE), map_location="cpu", weights_only=True)
-        state.model.load_state_dict(snap["model"])
-        load_optimizer_state(state.optimizer, snap["optimizer"])
+        _load_model(state.model, snap["model"])
+        load_optimizer_state(state.optimizer, tensor.shard_optimizer_state(state.model, snap["optimizer"]))
         state.scheduler.load_state_dict(snap["scheduler"])
         state.step = int(snap["step"])
         return state

@@ -33,8 +33,9 @@ checkpoints, CSV logs, the plateau schedule, resume.  Each step's noise
 comes from a generator seeded with ``(seed + 1000, step)``, as the JAX loop
 folds the step into its base key, so a resumed run is step-identical to an
 uninterrupted one.  What the port has not got refuses by name
-(``check_ported``): ``scan_batches`` (ROADMAP item A14) and tensor
-parallelism (A11's second half).
+(``check_ported``): ``scan_batches`` (ROADMAP item A14), and under a model
+axis above 1 the baseline zoo (A15) and the fused kernels that read whole
+kernels, B5 and B6.
 
 Data parallelism (``mesh``: ``parallel.make_mesh``'s, one process per card):
 each rank steps on its rows of the global batch with the data axis current
@@ -70,6 +71,7 @@ from edrl_tpu_torch.ops.distributions import js_divergence
 from edrl_tpu_torch.ops.mmd import mk_mmd
 from edrl_tpu_torch.parallel.mesh import (
     AXES, all_reduce_mean_, gather_batches, gather_rows, is_writer, use_mesh, zero1_optimizer)
+from edrl_tpu_torch.parallel.tensor import clip_grad_norm_, shard_model_
 from edrl_tpu_torch.train import metrics as metrics_lib
 from edrl_tpu_torch.train.logging import AverageMeter, CsvMetricWriter
 
@@ -146,18 +148,31 @@ def check_ported(cfg: EDRLConfig, mesh=None) -> None:
             f"scan_batches={cfg.train.scan_batches}: several steps per call is "
             "ROADMAP item A14 (whole-step capture)"
         )
-    if cfg.train.num_model_shards > 1:
-        raise NotImplementedError(
-            f"num_model_shards={cfg.train.num_model_shards}: tensor parallelism is ROADMAP item "
-            "A11's second half (tensor parallel); the port's mesh has a data axis only")
-    if mesh is None:
-        return
-    from torch.distributed.device_mesh import DeviceMesh
+    if mesh is not None:
+        from torch.distributed.device_mesh import DeviceMesh
 
-    if not isinstance(mesh, DeviceMesh) or tuple(mesh.mesh_dim_names or ()) != AXES:
-        raise TypeError(f"mesh must be parallel.make_mesh's (data, model) DeviceMesh, not {mesh!r}")
-    if mesh.size(1) > 1:
-        raise NotImplementedError("a model axis above 1: tensor parallelism is ROADMAP item A11's second half")
+        if not isinstance(mesh, DeviceMesh) or tuple(mesh.mesh_dim_names or ()) != AXES:
+            raise TypeError(f"mesh must be parallel.make_mesh's (data, model) DeviceMesh, not {mesh!r}")
+    model_axis = cfg.train.num_model_shards if mesh is None else mesh.size(1)
+    if model_axis > 1:
+        check_tensor_parallel(cfg, model_axis)
+
+
+def check_tensor_parallel(cfg: EDRLConfig, model_axis: int) -> None:
+    """Refuse, by name, what does not run over a model axis of ``model_axis``
+    > 1: a model other than MedFusion (``NotImplementedError``, ROADMAP item
+    A15) and the kernels that read whole weights, B5 and B6
+    (``ValueError``: the JAX package turns them off there; the port does not
+    turn a flag off quietly)."""
+    m = cfg.model
+    if m.model_name != "MedFusion":
+        raise NotImplementedError(
+            f"{m.model_name} over a model axis of {model_axis}: tensor parallelism (ROADMAP item A11) shards "
+            "MedFusion; the baseline zoo under it is ROADMAP item A15")
+    for flag in ("use_fused_mlp", "use_fused_block_attention"):
+        if getattr(m, flag):
+            raise ValueError(f"{flag} over a model axis of {model_axis}: its kernel reads whole weights and does "
+                             "not run on tensor-parallel shards (ROADMAP queue B: B5 and B6 on TP shards)")
 
 
 def warmup_factor(step: int, warmup_steps: int) -> float:
@@ -249,8 +264,9 @@ def init_state(cfg: EDRLConfig, seed: int = 0, *, device="cuda",
                variables: Optional[Mapping] = None, mesh=None) -> TrainState:
     """The configured registry model and its optimizer on ``device`` (the card
     unless the caller asks for the CPU); ``mesh``: the data ranks a ZeRO-1
-    optimizer shards over (``make_optimizer``).  Every rank makes the same
-    seeded init.
+    optimizer shards over (``make_optimizer``), and a model axis above 1
+    the model is sharded over (``parallel.tensor.shard_model_``).  Every
+    rank makes the same seeded init, at full shape.
 
     ``variables``: ``{"params": ..., "batch_stats": ...}`` flax trees of numpy
     arrays (a JAX ``TrainState``'s), loaded with
@@ -263,6 +279,9 @@ def init_state(cfg: EDRLConfig, seed: int = 0, *, device="cuda",
         init_parameters(model, torch.Generator(device=device).manual_seed(seed))
     else:
         load_flax_variables(model, variables["params"], variables.get("batch_stats"))
+    if mesh is not None and mesh.size(1) > 1:
+        check_tensor_parallel(cfg, mesh.size(1))
+        shard_model_(model, mesh)
     optimizer, scheduler = make_optimizer(model.parameters(), cfg, mesh)
     return TrainState(model=model, optimizer=optimizer, scheduler=scheduler)
 
@@ -399,7 +418,7 @@ def make_train_step(cfg: EDRLConfig, mesh=None):
         if mesh is not None:
             all_reduce_mean_([p.grad for p in params], mesh)
         if t.grad_clip_norm > 0:
-            torch.nn.utils.clip_grad_norm_(params, t.grad_clip_norm)
+            clip_grad_norm_(model, params, t.grad_clip_norm)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1

@@ -127,7 +127,7 @@ def test_test_epoch_and_missing_checkpoint(tiny_cli):
      "No such file or directory: '/nonexistent'"),
     (["--dataset", "glu2"], FileNotFoundError, "No such file or directory: ''"),
     (["--scan_batches", "4"], NotImplementedError, "A14"),
-    (["--num_model_shards", "2"], NotImplementedError, "A11"),
+    (["--num_model_shards", "2", "--model_name", "Multi_ResNet"], NotImplementedError, "A11"),
     (["--model_name", "NoSuchModel"], NameError, "There is no model named 'NoSuchModel'"),
 ])
 def test_train_cli_refusals_name_their_items(tmp_path, argv, error, match):

@@ -624,12 +624,15 @@ def test_proxy_distribution_dump_matches_jax(jax_variables, monkeypatch, tmp_pat
 
 
 def test_refusals_name_their_roadmap_items(tmp_path):
-    """scan_batches (A14) and tensor parallelism (A11's second half) refuse;
-    a mesh that is not a DeviceMesh is a TypeError; ZeRO-1 with no mesh is
-    one rank's plain step (a one-epoch fit equal to the run without it)."""
+    """scan_batches (A14) and a baseline over a model axis (tensor parallelism,
+    A11, shards MedFusion; the zoo under it is A15) refuse; a mesh that is
+    not a DeviceMesh is a TypeError; ZeRO-1 with no mesh is one rank's plain
+    step (a one-epoch fit equal to the run without it)."""
     _, tcfg = _configs(False)
-    for train, item in ((dict(scan_batches=2), "A14"), (dict(num_model_shards=2), "A11")):
-        cfg = tcfg.replace(train=dataclasses.replace(tcfg.train, **train))
+    for train, model, item in ((dict(scan_batches=2), {}, "A14"),
+                               (dict(num_model_shards=2), dict(model_name="Multi_ResNet"), "A11")):
+        cfg = tcfg.replace(train=dataclasses.replace(tcfg.train, **train),
+                           model=dataclasses.replace(tcfg.model, **model))
         with pytest.raises(NotImplementedError, match=item):
             trainer.fit(cfg, None, None, device="cpu")
     with pytest.raises(TypeError, match="DeviceMesh"):

@@ -4,6 +4,7 @@ import ast
 import ctypes
 import dataclasses
 import inspect
+import os
 import re
 import subprocess
 import sys
@@ -77,9 +78,9 @@ def test_serving_modules_import_no_jax(module):
     assert out.stdout.strip() == ""
 
 
-# Data parallelism (A11's first half): the package and the 4-card tool.
+# Data and tensor parallelism (A11): the package and the 4-card tool.
 PARALLEL_MODULES = ("edrl_tpu_torch.parallel.__init__", "edrl_tpu_torch.parallel.mesh",
-                    "edrl_tpu_torch.tools.profile_data_parallel")
+                    "edrl_tpu_torch.parallel.tensor", "edrl_tpu_torch.tools.profile_data_parallel")
 
 
 @pytest.mark.parametrize("module", PARALLEL_MODULES)
@@ -87,6 +88,34 @@ def test_parallel_modules_import_no_jax(module):
     """As the serving modules: no JAX, triton or JAX package, imported or
     loaded."""
     test_serving_modules_import_no_jax(module)
+
+
+def test_make_mesh_refuses_a_model_axis_that_does_not_divide_the_world():
+    """A world of one gloo process (no launcher): a model axis of 2 or 0
+    raises ``ValueError``; a model axis of 1 gives the ``(1, 1)`` mesh with
+    no model axis to shard over."""
+    code = ("import torch.distributed as dist\n"
+            "from edrl_tpu_torch import parallel\n"
+            "from edrl_tpu_torch.parallel import mesh\n"
+            "parallel.init_distributed('cpu')\n"
+            "try:\n"
+            "    for m in (2, 0):\n"
+            "        try:\n"
+            "            parallel.make_mesh(m, device='cpu')\n"
+            "            print('accepted', m)\n"
+            "        except ValueError as exc:\n"
+            "            print('refused', exc)\n"
+            "    one = parallel.make_mesh(1, device='cpu')\n"
+            "    print(tuple(one.shape), mesh.model_axis_of(one), parallel.is_writer(one))\n"
+            "finally:\n"
+            "    dist.destroy_process_group()\n")
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True,
+                         cwd=PACKAGE.parent, timeout=120, env=env)
+    lines = out.stdout.strip().splitlines()
+    assert lines[0] == "refused a model axis of 2 does not divide the world of 1 ranks"
+    assert lines[1] == "refused a model axis of 0 does not divide the world of 1 ranks"
+    assert lines[2] == "(1, 1) None True"
 
 
 @pytest.mark.parametrize("name", CONFIG_CLASSES)

@@ -49,6 +49,30 @@ Cases and bars:
 - ``cli.train`` under ``python -m torch.distributed.run --nproc_per_node 2``,
   then ``cli.test`` on its best with MC-dropout and the sweep, launched
   alike.
+- The fused flags under the data mesh: one step each of B4's, B5's and
+  B6's configs (widths they take) at world 2 against world 1, at the step's
+  bars.
+
+Tensor parallelism, the same two ranks as a ``(1, 2)`` mesh, on
+``torch_parallel_worker.tiny_tp`` (Swin's stage 0 and ViT of 1 head on the
+gathered route, Swin's stage 1 and DILR head-local, B1 and B2 on):
+
+- the step at global batch 4 with JAX's recorded draws against JAX's step
+  jitted over ``make_mesh(num_data=1, num_model=2)`` with
+  ``infer_param_shardings``, at the step's bars, every gradient gathered to
+  full shape; the replicated parameters' gradients and values bit-equal on
+  the two ranks;
+- ``run_eval`` and the sweep against one process (1e-6);
+- ``Predictor(mesh=...)``: f32 against JAX's mesh ``Predictor`` (5e-5,
+  ``tests/test_quantization.py``'s bar) and one process (1e-6); int8
+  (dynamic scales) equal to one process's bit for bit, and against JAX's
+  mesh int8 ``Predictor`` within 5e-5 or ``SPREAD_FACTOR`` times JAX's own
+  distance between its mesh and one-device int8 ``Predictor``s;
+- ``fit``: a resume ends bit-equal, its checkpoint (full shapes) restores
+  in one process; a clipped step's gradients equal one process's; ``remat``
+  and ``remat_attention`` re-run the collectives in the backward and give
+  the step's gradients; B5, B6, the baselines, a chunk graph and an export
+  refuse by name.
 """
 
 import dataclasses
@@ -85,6 +109,7 @@ from edrl_tpu_torch.ops.correlation import barlow_block_loss
 from edrl_tpu_torch.ops.mmd import mk_mmd
 from edrl_tpu_torch.train import trainer
 from test_torch_cli import _test_block
+from test_torch_quantization import SPREAD_FACTOR
 from test_torch_baselines import CAP, GRAD_REL, GRAD_WORST_REL, OUT_REL, STAT_REL, STAT_WORST_REL, WITNESS, to_flax
 from test_torch_train import ATOL, RTOL, _leaf, record_jax_draws
 
@@ -99,12 +124,12 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _variables(jcfg):
-    """MedFusion's seeded port init, its parameters moved by noise of scale
-    0.05 and its BN statistics drawn in [0.5, 1.5), as flax trees
-    (``test_torch_baselines.to_flax``, shaped by ``jax.eval_shape`` of JAX's
-    init)."""
-    tm = trainer.make_model(worker.tiny(), "cpu")
+def _variables(jcfg, tcfg=None):
+    """MedFusion's seeded port init (``tcfg``, the tiny config by default),
+    its parameters moved by noise of scale 0.05 and its BN statistics drawn
+    in [0.5, 1.5), as flax trees (``test_torch_baselines.to_flax``, shaped
+    by ``jax.eval_shape`` of JAX's init)."""
+    tm = trainer.make_model(tcfg or worker.tiny(), "cpu")
     init_parameters(tm, torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -210,6 +235,42 @@ def _start_cli(workdir):
                             stderr=subprocess.STDOUT, text=True, env=env)
 
 
+def jax_tp_references(request, box) -> None:
+    """JAX's references for the tensor-parallel cases, in a process of its
+    own beside the parent's (JAX on ``conftest``'s 8 CPU devices): the
+    ``tiny_tp`` variables, JAX's step jitted over the ``(1, 2)`` mesh with
+    its recorded draws, and JAX's mesh ``Predictor`` on ``request``, in f32
+    and in int8 (with its one-device int8 ``Predictor``)."""
+    import traceback
+
+    import conftest  # noqa: F401  (JAX on 8 CPU devices, the compile cache)
+
+    try:
+        jcfg = jax_tiny_config(batch_size=worker.BATCH)
+        jcfg = jcfg.replace(model=dataclasses.replace(jcfg.model, swin_heads=worker.TP_MODEL["swin_heads"],
+                                                      vit3d_heads=worker.TP_MODEL["vit3d_heads"]))
+        mesh12 = make_mesh(num_data=1, num_model=WORLD, devices=jax.devices()[:WORLD])
+        variables = _variables(jcfg, worker.tiny_tp())
+        jout, jgrads, jstats, rec = _jax_mesh_step(jcfg, variables, worker.step_batch(worker.tiny()), mesh12)
+        box.put(("draws", {"variables": variables, "step_draws": _step_draws(rec)}))
+        state = jtrainer.TrainState(step=jnp.asarray(0), params=variables["params"],
+                                    batch_stats=variables["batch_stats"], opt_state=())
+        served = jpredictor.Predictor(jcfg, state, mesh=mesh12).predict_probs(*request)
+        int8 = {where: jpredictor.Predictor(jcfg, state, mesh=m, quantize_int8=True, min_dim=32).predict_probs(*request)
+                for where, m in (("mesh", mesh12), ("one", None))}
+        box.put(("refs", {"step": (jout, jgrads, jstats), "predictor": served, "int8": int8}))
+    except Exception:
+        box.put(("error", traceback.format_exc()))
+
+
+def _take(box, want, timeout):
+    what, payload = box.get(timeout=timeout)
+    if what == "error":
+        pytest.fail(f"JAX's tensor-parallel references:\n{payload}")
+    assert what == want, what
+    return payload
+
+
 @pytest.fixture(scope="module")
 def world2(tmp_path_factory):
     """Start the ranks, a process for the one-process Multi_ResNet steps and
@@ -222,6 +283,12 @@ def world2(tmp_path_factory):
     procs = [ctx.Process(target=worker.run, args=(r, WORLD, port, inboxes[r], outbox, str(workdir)), daemon=True)
              for r in range(WORLD)]
     procs.append(ctx.Process(target=worker.resnet_references, args=(outbox,), daemon=True))
+    rng = np.random.default_rng(5)
+    d = worker.tiny().data
+    request = (rng.integers(0, 256, (7, d.fundus_size, d.fundus_size, 3), dtype=np.uint8),
+               rng.integers(0, 256, (7, *d.oct_size, 1), dtype=np.uint8))
+    jax_box = ctx.Queue()
+    procs.append(ctx.Process(target=jax_tp_references, args=(request, jax_box), daemon=True))
     for p in procs:
         p.start()
     cli = _start_cli(workdir)
@@ -232,13 +299,12 @@ def world2(tmp_path_factory):
         variables = _variables(jcfg)
         batch = worker.step_batch(worker.tiny())
         jout, jgrads, jstats, rec = _jax_mesh_step(jcfg, variables, batch, mesh2)
-        rng = np.random.default_rng(5)
         d = jcfg.data
-        request = (rng.integers(0, 256, (7, d.fundus_size, d.fundus_size, 3), dtype=np.uint8),
-                   rng.integers(0, 256, (7, *d.oct_size, 1), dtype=np.uint8))
+        tp_in = _take(jax_box, "draws", TIMEOUT)
         jax_in = {"variables": variables, "step_draws": _step_draws(rec), "request": request,
                   "eval_draws": {n: _eval_draws(jcfg, n) for n in (1, 2, 4)},
-                  "serving_uniform": _eval_draws(jcfg, d.eval_batch_size)["guided_uniform"]}
+                  "serving_uniform": _eval_draws(jcfg, d.eval_batch_size)["guided_uniform"],
+                  "tp_variables": tp_in["variables"], "tp_step_draws": tp_in["step_draws"]}
         for q in inboxes:
             q.put(jax_in)
 
@@ -253,8 +319,10 @@ def world2(tmp_path_factory):
         jm, jt, jp = jtrainer.run_eval(jstate, jtrainer.make_eval_step(model, jcfg, mesh=mesh2), jloader,
                                        mesh=mesh2)
         jserved = jpredictor.Predictor(jcfg, jstate, mesh=mesh2).predict_probs(*request)
+        tp_refs = _take(jax_box, "refs", TIMEOUT)
         jax_ref = {"step": (jout, jgrads, jstats), "run_eval": (jm.as_dict(), jt, np.asarray(jp)),
-                   "predictor": jserved, "losses": _jax_losses(mesh2)}
+                   "predictor": jserved, "losses": _jax_losses(mesh2), "tp_step": tp_refs["step"],
+                   "tp_predictor": tp_refs["predictor"], "tp_int8": tp_refs["int8"]}
 
         deadline = time.time() + TIMEOUT
         for _ in range(2 * WORLD + 1):
@@ -273,7 +341,7 @@ def world2(tmp_path_factory):
         if cli.poll() is None:
             cli.kill()
     return {"ranks": ranks, "one": one, "jax": jax_ref, "cli": (cli.returncode, log, workdir),
-            "variables": variables}
+            "variables": variables, "tp_variables": tp_in["variables"]}
 
 
 def _results(world2, name):
@@ -480,3 +548,141 @@ def test_zero1_fit_on_two_ranks_resumes_bit_equal(world2):
         assert r["is_zero1"] and r["param_diff"] == 0.0 and r["steps"] == (4, 4)
         assert r["train"] == ranks[0]["train"] and len(r["train"]) == 1
     assert ranks[0]["moment_diff"] == 0.0 and ranks[0]["restored_diff"] == 0.0
+
+
+def _close(got, want, bar=1e-5):
+    np.testing.assert_allclose(got, want, atol=bar, rtol=bar)
+
+
+@pytest.mark.parametrize("flag", ["use_fused_ln", "use_fused_mlp", "use_fused_block_attention"])
+def test_fused_flags_under_the_data_mesh_match_world_one(world2, flag):
+    """B4, B5 and B6 (their plain versions here) on the data mesh: the
+    step's global results and averaged gradients against world 1's at the
+    step's bars."""
+    ranks = [r[flag] for r in _results(world2, "fused_flags")]
+    one = ranks[0]["one"]
+    for got in ranks:
+        for key, value in one["out"].items():
+            np.testing.assert_allclose(got["ranks"]["out"][key], value, atol=ATOL, rtol=RTOL, err_msg=key)
+        assert set(got["ranks"]["grads"]) == set(one["grads"])
+        for name, grad in one["grads"].items():
+            np.testing.assert_allclose(got["ranks"]["grads"][name], grad, atol=ATOL, rtol=RTOL, err_msg=name)
+
+
+def test_tp_step_matches_jax_tp_step(world2):
+    """The (1, 2) step against JAX's step over the (1, 2) mesh: results,
+    every gradient at full shape, running statistics; the routes the
+    attention modules took."""
+    jout, jgrads, jstats = world2["jax"]["tp_step"]
+    state = trainer.init_state(worker.tiny_tp(), device="cpu", variables=world2["tp_variables"])
+    key_map = flax_key_map(state.model, world2["tp_variables"]["params"], world2["tp_variables"]["batch_stats"])
+    ranks = _results(world2, "tp_step")
+    for got in ranks:
+        for key in ("loss", "mmd", "dilr_loss", "proxy_loss_fundus", "proxy_loss_oct", "ce_loss", "ib_loss",
+                    "probs"):
+            np.testing.assert_allclose(got["out"][key], np.asarray(jout[key]), atol=ATOL, rtol=RTOL, err_msg=key)
+        for name in [n for n in got["stats"] if n in key_map]:
+            np.testing.assert_allclose(got["stats"][name], _leaf(jstats, key_map[name]), atol=1e-5, rtol=1e-5)
+    grads = ranks[0]["grads"]
+    assert len(grads) == len(jax.tree_util.tree_leaves(jgrads))
+    for name, grad in grads.items():
+        want = _leaf(jgrads, key_map[name])
+        np.testing.assert_allclose(grad, want.T if key_map[name].endswith("/kernel") else want,
+                                   atol=ATOL, rtol=RTOL, err_msg=name)
+    assert [r["model_axis"] for r in ranks] == [(0, 2), (1, 2)]
+    routes = ranks[0]["routes"]
+    assert routes["transformer_2d.SwinBlock_0.WindowAttention_0"] == "gathered"
+    assert routes["transformer_2d.SwinBlock_1.WindowAttention_0"] == "head_local"
+    assert routes["transformer_3d.SelfAttentionBlock_0.MultiHeadAttention_0"] == "gathered"
+    assert routes["dilr.cross_attn2.MultiHeadAttention_0"] == "head_local"
+    assert routes["dilr.self_attn1.MultiHeadAttention_0"] == "head_local"
+
+
+def test_tp_replicated_parameters_are_bit_equal_across_model_ranks(world2):
+    """Every parameter the model axis does not split: the same gradient and
+    the same value after the step, bit for bit, on both ranks; the split
+    ones are the Dense kernels the rules name."""
+    a, b = _results(world2, "tp_step")
+    assert a["split"] == b["split"] and len(a["split"]) > 40
+    assert set(a["replicated"]) == set(b["replicated"]) and len(a["replicated"]) > 40
+    for name in a["replicated"]:
+        assert np.array_equal(a["replicated"][name], b["replicated"][name]), name
+        assert np.array_equal(a["replicated_params"][name], b["replicated_params"][name]), name
+
+
+def test_tp_run_eval_and_sweep_match_one_process(world2):
+    for got in _results(world2, "tp_run_eval"):
+        (m, t, p), (m1, t1, p1) = got["ranks"], _results(world2, "tp_run_eval")[0]["one"]
+        assert np.array_equal(t, t1) and t.shape == (worker.NUM_VAL,)
+        _close(p, p1, 1e-6)
+        for key, value in m1.items():
+            assert m[key] == pytest.approx(value, abs=1e-6), key
+    one = _results(world2, "tp_sweep")[0]["one"]
+    for got in _results(world2, "tp_sweep"):
+        for modality, by_level in one.items():
+            for level, want in by_level.items():
+                for key, value in want.items():
+                    assert got["ranks"][modality][level][key] == pytest.approx(value, abs=1e-6), (modality, key)
+
+
+def test_tp_predictor_matches_jax_mesh_predictor(world2):
+    ranks = _results(world2, "tp_predictor")
+    for got in ranks:
+        assert got["ranks_f32"].shape == (7, 2)
+        np.testing.assert_allclose(got["ranks_f32"], world2["jax"]["tp_predictor"], atol=5e-5, rtol=0)
+        np.testing.assert_allclose(got["ranks_f32"], ranks[0]["one_f32"], atol=1e-6, rtol=0)
+
+
+def test_tp_int8_predictor_equals_one_process(world2):
+    """int8 over the model axis: the full f32 weights quantized, then
+    sliced; the row-parallel layers' per-row scales are the max over the
+    ranks and their int32 partial products are summed exactly, so the
+    probabilities equal one process's bit for bit.  Against JAX's mesh int8
+    ``Predictor``: within 5e-5, or within ``SPREAD_FACTOR`` times JAX's own
+    distance between its mesh and one-device int8 ``Predictor``s (int8
+    rounding turns a float's last bits into a quantization step)."""
+    ranks = _results(world2, "tp_predictor")
+    jax_int8 = world2["jax"]["tp_int8"]
+    spread = float(np.abs(jax_int8["mesh"] - jax_int8["one"]).max())
+    for got in ranks:
+        assert got["ranks_int8"].shape == (7, 2)
+        assert np.array_equal(got["ranks_int8"], ranks[0]["one_int8"])
+        diff = float(np.abs(got["ranks_int8"] - jax_int8["mesh"]).max())
+        assert diff <= max(5e-5, SPREAD_FACTOR * spread), (diff, spread)
+
+
+def test_tp_fit_resumes_bit_equal_and_restores_in_one_process(world2):
+    ranks = _results(world2, "tp_fit")
+    for r in ranks:
+        assert r["resume_diff"] == 0.0 and r["steps"] == (4, 4)
+        assert r["train"] == ranks[0]["train"]
+    assert ranks[0]["restored_diff"] == 0.0 and ranks[0]["restored_keys"]
+
+
+def test_tp_clipped_step_matches_one_process(world2):
+    ranks = _results(world2, "tp_clip")
+    one = ranks[0]["one"]
+    for got in ranks:
+        for name, grad in one.items():
+            np.testing.assert_allclose(got["ranks"][name], grad, atol=1e-6, rtol=1e-4, err_msg=name)
+
+
+def test_tp_remat_reruns_the_collectives_alike(world2):
+    """``remat`` and ``remat_attention`` at (1, 2): the recomputed forwards'
+    collectives run in the backward on both ranks, and the gradients equal
+    the step's without rematerialisation."""
+    for got in _results(world2, "tp_remat"):
+        for label in ("remat", "remat_attention"):
+            for name, grad in got["plain"].items():
+                np.testing.assert_allclose(got[label][name], grad, atol=1e-6, rtol=1e-5, err_msg=(label, name))
+
+
+def test_tp_refusals_name_what_is_not_ported(world2):
+    for got in _results(world2, "tp_refusals"):
+        assert got["use_fused_mlp"][0] == "ValueError" and "use_fused_mlp" in got["use_fused_mlp"][1]
+        assert got["use_fused_block_attention"][0] == "ValueError"
+        assert "use_fused_block_attention" in got["use_fused_block_attention"][1]
+        assert got["baseline"] == ("NotImplementedError", got["baseline"][1]) and "A15" in got["baseline"][1]
+        assert got["scan_batches"][0] == "NotImplementedError" and "A14" in got["scan_batches"][1]
+        assert "chunk_batches=2" in got["chunk_batches"] and "A14" in got["chunk_batches"]
+        assert "model axis of 2" in got["export"]

@@ -7,6 +7,7 @@ import torch
 
 from edrl_tpu_torch.config import EDRLConfig
 from edrl_tpu_torch.kernels import window_attention as wa
+from edrl_tpu_torch.tools import profile_data_parallel as pdp
 from edrl_tpu_torch.tools import profile_layer_norm as pln
 from edrl_tpu_torch.tools import profile_sublayer as psl
 from edrl_tpu_torch.tools import sublayer_dbias as sd
@@ -268,3 +269,43 @@ def test_v1_mmd_profile_refuses_without_a_card():
         pytest.skip("this machine has a CUDA card")
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         pv.main()
+
+
+# The parallel tool's step-1 rule: B5's readings on 4 cards against one card
+# (grads 75.8 of the bars, probabilities 0.49) beside its one-card witness
+# (119.25, 1.0085), and readings made up around them.
+B5_WORLD4 = {"replicated_spread": 0.0, "loss": 1e-4, "mmd": 1e-3, "probs": 0.49, "grads": 75.8,
+             "ulp_loss": 0.047, "ulp_mmd": 3.8e-4, "ulp_probs": 1.0085, "ulp_grads": 119.25}
+
+
+@pytest.mark.parametrize("change,want", [
+    ({}, True),                                   # within 3x the witness
+    ({"grads": 400.0}, False),                    # beyond 3x the witness
+    ({"replicated_spread": 1e-9}, False),         # replicas differ
+    ({"ulp_grads": 0.08, "grads": 1.2}, False),   # a witness inside the bars leaves the bars
+    ({"ulp_grads": 0.08, "grads": 0.9}, True),
+])
+def test_parallel_check_passes_within_the_bars_or_its_witness(change, want):
+    assert pdp.passes({**B5_WORLD4, **change}) is want
+
+
+def test_nudged_moves_every_float_by_one_ulp_and_nothing_else():
+    batch = {"view": torch.tensor([1.0, 0.0, -2.5]), "label": torch.tensor([1, 0])}
+    got = pdp.nudged(batch)
+    assert torch.equal(got["label"], batch["label"])
+    assert (got["view"] > batch["view"]).all()
+    assert torch.equal(torch.nextafter(got["view"], torch.full((3,), -float("inf"))), batch["view"])
+
+
+@pytest.mark.parametrize("label,shape,want", [
+    ("zero1", (4, 1), True), ("zero1", (1, 4), False), ("zero1", (2, 2), True),
+    ("fused_mlp", (4, 1), True), ("fused_mlp", (2, 2), False), ("fused_block_attention", (1, 4), False),
+    ("fused_ln", (2, 2), True), ("replicated", (1, 4), True),
+])
+def test_parallel_checks_run_where_the_port_takes_them(label, shape, want):
+    class Mesh:
+        def size(self, dim):
+            return shape[dim]
+
+    _, train, model = next(c for c in pdp.CHECKS if c[0] == label)
+    assert pdp.applies(train, model, Mesh()) is want

@@ -35,6 +35,7 @@ from edrl_tpu.train import trainer as jtrainer
 from edrl_tpu_torch import config as tconfig
 from edrl_tpu_torch.convert import flax_key_map, load_flax_variables
 from edrl_tpu_torch.models import dilr, eprl, medfusion
+from edrl_tpu_torch.parallel.tensor import clip_grad_norm_
 from edrl_tpu_torch.train import trainer
 
 ATOL, RTOL = 2e-4, 1e-3
@@ -339,7 +340,7 @@ def test_optimizer_matches_optax_on_identical_grads(clip, warmup):
     params = _optax_params(0)
     tx = jtrainer.make_optimizer(jcfg)
     opt_state = tx.init(params)
-    tparams = {k: torch.nn.Parameter(torch.tensor(v)) for k, v in params.items()}
+    tparams = torch.nn.ParameterDict({k: torch.nn.Parameter(torch.tensor(v)) for k, v in params.items()})
     optimizer, scheduler = trainer.make_optimizer(list(tparams.values()), tcfg)
     jparams = params
     for step in range(4):
@@ -349,7 +350,7 @@ def test_optimizer_matches_optax_on_identical_grads(clip, warmup):
         for k, p in tparams.items():
             p.grad = torch.tensor(grads[k])
         if clip > 0:
-            torch.nn.utils.clip_grad_norm_(list(tparams.values()), clip)
+            clip_grad_norm_(tparams, list(tparams.values()), clip)  # the train step's clipping
         optimizer.step()
         scheduler.step()
         for k, p in tparams.items():

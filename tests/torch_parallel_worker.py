@@ -1,12 +1,15 @@
 """The ranks of ``test_torch_parallel.py``: a world of gloo processes on the
-CPU that run every data-parallel case once and send their results back.
+CPU that run every data- and tensor-parallel case once and send their
+results back.
 
 Imports torch and the port only (no JAX).  ``run(rank, world, port, inbox,
-outbox, workdir)`` joins the group, runs ``PHASE1`` (cases that need
-nothing from JAX), posts ``(rank, "phase1", results)``, waits for JAX's
-recorded draws on ``inbox``, runs ``PHASE2`` with them and posts ``(rank,
-"phase2", results)``.  A case that raises posts its traceback under its
-name; the parent fails that case's test with it.
+outbox, workdir)`` joins the group and builds two meshes over it, the data
+mesh ``(2, 1)`` and the tensor-parallel mesh ``(1, 2)``; it runs ``PHASE1``
+and ``TP_PHASE1`` (cases that need nothing from JAX), posts ``(rank,
+"phase1", results)``, waits for JAX's recorded draws on ``inbox``, runs
+``PHASE2`` and ``TP_PHASE2`` with them and posts ``(rank, "phase2",
+results)``.  A case that raises posts its traceback under its name; the
+parent fails that case's test with it.
 """
 
 from __future__ import annotations
@@ -30,6 +33,28 @@ NUM_VAL = 5  # run_eval's samples: batches of 4 and 1 (padded to 2 at world 2)
 def tiny(batch=BATCH, **train):
     cfg = tconfig.tiny_test_config(batch_size=batch)
     return cfg.replace(train=dataclasses.replace(cfg.train, **train))
+
+
+# The tensor-parallel cases' model: the tiny config with Swin's stage 0 and
+# ViT of 1 head each, so that at a model axis of 2 both take the gathered
+# route and Swin's stage 1 and DILR's attention the head-local one, and B1
+# and B2 on (their plain versions on the CPU), as in the shipped config.
+TP_MODEL = dict(swin_heads=(1, 4), vit3d_heads=1, use_fused_attention=True, vit_fused_attention=True)
+
+
+def tiny_tp(batch=BATCH, **train):
+    cfg = tiny(batch, **train)
+    return cfg.replace(model=dataclasses.replace(cfg.model, **TP_MODEL))
+
+
+# The fused flags' cases: widths that B4 and B5 take (multiples of 128).
+FUSED_MODEL = dict(swin_embed_dim=128, swin_heads=(1, 2), fundus_embed_dim=256, oct_embed_dim=128, vit3d_heads=1,
+                   vit3d_depth=1)
+
+
+def tiny_fused(flag, batch=BATCH):
+    cfg = tiny(batch)
+    return cfg.replace(model=dataclasses.replace(cfg.model, **FUSED_MODEL, **{flag: True}))
 
 
 def medfusion_state(cfg, variables=None, mesh=None):
@@ -372,9 +397,176 @@ def case_predictor_refuses(mesh, workdir):
     return None
 
 
+def case_fused_flags(mesh, workdir):
+    """One step of B4, B5 and B6's configs (``tiny_fused``) at world 2 on
+    the data mesh, with its global results and averaged gradients; rank 0
+    adds world 1's on the same batch and draws."""
+    from edrl_tpu_torch.train import trainer
+
+    out = {}
+    for flag in ("use_fused_ln", "use_fused_mlp", "use_fused_block_attention"):
+        cfg = tiny_fused(flag)
+        results = {}
+        for where, m in (("ranks", mesh), ("one", None)):
+            if where == "one" and mesh.get_local_rank("data") != 0:
+                continue
+            state = medfusion_state(cfg, mesh=m)
+            batch = step_batch(cfg, seed=3)
+            step = trainer.make_train_step(cfg, m)
+            got = step(state, batch if m is None else parallel.shard_batch(batch, m),
+                       torch.Generator().manual_seed(11))
+            results[where] = {"out": {k: _np(v) for k, v in got.items()}, "grads": _grads(state.model)}
+        out[flag] = results
+    return out
+
+
 PHASE1 = {"losses": case_losses, "batchnorm": case_batchnorm, "dilr": case_dilr, "zero1": case_zero1,
           "fit": case_fit, "fit_zero1": case_fit_zero1, "sweep": case_sweep, "resnet": case_resnet,
-          "predictor_refuses": case_predictor_refuses}
+          "predictor_refuses": case_predictor_refuses, "fused_flags": case_fused_flags}
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the (1, 2) mesh.
+# ---------------------------------------------------------------------------
+
+
+def _full_state(model):
+    """The model's parameters and buffers at full shape (every rank of the
+    model group calls it), as f64 numpy."""
+    from edrl_tpu_torch.parallel import tensor
+
+    return {k: _np(v) for k, v in tensor.gather_full(model, model.state_dict()).items()}
+
+
+def case_tp_refusals(mesh, workdir):
+    """What does not run over a model axis of 2 raises by name: B5, B6, a
+    baseline, a chunk graph, an export; ``scan_batches`` still names A14."""
+    from edrl_tpu_torch.serve.export import export_program
+    from edrl_tpu_torch.serve.predictor import Predictor
+    from edrl_tpu_torch.train import trainer
+
+    out = {}
+    cfg = tiny_tp()
+    for name, model, train in (("use_fused_mlp", dict(use_fused_mlp=True), {}),
+                               ("use_fused_block_attention", dict(use_fused_block_attention=True), {}),
+                               ("baseline", dict(model_name="Multi_ResNet"), {}),
+                               ("scan_batches", {}, dict(scan_batches=2))):
+        c = cfg.replace(model=dataclasses.replace(cfg.model, **model), train=dataclasses.replace(cfg.train, **train))
+        try:
+            trainer.check_ported(c, mesh)
+            if not train:
+                trainer.init_state(c, device="cpu", mesh=mesh)
+            out[name] = None
+        except (ValueError, NotImplementedError) as exc:
+            out[name] = (type(exc).__name__, str(exc))
+    try:
+        Predictor(cfg, device="cpu", chunk_batches=2, mesh=mesh)
+        out["chunk_batches"] = None
+    except NotImplementedError as exc:
+        out["chunk_batches"] = str(exc)
+    try:
+        export_program(Predictor(cfg, device="cpu", mesh=mesh))
+        out["export"] = None
+    except NotImplementedError as exc:
+        out["export"] = str(exc)
+    return out
+
+
+def case_tp_clip(mesh, workdir):
+    """One step with a small ``grad_clip_norm`` at (1, 2): the clipped
+    gradients at full shape; rank 0 adds one process's."""
+    from edrl_tpu_torch.parallel import tensor
+    from edrl_tpu_torch.train import trainer
+
+    cfg = tiny_tp(grad_clip_norm=0.05)
+    out = {}
+    for where, m in (("ranks", mesh), ("one", None)):
+        if where == "one" and mesh.get_local_rank("model") != 0:
+            continue
+        state = medfusion_state(cfg, mesh=m)
+        trainer.make_train_step(cfg, m)(state, step_batch(cfg, seed=4), torch.Generator().manual_seed(5))
+        grads = {n: p.grad for n, p in state.model.named_parameters()}
+        out[where] = {k: _np(v) for k, v in tensor.gather_full(state.model, grads).items()}
+    return out
+
+
+def case_tp_remat(mesh, workdir):
+    """One step at (1, 2) with every backbone block rematerialised
+    (``remat``), and one with the unfused Swin attention rematerialised
+    (``remat_attention``), beside the same step without: the recomputed
+    forwards re-run the model axis's collectives in the backward.  The
+    gradients at full shape of the three."""
+    from edrl_tpu_torch.parallel import tensor
+    from edrl_tpu_torch.train import trainer
+
+    out = {}
+    for label, model in (("plain", dict(remat=False, remat_attention=False)), ("remat", dict(remat=True)),
+                         ("remat_attention", dict(remat_attention=True))):
+        cfg = tiny_tp()
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, use_fused_attention=False, **model))
+        state = medfusion_state(cfg, mesh=mesh)
+        trainer.make_train_step(cfg, mesh)(state, step_batch(cfg, seed=6), torch.Generator().manual_seed(7))
+        grads = tensor.gather_full(state.model, {n: p.grad for n, p in state.model.named_parameters()})
+        out[label] = {k: _np(v) for k, v in grads.items()}
+    return out
+
+
+def case_tp_run_eval(mesh, workdir):
+    """run_eval over 5 samples at (1, 2) (the seeded init); rank 0 adds one
+    process's."""
+    from edrl_tpu_torch.train import trainer
+
+    cfg = tiny_tp()
+    out = {"ranks": trainer.run_eval(medfusion_state(cfg, mesh=mesh), trainer.make_eval_step(cfg), _eval_loader(cfg),
+                                     mesh=mesh)}
+    if mesh.get_local_rank("model") == 0:
+        out["one"] = trainer.run_eval(medfusion_state(cfg), trainer.make_eval_step(cfg), _eval_loader(cfg))
+    out = {k: (m.as_dict(), t, p) for k, (m, t, p) in out.items()}
+    return out
+
+
+def case_tp_sweep(mesh, workdir):
+    """The robustness sweep at (1, 2) against one process (the seeded init)."""
+    from edrl_tpu_torch.train.robustness import noise_sweep
+
+    cfg = tiny_tp()
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, num_synthetic_samples=NUM_VAL, eval_batch_size=BATCH))
+    kw = dict(sigmas=(0.0, 0.3), device="cpu")
+    out = {"ranks": noise_sweep(cfg, medfusion_state(cfg, mesh=mesh), mesh=mesh, **kw)}
+    if mesh.get_local_rank("model") == 0:
+        out["one"] = noise_sweep(cfg, medfusion_state(cfg), **kw)
+    return out
+
+
+def case_tp_fit(mesh, workdir):
+    """fit at (1, 2): 2 epochs, and 1 epoch then resumed for the second,
+    which must end bit-equal; rank 0 restores the checkpoint (full shapes)
+    in one process and compares it with the sharded state."""
+    from edrl_tpu_torch.train import trainer
+    from edrl_tpu_torch.train.checkpoint import CheckpointManager
+
+    cfg = tiny_tp()
+    whole, result = _fit(cfg, mesh, os.path.join(workdir, "tp_fit_whole"))
+    _fit(cfg, mesh, os.path.join(workdir, "tp_fit_resumed"), end_epochs=1)
+    resumed, _ = _fit(cfg, mesh, os.path.join(workdir, "tp_fit_resumed"), resume=True)
+    a, b = _full_state(whole.model), _full_state(resumed.model)
+    diffs = [float(np.abs(a[k] - b[k]).max()) for k in a]
+    opt_a, opt_b = whole.optimizer.state_dict()["state"], resumed.optimizer.state_dict()["state"]
+    diffs += [float((opt_a[k][f] - opt_b[k][f]).abs().max()) for k in opt_a for f in ("exp_avg", "exp_avg_sq")]
+    out = {"resume_diff": max(diffs), "steps": (whole.step, resumed.step),
+           "train": [m.as_dict() for m in result.train_history]}
+    if mesh.get_local_rank("model") == 0:
+        one = CheckpointManager(os.path.join(workdir, "tp_fit_whole", "ckpt")).restore(
+            trainer.init_state(cfg, device="cpu"), "latest")
+        restored = {k: _np(v) for k, v in one.model.state_dict().items()}
+        out["restored_diff"] = max(float(np.abs(a[k] - restored[k]).max()) for k in a)
+        out["restored_keys"] = set(a) == set(restored)
+    return out
+
+
+TP_PHASE1 = {"tp_refusals": case_tp_refusals, "tp_clip": case_tp_clip, "tp_remat": case_tp_remat,
+             "tp_run_eval": case_tp_run_eval,
+             "tp_sweep": case_tp_sweep, "tp_fit": case_tp_fit}
 
 
 # ---------------------------------------------------------------------------
@@ -460,6 +652,145 @@ def case_predictor(mesh, workdir, jax_in):
 PHASE2 = {"step": case_step, "run_eval": case_run_eval, "predictor": case_predictor}
 
 
+def case_tp_step(mesh, workdir, jax_in):
+    """The MedFusion step of ``tiny_tp`` at global batch 4 on the (1, 2)
+    mesh with JAX's recorded draws: the results; rank 0 the gradients at
+    full shape; both the replicated parameters' gradients and values after
+    the step, the running statistics, and each attention module's route."""
+    from edrl_tpu_torch.parallel import tensor
+    from edrl_tpu_torch.train import trainer
+
+    cfg = tiny_tp()
+    state = medfusion_state(cfg, jax_in["tp_variables"], mesh)
+    draws = [{"guided_uniform": tuple(torch.tensor(u) for u in d["guided_uniform"]),
+              "eprl_eps": tuple(torch.tensor(e) for e in d["eprl_eps"]),
+              "dropout_masks": tuple([torch.tensor(m) for m in ms] for ms in d["dropout_masks"])}
+             for d in jax_in["tp_step_draws"]]
+    out = trainer.make_train_step(cfg, mesh)(state, step_batch(cfg), torch.Generator(), draws=draws)
+    grads = {n: p.grad for n, p in state.model.named_parameters()}
+    split = set(tensor.split_parameter_names(state.model))
+    full = tensor.gather_full(state.model, grads)
+    result = {"out": {k: _np(v) for k, v in out.items()},
+              "replicated": {n: _np(g) for n, g in grads.items() if n not in split},
+              "replicated_params": {n: _np(p) for n, p in state.model.named_parameters() if n not in split},
+              "split": sorted(split), "stats": _buffers(state.model),
+              "routes": {n: m.tp_route for n, m in state.model.named_modules() if hasattr(m, "tp_route")}}
+    axis = pmesh.model_axis_of(mesh)
+    result["model_axis"] = (axis.rank, axis.size)
+    if mesh.get_local_rank("model") == 0:
+        result["grads"] = {n: _np(g) for n, g in full.items()}
+    return result
+
+
+def case_tp_predictor(mesh, workdir, jax_in):
+    """A request of 7 served at (1, 2) in f32 and int8 (dynamic scales, every
+    Dense of both sides >= 32) with JAX's eval uniforms; rank 0 adds one
+    process's."""
+    from edrl_tpu_torch.serve.predictor import Predictor
+
+    cfg = tiny_tp()
+    state = medfusion_state(cfg, jax_in["tp_variables"])
+    f, o = jax_in["request"]
+    kw = dict(device="cpu", guided_uniform=jax_in["serving_uniform"])
+    modes = {"f32": {}, "int8": dict(quantize_int8=True, min_dim=32)}
+    out = {f"ranks_{k}": Predictor(cfg, state, mesh=mesh, **kw, **v).predict_probs(f, o) for k, v in modes.items()}
+    if mesh.get_local_rank("model") == 0:
+        out.update({f"one_{k}": Predictor(cfg, state, **kw, **v).predict_probs(f, o) for k, v in modes.items()})
+    return out
+
+
+TP_PHASE2 = {"tp_step": case_tp_step, "tp_predictor": case_tp_predictor}
+
+
+# ---------------------------------------------------------------------------
+# World 4: tensor parallelism over a data axis of 2, the (2, 2) mesh.
+# ---------------------------------------------------------------------------
+
+
+def _full_grads(model):
+    """The model's gradients at full shape (every rank of the model group
+    calls it), as f64 numpy."""
+    from edrl_tpu_torch.parallel import tensor
+
+    return {k: _np(v) for k, v in tensor.gather_full(model, {n: p.grad for n, p in model.named_parameters()}).items()}
+
+
+def case_tp22_step(mesh, workdir):
+    """The step of ``tiny_tp`` at global batch 4 on (2, 2) with the step's
+    generator: the global results and the gradients at full shape; rank 0
+    adds one process's, and every rank the replicated gradients' spread
+    over its model group."""
+    from edrl_tpu_torch.tools.profile_data_parallel import replicated_spread
+    from edrl_tpu_torch.train import trainer
+
+    cfg, batch = tiny_tp(), step_batch(tiny_tp(), seed=8)
+    out = {}
+    for where, m in (("ranks", mesh), ("one", None)):
+        if where == "one" and not parallel.is_writer(mesh):
+            continue
+        state = medfusion_state(cfg, mesh=m)
+        got = trainer.make_train_step(cfg, m)(state, batch if m is None else parallel.shard_batch(batch, m),
+                                              torch.Generator().manual_seed(9))
+        out[where] = {"out": {k: _np(v) for k, v in got.items()}, "grads": _full_grads(state.model)}
+        if m is not None:
+            out["spread"] = replicated_spread(state.model, m)
+    return out
+
+
+def case_tp22_fit_zero1(mesh, workdir):
+    """fit of ``tiny_tp`` on (2, 2) for 2 epochs, and with ZeRO-1 (Adam's
+    moments sharded over each model rank's data group) for 1 epoch, then
+    resumed from its checkpoint for the second: rank 0 holds the two runs'
+    last checkpoints (full shapes: ZeRO-1 consolidated over the data group,
+    then gathered over the model group) against each other tensor by tensor,
+    and restores the resumed run's in one process against its sharded
+    state."""
+    from edrl_tpu_torch.train import trainer
+    from edrl_tpu_torch.train.checkpoint import _FILE, CheckpointManager
+
+    cfg = tiny_tp()
+    _fit(cfg, mesh, os.path.join(workdir, "tp22_whole"))
+    directory = os.path.join(workdir, "tp22_zero1")
+    _fit(tiny_tp(zero1=True), mesh, directory, end_epochs=1)
+    resumed, result = _fit(tiny_tp(zero1=True), mesh, directory, resume=True)
+    full = _full_state(resumed.model)
+    out = {"is_zero1": pmesh.is_zero1(resumed.optimizer), "steps": resumed.step,
+           "train": [m.as_dict() for m in result.train_history]}
+    if parallel.is_writer(mesh):
+        snaps = [torch.load(os.path.join(workdir, d, "ckpt", "latest", _FILE), weights_only=True)
+                 for d in ("tp22_whole", "tp22_zero1")]
+        out["keys"] = [sorted(s["model"]) for s in snaps]
+        out["param_diff"] = max(float((snaps[0]["model"][k] - snaps[1]["model"][k]).abs().max())
+                                for k in snaps[0]["model"])
+        moments = [s["optimizer"]["state"] for s in snaps]
+        out["moment_keys"] = [sorted(m) for m in moments]
+        out["moment_diff"] = max(float((moments[0][k][f] - moments[1][k][f]).abs().max())
+                                 for k in moments[0] for f in ("exp_avg", "exp_avg_sq"))
+        out["moment_steps"] = sorted({float(m[k]["step"]) for m in moments for k in m})
+        one = CheckpointManager(os.path.join(directory, "ckpt")).restore(trainer.init_state(cfg, device="cpu"),
+                                                                          "latest")
+        restored = {k: _np(v) for k, v in one.model.state_dict().items()}
+        out["restored_diff"] = max(float(np.abs(full[k] - restored[k]).max()) for k in full)
+        out["restored_step"] = one.step
+    return out
+
+
+WORLD4 = {"tp22_step": case_tp22_step, "tp22_fit_zero1": case_tp22_fit_zero1}
+
+
+def run_world4(rank: int, world: int, port: int, outbox, workdir: str) -> None:
+    """A rank of the world of 4 on the (2, 2) mesh: runs ``WORLD4`` and posts
+    ``(rank, results)``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    torch.set_num_threads(1)
+    parallel.init_distributed("cpu")
+    try:
+        outbox.put((rank, _run_cases(WORLD4, parallel.make_mesh(2, device="cpu"), workdir)))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def _run_cases(cases, mesh, *args):
     results = {}
     for name, case in cases.items():
@@ -476,9 +807,11 @@ def run(rank: int, world: int, port: int, inbox, outbox, workdir: str) -> None:
     torch.set_num_threads(1)
     parallel.init_distributed("cpu")
     mesh = parallel.make_mesh(device="cpu")
+    tp_mesh = parallel.make_mesh(world, device="cpu")
     try:
-        outbox.put((rank, "phase1", _run_cases(PHASE1, mesh, workdir)))
+        outbox.put((rank, "phase1", {**_run_cases(PHASE1, mesh, workdir), **_run_cases(TP_PHASE1, tp_mesh, workdir)}))
         jax_in = inbox.get(timeout=300)
-        outbox.put((rank, "phase2", _run_cases(PHASE2, mesh, workdir, jax_in)))
+        outbox.put((rank, "phase2", {**_run_cases(PHASE2, mesh, workdir, jax_in),
+                                     **_run_cases(TP_PHASE2, tp_mesh, workdir, jax_in)}))
     finally:
         torch.distributed.destroy_process_group()
