@@ -307,7 +307,8 @@ shipped config at full width made f32 (the bars of a step's results):
     The shipped model at full width and depth, f32, global batch 8: two
     steps against one card's (loss, MMD, probabilities, every gradient
     gathered to full shape, at atol 2e-4 / rtol 1e-3), the replicated
-    parameters' gradients equal over the ranks bit for bit, B1 and B2
+    parameters' gradients as the two ranks computed them, before the
+    step's broadcast from model rank 0, equal bit for bit, B1 and B2
     launched a step on each rank on both routes (Swin's stage 0 of 1 head
     gathered, its other stages and ViT's 6 heads head-local, forward and
     backward); the checkpoint saved through the mesh (full shapes) restored
@@ -315,6 +316,26 @@ shipped config at full width made f32 (the bars of a step's results):
     against one card's on a 16-pair request, bf16 at 2e-2 and int8 at 1e-4.
     ``tools/profile_data_parallel.py --num_model_shards 2 4`` drives
     ``(2, 2)`` and ``(1, 4)`` on four cards.
+29. The baseline zoo over a model axis on the one card: two spawned
+    processes over gloo as a ``(1, 2)`` mesh, started once for every family
+    (``ZOO_TP_PLAN``), f32 at global batch 8: Trans_cross at full width and
+    depth, two steps; 2D_transformer, 3D_transformer, MLC_trans and IMDR one
+    step each at full width cut to one block a Swin stage and one ViT block,
+    Multi_ResNet_cross and Multi_ResNet one step each.  Each held against
+    one card's steps on the same inputs and draws (loss, MMD,
+    probabilities, every gradient gathered to full shape) at atol 2e-4 /
+    rtol 1e-3, printed beside the one-card steps' own reading under a
+    one-ulp move of every input; the replicated gradients as the two ranks
+    computed them, before the step's broadcast from model rank 0, equal bit
+    for bit (the CNN families, whose cuDNN weight gradients and pool
+    backwards sum in no fixed order on the card: within 2e-4, the bars'
+    atol); the model axis's collectives a step, the broadcast's among
+    them; B1 and B2 launched on each rank on the routes each family's
+    heads give, forward and backward.  Trans_cross's ``Predictor`` on the
+    mesh (shipped bf16, full depth) in chunks of 2 on the staged route
+    equal to its batch-by-batch output at 1e-6.  ``cli.train`` with no mesh,
+    1 epoch at batch 16, ``--scan_batches 4`` against ``0``: the CSV rows
+    and the ``best`` checkpoint bit-equal.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX
@@ -328,6 +349,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import queue
 import statistics
 import subprocess
 import sys
@@ -1327,8 +1349,8 @@ def _tp_rank(rank: int, port: int, outbox, ref_path: str, work: str) -> None:
     CUDA tensors (a refusal is posted by name, and fails the phase); then
     two f32 steps of the shipped model at global batch 8 held against the
     one-card steps in ``ref_path`` (rank 0 reads them), B1's and B2's
-    launches a step by route, the replicated gradients' spread over the two
-    ranks, a checkpoint saved through the mesh and restored in one process
+    launches a step by route, the replicated gradients' drift over the two
+    ranks before the step's broadcast, a checkpoint saved through the mesh and restored in one process
     (rank 0), and the (1, 2) ``Predictor`` in bf16 and int8."""
     import torch
     import torch.distributed as dist
@@ -1339,7 +1361,7 @@ def _tp_rank(rank: int, port: int, outbox, ref_path: str, work: str) -> None:
     from edrl_tpu_torch.kernels import window_attention as wa
     from edrl_tpu_torch.parallel import tensor
     from edrl_tpu_torch.serve.predictor import Predictor
-    from edrl_tpu_torch.tools.profile_data_parallel import replicated_spread
+    from edrl_tpu_torch.tools.profile_data_parallel import replica_drift
     from edrl_tpu_torch.train import trainer
     from edrl_tpu_torch.train.checkpoint import CheckpointManager
 
@@ -1375,15 +1397,15 @@ def _tp_rank(rank: int, port: int, outbox, ref_path: str, work: str) -> None:
         t0 = time.perf_counter()
         state = trainer.init_state(cfg, seed=0, device=dev, mesh=mesh)
         step = trainer.make_train_step(cfg, mesh)
-        result = {"errs": collections.defaultdict(float), "routes": [], "spread": 0.0,
+        result = {"errs": collections.defaultdict(float), "routes": [],
                   "param_gib": sum(p.numel() * p.element_size() for p in state.model.parameters()) / 2**30}
+        tensor.reset_collective_counts()
         for i in range(TP_STEPS):
             batch = trainer.random_views(cfg, seed=81 + i, device=dev)
             wa.reset_launch_counts()
             out = step(state, batch, torch.Generator(device=dev).manual_seed(90 + i))
             result["routes"].append({k: wa.TP_ROUTES[k] for k in wa.TP_ROUTES if wa.TP_ROUTES[k]})
             full = tensor.gather_full(state.model, {n: p.grad for n, p in state.model.named_parameters()})
-            result["spread"] = max(result["spread"], replicated_spread(state.model, mesh))
             if rank == 0:
                 for key in ("loss", "mmd", "probs"):
                     result["errs"][key] = max(result["errs"][key], worst(out[key], ref["out"][i][key]))
@@ -1391,6 +1413,7 @@ def _tp_rank(rank: int, port: int, outbox, ref_path: str, work: str) -> None:
                     worst(full[n], g) for n, g in ref["grads"][i].items()))
                 result["grads_compared"] = len(ref["grads"][i]) == len(full)
             del full
+        result["drift"] = replica_drift(mesh)
         torch.cuda.synchronize()
         result["steps_s"] = time.perf_counter() - t0
         del ref
@@ -1473,10 +1496,11 @@ def tensor_parallel_path(card) -> None:
         print(f"tensor parallel, (1, 2) mesh on one card over gloo, the shipped model in f32: {TP_STEPS} steps at "
               f"batch {TP_BATCH} against one card's, worst |err| / (atol + rtol |want|) {errs} (at most 1 passes; "
               f"every gradient gathered to full shape: {ranks[0]['grads_compared']}); replicated gradients' largest "
-              f"|difference| over the ranks {max(r['spread'] for r in ranks)} (0 passes); a rank's parameters "
+              f"|difference| over the ranks before the step's broadcast {max(r['drift'] for r in ranks)} (0 "
+              f"passes); a rank's parameters "
               f"{ranks[0]['param_gib']:.3f} GiB; the ranks' steps {ranks[0]['steps_s']:.1f} s", flush=True)
         check(max(errs.values()) <= 1.0 and ranks[0]["grads_compared"], f"tensor parallel step: {errs}")
-        check(all(r["spread"] == 0.0 for r in ranks), "replicated gradients differ over the model ranks")
+        check(all(r["drift"] == 0.0 for r in ranks), "replicated gradients differ over the model ranks")
         for rank, r in enumerate(ranks):
             print(f"  rank {rank}: B1 and B2 launches a step by route (forward and backward): {r['routes']}",
                   flush=True)
@@ -1498,6 +1522,230 @@ def tensor_parallel_path(card) -> None:
         shutil.rmtree(work, ignore_errors=True)
     print(f"wall s: phase 28 {time.perf_counter() - t_phase:.1f} (one card's references {t_ref:.1f}, the ranks "
           f"{time.perf_counter() - t0:.1f}) [{card}]", flush=True)
+
+
+# Phase 29: the baseline zoo over a (1, 2) mesh.  (name, steps, depth cut):
+# Trans_cross at full width and depth, every other family one step at full
+# width, the transformers cut to one block a Swin stage and one ViT block.
+ONE_BLOCK = {"swin_depths": (1, 1, 1, 1), "vit3d_depth": 1}
+ZOO_TP_PLAN = (("Trans_cross", 2, {}), ("2D_transformer", 1, ONE_BLOCK), ("3D_transformer", 1, ONE_BLOCK),
+               ("MLC_trans", 1, ONE_BLOCK), ("Multi_ResNet_cross", 1, {}), ("Multi_ResNet", 1, {}),
+               ("IMDR", 1, ONE_BLOCK))
+ZOO_TP_BATCH = 8
+# B1's and B2's launches by route a step of each family must make at (1, 2),
+# forward and backward: Swin's stage 0 of 1 head gathered and its other
+# stages head-local, ViT's 6 heads head-local (Multi_ResNet_cross's and
+# Trans_cross's cross attention attend over one token: no kernel).
+SWIN_ROUTES = ("window_attention_fused_v2/gathered", "window_attention_fused_v2_bwd/gathered",
+               "window_attention_fused_v2/head_local", "window_attention_fused_v2_bwd/head_local")
+VIT_ROUTES = ("self_attention_fused/head_local", "self_attention_fused_bwd/head_local")
+ZOO_TP_ROUTES = {"Trans_cross": SWIN_ROUTES + VIT_ROUTES, "2D_transformer": SWIN_ROUTES,
+                 "3D_transformer": VIT_ROUTES, "MLC_trans": SWIN_ROUTES + VIT_ROUTES, "Multi_ResNet_cross": (),
+                 "Multi_ResNet": (), "IMDR": SWIN_ROUTES + VIT_ROUTES}
+ZOO_CNN = ("Multi_ResNet_cross", "Multi_ResNet")
+ZOO_SERVE_PAIRS = 32              # phase 29's request: two serving batches of 16, one chunk of 2
+
+
+def _zoo_tp_config(name: str, cut: dict):
+    """Phase 29's config of ``name``: the shipped one in f32 at batch 8, with
+    the depth cut ``cut``."""
+    cfg = _dp_config()
+    return cfg.replace(data=dataclasses.replace(cfg.data, batch_size=ZOO_TP_BATCH),
+                       model=dataclasses.replace(cfg.model, model_name=name, **cut))
+
+
+def _zoo_tp_rank(rank: int, port: int, outbox) -> None:
+    """Phase 29: one of two ranks on the one card, the group on gloo, the
+    ``(1, 2)`` mesh, started once for every family: each family's steps
+    (``ZOO_TP_PLAN``) against one card's on rank 0 with its one-ulp witness
+    (``tools.profile_data_parallel.check_against_one_card``: the replicated
+    gradients' drift over the ranks among its readings), B1's and B2's
+    launches a step by route and the model axis's collectives a step; then
+    Trans_cross's ``Predictor`` on the mesh (shipped bf16, full depth) in
+    chunks of 2 and batch by batch."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from edrl_tpu_torch.train import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer.set_conv_precision()
+    torch.cuda.set_device(torch.device("cuda", 0))
+    store = dist.TCPStore("127.0.0.1", port, 2, rank == 0)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=2)
+    try:
+        _zoo_tp_rank_work(rank, outbox)
+    except BaseException:
+        import traceback
+
+        outbox.put((rank, "error", traceback.format_exc()))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _zoo_tp_rank_work(rank: int, outbox) -> None:
+    """The work of ``_zoo_tp_rank`` once the group is joined; posts ``(rank,
+    "done", results)``."""
+    import numpy as np
+    import torch
+
+    from edrl_tpu_torch import parallel
+    from edrl_tpu_torch.config import EDRLConfig
+    from edrl_tpu_torch.kernels import window_attention as wa
+    from edrl_tpu_torch.parallel import tensor
+    from edrl_tpu_torch.serve import predictor as serve
+    from edrl_tpu_torch.tools.profile_data_parallel import check_against_one_card
+    from edrl_tpu_torch.train import trainer
+
+    dev = torch.device("cuda", 0)
+    mesh = parallel.make_mesh(2, device="cuda")
+    result = {"families": {}}
+    for name, steps, cut in ZOO_TP_PLAN:
+        cfg = _zoo_tp_config(name, cut)
+        meta = trainer.make_model(cfg, "meta")
+        split = sum(dim is not None for dim in parallel.param_shardings(meta, 2).values())
+        wa.reset_launch_counts()
+        tensor.reset_collective_counts()
+        t = time.perf_counter()
+        errs = check_against_one_card(cfg, mesh, dev, steps=steps)
+        result["families"][name] = {
+            "errs": errs, "s": time.perf_counter() - t, "split": split,
+            "routes": {k: v // steps for k, v in wa.TP_ROUTES.items() if v},
+            "collectives": {k: v // steps if k != "bytes" else round(v / steps / 2**20, 3)
+                            for k, v in tensor.COLLECTIVES.items()}}
+    rng = np.random.default_rng(29)
+    d = EDRLConfig().data
+    request = (rng.integers(0, 256, (ZOO_SERVE_PAIRS, d.fundus_size, d.fundus_size, 3), dtype=np.uint8),
+               rng.integers(0, 256, (ZOO_SERVE_PAIRS, *d.oct_size, 1), dtype=np.uint8))
+    shipped = EDRLConfig().replace(model=dataclasses.replace(EDRLConfig().model, model_name="Trans_cross"))
+    served = {}
+    for chunk in (1, 2):
+        serve.reset_chunk_counts()
+        pred = serve.Predictor(shipped, seed=0, device=dev, chunk_batches=chunk, mesh=mesh)
+        wa.reset_launch_counts()
+        t = time.perf_counter()
+        probs = pred.predict_probs(*request)
+        served[chunk] = {"probs": probs, "route": pred.chunk_route, "chunks": dict(serve.CHUNK_ROUTES),
+                         "s": time.perf_counter() - t, "launches": {k: v for k, v in wa.TP_ROUTES.items() if v}}
+        del pred
+        torch.cuda.empty_cache()
+    result["served"] = served
+    outbox.put((rank, "done", result))
+
+
+def _scan_cli_runs(card, work: Path) -> None:
+    """Phase 29's last part: ``cli.train`` for 1 epoch at batch 16 (64
+    synthetic pairs a split: four batches), with no mesh,
+    at ``--scan_batches 0`` and ``4``: the CSV rows (losses included) and
+    the ``best`` checkpoint must be bit-equal."""
+    import torch
+
+    from edrl_tpu_torch.cli import train as train_cli
+    from edrl_tpu_torch.train.checkpoint import _FILE
+
+    runs, seconds = {}, {}
+    for scan in (0, 4):
+        args = ["--dataset", "synthetic", "--batch_size", "16", "--synthetic_samples", "64", "--end_epochs", "1",
+                "--plot_dir", "", "--mode", "train", "--checkpoint_dir", str(work / "ckpt"), "--log_dir",
+                str(work / "log"), "--name", f"scan{scan}", "--scan_batches", str(scan)]
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_cli.main(args)
+        seconds[scan] = time.perf_counter() - t
+        rows = (work / "log" / f"synthetic_0.5_scan{scan}.csv").read_text().splitlines()
+        best = work / "ckpt" / f"synthetic_0.5_scan{scan}" / "best" / _FILE
+        check(best.is_file(), f"cli.train --scan_batches {scan} wrote no best checkpoint")
+        runs[scan] = rows, torch.load(best, weights_only=True, map_location="cpu")
+    (rows0, snap0), (rows4, snap4) = runs[0], runs[4]
+    equal = (snap0["step"] == snap4["step"] == 4 and snap0["model"].keys() == snap4["model"].keys()
+             and all(torch.equal(snap0["model"][k], snap4["model"][k]) for k in snap0["model"])
+             and all(torch.equal(a, b) for k in snap0["optimizer"]["state"]
+                     for a, b in zip(snap0["optimizer"]["state"][k].values(),
+                                     snap4["optimizer"]["state"][k].values())))
+    print(f"  cli.train 1 epoch at batch 16, --scan_batches 0 / 4: {seconds[0]:.1f} / {seconds[4]:.1f} s; CSV "
+          f"rows equal {rows0 == rows4} ({rows4[-1]}); best checkpoints (parameters, BN "
+          f"statistics, Adam's moments, step {snap4['step']}) bit-equal {equal} [{card}]", flush=True)
+    check(rows0 == rows4 and len(rows0) == 2, f"--scan_batches 4's CSV {rows4} against {rows0}")
+    check(equal, "--scan_batches 4's best checkpoint differs from --scan_batches 0's")
+
+
+def zoo_tensor_parallel_path(card) -> None:
+    """29. The baseline zoo over a model axis on the one card (see the module
+    docstring)."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from edrl_tpu_torch.tools.profile_data_parallel import READINGS
+
+    t_phase = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    outbox = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_zoo_tp_rank, args=(r, port, outbox)) for r in range(2)]
+    for p in procs:
+        p.start()
+    work = Path(tempfile.mkdtemp(prefix="edrl_zoo_tp_", dir=REPO / "build"))
+    try:
+        posted = {}
+        deadline = time.perf_counter() + 600
+        while len(posted) < 2:
+            try:
+                rank, what, result = outbox.get(timeout=5)
+            except queue.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                check(not dead and time.perf_counter() < deadline, f"phase 29 ranks: exit codes {dead}")
+                continue
+            check(what == "done", f"phase 29 rank {rank}:\n{result}")
+            posted[rank] = result
+        for p in procs:
+            p.join(timeout=120)
+            check(p.exitcode == 0, f"phase 29 rank exited with {p.exitcode}")
+        t_ranks = time.perf_counter() - t_phase
+        cuts = {name: cut for name, _, cut in ZOO_TP_PLAN if cut}
+        print(f"baseline zoo over a (1, 2) mesh on one card over gloo, f32 at batch {ZOO_TP_BATCH}, each family's "
+              f"steps against one card's: worst |err| / (atol 2e-4 + rtol 1e-3 |want|), beside the one-card "
+              f"steps' own reading under a one-ulp move of every input (ulp_*); a reading passes at 1; the "
+              f"replicated gradients' largest |difference| over the ranks before the step's broadcast "
+              f"(replica_drift) passes at 0 ({', '.join(ZOO_CNN)}: at 2e-4); collectives a step, MB put in a "
+              f"rank; depth cut: "
+              f"{ {n: c for n, c in cuts.items()} } (Trans_cross at full depth) [{card}]", flush=True)
+        for name, steps, _ in ZOO_TP_PLAN:
+            fam = [posted[r]["families"][name] for r in range(2)]
+            errs = fam[0]["errs"]
+            print(f"  {name}: {steps} step(s), {fam[0]['split']} split parameters, {errs}; B1/B2 launches a step "
+                  f"by route, rank 0 / 1: {fam[0]['routes']} / {fam[1]['routes']}; model-axis collectives a step "
+                  f"{fam[0]['collectives']}; {fam[0]['s']:.1f} s", flush=True)
+            check(max(errs[k] for k in READINGS) <= 1.0, f"phase 29 {name} bars: {errs}")
+            check(errs["replica_drift"] <= (2e-4 if name in ZOO_CNN else 0.0), f"phase 29 {name} replicas: {errs}")
+            for rank, f in enumerate(fam):
+                check(all(f["routes"].get(k, 0) > 0 for k in ZOO_TP_ROUTES[name]) and
+                      set(f["routes"]) <= set(ZOO_TP_ROUTES[name]),
+                      f"phase 29 {name} rank {rank}: launches by route {f['routes']}")
+        served = [posted[r]["served"] for r in range(2)]
+        diff = max(float(np.abs(s[2]["probs"] - s[1]["probs"]).max()) for s in served)
+        print(f"  Trans_cross Predictor on (1, 2), shipped bf16, {ZOO_SERVE_PAIRS} pairs: chunks of 2 on the "
+              f"{served[0][2]['route']} route (chunks by route {served[0][2]['chunks']}) against batch by batch, "
+              f"max |difference| {diff:.2e} (bar 1e-6); {served[0][1]['s']:.2f} / {served[0][2]['s']:.2f} s; B1/B2 "
+              f"launches a request by route {served[0][2]['launches']}", flush=True)
+        check(all(s[2]["route"] == "staged" and s[2]["chunks"] == {"graph": 0, "staged": 1}
+                  and s[1]["chunks"] == {"graph": 0, "staged": 0} for s in served), "phase 29 chunk routes")
+        check(diff <= 1e-6 and all(s[2]["probs"].shape == (ZOO_SERVE_PAIRS, 2) for s in served),
+              f"phase 29 chunked serving {diff}")
+        torch.cuda.empty_cache()
+        _scan_cli_runs(card, work)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        shutil.rmtree(work, ignore_errors=True)
+    check(not work.exists(), "phase 29's temporary directory is removed")
+    print(f"wall s: phase 29 {time.perf_counter() - t_phase:.1f} (the ranks {t_ranks:.1f}) [{card}]", flush=True)
 
 
 def main() -> None:
@@ -3790,8 +4038,11 @@ def main() -> None:
 
     # -- 28. tensor parallelism on the one card: a (1, 2) mesh over gloo -------
     tensor_parallel_path(card)
+
+    # -- 29. the baseline zoo over a (1, 2) mesh, chunked serving there, scan_batches
+    zoo_tensor_parallel_path(card)
     t_end = time.perf_counter()
-    print(f"wall s: phases 26-28 {t_end - t_real:.1f}, the script {t_end - t_start:.1f} (its kernels' builds "
+    print(f"wall s: phases 26-29 {t_end - t_real:.1f}, the script {t_end - t_start:.1f} (its kernels' builds "
           f"included) [{card}]", flush=True)
 
     kernels = []

@@ -10,7 +10,10 @@ any other gives a predictive std of 0).  ``--sweep`` then runs the noise x
 modality robustness grid (``train.robustness``).  Under ``torchrun`` with
 more than one process the evaluation and the sweep run across the ranks,
 as ``cli.train``'s do (rank 0 prints; MC-dropout runs on rank 0 over the
-whole set).
+whole set, and over a model axis above 1 on every rank, whose sharded
+forwards it takes part in, each rank's dropout draws seeded alike).  Any
+registry model's checkpoint loads on any mesh: checkpoints hold full
+shapes.
 """
 
 from __future__ import annotations

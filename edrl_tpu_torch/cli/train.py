@@ -10,8 +10,10 @@ unless the caller asks for the CPU).
 ``NameError``.  ``--dataset`` takes the synthetic datasets and the
 GAMMA-layout trees (``dr2``, ``glu2``: ``--data_path``, ``--label_file``;
 preflight them with ``python -m edrl_tpu_torch.tools.verify_dataset``).
-``--scan_batches`` (A14) refuses by name.  With ``--plot_dir`` set (its
-default), matplotlib must import: the run checks that before it trains.
+``--scan_batches K`` is accepted and changes nothing: ``trainer.fit`` steps
+batch by batch, the run of ``--scan_batches 0`` bit for bit; it captures
+nothing.  With ``--plot_dir`` set (its default), matplotlib must
+import: the run checks that before it trains.
 
 Data parallelism: started by ``torchrun`` with more than one process
 (``WORLD_SIZE`` > 1, the JAX CLI's "more than one device"), the CLI joins
@@ -20,10 +22,11 @@ cpu``), builds the data mesh and trains and evaluates across the ranks;
 ``--batch_size`` is the global batch.  Rank 0 alone prints and writes.
 ``--zero1`` shards Adam's moments over the ranks (on one rank it is the
 plain step, as in the JAX package).  ``--num_model_shards M`` splits the
-world into ``(WORLD_SIZE // M, M)``: M ranks a data row shard MedFusion's
-kernels over the model axis (``parallel.tensor``), and ``--zero1`` then
-shards each model rank's moments over its data group; ``WORLD_SIZE`` must be
-a multiple of M.
+world into ``(WORLD_SIZE // M, M)``: M ranks a data row shard the model's
+kernels that the TP rules name over the model axis (``parallel.tensor``;
+any ``--model_name``: a CNN model has none and stays whole on every rank),
+and ``--zero1`` then shards each model rank's moments over its data group;
+``WORLD_SIZE`` must be a multiple of M.
 
     python -m torch.distributed.run --nproc_per_node 4 -m edrl_tpu_torch.cli.train \
         --dataset synthetic --batch_size 32 --end_epochs 2 --plot_dir "" --num_model_shards 2

@@ -21,6 +21,12 @@ model group:
 - :func:`scatter_to_model`: this rank's slice forward, all-gather backward;
   before a row-parallel product fed at full width.
 
+After the backward, :func:`broadcast_replicated_grads_` sends the replicated
+parameters' gradients from model rank 0 to the other ranks of its data row,
+so that replicas stay bit-equal where the card's backward sums in no fixed
+order (a CNN model's convolutions and pools); it records the largest
+difference it overwrote (:func:`replica_drift`), which the checks read.
+
 :func:`shard_model_` turns a model with full-shape parameters (a seeded init
 or ``convert.load_flax_variables``' output) into this rank's shards: the
 modules that pair a column- with a row-parallel product (``Mlp``, DILR's
@@ -67,7 +73,8 @@ slices it with its per-output-channel scales (``ops.quantization``).
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional
+import weakref
+from typing import Dict, FrozenSet, List, Mapping, Optional
 
 import torch
 import torch.distributed as dist
@@ -81,14 +88,26 @@ from edrl_tpu_torch.parallel.mesh import ModelAxis, model_axis_of, param_shardin
 # The collectives over the model group.
 # ---------------------------------------------------------------------------
 
-# The model-axis collectives the layers ran since the last
-# reset_collective_counts(), and the bytes this rank put in.
-COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "bytes": 0}
+# The model-axis collectives the layers and the step's gradient broadcast
+# ran since the last reset_collective_counts(), and the bytes this rank put in.
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "broadcast": 0, "bytes": 0}
+# The largest |difference| broadcast_replicated_grads_ overwrote on this rank
+# since the last reset_collective_counts(): a device scalar, None before the
+# first broadcast (read with replica_drift()).
+_DRIFT: Dict[str, Optional[torch.Tensor]] = {"max": None}
 
 
 def reset_collective_counts() -> None:
     for key in COLLECTIVES:
         COLLECTIVES[key] = 0
+    _DRIFT["max"] = None
+
+
+def replica_drift() -> float:
+    """The largest |difference| between this rank's replicated gradients and
+    model rank 0's that :func:`broadcast_replicated_grads_` overwrote since
+    the last :func:`reset_collective_counts` (0 where it overwrote none)."""
+    return 0.0 if _DRIFT["max"] is None else float(_DRIFT["max"])
 
 
 def _count(kind: str, x: torch.Tensor) -> None:
@@ -320,6 +339,7 @@ def shard_model_(model: nn.Module, mesh) -> nn.Module:
                 setattr(module, child_name, RowParallelDense(child, axis, input_split=False))
     if dims:
         raise RuntimeError(f"split Dense layers left unsharded: {len(dims)}")
+    _SPLIT_IDS.pop(model, None)
     return model
 
 
@@ -347,6 +367,19 @@ def _split_owners(model: nn.Module) -> Dict[str, nn.Module]:
             if module.bias is not None and module.kind == "column":
                 out[prefix + "bias"] = module
     return out
+
+
+# Each sharded model's split parameters, by id, found once a model.
+_SPLIT_IDS: "weakref.WeakKeyDictionary[nn.Module, FrozenSet[int]]" = weakref.WeakKeyDictionary()
+
+
+def _split_ids(model: nn.Module) -> FrozenSet[int]:
+    """The ids of ``model``'s split parameters (found on the first call for
+    a model; :func:`shard_model_` forgets them)."""
+    ids = _SPLIT_IDS.get(model)
+    if ids is None:
+        ids = _SPLIT_IDS[model] = frozenset(id(model.get_parameter(n)) for n in _split_owners(model))
+    return ids
 
 
 def split_parameter_names(model: nn.Module) -> List[str]:
@@ -421,6 +454,39 @@ def shard_optimizer_state(model: nn.Module, optimizer_state: Mapping) -> dict:
     return _map_moments(model, optimizer_state, shard_full)
 
 
+def broadcast_replicated_grads_(model: nn.Module, params, mesh) -> None:
+    """Every replicated parameter's gradient in ``params`` sent from model
+    rank 0 of this rank's data row to the others, in one flat broadcast over
+    the model group (nothing without a model axis above 1).
+
+    The ranks of a data row compute a replicated parameter's gradient from
+    the same rows, but on the card a backward whose sums land in an order
+    that changes from run to run (cuDNN's convolution weight gradients, the
+    pools' backwards) leaves them a rounding apart (Multi_ResNet_cross's by
+    up to 1.9e-5 at batch 8 on an NVIDIA H100 80GB HBM3 at 700 W), and
+    replicas that step apart drift apart.  Where they are equal, as on the
+    CPU, the broadcast changes nothing.  It counts in ``COLLECTIVES`` and
+    records the largest |difference| it overwrote (:func:`replica_drift`)."""
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    axis = model_axis_of(mesh)
+    if axis is None:
+        return
+    split = _split_ids(model)
+    grads = [p.grad for p in params if id(p) not in split and p.grad is not None]
+    if not grads:
+        return
+    flat = _flatten_dense_tensors(grads)
+    own = flat.clone() if axis.rank else None
+    _count("broadcast", flat)
+    dist.broadcast(flat, src=dist.get_global_rank(axis.group, 0), group=axis.group)
+    if own is not None:
+        drift = (flat - own).abs().max()
+        _DRIFT["max"] = drift if _DRIFT["max"] is None else torch.maximum(_DRIFT["max"], drift)
+    for g, synced in zip(grads, _unflatten_dense_tensors(flat, grads)):
+        g.copy_(synced)
+
+
 def clip_grad_norm_(model: nn.Module, params, max_norm: float) -> torch.Tensor:
     """``torch.nn.utils.clip_grad_norm_`` (optax's ``clip_by_global_norm``)
     over a model, sharded or not: the global norm counts each split
@@ -434,7 +500,7 @@ def clip_grad_norm_(model: nn.Module, params, max_norm: float) -> torch.Tensor:
     if axis is None:
         total = torch.nn.utils.get_total_norm([p.grad for p in params])
     else:
-        split = {id(model.get_parameter(n)) for n in _split_owners(model)}
+        split = _split_ids(model)
         sq = [torch.zeros((), device=params[0].grad.device) for _ in range(2)]
         for is_split in (False, True):
             grads = [p.grad for p in params if (id(p) in split) == is_split]

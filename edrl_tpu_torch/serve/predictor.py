@@ -14,12 +14,17 @@ and are dequantized on the device.
   calibration set in chunks of the serving batch (the last chunk wraps
   around), the chunks' scales combined with max.
 - ``chunk_batches = C > 1``: while C batches remain, they run as one chunk;
-  the rest batch by batch (the JAX predictor's dispatch rule).  On the card
-  a chunk is one replay of a CUDA graph of C consecutive eval forwards (the
-  members, their mean and the softmax), captured once at the first chunk
-  from a static ``[C, B, ...]`` input buffer: the counterpart of the JAX
-  predictor's ``lax.scan`` in one dispatch.  A capture that fails raises.
-  On the CPU a chunk is a loop of the eager forward.
+  the rest batch by batch (the JAX predictor's dispatch rule).  A chunk
+  goes to the device in one copy and takes one of two routes
+  (``chunk_route``; chunks counted by route in ``CHUNK_ROUTES``):
+  ``"graph"`` on the card with no model axis above 1, one replay of a CUDA
+  graph of C consecutive eval forwards (the members, their mean and the
+  softmax), captured once at the first chunk from a static ``[C, B, ...]``
+  input buffer, the counterpart of the JAX predictor's ``lax.scan`` in one
+  dispatch (a capture that fails raises); ``"staged"`` on the CPU, and over
+  a model axis above 1 (whose collectives run on the host's process group,
+  which a graph does not hold), the C eager forwards one after another on
+  the staged chunk.
 
 The eval draws of a MedFusion member (its guided uniforms and EPRL's eps)
 are drawn once, as the model would draw them, and passed to every forward,
@@ -33,10 +38,9 @@ whole result.  int8 (each rank calibrates on the whole calibration set, so
 the scales agree) and chunks (a rank's graph holds its rows) compose with
 it, as with the JAX package's mesh predictor.  A mesh with a model axis
 above 1 shards every member over it (``parallel.tensor``; the ranks of a
-data row serve the same rows), in bf16 and in int8 (quantized from the full
-f32 weights, then sliced).  There a chunk graph would have to hold the
-model axis's collectives: ``chunk_batches > 1`` refuses by name, as
-``serve.export`` does.
+data row serve the same rows), any registry model, in bf16 and in int8
+(quantized from the full f32 weights, then sliced); its chunks take the
+staged route.  ``serve.export`` refuses a model axis above 1 by name.
 """
 
 from __future__ import annotations
@@ -79,6 +83,16 @@ def _to_uint8_transport(x: np.ndarray) -> np.ndarray:
             RuntimeWarning, stacklevel=3,
         )
     return np.clip(scaled, 0.0, 255.0).astype(np.uint8)
+
+
+# Chunks served by route (``Predictor.chunk_route``) since the last
+# reset_chunk_counts().
+CHUNK_ROUTES = {"graph": 0, "staged": 0}
+
+
+def reset_chunk_counts() -> None:
+    for key in CHUNK_ROUTES:
+        CHUNK_ROUTES[key] = 0
 
 
 def launch_counters() -> Tuple[dict, ...]:
@@ -178,7 +192,8 @@ class Predictor:
         oct_vol)`` calibration set (f32 in [0, 1] or uint8, any N, equal
         counts): static per-tensor activation scales at the
         ``int8_calib_percentile``-th percentile of |x| (100: the abs-max).
-    chunk_batches: batches per chunk (1: batch by batch).
+    chunk_batches: batches per chunk (1: batch by batch; the route a chunk
+        takes, ``chunk_route``, in the module docstring).
     mesh: data- and tensor-parallel serving (see the module docstring); the
         serving batch must split over the data ranks (``ValueError``).
 
@@ -221,10 +236,7 @@ class Predictor:
         sharded = mesh is not None and mesh.size(1) > 1
         if sharded:
             check_tensor_parallel(cfg, mesh.size(1))
-            if self.chunk_batches > 1:
-                raise NotImplementedError(
-                    f"chunk_batches={self.chunk_batches} over a model axis of {mesh.size(1)}: a chunk graph that "
-                    "holds the model axis's collectives is ROADMAP item A14 (whole-step capture)")
+        self.chunk_route = "graph" if self.device.type == "cuda" and not sharded else "staged"
         # This rank's rows of each serving batch (all of it without a mesh).
         self.rows = slice(None) if mesh is None else rows_of(self.batch_size, data_axis_of(mesh))
         members = list(variables) if isinstance(variables, (list, tuple)) else [variables]
@@ -368,10 +380,11 @@ class Predictor:
         return self.serving(fundus, oct_vol)
 
     def _forward_chunk(self, fundus: torch.Tensor, oct_vol: torch.Tensor) -> torch.Tensor:
-        """``[C, B, ...]`` inputs -> ``[C, B, classes]``: a replay of the
-        chunk's CUDA graph on the card (captured at the first chunk), the
-        eager forward batch by batch on the CPU."""
-        if self.device.type != "cuda":
+        """``[C, B, ...]`` inputs -> ``[C, B, classes]`` on ``chunk_route``: a
+        replay of the chunk's CUDA graph (captured at the first chunk), or
+        the eager forward batch by batch."""
+        CHUNK_ROUTES[self.chunk_route] += 1
+        if self.chunk_route == "staged":
             return torch.stack([self._forward(f, o) for f, o in zip(fundus, oct_vol)])
         if self.chunk_graph is None:
             self.chunk_graph = ChunkGraph(self._forward, fundus, oct_vol)

@@ -3,20 +3,22 @@
 Run under the launcher, one process per card, from the root of a checkout:
 
     python -m torch.distributed.run --nproc_per_node 4 -m edrl_tpu_torch.tools.profile_data_parallel \\
-        [--num_model_shards 1 2 4] [--parts 1 2 3 4]
+        [--model_name MedFusion ...] [--num_model_shards 1 2 4] [--parts 1 2 3 4]
 
-On N ranks over NCCL (N = 1 runs too, as a rehearsal), for each model axis
-M of ``--num_model_shards`` (default 1, 2 and 4: the data mesh ``(N, 1)``
-and the tensor-parallel meshes ``(N / 2, 2)`` and ``(N / 4, 4)``), in the
-shipped ``EDRLConfig()`` at full width, with seeded random weights and
-``trainer.random_views`` batches:
+On N ranks over NCCL (N = 1 runs too, as a rehearsal), for each registry
+model of ``--model_name`` (default MedFusion) and each model axis M of
+``--num_model_shards`` (default 1, 2 and 4: the data mesh ``(N, 1)`` and
+the tensor-parallel meshes ``(N / 2, 2)`` and ``(N / 4, 4)``), in the
+shipped ``EDRLConfig()`` with that model at full width, with seeded random
+weights and ``trainer.random_views`` batches:
 
 1. Checks, in f32 (the port's bars for a step's results, atol 2e-4 / rtol
    1e-3): two steps on the mesh at global batch 32 against rank 0's
    one-card steps on the same global batches and draws (loss, MMD,
-   probabilities, every gradient gathered to full shape); every replicated
-   parameter's gradient the same on the ranks of a model group, bit for
-   bit.  Beside each, rank 0's witness: the one-card steps against
+   probabilities, every gradient gathered to full shape); the replicated
+   parameters' gradients, as the ranks of a model group computed them
+   before the step's broadcast, within the bars' atol of each other
+   (``replica_drift``).  Beside each, rank 0's witness: the one-card steps against
    themselves with every input view moved by one f32 ulp (``nudged``),
    read the same way, which says how far the step's rounding alone carries
    a difference that small.  A reading passes within the bars, or within
@@ -27,13 +29,18 @@ shipped ``EDRLConfig()`` at full width, with seeded random weights and
    sharded update equal to the replicated one); ``use_pallas_mmd`` (B3 on
    the gathered rows); and each of the fused flags ``use_fused_ln`` (B4),
    ``use_fused_mlp`` (B5) and ``use_fused_block_attention`` (B6), B5 and B6
-   on the data mesh only (they refuse a model axis above 1).
-2. Times, in the shipped bf16, at global batch 32 and 32 x N, with ZeRO-1
+   on the data mesh only (they refuse a model axis above 1), and the three
+   only for a model with a Swin or a ViT (a CNN model has none of their
+   layers).  A CNN model's f32 train-mode BatchNorm carries rounding far:
+   its witness says how far.
+2. Times, in the shipped bf16 (a CNN model computes in f32), at global
+   batch ``--global_batches`` (default 32 and 32 x N), with ZeRO-1
    too where the data axis is above 1, against one card at batch 32 (rank
    0 alone, timed first): ms a step on the host clock to a
    ``synchronize()``, pairs/s and the scaling, the world's pairs/s over one
    card's; the host's enqueue of a step; the gradient all-reduce alone;
-   under a model axis its collectives a step (their count and bytes), the
+   under a model axis the replicated gradients' broadcast alone, its
+   collectives a step (their count and bytes, the broadcast's among them), the
    device ms of every NCCL kernel in one profiled step and B1's and B2's
    launches a step by route; the peak device memory of each card and the
    bytes of a card's parameters.
@@ -49,7 +56,7 @@ shipped ``EDRLConfig()`` at full width, with seeded random weights and
 some of step 1's configurations (by label); a failed check of step 1
 raises after the others.  Rank 0 prints the card's name and power
 limit (``nvidia-smi``) and, as its last line, one JSON object of the
-readings.
+readings by model name.
 """
 
 from __future__ import annotations
@@ -106,13 +113,24 @@ def with_train(cfg: EDRLConfig, **train) -> EDRLConfig:
     return cfg.replace(train=dataclasses.replace(cfg.train, **train))
 
 
-def applies(train: dict, model: dict, mesh) -> bool:
+def applies(train: dict, model: dict, mesh, backbones: bool = True) -> bool:
     """Whether a configuration of ``CHECKS`` runs on ``mesh``: ZeRO-1 wants a
-    data axis above 1 (on one it is the plain Adam), and B5 and B6 a model
-    axis of 1."""
+    data axis above 1 (on one it is the plain Adam), B5 and B6 a model axis
+    of 1, and the fused flags a model with ``backbones`` (a Swin or a ViT)."""
     if train.get("zero1") and mesh.size(0) == 1:
         return False
+    if model and not backbones:
+        return False
     return mesh.size(1) == 1 or not any(model.get(flag) for flag in WHOLE_WEIGHTS)
+
+
+def has_backbones(cfg: EDRLConfig) -> bool:
+    """Whether ``cfg``'s model holds a Swin or a ViT, whose layers the fused
+    flags reach."""
+    from edrl_tpu_torch.models.swin2d import SwinTransformer2D
+    from edrl_tpu_torch.models.vit3d import ViT3D
+
+    return any(isinstance(m, (SwinTransformer2D, ViT3D)) for m in trainer.make_model(cfg, "meta").modules())
 
 
 def nudged(batch: dict) -> dict:
@@ -121,25 +139,22 @@ def nudged(batch: dict) -> dict:
             for k, v in batch.items()}
 
 
-def replicated_spread(model, mesh) -> float:
-    """The largest |difference| of the replicated parameters' gradients
-    between this rank and model rank 0 of its data row (0 when they agree
-    bit for bit), over every rank."""
-    split = set(tensor.split_parameter_names(model))
-    flat = torch.cat([p.grad.reshape(-1).float() for n, p in model.named_parameters() if n not in split])
-    ref = flat.clone()
-    group = mesh.get_group("model")
-    dist.broadcast(ref, src=dist.get_global_rank(group, 0), group=group)
-    diff = (flat - ref).abs().max().reshape(1)
-    dist.all_reduce(diff, op=dist.ReduceOp.MAX)
-    return float(diff)
+def replica_drift(mesh) -> float:
+    """The largest |difference| between a rank's replicated gradients and
+    model rank 0's that the steps' broadcast overwrote since the last
+    ``tensor.reset_collective_counts()`` (``tensor.replica_drift``), over
+    every rank: 0 where the ranks of a model group computed them bit for
+    bit alike."""
+    drift = torch.tensor([tensor.replica_drift()], device=mesh.device_type)
+    dist.all_reduce(drift, op=dist.ReduceOp.MAX)
+    return float(drift)
 
 
 def passes(errs: dict) -> bool:
     """Whether a check's readings pass: each within the bars or within
-    ``WITNESS`` times its one-ulp witness, and the replicated gradients
-    equal over the model ranks."""
-    return errs["replicated_spread"] == 0 and all(
+    ``WITNESS`` times its one-ulp witness, and the replicated gradients'
+    drift over the model ranks within the gradient bars' atol."""
+    return errs["replica_drift"] <= ATOL and all(
         errs[key] <= max(1.0, WITNESS * errs.get(f"ulp_{key}", 0.0)) for key in READINGS)
 
 
@@ -157,18 +172,20 @@ def _merge(errs: dict, new: dict) -> None:
 def check_against_one_card(cfg: EDRLConfig, mesh, device, steps: int = 2) -> dict:
     """Two steps on ``mesh`` against rank 0's one-card steps: the worst
     readings (``worst``) of the outputs and of every gradient at full shape,
-    the replicated gradients' spread over the model ranks, and (``ulp_*``)
-    rank 0's one-card steps on the ``nudged`` batches against its own."""
+    the replicated gradients' drift over the model ranks before the step's
+    broadcast (``replica_drift``; the collective counts are reset first),
+    and (``ulp_*``) rank 0's one-card steps on the ``nudged`` batches
+    against its own."""
     writer = parallel.is_writer(mesh)
     ranks = trainer.init_state(cfg, seed=0, device=device, mesh=mesh)
     one = trainer.init_state(cfg, seed=0, device=device) if writer else None
     step, one_step = trainer.make_train_step(cfg, mesh), trainer.make_train_step(cfg)
-    errs, wants = {"replicated_spread": 0.0}, []
+    errs, wants = {}, []
+    tensor.reset_collective_counts()
     for i in range(steps):
         batch = trainer.random_views(cfg, seed=50 + i, device=device)
         out = step(ranks, parallel.shard_batch(batch, mesh), torch.Generator(device=device).manual_seed(60 + i))
         full = tensor.gather_full(ranks.model, {n: p.grad for n, p in ranks.model.named_parameters()})
-        errs["replicated_spread"] = max(errs["replicated_spread"], replicated_spread(ranks.model, mesh))
         if writer:
             want = one_step(one, batch, torch.Generator(device=device).manual_seed(60 + i))
             want_grads = {n: p.grad.clone() for n, p in one.model.named_parameters()}
@@ -176,6 +193,7 @@ def check_against_one_card(cfg: EDRLConfig, mesh, device, steps: int = 2) -> dic
             wants.append((want, want_grads))
         del full
         dist.barrier()
+    errs["replica_drift"] = replica_drift(mesh)
     del ranks, one
     if writer:
         ulp = trainer.init_state(cfg, seed=0, device=device)
@@ -207,6 +225,14 @@ def nccl_device_ms(fn) -> float | None:
     return sum(getattr(e, "self_device_time_total", 0.0) for e in events if "nccl" in e.key.lower()) / 1000.0
 
 
+def start_together() -> None:
+    """Every rank's queued work done, then a barrier: a collective timed
+    next counts itself, not the wait for a rank that is still stepping."""
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.synchronize()
+
+
 def timed_steps(cfg: EDRLConfig, device, mesh=None, steps: int = STEPS) -> dict:
     """ms a step at ``cfg``'s global batch (one warm-up step first), this
     card's peak device memory (GiB) and parameter bytes, the host's ms to
@@ -214,8 +240,10 @@ def timed_steps(cfg: EDRLConfig, device, mesh=None, steps: int = STEPS) -> dict:
     ``synchronize()``); under a mesh the model axis's collectives a step
     (count, MB put in), the NCCL kernels' device ms in one profiled step,
     the gradient all-reduce alone (``all_reduce_mean_`` of the step's
-    gradients, ms a call, between ``synchronize()``s), and B1's and B2's
-    launches a step by route."""
+    gradients, ms a call, from ``start_together()`` to a ``synchronize()``)
+    and, over a model axis, the replicated gradients' broadcast alone (the
+    same way), and
+    B1's and B2's launches a step by route."""
     state = trainer.init_state(cfg, seed=0, device=device, mesh=mesh)
     step = trainer.make_train_step(cfg, mesh)
     batch = trainer.random_views(cfg, seed=70, device=device)
@@ -249,11 +277,20 @@ def timed_steps(cfg: EDRLConfig, device, mesh=None, steps: int = STEPS) -> dict:
     if mesh is not None:
         result["nccl_device_ms_a_step"] = nccl_device_ms(lambda: outs.append(step(state, batch, gen)))
         grads = [p.grad for p in state.model.parameters()]
+        start_together()
         t = time.perf_counter()
         for _ in range(steps):
             parallel.all_reduce_mean_(grads, mesh)
         torch.cuda.synchronize()
         result["grad_all_reduce_ms"] = 1000.0 * (time.perf_counter() - t) / steps
+        if mesh.size(1) > 1:
+            params = list(state.model.parameters())
+            start_together()
+            t = time.perf_counter()
+            for _ in range(steps):
+                tensor.broadcast_replicated_grads_(state.model, params, mesh)
+            torch.cuda.synchronize()
+            result["replicated_broadcast_ms"] = 1000.0 * (time.perf_counter() - t) / steps
     losses = [float(o["loss"]) for o in outs]
     if not all(x == x and abs(x) < float("inf") for x in losses):
         raise RuntimeError(f"non-finite losses {losses}")
@@ -262,11 +299,11 @@ def timed_steps(cfg: EDRLConfig, device, mesh=None, steps: int = STEPS) -> dict:
     return result
 
 
-def run_clis(shards: int, writer: bool) -> dict:
+def run_clis(shards: int, writer: bool, model_name: str = "MedFusion") -> dict:
     """``cli.train`` (1 epoch), ``cli.train --zero1`` (1 epoch) and its
     ``--resume`` for a second, and ``cli.test`` on the resumed run's best,
-    each with ``--num_model_shards shards``, timed; each must log its report
-    on rank 0."""
+    each with ``--num_model_shards shards`` and ``--model_name``, timed;
+    each must log its report on rank 0."""
     from edrl_tpu_torch.cli import test as test_cli
     from edrl_tpu_torch.cli import train as train_cli
 
@@ -274,7 +311,7 @@ def run_clis(shards: int, writer: bool) -> dict:
     dist.broadcast_object_list(work, src=0)
     common = ["--dataset", "synthetic", "--batch_size", str(BATCH), "--synthetic_samples", str(2 * BATCH),
               "--plot_dir", "", "--checkpoint_dir", os.path.join(work[0], "ckpt"), "--log_dir",
-              os.path.join(work[0], "log"), "--num_model_shards", str(shards)]
+              os.path.join(work[0], "log"), "--num_model_shards", str(shards), "--model_name", model_name]
     zero1 = ["--name", "z1", "--mode", "train", "--zero1", "--save_latest_every", "1"]
     runs = (("cli_train_1_epoch_s", train_cli, ["--end_epochs", "1", "--name", "plain", "--mode", "train"],
              "plain_train", "Best val accuracy"),
@@ -300,11 +337,12 @@ def run_clis(shards: int, writer: bool) -> dict:
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model_name", nargs="+", default=["MedFusion"])
     parser.add_argument("--num_model_shards", type=int, nargs="+", default=[1, 2, 4])
+    parser.add_argument("--global_batches", type=int, nargs="+", default=None)
     parser.add_argument("--parts", type=int, nargs="+", choices=(1, 2, 3, 4), default=[1, 2, 3, 4])
     parser.add_argument("--checks", nargs="+", choices=[c[0] for c in CHECKS], default=[c[0] for c in CHECKS])
     args = parser.parse_args(argv)
-    parts = set(args.parts)
     torch.backends.cuda.matmul.allow_tf32 = False
     trainer.set_conv_precision()
     device = parallel.init_distributed("cuda")
@@ -318,27 +356,44 @@ def main(argv=None) -> None:
     if writer:
         print(card, flush=True)
 
+    readings = {"card": card, "world": world}
+    failed = []
+    for name in args.model_name:
+        readings[name] = profile_model(name, args, device, world, writer, card, failed)
+    dist.destroy_process_group()
+    if writer:
+        print(json.dumps(readings), flush=True)
+    if failed:
+        raise RuntimeError(f"steps differ from one card's in {failed}")
+
+
+def profile_model(name: str, args, device, world: int, writer: bool, card: str, failed: list) -> dict:
+    """Steps 1-4 for registry model ``name``: its readings; the labels of
+    its failed checks are added to ``failed``."""
+    parts = set(args.parts)
     shipped = with_train(EDRLConfig(), seed=0)
+    shipped = shipped.replace(model=dataclasses.replace(shipped.model, model_name=name))
     f32 = shipped.replace(model=dataclasses.replace(shipped.model, use_bfloat16=False))
-    readings = {"card": card, "world": world, "checks": {}, "steps": {}, "clis": {}}
+    backbones = has_backbones(shipped)
+    tag = f"{name} "
+    readings = {"checks": {}, "steps": {}, "clis": {}}
     if 3 in parts:
         meta = trainer.make_model(shipped, "meta")
         readings["sharded_byte_fraction"] = {m: pmesh.sharded_byte_fraction(meta, pmesh.param_shardings(meta, m))
                                              for m in args.num_model_shards}
         if writer:
-            print(f"sharded_byte_fraction of the shipped model: {readings['sharded_byte_fraction']}", flush=True)
+            print(f"sharded_byte_fraction of the shipped {name}: {readings['sharded_byte_fraction']}", flush=True)
     if writer and 2 in parts:
         readings["steps"]["one card, batch 32"] = timed_steps(shipped, device)
-        print(f"one card, batch 32: {readings['steps']['one card, batch 32']} [{card}]", flush=True)
+        print(f"{tag}one card, batch 32: {readings['steps']['one card, batch 32']} [{card}]", flush=True)
     dist.barrier()
-    failed = []
     for m in args.num_model_shards:
         mesh = parallel.make_mesh(m, device="cuda")
         shape = tuple(mesh.shape)
         # 1. The step on the mesh against one card's, in f32; a failed check
         # raises once the other parts have run.
         for label, train, model in CHECKS if 1 in parts else ():
-            if label not in args.checks or not applies(train, model, mesh):
+            if label not in args.checks or not applies(train, model, mesh, backbones):
                 continue
             t = time.perf_counter()
             c = with_train(f32, **train)
@@ -346,12 +401,13 @@ def main(argv=None) -> None:
             dist.broadcast_object_list(shared, src=0)  # rank 0's readings, so that every rank stops on a failure
             errs = readings["checks"][f"{shape} {label}"] = shared[0]
             if writer:
-                print(f"check {shape} {label}: 2 f32 steps at global batch {BATCH} against one card: worst "
+                print(f"{tag}check {shape} {label}: 2 f32 steps at global batch {BATCH} against one card: worst "
                       f"|err| / (atol + rtol |want|) {errs} ({time.perf_counter() - t:.1f} s) [{card}]", flush=True)
             if not passes(errs):
-                failed.append(f"{shape} {label}")
+                failed.append(f"{tag}{shape} {label}")
         # 2. Step times, collectives and peak memory, in bf16.
-        for global_batch in sorted({BATCH, BATCH * world}) if 2 in parts else ():
+        batches = args.global_batches or sorted({BATCH, BATCH * world})
+        for global_batch in batches if 2 in parts else ():
             for zero1 in (False, True) if mesh.size(0) > 1 else (False,):
                 c = shipped.replace(data=dataclasses.replace(shipped.data, batch_size=global_batch))
                 got = timed_steps(with_train(c, zero1=zero1), device, mesh)
@@ -362,18 +418,13 @@ def main(argv=None) -> None:
                                scaling=got["pairs_per_s"] / readings["steps"]["one card, batch 32"]["pairs_per_s"])
                     label = f"{shape}, global batch {global_batch}{', zero1' if zero1 else ''}"
                     readings["steps"][label] = got
-                    print(f"{label}: {got} [{card}]", flush=True)
+                    print(f"{tag}{label}: {got} [{card}]", flush=True)
         # 4. The CLIs on this mesh's model axis.
         if 4 in parts:
-            readings["clis"][str(shape)] = run_clis(m, writer)
+            readings["clis"][str(shape)] = run_clis(m, writer, name)
             if writer:
-                print(f"{shape} CLIs: {readings['clis'][str(shape)]} [{card}]", flush=True)
-    dist.destroy_process_group()
-    if writer:
-        print(json.dumps(readings), flush=True)
-    if failed:
-        raise RuntimeError(f"steps differ from one card's in {failed}: "
-                           f"{ {k: readings['checks'][k] for k in failed} }")
+                print(f"{tag}{shape} CLIs: {readings['clis'][str(shape)]} [{card}]", flush=True)
+    return readings
 
 
 if __name__ == "__main__":

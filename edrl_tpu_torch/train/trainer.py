@@ -32,18 +32,25 @@ step's gradients in the parameters' ``.grad``.
 checkpoints, CSV logs, the plateau schedule, resume.  Each step's noise
 comes from a generator seeded with ``(seed + 1000, step)``, as the JAX loop
 folds the step into its base key, so a resumed run is step-identical to an
-uninterrupted one.  What the port has not got refuses by name
-(``check_ported``): ``scan_batches`` (ROADMAP item A14), and under a model
-axis above 1 the baseline zoo (A15) and the fused kernels that read whole
-kernels, B5 and B6.
+uninterrupted one.  What does not run refuses by name (``check_ported``):
+under a model axis above 1, the fused kernels that read whole kernels, B5
+and B6.
+
+``scan_batches`` (the JAX package runs K steps per dispatch as one
+``lax.scan``, on the same PRNG stream as per-batch dispatch) is accepted at
+any K and changes nothing here: ``fit`` steps batch by batch, each step
+from the generator reseeded at its step, so the run is the one of
+``scan_batches = 0``.  It captures nothing.
 
 Data parallelism (``mesh``: ``parallel.make_mesh``'s, one process per card):
 each rank steps on its rows of the global batch with the data axis current
 (``parallel.use_mesh``), so the MK-MMD, DILR's Barlow and the BatchNorms see
 the global batch and every per-row draw is the global draw's rows; the
-gradients are then averaged over the ranks in one flat all-reduce, before
-the clip and Adam, or ZeRO-1's sharded Adam (``cfg.train.zero1``, above one
-rank).  The step returns the global loss and probabilities, ``run_eval``
+gradients are then averaged over the ranks in one flat all-reduce, and
+under a model axis above 1 the replicated ones sent from model rank 0 to
+the rest of its data row (``parallel.tensor.broadcast_replicated_grads_``),
+before the clip and Adam, or ZeRO-1's sharded Adam (``cfg.train.zero1``,
+above one rank).  The step returns the global loss and probabilities, ``run_eval``
 the global metrics (a remainder batch padded as the JAX package pads it),
 and ``fit`` prints, logs and plots on data rank 0 alone.  World N at global
 batch B trains on the numbers of one card at batch B, to within the order
@@ -71,7 +78,7 @@ from edrl_tpu_torch.ops.distributions import js_divergence
 from edrl_tpu_torch.ops.mmd import mk_mmd
 from edrl_tpu_torch.parallel.mesh import (
     AXES, all_reduce_mean_, gather_batches, gather_rows, is_writer, use_mesh, zero1_optimizer)
-from edrl_tpu_torch.parallel.tensor import clip_grad_norm_, shard_model_
+from edrl_tpu_torch.parallel.tensor import broadcast_replicated_grads_, clip_grad_norm_, shard_model_
 from edrl_tpu_torch.train import metrics as metrics_lib
 from edrl_tpu_torch.train.logging import AverageMeter, CsvMetricWriter
 
@@ -136,18 +143,14 @@ def make_model(cfg: EDRLConfig, device="cuda") -> nn.Module:
 
 
 def check_ported(cfg: EDRLConfig, mesh=None) -> None:
-    """Refuse, by ROADMAP item, what the port's training has not got, a
-    model name the registry does not know (``NameError``) and a ``mesh``
-    that is not a ``(data, model)`` ``DeviceMesh`` (``TypeError``)."""
+    """Refuse a model name the registry does not know (``NameError``), a
+    ``mesh`` that is not a ``(data, model)`` ``DeviceMesh`` (``TypeError``)
+    and, over a model axis above 1, what does not run there
+    (``check_tensor_parallel``)."""
     from edrl_tpu_torch.baselines.registry import MODEL_REGISTRY
 
     if cfg.model.model_name not in MODEL_REGISTRY:
         raise NameError(f"There is no model named {cfg.model.model_name!r}")
-    if cfg.train.scan_batches > 0:
-        raise NotImplementedError(
-            f"scan_batches={cfg.train.scan_batches}: several steps per call is "
-            "ROADMAP item A14 (whole-step capture)"
-        )
     if mesh is not None:
         from torch.distributed.device_mesh import DeviceMesh
 
@@ -160,15 +163,12 @@ def check_ported(cfg: EDRLConfig, mesh=None) -> None:
 
 def check_tensor_parallel(cfg: EDRLConfig, model_axis: int) -> None:
     """Refuse, by name, what does not run over a model axis of ``model_axis``
-    > 1: a model other than MedFusion (``NotImplementedError``, ROADMAP item
-    A15) and the kernels that read whole weights, B5 and B6
-    (``ValueError``: the JAX package turns them off there; the port does not
-    turn a flag off quietly)."""
+    > 1: the kernels that read whole weights, B5 and B6 (``ValueError``: the
+    JAX package turns them off there; the port does not turn a flag off
+    quietly).  Every registry model runs there: the rules split what they
+    name (``parallel.mesh.param_shardings``) and replicate the rest, a CNN
+    model whole."""
     m = cfg.model
-    if m.model_name != "MedFusion":
-        raise NotImplementedError(
-            f"{m.model_name} over a model axis of {model_axis}: tensor parallelism (ROADMAP item A11) shards "
-            "MedFusion; the baseline zoo under it is ROADMAP item A15")
     for flag in ("use_fused_mlp", "use_fused_block_attention"):
         if getattr(m, flag):
             raise ValueError(f"{flag} over a model axis of {model_axis}: its kernel reads whole weights and does "
@@ -417,6 +417,7 @@ def make_train_step(cfg: EDRLConfig, mesh=None):
                 p.grad = torch.zeros_like(p)
         if mesh is not None:
             all_reduce_mean_([p.grad for p in params], mesh)
+            broadcast_replicated_grads_(model, params, mesh)
         if t.grad_clip_norm > 0:
             clip_grad_norm_(model, params, t.grad_clip_norm)
         state.optimizer.step()
@@ -591,7 +592,8 @@ def fit(
     parallelism (see the module docstring); the loaders are this rank's
     (``BatchLoader(..., rank, world)``), every rank calls the checkpoint
     manager (``CheckpointManager(..., mesh=mesh)``: rank 0 writes), and data
-    rank 0 alone prints, writes the CSV and plots.
+    rank 0 alone prints, writes the CSV and plots.  ``cfg.train.scan_batches``
+    changes nothing (see the module docstring).
     """
     check_ported(cfg, mesh)
     _check_loader(train_loader, mesh)

@@ -126,8 +126,8 @@ def test_test_epoch_and_missing_checkpoint(tiny_cli):
     (["--dataset", "dr2", "--data_path", "/nonexistent"], FileNotFoundError,
      "No such file or directory: '/nonexistent'"),
     (["--dataset", "glu2"], FileNotFoundError, "No such file or directory: ''"),
-    (["--scan_batches", "4"], NotImplementedError, "A14"),
-    (["--num_model_shards", "2", "--model_name", "Multi_ResNet"], NotImplementedError, "A11"),
+    (["--num_model_shards", "2", "--model_name", "IMDR"], ValueError, "needs a multiple of 2 ranks"),
+    (["--num_model_shards", "2", "--model_name", "Multi_ResNet"], ValueError, "needs a multiple of 2 ranks"),
     (["--model_name", "NoSuchModel"], NameError, "There is no model named 'NoSuchModel'"),
 ])
 def test_train_cli_refusals_name_their_items(tmp_path, argv, error, match):
@@ -139,6 +139,25 @@ def test_train_cli_refusals_name_their_items(tmp_path, argv, error, match):
         # The JAX CLI raises the same where it builds its loaders.
         with pytest.raises(error, match=match):
             jcli.make_loaders(jcli.config_from_args(jcli.build_parser().parse_args(argv)))
+
+
+def test_scan_batches_through_the_cli_is_the_per_batch_run(tiny_cli):
+    """``--scan_batches 2`` steps batch by batch: the epoch's CSV row and the ``latest`` checkpoint equal the per-batch run's,
+    bit for bit."""
+    import torch
+
+    runs = {}
+    for scan in ("0", "2"):
+        train_cli.main(tiny_cli.base + ["--end_epochs", "1", "--mode", "train", "--save_latest_every", "1",
+                                        "--scan_batches", scan, "--name", f"s{scan}"])
+        with open(tiny_cli.tmp_path / "log" / f"synthetic_0.5_s{scan}.csv") as f:
+            rows = f.read().splitlines()
+        latest = tiny_cli.tmp_path / "ckpt" / f"synthetic_0.5_s{scan}" / "latest" / "state.pt"
+        runs[scan] = rows, torch.load(latest, weights_only=True)
+    (rows0, snap0), (rows2, snap2) = runs["0"], runs["2"]
+    assert rows0 == rows2 and len(rows0) == 2
+    assert snap0["step"] == snap2["step"] > 0 and snap0["model"].keys() == snap2["model"].keys()
+    assert all(torch.equal(snap0["model"][k], snap2["model"][k]) for k in snap0["model"])
 
 
 def test_zero1_on_one_rank_is_the_plain_step(tiny_cli):

@@ -624,16 +624,25 @@ def test_proxy_distribution_dump_matches_jax(jax_variables, monkeypatch, tmp_pat
 
 
 def test_refusals_name_their_roadmap_items(tmp_path):
-    """scan_batches (A14) and a baseline over a model axis (tensor parallelism,
-    A11, shards MedFusion; the zoo under it is A15) refuse; a mesh that is
-    not a DeviceMesh is a TypeError; ZeRO-1 with no mesh is one rank's plain
-    step (a one-epoch fit equal to the run without it)."""
+    """What runs and what refuses: ``check_ported`` takes every registry
+    name at model axes 2 and 4 and ``scan_batches`` 2 and 64; over a model
+    axis only B5 and B6 refuse, by flag (``ValueError``), in ``fit`` as in
+    ``check_ported``; a mesh that is not a DeviceMesh is a TypeError; ZeRO-1
+    with no mesh is one rank's plain step (a one-epoch fit equal to the run
+    without it)."""
+    from edrl_tpu_torch.baselines import MODEL_REGISTRY
+
     _, tcfg = _configs(False)
-    for train, model, item in ((dict(scan_batches=2), {}, "A14"),
-                               (dict(num_model_shards=2), dict(model_name="Multi_ResNet"), "A11")):
-        cfg = tcfg.replace(train=dataclasses.replace(tcfg.train, **train),
-                           model=dataclasses.replace(tcfg.model, **model))
-        with pytest.raises(NotImplementedError, match=item):
+    for name in MODEL_REGISTRY:
+        for shards in (2, 4):
+            for scan in (2, 64):
+                trainer.check_ported(tcfg.replace(
+                    model=dataclasses.replace(tcfg.model, model_name=name),
+                    train=dataclasses.replace(tcfg.train, num_model_shards=shards, scan_batches=scan)))
+    for flag in ("use_fused_mlp", "use_fused_block_attention"):
+        cfg = tcfg.replace(train=dataclasses.replace(tcfg.train, num_model_shards=2, scan_batches=2),
+                           model=dataclasses.replace(tcfg.model, model_name="Trans_cross", **{flag: True}))
+        with pytest.raises(ValueError, match=flag):
             trainer.fit(cfg, None, None, device="cpu")
     with pytest.raises(TypeError, match="DeviceMesh"):
         trainer.fit(tcfg, None, None, mesh=object(), device="cpu")
@@ -649,3 +658,37 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     trainer.check_ported(tcfg.replace(model=dataclasses.replace(tcfg.model, model_name="Multi_ResNet")))
     with pytest.raises(NameError, match="NoSuchModel"):
         trainer.check_ported(tcfg.replace(model=dataclasses.replace(tcfg.model, model_name="NoSuchModel")))
+
+
+# ---------------------------------------------------------------------------
+# scan_batches: accepted at any K, the run the per-batch one.
+# ---------------------------------------------------------------------------
+
+
+def _scan_fit(tmp_path, scan):
+    """Two epochs of 3 batches of 4 with ``scan_batches`` ``scan``: the final
+    state and the CSV's bytes."""
+    cfg = _fit_config(tmp_path, end_epochs=2, scan_batches=scan, save_latest_every=0)
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, num_synthetic_samples=12))
+    state, _ = trainer.fit(cfg, *_loaders(cfg), verbose=False, device="cpu")
+    with open(tmp_path / "log" / "synthetic_0.5_r.csv", "rb") as f:
+        return state, f.read()
+
+
+@pytest.fixture(scope="module")
+def per_batch_fit(tmp_path_factory):
+    return _scan_fit(tmp_path_factory.mktemp("per_batch"), 0)
+
+
+@pytest.mark.parametrize("scan", [2, 3, 64], ids=["chunk_and_remainder", "whole_epoch_chunks", "longer_than_the_epoch"])
+def test_scan_batches_fit_is_bit_equal_to_per_batch_fit(per_batch_fit, tmp_path, scan):
+    """``scan_batches`` K over 3 batches an epoch, 2 epochs (in the JAX
+    package K = 2 scans one chunk an epoch and dispatches the third batch on
+    its own, K = 3 scans the whole epoch, K = 64 dispatches every batch on
+    its own): each run ends bit-equal to the per-batch run: parameters,
+    moments, the schedule, the step and the CSV's bytes."""
+    state, csv_bytes = _scan_fit(tmp_path, scan)
+    want_state, want_csv = per_batch_fit
+    assert state.step == want_state.step == 6
+    _assert_states_equal(state, want_state)
+    assert csv_bytes == want_csv

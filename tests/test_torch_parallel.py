@@ -3,10 +3,13 @@ of 2 gloo processes against one process and against the JAX package's
 2-device mesh (a submesh of ``tests/conftest.py``'s 8 CPU devices, as in
 ``tests/test_parallel.py::TestShardedStepSmoke``).
 
-The two ranks (``torch_parallel_worker.py``) are started once for the module
-and run every case; JAX's references are computed here meanwhile, and its
-recorded draws are sent to the ranks for the cases that need them.  A
-``torchrun`` of ``cli.train`` with 2 processes runs beside them.
+Two worlds of two ranks (``torch_parallel_worker.py``), one for the data
+mesh and one for the tensor-parallel mesh, are started once for the module
+and run every case side by side; JAX's references are computed here
+meanwhile, and its recorded draws are sent to the ranks for the cases that
+need them.  Two ``torchrun`` chains of ``cli.train`` and ``cli.test`` with 2
+processes run beside them (MedFusion on the data mesh; Trans_cross over a
+model axis of 2).
 
 Cases and bars:
 
@@ -71,8 +74,27 @@ gathered route, Swin's stage 1 and DILR head-local, B1 and B2 on):
 - ``fit``: a resume ends bit-equal, its checkpoint (full shapes) restores
   in one process; a clipped step's gradients equal one process's; ``remat``
   and ``remat_attention`` re-run the collectives in the backward and give
-  the step's gradients; B5, B6, the baselines, a chunk graph and an export
-  refuse by name.
+  the step's gradients; B5, B6 and an export refuse by name.
+
+The baseline zoo over the ``(1, 2)`` mesh:
+
+- each transformer family (2D_transformer, 3D_transformer, Trans_cross,
+  MLC_trans) at ``tiny_tp``'s widths: one step against JAX's step over
+  ``make_mesh(num_data=1, num_model=2)`` at the step's bars, every gradient
+  at full shape, the replicated gradients bit-equal on the two ranks;
+- Multi_ResNet (all replicated) and Multi_ResNet_cross (its attentions
+  head-local) at global batch 4 under the CNN rule against one process;
+- IMDR sharded bit-equal to MedFusion; a Trans_cross ``fit`` resumed
+  bit-equal, its checkpoint restored in one process; the Trans_cross
+  ``Predictor``, batch by batch and in chunks of 2 (the staged route),
+  against JAX's mesh ``Predictor`` at 1e-4; MC-dropout of
+  Multi_dropout_ResNet and MLC_trans's sweep equal to one process;
+  ``cli.train --num_model_shards 2 --model_name Trans_cross`` and
+  ``cli.test --mc_samples 2 --sweep`` on its best.
+
+``scan_batches``: ``fit`` bit-equal to the per-batch ``fit`` at world 2 on
+the data axis (K = 2 and K = 64, longer than the epoch), under ZeRO-1 at
+world 2, and at ``(1, 2)``.
 """
 
 import dataclasses
@@ -104,7 +126,6 @@ from edrl_tpu.parallel.mesh import train_state_shardings
 from edrl_tpu.serve import predictor as jpredictor
 from edrl_tpu.train import trainer as jtrainer
 from edrl_tpu_torch.convert import flax_key_map
-from edrl_tpu_torch.models.layers import init_parameters
 from edrl_tpu_torch.ops.correlation import barlow_block_loss
 from edrl_tpu_torch.ops.mmd import mk_mmd
 from edrl_tpu_torch.train import trainer
@@ -125,27 +146,21 @@ def _free_port():
 
 
 def _variables(jcfg, tcfg=None):
-    """MedFusion's seeded port init (``tcfg``, the tiny config by default),
-    its parameters moved by noise of scale 0.05 and its BN statistics drawn
-    in [0.5, 1.5), as flax trees (``test_torch_baselines.to_flax``, shaped
-    by ``jax.eval_shape`` of JAX's init)."""
-    tm = trainer.make_model(tcfg or worker.tiny(), "cpu")
-    init_parameters(tm, torch.Generator().manual_seed(0))
-    gen = torch.Generator().manual_seed(1)
-    with torch.no_grad():
-        for p in tm.parameters():
-            p.add_(0.05 * torch.randn(p.shape, generator=gen))
-        for name, b in tm.named_buffers():
-            if name.endswith(("running_mean", "running_var")):
-                b.copy_(0.5 + torch.rand(b.shape, generator=gen))
+    """``tcfg``'s registry model (the tiny config's MedFusion by default) as
+    ``worker.perturbed_model`` makes it, as flax trees
+    (``test_torch_baselines.to_flax``, shaped by ``jax.eval_shape`` of JAX's
+    init)."""
+    tm = worker.perturbed_model(tcfg or worker.tiny())
     d = jcfg.data
     rngs = {k: jax.random.key(i) for i, k in enumerate(("params", "sample", "dropout"))}
     shapes = jax.eval_shape(functools.partial(jtrainer.make_model(jcfg).init, train=True), rngs,
                             jnp.zeros((2, d.fundus_size, d.fundus_size, 3)), jnp.zeros((2, *d.oct_size, 1)),
                             jnp.zeros((2,), jnp.int32))
     # to_flax's arrays are at least 1-d: EPRL's alpha is 0-d.
-    return jax.tree_util.tree_map(lambda v, s: np.asarray(v).reshape(s.shape), to_flax(tm, dict(shapes)),
-                                  flax.core.unfreeze(shapes))
+    variables = jax.tree_util.tree_map(lambda v, s: np.asarray(v).reshape(s.shape), to_flax(tm, dict(shapes)),
+                                       flax.core.unfreeze(shapes))
+    variables.setdefault("batch_stats", {})
+    return variables
 
 
 def _jax_mesh_step(jcfg, variables, batch, mesh2):
@@ -214,12 +229,13 @@ def _jax_losses(mesh2):
             "port": (float(p_mmd.detach()), float(p_barlow.detach()), [p.grad.numpy() for p in port])}
 
 
-def _start_cli(workdir):
+def _start_cli(workdir, name="dp", *extra):
     """``cli.train`` (tiny sizes) under the launcher, 2 gloo processes, then
     ``cli.test`` on its best with MC-dropout and a 2-level sweep, launched
-    alike; one log, the two parts split at ``CLI_TEST``."""
+    alike, both with the arguments ``extra``; one log, the two parts split
+    at ``CLI_TEST``."""
     common = ["--dataset", "synthetic", "--batch_size", "4", "--synthetic_samples", "8", "--plot_dir", "",
-              "--device", "cpu", "--name", "dp", "--log_dir", str(workdir / "cli_log")]
+              "--device", "cpu", "--name", name, "--log_dir", str(workdir / f"cli_log_{name}"), *extra]
 
     def launch(*argv):
         return shlex.join([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(WORLD),
@@ -227,8 +243,8 @@ def _start_cli(workdir):
                            os.path.join(os.path.dirname(__file__), "torch_tiny_cli.py"), *argv, *common])
 
     train = launch("train", "--end_epochs", "1", "--checkpoint_dir", str(workdir / "cli_ckpt"))
-    test = launch("test", "--checkpoint", str(workdir / "cli_ckpt" / "synthetic_0.5_dp" / "best"), "--mc_samples",
-                  "2", "--sweep", "gaussian", "--sweep_levels", "0.0", "0.3")
+    test = launch("test", "--checkpoint", str(workdir / "cli_ckpt" / f"synthetic_0.5_{name}" / "best"),
+                  "--mc_samples", "2", "--sweep", "gaussian", "--sweep_levels", "0.0", "0.3")
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
         [os.path.dirname(os.path.dirname(os.path.abspath(__file__)))] + sys.path))
     return subprocess.Popen(["sh", "-c", f"{train} && echo {CLI_TEST} && {test}"], stdout=subprocess.PIPE,
@@ -259,6 +275,16 @@ def jax_tp_references(request, box) -> None:
         int8 = {where: jpredictor.Predictor(jcfg, state, mesh=m, quantize_int8=True, min_dim=32).predict_probs(*request)
                 for where, m in (("mesh", mesh12), ("one", None))}
         box.put(("refs", {"step": (jout, jgrads, jstats), "predictor": served, "int8": int8}))
+        zoo = {}
+        for name in worker.ZOO_FAMILIES:
+            zcfg = jcfg.replace(model=dataclasses.replace(jcfg.model, model_name=name))
+            zvars = _variables(zcfg, worker.named(worker.tiny_tp(), name))
+            zout, zgrads, _, _ = _jax_mesh_step(zcfg, zvars, worker.step_batch(worker.tiny()), mesh12)
+            zoo[name] = {"variables": zvars, "out": zout, "grads": zgrads}
+            if name == "Trans_cross":
+                zstate = jtrainer.TrainState(step=jnp.asarray(0), params=zvars["params"], batch_stats={}, opt_state=())
+                zoo["predictor"] = jpredictor.Predictor(zcfg, zstate, mesh=mesh12).predict_probs(*request)
+        box.put(("zoo", zoo))
     except Exception:
         box.put(("error", traceback.format_exc()))
 
@@ -273,15 +299,18 @@ def _take(box, want, timeout):
 
 @pytest.fixture(scope="module")
 def world2(tmp_path_factory):
-    """Start the ranks, a process for the one-process Multi_ResNet steps and
-    the CLI, compute JAX's references, and collect ``{"ranks": [rank 0's
-    results, rank 1's], "one": ..., "jax": ..., "cli": ...}``."""
+    """Start the ranks (a world for the data mesh and one for the
+    tensor-parallel mesh), a process for the one-process CNN steps and the
+    CLIs, compute JAX's references, and collect ``{"ranks": [rank 0's
+    results, rank 1's], "one": ..., "jax": ..., "cli": ..., "zoo_cli":
+    ...}``."""
     workdir = tmp_path_factory.mktemp("data_parallel")
     ctx = multiprocessing.get_context("spawn")
-    inboxes, outbox = [ctx.Queue() for _ in range(WORLD)], ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=worker.run, args=(r, WORLD, port, inboxes[r], outbox, str(workdir)), daemon=True)
-             for r in range(WORLD)]
+    inboxes, outbox = [ctx.Queue() for _ in range(WORLD * len(worker.WORLDS))], ctx.Queue()
+    ports = {which: _free_port() for which in worker.WORLDS}
+    procs = [ctx.Process(target=worker.run, args=(r, WORLD, ports[which], inboxes[i * WORLD + r], outbox,
+                                                  str(workdir), which), daemon=True)
+             for i, which in enumerate(worker.WORLDS) for r in range(WORLD)]
     procs.append(ctx.Process(target=worker.resnet_references, args=(outbox,), daemon=True))
     rng = np.random.default_rng(5)
     d = worker.tiny().data
@@ -292,6 +321,8 @@ def world2(tmp_path_factory):
     for p in procs:
         p.start()
     cli = _start_cli(workdir)
+    # A zoo model over a model axis of 2 through both CLIs.
+    zoo_cli = _start_cli(workdir, "zoo", "--num_model_shards", "2", "--model_name", "Trans_cross")
     ranks, one = [{} for _ in range(WORLD)], {}
     try:
         mesh2 = make_mesh(num_data=WORLD, num_model=1, devices=jax.devices()[:WORLD])
@@ -322,10 +353,11 @@ def world2(tmp_path_factory):
         tp_refs = _take(jax_box, "refs", TIMEOUT)
         jax_ref = {"step": (jout, jgrads, jstats), "run_eval": (jm.as_dict(), jt, np.asarray(jp)),
                    "predictor": jserved, "losses": _jax_losses(mesh2), "tp_step": tp_refs["step"],
-                   "tp_predictor": tp_refs["predictor"], "tp_int8": tp_refs["int8"]}
+                   "tp_predictor": tp_refs["predictor"], "tp_int8": tp_refs["int8"],
+                   "zoo": _take(jax_box, "zoo", TIMEOUT)}
 
         deadline = time.time() + TIMEOUT
-        for _ in range(2 * WORLD + 1):
+        for _ in range(2 * WORLD * len(worker.WORLDS) + len(worker.CNN_REFERENCES)):
             rank, what, results = outbox.get(timeout=max(deadline - time.time(), 1))
             if rank == "one":
                 one[what] = results
@@ -334,14 +366,17 @@ def world2(tmp_path_factory):
         for p in procs:
             p.join(timeout=30)
         log, _ = cli.communicate(timeout=max(deadline - time.time(), 30))
+        zoo_log, _ = zoo_cli.communicate(timeout=max(deadline - time.time(), 30))
     finally:
         for p in procs:
             if p.is_alive():
                 p.kill()
-        if cli.poll() is None:
-            cli.kill()
+        for c in (cli, zoo_cli):
+            if c.poll() is None:
+                c.kill()
     return {"ranks": ranks, "one": one, "jax": jax_ref, "cli": (cli.returncode, log, workdir),
-            "variables": variables, "tp_variables": tp_in["variables"]}
+            "zoo_cli": (zoo_cli.returncode, zoo_log, workdir), "variables": variables,
+            "tp_variables": tp_in["variables"]}
 
 
 def _results(world2, name):
@@ -421,8 +456,11 @@ def test_multi_resnet_step_on_two_ranks_under_the_cnn_rule(world2):
     one = world2["one"]["resnet"]
     if "error" in one:
         pytest.fail(one["error"])
-    f64, f32s = one["f64"], one["f32"]
-    for rank_result in _results(world2, "resnet"):
+    _hold_to_the_cnn_rule(_results(world2, "resnet"), one["f64"], one["f32"])
+
+
+def _hold_to_the_cnn_rule(rank_results, f64, f32s):
+    for rank_result in rank_results:
         rel = {"out": [], "grad": [], "stat": []}
         for index, kind in ((0, "out"), (1, "grad"), (2, "stat")):
             for name, want in f64[index].items():
@@ -495,9 +533,9 @@ def test_train_cli_under_torchrun(world2):
     assert rc == 0, log[-3000:]
     log = log.split(CLI_TEST)[0]
     assert log.count("Train Epoch: 1") == 1 and log.count("Val   Epoch: 1") == 1, log[-3000:]
-    with open(workdir / "cli_log" / "synthetic_0.5_dp.csv") as f:
+    with open(workdir / "cli_log_dp" / "synthetic_0.5_dp.csv") as f:
         assert len(f.read().splitlines()) == 2
-    with open(workdir / "cli_log" / "synthetic_dp_train.log") as f:
+    with open(workdir / "cli_log_dp" / "synthetic_dp_train.log") as f:
         train_log = f.read()
     assert train_log.count("Test: Acc") == 1 and train_log.count("Missing-modality [oct-only]") == 1
     assert (workdir / "cli_ckpt" / "synthetic_0.5_dp" / "best").is_dir()
@@ -513,7 +551,7 @@ def test_test_cli_under_torchrun(world2):
     out = log.split(CLI_TEST)[1]
     mc = [line for line in out.splitlines() if line.startswith("MC-dropout (K=2): ")]
     assert len(mc) == 1 and mc[0].endswith("mean predictive std 0.0000"), out[-3000:]
-    logs = {p: (workdir / "cli_log" / f"synthetic_dp_{p}.log").read_text() for p in ("train", "test")}
+    logs = {p: (workdir / "cli_log_dp" / f"synthetic_dp_{p}.log").read_text() for p in ("train", "test")}
     assert _test_block(logs["test"]) == _test_block(logs["train"])
     assert logs["test"].count("Robustness sweep [gaussian]:") == 1
     assert sum(f"\t{s}\t" in logs["test"] for s in ("0", "0.3")) == 2
@@ -599,10 +637,12 @@ def test_tp_step_matches_jax_tp_step(world2):
 
 
 def test_tp_replicated_parameters_are_bit_equal_across_model_ranks(world2):
-    """Every parameter the model axis does not split: the same gradient and
-    the same value after the step, bit for bit, on both ranks; the split
-    ones are the Dense kernels the rules name."""
+    """Every parameter the model axis does not split: the same gradient, as
+    each rank computed it before the step's broadcast (nothing overwritten),
+    and the same gradient and value after the step, bit for bit, on both
+    ranks; the split ones are the Dense kernels the rules name."""
     a, b = _results(world2, "tp_step")
+    assert a["drift"] == b["drift"] == 0.0
     assert a["split"] == b["split"] and len(a["split"]) > 40
     assert set(a["replicated"]) == set(b["replicated"]) and len(a["replicated"]) > 40
     for name in a["replicated"]:
@@ -678,11 +718,194 @@ def test_tp_remat_reruns_the_collectives_alike(world2):
 
 
 def test_tp_refusals_name_what_is_not_ported(world2):
+    """B5, B6 and an export refuse a model axis of 2 by name; a baseline and
+    ``scan_batches`` run there, and a chunked ``Predictor`` takes the staged
+    route."""
     for got in _results(world2, "tp_refusals"):
         assert got["use_fused_mlp"][0] == "ValueError" and "use_fused_mlp" in got["use_fused_mlp"][1]
         assert got["use_fused_block_attention"][0] == "ValueError"
         assert "use_fused_block_attention" in got["use_fused_block_attention"][1]
-        assert got["baseline"] == ("NotImplementedError", got["baseline"][1]) and "A15" in got["baseline"][1]
-        assert got["scan_batches"][0] == "NotImplementedError" and "A14" in got["scan_batches"][1]
-        assert "chunk_batches=2" in got["chunk_batches"] and "A14" in got["chunk_batches"]
+        assert got["baseline"] is None and got["scan_batches"] is None
+        assert got["chunk_batches"] == "staged"
         assert "model axis of 2" in got["export"]
+
+
+def _hold_to_jax_grads(grads, jgrads, key_map):
+    assert len(grads) == len(jax.tree_util.tree_leaves(jgrads))
+    for name, grad in grads.items():
+        want = _leaf(jgrads, key_map[name])
+        np.testing.assert_allclose(grad, want.T if key_map[name].endswith("/kernel") else want,
+                                   atol=ATOL, rtol=RTOL, err_msg=name)
+
+
+# The attention modules' routes at (1, 2) in tiny_tp (Swin's stage 0 and ViT
+# of 1 head gathered, Swin's stage 1 of 4 heads and the 8-head cross
+# attention head-local).
+ZOO_ROUTES = {
+    "2D_transformer": {"backbone.SwinBlock_0.WindowAttention_0": "gathered",
+                       "backbone.SwinBlock_1.WindowAttention_0": "head_local"},
+    "3D_transformer": {"backbone.SelfAttentionBlock_0.MultiHeadAttention_0": "gathered",
+                       "backbone.SelfAttentionBlock_1.MultiHeadAttention_0": "gathered"},
+    "Trans_cross": {"fundus_backbone.SwinBlock_0.WindowAttention_0": "gathered",
+                    "fundus_backbone.SwinBlock_1.WindowAttention_0": "head_local",
+                    "oct_backbone.SelfAttentionBlock_0.MultiHeadAttention_0": "gathered",
+                    "oct_backbone.SelfAttentionBlock_1.MultiHeadAttention_0": "gathered", "cross": "head_local"},
+    "MLC_trans": {"fundus_backbone.SwinBlock_0.WindowAttention_0": "gathered",
+                  "fundus_backbone.SwinBlock_1.WindowAttention_0": "head_local",
+                  "oct_backbone.SelfAttentionBlock_0.MultiHeadAttention_0": "gathered",
+                  "oct_backbone.SelfAttentionBlock_1.MultiHeadAttention_0": "gathered"},
+}
+
+
+@pytest.mark.parametrize("name", worker.ZOO_FAMILIES)
+def test_tp_zoo_step_matches_jax_tp_step(world2, name):
+    """Each transformer family's (1, 2) step against JAX's step over the
+    (1, 2) mesh on the same variables and batch: loss, MMD, probabilities
+    and every gradient at full shape at the step's bars; the replicated
+    gradients bit-equal on the two ranks, before the step's broadcast too;
+    the routes."""
+    ref = world2["jax"]["zoo"][name]
+    ranks = [r[name] for r in _results(world2, "tp_zoo_steps")]
+    for got in ranks:
+        assert got["drift"] == 0.0
+        assert set(got["out"]) == set(ref["out"])
+        for key, value in ref["out"].items():
+            np.testing.assert_allclose(got["out"][key], np.asarray(value), atol=ATOL, rtol=RTOL, err_msg=key)
+        assert got["routes"] == ZOO_ROUTES[name]
+    state = trainer.init_state(worker.named(worker.tiny_tp(), name), device="cpu", variables=ref["variables"])
+    key_map = flax_key_map(state.model, ref["variables"]["params"], None)
+    _hold_to_jax_grads(ranks[0]["grads"], ref["grads"], key_map)
+    a, b = ranks
+    assert a["split"] == b["split"] and len(a["split"]) > 10
+    assert set(a["replicated"]) == set(b["replicated"]) and a["replicated"]
+    for n in a["replicated"]:
+        assert np.array_equal(a["replicated"][n], b["replicated"][n]), n
+
+
+@pytest.mark.parametrize("name", worker.CNN_FAMILIES)
+def test_tp_cnn_step_under_the_cnn_rule(world2, name):
+    """Multi_ResNet (every parameter replicated) and Multi_ResNet_cross (its
+    two attentions head-local) at (1, 2), global batch 4, each rank's step
+    held against the one-process f64 step by the CNN rule
+    (``test_multi_resnet_step_on_two_ranks_under_the_cnn_rule``'s); the two
+    ranks' results bit-equal, and their replicated gradients before the
+    step's broadcast too."""
+    one = world2["one"][f"tp_{name}"]
+    if "error" in one:
+        pytest.fail(one["error"])
+    ranks = [r[name] for r in _results(world2, "tp_cnn_steps")]
+    assert all(r["drift"] == 0.0 for r in ranks)
+    _hold_to_the_cnn_rule([r["step"] for r in ranks], one["f64"], one["f32"])
+    for index in range(3):
+        for n, v in ranks[0]["step"][index].items():
+            assert np.array_equal(v, ranks[1]["step"][index][n]), n
+    if name == "Multi_ResNet":
+        assert ranks[0]["split"] == [] and ranks[0]["routes"] == {}
+    else:
+        assert len(ranks[0]["split"]) == 14 and ranks[0]["routes"] == {"cross_fo": "head_local",
+                                                                       "cross_of": "head_local"}
+
+
+def test_tp_replicated_gradients_are_model_rank_zeros_after_the_broadcast(world2):
+    """The step's broadcast over the model group: replicated gradients that
+    differ over the ranks (each rank's own draw) leave it as model rank 0's,
+    bit for bit; the split ones stay each rank's own.  The broadcast counts
+    once with the replicated gradients' bytes, and model rank 1 records the
+    largest |difference| it overwrote (rank 0 overwrites none)."""
+    a, b = _results(world2, "tp_broadcast")
+    assert a["split"] == b["split"] and len(a["split"]) == 14
+    replicated = [n for n in a["before"] if n not in a["split"]]
+    want = max(float(np.abs(b["before"][n] - a["before"][n]).max()) for n in replicated)
+    assert a["drift"] == 0.0 and b["drift"] == pytest.approx(want, rel=1e-6) and want > 0
+    nbytes = sum(a["before"][n].size for n in replicated) * 4
+    for got in (a, b):
+        assert got["collectives"] == {"all_reduce": 0, "all_gather": 0, "broadcast": 1, "bytes": nbytes}
+    for name in a["before"]:
+        assert not np.array_equal(a["before"][name], b["before"][name]), name
+        if name in a["split"]:
+            assert np.array_equal(a["after"][name], a["before"][name]), name
+            assert np.array_equal(b["after"][name], b["before"][name]), name
+        else:
+            assert np.array_equal(a["after"][name], a["before"][name]), name
+            assert np.array_equal(b["after"][name], a["before"][name]), name
+
+
+def test_tp_imdr_shards_as_medfusion(world2):
+    """IMDR at (1, 2) is MedFusion at (1, 2): the same split parameters, and
+    the same results and gradients bit for bit."""
+    for got in _results(world2, "tp_imdr"):
+        want, imdr = got["MedFusion"], got["IMDR"]
+        assert imdr["split"] == want["split"] and len(want["split"]) > 40
+        assert all(np.array_equal(imdr["out"][k], v) for k, v in want["out"].items())
+        assert imdr["grads"].keys() == want["grads"].keys()
+        assert all(np.array_equal(imdr["grads"][k], v) for k, v in want["grads"].items())
+
+
+def test_tp_zoo_fit_resumes_bit_equal_and_restores_in_one_process(world2):
+    ranks = _results(world2, "tp_zoo_fit")
+    for r in ranks:
+        assert r["resume_diff"] == 0.0 and r["steps"] == (4, 4)
+        assert r["train"] == ranks[0]["train"]
+    assert ranks[0]["restored_diff"] == 0.0 and ranks[0]["restored_keys"]
+
+
+def test_tp_zoo_predictor_matches_jax_mesh_predictor(world2):
+    """Trans_cross served at (1, 2), batch by batch and in chunks of 2 (the
+    staged route, one chunk), against JAX's mesh ``Predictor`` at 1e-4; the
+    two equal to each other."""
+    want = world2["jax"]["zoo"]["predictor"]
+    for got in _results(world2, "tp_zoo_predictor"):
+        for chunk in (1, 2):
+            assert got[chunk]["probs"].shape == (7, 2) and got[chunk]["route"] == "staged"
+            np.testing.assert_allclose(got[chunk]["probs"], want, atol=1e-4, rtol=1e-4)
+        np.testing.assert_array_equal(got[1]["probs"], got[2]["probs"])
+        assert got[1]["chunks"] == {"graph": 0, "staged": 0} and got[2]["chunks"] == {"graph": 0, "staged": 1}
+
+
+def test_tp_zoo_mc_dropout_and_sweep_match_one_process(world2):
+    """MC-dropout of Multi_dropout_ResNet and MLC_trans's sweep at (1, 2)
+    equal one process's: the MC means and stds bit for bit (each rank's
+    dropout draws seeded as one process's), every sweep cell at 1e-6."""
+    ranks = _results(world2, "tp_zoo_eval")
+    one = {**ranks[0]["one"], **ranks[1]["one"]}
+    assert float(one["mc"]["predictive_std"].mean()) > 0.0
+    for got in ranks:
+        for k, v in one["mc"].items():
+            np.testing.assert_array_equal(got["ranks"]["mc"][k], v, err_msg=k)
+        for modality, by_level in one["sweep"].items():
+            for level, want in by_level.items():
+                for key, value in want.items():
+                    assert got["ranks"]["sweep"][modality][level][key] == pytest.approx(value, abs=1e-6), (
+                        modality, level, key)
+
+
+@pytest.mark.parametrize("layout", ["world2_scan_2", "world2_scan_64", "world2_zero1_scan_2", "tp_1x2_scan_2"])
+def test_scan_batches_fit_is_bit_equal_to_per_batch_fit(world2, layout):
+    """fit with ``scan_batches`` against the per-batch fit of the same
+    layout: world 2 on the data axis with K = 2 and K = 64 (longer than the
+    epoch), ZeRO-1 at world 2, and (1, 2); the final parameters and moments
+    bit-equal to the per-batch run's checkpoint, the train history equal."""
+    if layout.startswith("tp"):
+        ranks, whole = _results(world2, "tp_fit_scan"), _results(world2, "tp_fit")
+    else:
+        label = layout.split("_", 1)[1]
+        ranks, whole = [r[label] for r in _results(world2, "fit_scan")], _results(world2, "fit")
+    for rank, (got, want) in enumerate(zip(ranks, whole)):
+        assert got["steps"] == 4 and got["train"] == want["train"]
+        if rank == 0:
+            assert got["diff"] == 0.0
+
+
+def test_zoo_clis_under_a_model_axis(world2):
+    """``cli.train --num_model_shards 2 --model_name Trans_cross`` under the
+    launcher, then ``cli.test`` on its best with MC-dropout and the sweep:
+    the test block equals the train run's, MC-dropout prints once (std 0:
+    the model draws nothing in eval), the sweep's grid is logged once."""
+    rc, log, workdir = world2["zoo_cli"]
+    assert rc == 0 and CLI_TEST in log, log[-3000:]
+    assert log.split(CLI_TEST)[0].count("Train Epoch: 1") == 1, log[-3000:]
+    mc = [line for line in log.split(CLI_TEST)[1].splitlines() if line.startswith("MC-dropout (K=2): ")]
+    assert len(mc) == 1 and mc[0].endswith("mean predictive std 0.0000"), log[-3000:]
+    logs = {p: (workdir / "cli_log_zoo" / f"synthetic_zoo_{p}.log").read_text() for p in ("train", "test")}
+    assert _test_block(logs["test"]) == _test_block(logs["train"])
+    assert logs["test"].count("Robustness sweep [gaussian]:") == 1

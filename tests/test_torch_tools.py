@@ -1,6 +1,7 @@
 """The port's measurement tools: their CPU-side arithmetic, and their refusal
 to measure without a card."""
 
+import dataclasses
 import numpy as np
 import pytest
 import torch
@@ -274,14 +275,14 @@ def test_v1_mmd_profile_refuses_without_a_card():
 # The parallel tool's step-1 rule: B5's readings on 4 cards against one card
 # (grads 75.8 of the bars, probabilities 0.49) beside its one-card witness
 # (119.25, 1.0085), and readings made up around them.
-B5_WORLD4 = {"replicated_spread": 0.0, "loss": 1e-4, "mmd": 1e-3, "probs": 0.49, "grads": 75.8,
+B5_WORLD4 = {"replica_drift": 0.0, "loss": 1e-4, "mmd": 1e-3, "probs": 0.49, "grads": 75.8,
              "ulp_loss": 0.047, "ulp_mmd": 3.8e-4, "ulp_probs": 1.0085, "ulp_grads": 119.25}
 
 
 @pytest.mark.parametrize("change,want", [
     ({}, True),                                   # within 3x the witness
     ({"grads": 400.0}, False),                    # beyond 3x the witness
-    ({"replicated_spread": 1e-9}, False),         # replicas differ
+    ({"replica_drift": 3e-4}, False),             # replicas differ past the bars' atol
     ({"ulp_grads": 0.08, "grads": 1.2}, False),   # a witness inside the bars leaves the bars
     ({"ulp_grads": 0.08, "grads": 0.9}, True),
 ])
@@ -309,3 +310,21 @@ def test_parallel_checks_run_where_the_port_takes_them(label, shape, want):
 
     _, train, model = next(c for c in pdp.CHECKS if c[0] == label)
     assert pdp.applies(train, model, Mesh()) is want
+
+
+@pytest.mark.parametrize("name,backbones", [("MedFusion", True), ("Trans_cross", True), ("3D_transformer", True),
+                                            ("Multi_ResNet_cross", False), ("Multi_ResNet", False)])
+def test_parallel_tool_runs_the_fused_checks_where_the_model_has_their_layers(name, backbones):
+    """``--model_name``: the fused flags' checks run for a model with a Swin
+    or a ViT, and not for a CNN model (the flags reach none of its layers);
+    the plain and ZeRO-1 checks run for every model."""
+    cfg = EDRLConfig()
+    assert pdp.has_backbones(cfg.replace(model=dataclasses.replace(cfg.model, model_name=name))) is backbones
+
+    class Mesh:
+        def size(self, dim):
+            return (2, 2)[dim]
+
+    for label, train, model in pdp.CHECKS:
+        want = pdp.applies(train, model, Mesh()) and (backbones or not model)
+        assert pdp.applies(train, model, Mesh(), backbones) is want, label

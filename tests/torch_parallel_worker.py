@@ -3,11 +3,12 @@ CPU that run every data- and tensor-parallel case once and send their
 results back.
 
 Imports torch and the port only (no JAX).  ``run(rank, world, port, inbox,
-outbox, workdir)`` joins the group and builds two meshes over it, the data
-mesh ``(2, 1)`` and the tensor-parallel mesh ``(1, 2)``; it runs ``PHASE1``
-and ``TP_PHASE1`` (cases that need nothing from JAX), posts ``(rank,
+outbox, workdir, which)`` joins a group of its own for ``which``, the data
+mesh ``(2, 1)`` or the tensor-parallel mesh ``(1, 2)`` (MedFusion and the
+baseline zoo), the two worlds side by side; it runs ``PHASE1`` or
+``TP_PHASE1`` (cases that need nothing from JAX), posts ``(rank,
 "phase1", results)``, waits for JAX's recorded draws on ``inbox``, runs
-``PHASE2`` and ``TP_PHASE2`` with them and posts ``(rank, "phase2",
+``PHASE2`` or ``TP_PHASE2`` with them and posts ``(rank, "phase2",
 results)``.  A case that raises posts its traceback under its name; the
 parent fails that case's test with it.
 """
@@ -45,6 +46,49 @@ TP_MODEL = dict(swin_heads=(1, 4), vit3d_heads=1, use_fused_attention=True, vit_
 def tiny_tp(batch=BATCH, **train):
     cfg = tiny(batch, **train)
     return cfg.replace(model=dataclasses.replace(cfg.model, **TP_MODEL))
+
+
+# The baseline zoo's transformer families, stepped on the (1, 2) mesh against
+# JAX's TP step; the CNN families are held to one process under the CNN rule.
+ZOO_FAMILIES = ("2D_transformer", "3D_transformer", "Trans_cross", "MLC_trans")
+CNN_FAMILIES = ("Multi_ResNet", "Multi_ResNet_cross")
+TP_CNN_BATCH = 4
+
+
+def named(cfg, model_name):
+    return cfg.replace(model=dataclasses.replace(cfg.model, model_name=model_name))
+
+
+def perturbed_model(cfg):
+    """``cfg``'s registry model at full shape on the CPU: the seeded init,
+    every parameter moved by noise of scale 0.05 and the BN statistics drawn
+    in [0.5, 1.5) (the test's ``_variables`` carries it into flax's tree)."""
+    from edrl_tpu_torch.models.layers import init_parameters
+    from edrl_tpu_torch.train import trainer
+
+    tm = trainer.make_model(cfg, "cpu")
+    init_parameters(tm, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in tm.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+        for name, b in tm.named_buffers():
+            if name.endswith(("running_mean", "running_var")):
+                b.copy_(0.5 + torch.rand(b.shape, generator=gen))
+    return tm
+
+
+def perturbed_state(cfg, mesh=None):
+    """A ``TrainState`` of ``perturbed_model(cfg)``, sharded over ``mesh``'s
+    model axis where it has one above 1."""
+    from edrl_tpu_torch.parallel import tensor
+    from edrl_tpu_torch.train import trainer
+
+    model = perturbed_model(cfg)
+    if mesh is not None and mesh.size(1) > 1:
+        trainer.check_tensor_parallel(cfg, mesh.size(1))
+        tensor.shard_model_(model, mesh)
+    return trainer.TrainState(model, *trainer.make_optimizer(model.parameters(), cfg, mesh))
 
 
 # The fused flags' cases: widths that B4 and B5 take (multiples of 128).
@@ -307,6 +351,44 @@ def case_fit_zero1(mesh, workdir):
     return out
 
 
+def _fit_against(directory, state, mesh):
+    """The largest |difference| of ``state``'s parameters and Adam moments
+    (full shapes; consolidated on data rank 0 under ZeRO-1) from the
+    ``latest`` checkpoint in ``directory``, on data rank 0 (None on the
+    others)."""
+    from edrl_tpu_torch.parallel import tensor
+    from edrl_tpu_torch.train.checkpoint import _FILE
+
+    model = {k: v for k, v in tensor.gather_full(state.model, state.model.state_dict()).items()}
+    optimizer = state.optimizer
+    if pmesh.is_zero1(optimizer):
+        optimizer.consolidate_state_dict(to=0)
+        if mesh.get_local_rank("data") != 0:
+            return None
+    moments = tensor.gather_optimizer_state(state.model, optimizer.state_dict())["state"]
+    if mesh.get_local_rank("data") != 0:
+        return None
+    snap = torch.load(os.path.join(directory, "ckpt", "latest", _FILE), weights_only=True)
+    diffs = [float((model[k] - snap["model"][k]).abs().max()) for k in snap["model"]]
+    diffs += [float((moments[k][f] - snap["optimizer"]["state"][k][f]).abs().max())
+              for k in snap["optimizer"]["state"] for f in ("exp_avg", "exp_avg_sq")]
+    return max(diffs) if set(model) == set(snap["model"]) else float("inf")
+
+
+def case_fit_scan(mesh, workdir):
+    """fit for 2 epochs at world 2 with ``scan_batches`` 2, 64 (longer than
+    the epoch) and 2 under ZeRO-1, each against ``case_fit``'s per-batch
+    run: its ``latest`` checkpoint (parameters, moments) and its train
+    history."""
+    out = {}
+    for label, train in (("scan_2", dict(scan_batches=2)), ("scan_64", dict(scan_batches=64)),
+                         ("zero1_scan_2", dict(scan_batches=2, zero1=True))):
+        state, result = _fit(tiny(**train), mesh, os.path.join(workdir, f"fit_{label}"))
+        out[label] = {"diff": _fit_against(os.path.join(workdir, "fit_whole"), state, mesh),
+                      "train": [m.as_dict() for m in result.train_history], "steps": state.step}
+    return out
+
+
 def case_sweep(mesh, workdir):
     """The robustness sweep over 5 samples (batches of 4 and 1, the last
     padded to 2) at world 2; rank 0 adds world 1's."""
@@ -322,16 +404,17 @@ def case_sweep(mesh, workdir):
     return out
 
 
-def _resnet():
-    """Multi_ResNet at global batch 8 (fundus 32^2, OCT 16^3), its seeded
-    weights with BN statistics and affine parameters perturbed, and a batch."""
+def _resnet(name="Multi_ResNet", batch=8):
+    """A CNN family (Multi_ResNet by default) at global batch ``batch``
+    (fundus 32^2, OCT 16^3), its seeded weights with BN statistics and
+    affine parameters perturbed, and a batch."""
     from edrl_tpu_torch.baselines import build_baseline
     from edrl_tpu_torch.models.layers import init_parameters
 
-    cfg = tconfig.tiny_test_config(batch_size=8)
+    cfg = tconfig.tiny_test_config(batch_size=batch)
     cfg = cfg.replace(data=dataclasses.replace(cfg.data, fundus_size=32, oct_size=(16,) * 3),
-                      model=dataclasses.replace(cfg.model, model_name="Multi_ResNet"))
-    model, _ = build_baseline("Multi_ResNet", cfg, device="cpu")
+                      model=dataclasses.replace(cfg.model, model_name=name))
+    model, _ = build_baseline(name, cfg, device="cpu")
     init_parameters(model, torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -346,13 +429,17 @@ def _resnet():
 
 
 def resnet_step(resnet, batch, mesh=None, double=False, reverse=False):
-    """One train step of ``_resnet()``'s Multi_ResNet, in f64 with ``double``,
-    on the batch reversed with ``reverse`` (the probabilities put back in its
-    order): ``(out, grads, statistics)`` as f64 numpy by torch name."""
+    """One train step of a ``_resnet()`` model, in f64 with ``double``, on the
+    batch reversed with ``reverse`` (the probabilities put back in its
+    order), sharded over ``mesh``'s model axis where it has one above 1:
+    ``(out, grads at full shape, statistics)`` as f64 numpy by torch name."""
+    from edrl_tpu_torch.parallel import tensor
     from edrl_tpu_torch.train import trainer
 
     cfg, model, _ = resnet
     model = copy.deepcopy(model)
+    if mesh is not None and mesh.size(1) > 1:
+        tensor.shard_model_(model, mesh)
     state = trainer.TrainState(model, *trainer.make_optimizer(model.parameters(), cfg, mesh))
     if double:
         state.model.double()
@@ -361,21 +448,29 @@ def resnet_step(resnet, batch, mesh=None, double=False, reverse=False):
     out = trainer.make_train_step(cfg, mesh)(state, batch, torch.Generator().manual_seed(0))
     if reverse:
         out["probs"] = out["probs"].flip(0)
-    return ({k: _np(v) for k, v in out.items()}, _grads(state.model), _buffers(state.model))
+    grads = {k: _np(v) for k, v in tensor.gather_full(state.model, {n: p.grad for n, p in
+                                                                   state.model.named_parameters()}).items()}
+    return ({k: _np(v) for k, v in out.items()}, grads, _buffers(state.model))
+
+
+# The one-process references the CNN rule holds the ranks' steps to: (key,
+# family, global batch).  The (1, 2) steps run at batch 4, each rank on all of it.
+CNN_REFERENCES = (("resnet", "Multi_ResNet", 8), *((f"tp_{name}", name, TP_CNN_BATCH) for name in CNN_FAMILIES))
 
 
 def resnet_references(outbox) -> None:
-    """The one-process Multi_ResNet steps the CNN rule holds the ranks' to:
-    f64, and f32 in the batch's order and reversed; posted as ``("one",
-    "resnet", ...)``.  Runs in a process of its own beside the ranks."""
+    """The one-process steps of ``CNN_REFERENCES``: f64, and f32 in the
+    batch's order and reversed, each posted as ``("one", key, ...)``.  Runs
+    in a process of its own beside the ranks."""
     torch.set_num_threads(1)
-    try:
-        resnet = _resnet()
-        result = {"f64": resnet_step(resnet, resnet[2], double=True),
-                  "f32": [resnet_step(resnet, resnet[2]), resnet_step(resnet, resnet[2], reverse=True)]}
-    except Exception:
-        result = {"error": traceback.format_exc()}
-    outbox.put(("one", "resnet", result))
+    for key, name, batch in CNN_REFERENCES:
+        try:
+            resnet = _resnet(name, batch)
+            result = {"f64": resnet_step(resnet, resnet[2], double=True),
+                      "f32": [resnet_step(resnet, resnet[2]), resnet_step(resnet, resnet[2], reverse=True)]}
+        except Exception:
+            result = {"error": traceback.format_exc()}
+        outbox.put(("one", key, result))
 
 
 def case_resnet(mesh, workdir):
@@ -421,7 +516,8 @@ def case_fused_flags(mesh, workdir):
 
 
 PHASE1 = {"losses": case_losses, "batchnorm": case_batchnorm, "dilr": case_dilr, "zero1": case_zero1,
-          "fit": case_fit, "fit_zero1": case_fit_zero1, "sweep": case_sweep, "resnet": case_resnet,
+          "fit": case_fit, "fit_zero1": case_fit_zero1, "fit_scan": case_fit_scan, "sweep": case_sweep,
+          "resnet": case_resnet,
           "predictor_refuses": case_predictor_refuses, "fused_flags": case_fused_flags}
 
 
@@ -439,8 +535,9 @@ def _full_state(model):
 
 
 def case_tp_refusals(mesh, workdir):
-    """What does not run over a model axis of 2 raises by name: B5, B6, a
-    baseline, a chunk graph, an export; ``scan_batches`` still names A14."""
+    """What runs and what raises by name over a model axis of 2: B5 and B6
+    raise; a baseline and ``scan_batches`` pass ``check_ported`` and build;
+    a chunked ``Predictor`` takes the staged route; an export raises."""
     from edrl_tpu_torch.serve.export import export_program
     from edrl_tpu_torch.serve.predictor import Predictor
     from edrl_tpu_torch.train import trainer
@@ -449,21 +546,16 @@ def case_tp_refusals(mesh, workdir):
     cfg = tiny_tp()
     for name, model, train in (("use_fused_mlp", dict(use_fused_mlp=True), {}),
                                ("use_fused_block_attention", dict(use_fused_block_attention=True), {}),
-                               ("baseline", dict(model_name="Multi_ResNet"), {}),
+                               ("baseline", dict(model_name="Trans_cross"), {}),
                                ("scan_batches", {}, dict(scan_batches=2))):
         c = cfg.replace(model=dataclasses.replace(cfg.model, **model), train=dataclasses.replace(cfg.train, **train))
         try:
             trainer.check_ported(c, mesh)
-            if not train:
-                trainer.init_state(c, device="cpu", mesh=mesh)
+            trainer.init_state(c, device="cpu", mesh=mesh)
             out[name] = None
         except (ValueError, NotImplementedError) as exc:
             out[name] = (type(exc).__name__, str(exc))
-    try:
-        Predictor(cfg, device="cpu", chunk_batches=2, mesh=mesh)
-        out["chunk_batches"] = None
-    except NotImplementedError as exc:
-        out["chunk_batches"] = str(exc)
+    out["chunk_batches"] = Predictor(cfg, device="cpu", chunk_batches=2, mesh=mesh).chunk_route
     try:
         export_program(Predictor(cfg, device="cpu", mesh=mesh))
         out["export"] = None
@@ -564,9 +656,163 @@ def case_tp_fit(mesh, workdir):
     return out
 
 
+def case_tp_fit_scan(mesh, workdir):
+    """fit of ``tiny_tp`` at (1, 2) for 2 epochs with ``scan_batches`` 2
+    against ``case_tp_fit``'s per-batch run: its ``latest`` checkpoint (full
+    shapes) and its train history."""
+    state, result = _fit(tiny_tp(scan_batches=2), mesh, os.path.join(workdir, "tp_fit_scan"))
+    return {"diff": _fit_against(os.path.join(workdir, "tp_fit_whole"), state, mesh), "steps": state.step,
+            "train": [m.as_dict() for m in result.train_history]}
+
+
+def _route_names(model):
+    return {n: m.tp_route for n, m in model.named_modules() if getattr(m, "tp_route", None)}
+
+
+def case_tp_zoo_steps(mesh, workdir):
+    """One step of each transformer family of the zoo (``tiny_tp`` widths,
+    ``perturbed_model``'s weights) at global batch 4 on the (1, 2) mesh:
+    the results; rank 0 the gradients at full shape; both the replicated
+    gradients, the largest |difference| the step's broadcast overwrote, the
+    split parameters' names and each attention module's route."""
+    from edrl_tpu_torch.parallel import tensor
+    from edrl_tpu_torch.train import trainer
+
+    out = {}
+    for name in ZOO_FAMILIES:
+        cfg = named(tiny_tp(), name)
+        state = perturbed_state(cfg, mesh)
+        tensor.reset_collective_counts()
+        got = trainer.make_train_step(cfg, mesh)(state, step_batch(cfg), torch.Generator().manual_seed(0))
+        grads = {n: p.grad for n, p in state.model.named_parameters()}
+        split = set(tensor.split_parameter_names(state.model))
+        full = tensor.gather_full(state.model, grads)
+        result = {"out": {k: _np(v) for k, v in got.items()}, "split": sorted(split), "drift": tensor.replica_drift(),
+                  "replicated": {n: _np(g) for n, g in grads.items() if n not in split},
+                  "routes": _route_names(state.model)}
+        if mesh.get_local_rank("model") == 0:
+            result["grads"] = {n: _np(g) for n, g in full.items()}
+        out[name] = result
+    return out
+
+
+def case_tp_cnn_steps(mesh, workdir):
+    """One step of each CNN family (``_resnet(name, TP_CNN_BATCH)``) on the
+    (1, 2) mesh: ``(out, grads at full shape, statistics)``, the largest
+    |difference| the step's broadcast overwrote, the split parameters and
+    the routes (Multi_ResNet_cross's two attentions)."""
+    from edrl_tpu_torch.parallel import tensor
+
+    out = {}
+    for name in CNN_FAMILIES:
+        resnet = _resnet(name, TP_CNN_BATCH)
+        sharded = copy.deepcopy(resnet[1])
+        tensor.shard_model_(sharded, mesh)
+        tensor.reset_collective_counts()
+        out[name] = {"step": resnet_step(resnet, resnet[2], mesh), "drift": tensor.replica_drift(),
+                     "split": tensor.split_parameter_names(sharded), "routes": _route_names(sharded)}
+    return out
+
+
+def case_tp_broadcast(mesh, workdir):
+    """``broadcast_replicated_grads_`` on Multi_ResNet_cross sharded at
+    (1, 2), every gradient first drawn from a seed of this rank's (so the
+    replicas' differ, as the card's unordered sums can leave them): after
+    it, the replicated gradients are model rank 0's and the split ones
+    this rank's own; the broadcast counted, and the largest |difference| it
+    overwrote recorded."""
+    from edrl_tpu_torch.parallel import tensor
+
+    model = copy.deepcopy(_resnet("Multi_ResNet_cross", TP_CNN_BATCH)[1])
+    tensor.shard_model_(model, mesh)
+    gen = torch.Generator().manual_seed(100 + mesh.get_local_rank("model"))
+    for p in model.parameters():
+        p.grad = torch.randn(p.shape, generator=gen)
+    before = _grads(model)
+    tensor.reset_collective_counts()
+    tensor.broadcast_replicated_grads_(model, list(model.parameters()), mesh)
+    split = set(tensor.split_parameter_names(model))
+    return {"before": before, "after": _grads(model), "split": sorted(split), "drift": tensor.replica_drift(),
+            "collectives": dict(tensor.COLLECTIVES)}
+
+
+def case_tp_imdr(mesh, workdir):
+    """IMDR (the registry's MedFusion) at (1, 2) beside MedFusion: the same
+    seeded init, batch and generator, one step each."""
+    from edrl_tpu_torch.parallel import tensor
+    from edrl_tpu_torch.train import trainer
+
+    out = {}
+    for name in ("MedFusion", "IMDR"):
+        cfg = named(tiny_tp(), name)
+        state = medfusion_state(cfg, mesh=mesh)
+        got = trainer.make_train_step(cfg, mesh)(state, step_batch(cfg, seed=12), torch.Generator().manual_seed(13))
+        grads = tensor.gather_full(state.model, {n: p.grad for n, p in state.model.named_parameters()})
+        out[name] = {"out": {k: _np(v) for k, v in got.items()}, "grads": {n: _np(g) for n, g in grads.items()},
+                     "split": tensor.split_parameter_names(state.model)}
+    return out
+
+
+def case_tp_zoo_fit(mesh, workdir):
+    """fit of Trans_cross at (1, 2): 2 epochs, and 1 epoch then resumed for
+    the second, which must end bit-equal; rank 0 restores the checkpoint
+    (full shapes) in one process and compares it with the sharded state."""
+    from edrl_tpu_torch.train import trainer
+    from edrl_tpu_torch.train.checkpoint import CheckpointManager
+
+    cfg = named(tiny_tp(), "Trans_cross")
+    whole, result = _fit(cfg, mesh, os.path.join(workdir, "tp_zoo_whole"))
+    _fit(cfg, mesh, os.path.join(workdir, "tp_zoo_resumed"), end_epochs=1)
+    resumed, _ = _fit(cfg, mesh, os.path.join(workdir, "tp_zoo_resumed"), resume=True)
+    a, b = _full_state(whole.model), _full_state(resumed.model)
+    out = {"resume_diff": max(float(np.abs(a[k] - b[k]).max()) for k in a), "steps": (whole.step, resumed.step),
+           "train": [m.as_dict() for m in result.train_history]}
+    if mesh.get_local_rank("model") == 0:
+        one = CheckpointManager(os.path.join(workdir, "tp_zoo_whole", "ckpt")).restore(
+            trainer.init_state(cfg, device="cpu"), "latest")
+        restored = {k: _np(v) for k, v in one.model.state_dict().items()}
+        out["restored_diff"] = max(float(np.abs(a[k] - restored[k]).max()) for k in a)
+        out["restored_keys"] = set(a) == set(restored)
+    return out
+
+
+def case_tp_zoo_eval(mesh, workdir):
+    """Over the (1, 2) mesh: MC-dropout (2 passes over 5 samples) of
+    Multi_dropout_ResNet (``_resnet``'s sizes), and the robustness sweep of
+    MLC_trans (its per-modality heads keep every cell's probabilities apart);
+    model rank 0 adds one process's MC-dropout, model rank 1 one process's
+    sweep."""
+    from edrl_tpu_torch.train import trainer
+    from edrl_tpu_torch.train.mc_dropout import mc_dropout_predict
+    from edrl_tpu_torch.train.robustness import noise_sweep
+
+    dropout_cfg = named(tconfig.tiny_test_config(BATCH), "Multi_dropout_ResNet")
+    dropout_cfg = dropout_cfg.replace(data=dataclasses.replace(dropout_cfg.data, fundus_size=32, oct_size=(16,) * 3))
+    sweep_cfg = named(tiny_tp(), "MLC_trans")
+    sweep_cfg = sweep_cfg.replace(data=dataclasses.replace(sweep_cfg.data, num_synthetic_samples=NUM_VAL,
+                                                           eval_batch_size=BATCH))
+
+    def mc(m):
+        state = trainer.init_state(dropout_cfg, device="cpu", mesh=m)
+        return mc_dropout_predict(dropout_cfg, state, _eval_loader(dropout_cfg), num_samples=2, seed=3, device="cpu")
+
+    def sweep(m):
+        return noise_sweep(sweep_cfg, trainer.init_state(sweep_cfg, device="cpu", mesh=m), sigmas=(0.0, 0.3), mesh=m,
+                           device="cpu")
+
+    out = {"ranks": {"mc": mc(mesh), "sweep": sweep(mesh)}}
+    out["one"] = {"mc": mc(None)} if mesh.get_local_rank("model") == 0 else {"sweep": sweep(None)}
+    return out
+
+
 TP_PHASE1 = {"tp_refusals": case_tp_refusals, "tp_clip": case_tp_clip, "tp_remat": case_tp_remat,
              "tp_run_eval": case_tp_run_eval,
-             "tp_sweep": case_tp_sweep, "tp_fit": case_tp_fit}
+             "tp_sweep": case_tp_sweep, "tp_fit": case_tp_fit, "tp_fit_scan": case_tp_fit_scan,
+             "tp_zoo_steps": case_tp_zoo_steps, "tp_imdr": case_tp_imdr, "tp_zoo_fit": case_tp_zoo_fit,
+             "tp_zoo_eval": case_tp_zoo_eval}
+# (1, 2) cases that the data mesh's world runs after its own, on a (1, 2) mesh
+# of its two ranks: they share nothing with the other world's.
+TP_SIDE = {"tp_cnn_steps": case_tp_cnn_steps, "tp_broadcast": case_tp_broadcast}
 
 
 # ---------------------------------------------------------------------------
@@ -656,7 +902,9 @@ def case_tp_step(mesh, workdir, jax_in):
     """The MedFusion step of ``tiny_tp`` at global batch 4 on the (1, 2)
     mesh with JAX's recorded draws: the results; rank 0 the gradients at
     full shape; both the replicated parameters' gradients and values after
-    the step, the running statistics, and each attention module's route."""
+    the step, the largest |difference| the step's broadcast overwrote
+    (``tensor.replica_drift``), the running statistics, and each attention
+    module's route."""
     from edrl_tpu_torch.parallel import tensor
     from edrl_tpu_torch.train import trainer
 
@@ -666,11 +914,12 @@ def case_tp_step(mesh, workdir, jax_in):
               "eprl_eps": tuple(torch.tensor(e) for e in d["eprl_eps"]),
               "dropout_masks": tuple([torch.tensor(m) for m in ms] for ms in d["dropout_masks"])}
              for d in jax_in["tp_step_draws"]]
+    tensor.reset_collective_counts()
     out = trainer.make_train_step(cfg, mesh)(state, step_batch(cfg), torch.Generator(), draws=draws)
     grads = {n: p.grad for n, p in state.model.named_parameters()}
     split = set(tensor.split_parameter_names(state.model))
     full = tensor.gather_full(state.model, grads)
-    result = {"out": {k: _np(v) for k, v in out.items()},
+    result = {"out": {k: _np(v) for k, v in out.items()}, "drift": tensor.replica_drift(),
               "replicated": {n: _np(g) for n, g in grads.items() if n not in split},
               "replicated_params": {n: _np(p) for n, p in state.model.named_parameters() if n not in split},
               "split": sorted(split), "stats": _buffers(state.model),
@@ -699,7 +948,24 @@ def case_tp_predictor(mesh, workdir, jax_in):
     return out
 
 
-TP_PHASE2 = {"tp_step": case_tp_step, "tp_predictor": case_tp_predictor}
+def case_tp_zoo_predictor(mesh, workdir, jax_in):
+    """A request of 7 (two serving batches of 4) served by Trans_cross
+    (``perturbed_model``) at (1, 2), batch by batch and in chunks of 2: the
+    probabilities, each chunk's route and the chunks counted by route."""
+    from edrl_tpu_torch.serve import predictor as serve
+
+    cfg = named(tiny_tp(), "Trans_cross")
+    f, o = jax_in["request"]
+    out = {}
+    for chunk in (1, 2):
+        serve.reset_chunk_counts()
+        pred = serve.Predictor(cfg, perturbed_model(cfg), device="cpu", chunk_batches=chunk, mesh=mesh)
+        out[chunk] = {"probs": pred.predict_probs(f, o), "route": pred.chunk_route,
+                      "chunks": dict(serve.CHUNK_ROUTES)}
+    return out
+
+
+TP_PHASE2 = {"tp_step": case_tp_step, "tp_predictor": case_tp_predictor, "tp_zoo_predictor": case_tp_zoo_predictor}
 
 
 # ---------------------------------------------------------------------------
@@ -718,9 +984,11 @@ def _full_grads(model):
 def case_tp22_step(mesh, workdir):
     """The step of ``tiny_tp`` at global batch 4 on (2, 2) with the step's
     generator: the global results and the gradients at full shape; rank 0
-    adds one process's, and every rank the replicated gradients' spread
-    over its model group."""
-    from edrl_tpu_torch.tools.profile_data_parallel import replicated_spread
+    adds one process's, and every rank the largest |difference| the step's
+    broadcast overwrote over the world (the replicated gradients' drift over
+    each model group)."""
+    from edrl_tpu_torch.parallel import tensor
+    from edrl_tpu_torch.tools.profile_data_parallel import replica_drift
     from edrl_tpu_torch.train import trainer
 
     cfg, batch = tiny_tp(), step_batch(tiny_tp(), seed=8)
@@ -729,11 +997,12 @@ def case_tp22_step(mesh, workdir):
         if where == "one" and not parallel.is_writer(mesh):
             continue
         state = medfusion_state(cfg, mesh=m)
+        tensor.reset_collective_counts()
         got = trainer.make_train_step(cfg, m)(state, batch if m is None else parallel.shard_batch(batch, m),
                                               torch.Generator().manual_seed(9))
         out[where] = {"out": {k: _np(v) for k, v in got.items()}, "grads": _full_grads(state.model)}
         if m is not None:
-            out["spread"] = replicated_spread(state.model, m)
+            out["spread"] = replica_drift(m)
     return out
 
 
@@ -801,17 +1070,29 @@ def _run_cases(cases, mesh, *args):
     return results
 
 
-def run(rank: int, world: int, port: int, inbox, outbox, workdir: str) -> None:
+# The two worlds of ``run``, side by side: each a list of (model axis, phase-1
+# cases, phase-2 cases), the model axis 1 for the data mesh (2, 1) and 2 for
+# the tensor-parallel mesh (1, 2).
+WORLDS = {"data": ((1, PHASE1, PHASE2), (2, TP_SIDE, {})), "tp": ((2, TP_PHASE1, TP_PHASE2),)}
+
+
+def run(rank: int, world: int, port: int, inbox, outbox, workdir: str, which: str = "data") -> None:
+    """A rank of world ``which`` (``WORLDS``): its meshes' phase-1 cases,
+    then their phase-2 cases once JAX's draws arrive on ``inbox``."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
                       MASTER_PORT=str(port))
     torch.set_num_threads(1)
     parallel.init_distributed("cpu")
-    mesh = parallel.make_mesh(device="cpu")
-    tp_mesh = parallel.make_mesh(world, device="cpu")
+    meshes = [(parallel.make_mesh(m, device="cpu"), phase1, phase2) for m, phase1, phase2 in WORLDS[which]]
     try:
-        outbox.put((rank, "phase1", {**_run_cases(PHASE1, mesh, workdir), **_run_cases(TP_PHASE1, tp_mesh, workdir)}))
+        results = {}
+        for mesh, phase1, _ in meshes:
+            results.update(_run_cases(phase1, mesh, workdir))
+        outbox.put((rank, "phase1", results))
         jax_in = inbox.get(timeout=300)
-        outbox.put((rank, "phase2", {**_run_cases(PHASE2, mesh, workdir, jax_in),
-                                     **_run_cases(TP_PHASE2, tp_mesh, workdir, jax_in)}))
+        results = {}
+        for mesh, _, phase2 in meshes:
+            results.update(_run_cases(phase2, mesh, workdir, jax_in))
+        outbox.put((rank, "phase2", results))
     finally:
         torch.distributed.destroy_process_group()

@@ -2,7 +2,8 @@
 launcher can start: ``python -m torch.distributed.run --nproc_per_node 2
 tests/torch_tiny_cli.py train|test <CLI arguments>``.  It patches
 ``cli.train.config_from_args`` as ``test_torch_cli.py``'s ``tiny_cli``
-fixture does in-process; every other setting is the CLI's."""
+fixture does in-process, keeping ``--model_name``; every other setting is
+the CLI's."""
 
 import dataclasses
 import sys
@@ -19,7 +20,8 @@ def main(argv):
         cfg = real(args)
         t = tconfig.tiny_test_config(batch_size=cfg.data.batch_size)
         data = dataclasses.replace(cfg.data, fundus_size=t.data.fundus_size, oct_size=t.data.oct_size)
-        return cfg.replace(data=data, model=dataclasses.replace(t.model, use_bfloat16=cfg.model.use_bfloat16))
+        return cfg.replace(data=data, model=dataclasses.replace(t.model, use_bfloat16=cfg.model.use_bfloat16,
+                                                                model_name=cfg.model.model_name))
 
     train_cli.config_from_args = tiny
     (test_cli if argv[0] == "test" else train_cli).main(argv[1:])
