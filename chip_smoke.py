@@ -11,8 +11,16 @@ Phases (any failed check raises, so the exit code is nonzero):
 2. Build the CUDA kernels from ``edrl_tpu_torch/kernels/csrc`` (one nvcc per
    source, in parallel) and print the build time and the compiler's
    register/shared-memory report; for the attention's tensor-core kernels,
-   forward and backward, registers, spills, shared memory and resident
-   blocks per SM at the main-path shapes (N = 144 and 216, head_dim 128);
+   forward (wgmma, which must not spill) and backward (mma.sync),
+   registers, spills, shared memory and resident blocks per SM at the
+   main-path shapes (N = 144 and 216, head_dim 128), and the forward's
+   CTAs and waves at each batch-32 call and its tensor maps (the C plan
+   held to the layouts' dims and strides); the forward at B1's, B2's and
+   v1's layouts on a view whose next group holds NaN (the tail tile's rows
+   and keys past N come from TMA's zero fill: o finite, within the bf16
+   bar), and at shapes where a consumer warpgroup has no query tile in a
+   work unit (N = 100; half-items at N = 144 and 150), CTAs walking 3 or
+   more units, within the bf16 bar three calls running;
    the same for B5's and B6's wgmma kernels, which must not spill; for B4's
    row kernels (forward, backward, residual form) at every width of the
    train step, registers, local memory, shared memory and CTAs per SM, which
@@ -56,7 +64,7 @@ Phases (any failed check raises, so the exit code is nonzero):
    batch 32, seeded weights) on ready-made f32 views from numpy seed 0, and
    check finite losses, changed parameters and BN statistics, and 24
    launches per step of each attention kernel, forward and backward, every
-   forward and backward launch on the tensor-core route.  Then
+   forward launch on the wgmma route and every backward one on mma.  Then
    one step with ``use_pallas_mmd`` against the same step with the plain
    MMD, in bf16 and in f32: B3's forward and backward launched once each,
    the MMD and the loss agree (rtol 1e-4), and in f32 every gradient at
@@ -75,8 +83,9 @@ Phases (any failed check raises, so the exit code is nonzero):
     ``remat_attention`` asks), one step with ``remat`` on the kernel path
     (its loss equal to the step's without, two forward launches per
     attention call, its peak memory), and each kernel at batch 32 against
-    its plain version (B1 and B2 forward also one call between two events,
-    the dispatch included, with SDPA's time taken the same way), one
+    its plain version (B1 and B2 forward also device-only, CUDA graphs,
+    beside their runs of 10 and the host enqueue, and one call between two
+    events, the dispatch included, with SDPA's time taken the same way), one
     PyTorch call computing the same function (``library_ms``; timed only,
     never called by the port) and its bound; B3's forward and backward
     device-only (CUDA graphs) beside runs of 10, the host enqueue and one
@@ -415,6 +424,10 @@ KERNEL_SOURCE = {
     # (window_attention_v2_bwd.cu too) with v1's strides.
     V1: "edrl_tpu_torch/kernels/csrc/window_attention_v2_fwd.cu",
 }
+# The route each row's bf16 main-path launches take on the card (the routes'
+# counts are checked where the main path runs); rows with one route: None.
+DEVICE_ROUTE = {SA: "wgmma", V2: "wgmma", SA_BWD: "mma", V2_BWD: "mma", MLP: "wgmma", MLP_BWD: "wgmma",
+                B6: "wgmma", B6_BWD: "wgmma", V1: "wgmma forward, mma backward", MMD: "cluster"}
 KERNEL_REPLACES = {
     SA: "edrl_tpu/kernels/window_attention.py:571",
     V2: "edrl_tpu/kernels/window_attention.py:363",
@@ -555,7 +568,7 @@ def serving_half(cfg, card, requests, reset_counts, counts) -> None:
               f"{dp:.4e} (bar 0.15); B1/B2 launches {launches[SA]}/{launches[V2]} over {n_batches} batches, "
               f"forward routes {routes}; int8 products {dict(quant.INT8_MATMULS)}", flush=True)
         check(bool(np.isfinite(got).all()) and agree >= 0.9 and dp < 0.15, f"{label} against bf16: {agree} {dp}")
-        check(launches[SA] == launches[V2] == 12 * n_batches and routes == {"mma": 24 * n_batches, "fma": 0},
+        check(launches[SA] == launches[V2] == 12 * n_batches and routes == {"wgmma": 24 * n_batches, "fma": 0},
               f"{label} launches {launches} routes {routes}")
         return got
 
@@ -1804,7 +1817,7 @@ def main() -> None:
         for line in log.read_text().splitlines():
             if "Compiling entry" in line:
                 entry = line.split("'")[1]
-            elif "registers" in line and entry:
+            elif "Used " in line and " registers" in line and entry:  # not the (C7519) notes on wgmma's registers
                 regs[entry] = int(line.split("Used ")[1].split(" registers")[0])
             elif "spill stores" in line and entry and int(line.split(" bytes spill stores")[0].split()[-1]):
                 spills.append(f"{entry}: {line.strip()}")
@@ -1812,12 +1825,14 @@ def main() -> None:
               f"{len(spills)} spill", flush=True)
         for line in spills:
             print(f"  ptxas spill: {line}")
-        for kernel in ("attention_fwd_tc_kernel", "attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel",
+        for kernel in ("attention_fwd_wgmma_kernel", "attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel",
                        *B5_WGMMA_KERNELS):
             found = [r for e, r in regs.items() if kernel in e]
             print(f"  ptxas {kernel}: registers {found}, "
                   f"spilling: {[line for line in spills if kernel in line] or 'none'}", flush=True)
         check(not [line for line in spills for k in B5_WGMMA_KERNELS if k in line], "B5's wgmma kernels spill")
+        check(not [line for line in spills if "attention_fwd_wgmma_kernel" in line],
+              "the attention forward's wgmma kernel spills")
         for epilogue in B6_EPILOGUES:
             found = [r for e, r in regs.items() if "wgmma_gemm_kernel" in e and epilogue in e]
             print(f"  ptxas B6 wgmma_gemm_kernel<{epilogue}>: registers {found}, spilling: "
@@ -1825,16 +1840,102 @@ def main() -> None:
                   flush=True)
             check(bool(found), f"ptxas reported no wgmma_gemm_kernel<{epilogue}>")
     # The attention's tensor-core kernels at the main-path shapes: resident
-    # blocks per SM (occupancy calculator) and shared memory.
+    # blocks per SM (occupancy calculator) and shared memory; the forward's
+    # persistent grid (one CTA per SM) at each batch-32 call: CTAs and the
+    # (group, head) items each walks (waves).
     import ctypes
 
     bwd_lib = build.load_library()
-    for label, n_fwd, with_bias in (("B1, N=216", 216, 0), ("B2, N=144", 144, 1),
-                                    ("B2 and B6's attention phase, N=216", 216, 1)):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, n_fwd, with_bias, items in (("B1, N=216", 216, 0, (32 * 6,)),
+                                           ("B2, N=144, Swin stages 0-3", 144, 1, (2048, 1024, 512, 256)),
+                                           ("B2 and B6's attention phase, N=216", 216, 1, (32 * 6,))):
         occ = (ctypes.c_int * 3)()
         check(bwd_lib.edrl_attention_fwd_occupancy(1, n_fwd, 128, with_bias, occ) == 0, "occupancy query")
-        print(f"  attention fwd tensor cores, {label}, head_dim 128: {occ[0]} blocks of {occ[2]} warps per SM "
-              f"({occ[0] * occ[2]} warps), {occ[1]} bytes of shared memory per block", flush=True)
+        grids = []
+        for i in items:
+            grid_ = (ctypes.c_int * 2)()
+            check(bwd_lib.edrl_attention_fwd_grid(n_fwd, i, grid_) == 0, "grid query")
+            grids.append(tuple(grid_))
+        ctas, units = [g_[0] for g_ in grids], [g_[1] for g_ in grids]
+        print(f"  attention fwd wgmma, {label}, head_dim 128: {occ[0]} blocks of {occ[2]} warps per SM "
+              f"({occ[0] * occ[2]} warps), {occ[1]} bytes of shared memory per block; (group, head) items "
+              f"{list(items)} as {units} work units (the last wave's items in halves where it is at most half "
+              f"the CTAs) over {ctas} CTAs on {sms} SMs: {[-(-u // c) for u, c in zip(units, ctas)]} waves",
+              flush=True)
+    # The wgmma forward's tensor maps (q's box of 64 rows, then k's and v's
+    # of the keys held) at B1's and B2's batch-32 layouts: dims (D, heads, N,
+    # groups), the byte strides of a head, a token and a group.
+    plan = (ctypes.c_longlong * 11)()
+    for label, n_, heads_, groups_, row_, keys in (("B1", 216, 6, 32, 768, 224),
+                                                   ("B2 stage 0", 144, 1, 2048, 384, 144)):
+        group_, head_, row_ = wa.attention_strides(n_, 128, heads_, row_)
+        for box in (64, keys):
+            check(bwd_lib.edrl_attention_fwd_map_plan(128, heads_, n_, groups_, head_, row_, group_, box, plan) == 0,
+                  "map plan query")
+            want = (128, heads_, n_, groups_, 2 * head_, 2 * row_, 2 * group_, 64, 1, box, 1)
+            check(tuple(plan) == want, f"{label} map plan {tuple(plan)}, not {want}")
+            print(f"  attention fwd wgmma, {label}: tensor map dims {tuple(plan)[:4]}, byte strides "
+                  f"{tuple(plan)[4:7]}, box {tuple(plan)[7:]}", flush=True)
+    # The rows past N of a group's last query tile and its keys past N come
+    # from TMA's zero fill, not from the next group: NaN in the group after
+    # the last, a view of the first groups, o finite and within the bar (B1's
+    # packed layout at N = 216, B2's at N = 144 with a bias, v1's).
+    nan_gen = torch.Generator(device=dev).manual_seed(18)
+
+    def nan_after(shape):
+        t = torch.randn((shape[0] + 1, *shape[1:]), generator=nan_gen, device=dev).to(torch.bfloat16)
+        t[shape[0]] = float("nan")
+        return t
+
+    nan_bias = torch.randn((4, 2, 144, 144), generator=nan_gen, device=dev)
+    nan_bias[..., 1::3] = -1e9
+    q_, k_, v_ = (nan_after((4, 216, 768)) for _ in range(3))
+    qkv_ = nan_after((2, 4, 144, 768))
+    vq, vk, vv = (nan_after((2, 3, 2, 144, 128)) for _ in range(3))
+    wa.reset_launch_counts()
+    for label, got, want in (
+            ("B1 [4,216,768]x6", wa.self_attention_fused(q_[:4], k_[:4], v_[:4], 6, 128 ** -0.5),
+             lambda: wa.self_attention_reference(q_[:4], k_[:4], v_[:4], 6, 128 ** -0.5)),
+            ("B2 [2,4,144,768] H=2", wa.window_attention_fused_v2(qkv_[:2], nan_bias, 2, 128 ** -0.5),
+             lambda: wa.window_attention_v2_reference(qkv_[:2], nan_bias, 2, 128 ** -0.5)),
+            ("v1 [2,3,2,144,128]", wa.window_attention_v1_fwd_kernel(vq[:2], vk[:2], vv[:2], nan_bias[:3].contiguous()),
+             lambda: wa.window_attention_reference(vq[:2], vk[:2], vv[:2], nan_bias[:3].contiguous()))):
+        err = (got.float() - want().float()).abs().max().item()
+        finite = bool(torch.isfinite(got).all())
+        print(f"check attention fwd wgmma {label}, NaN in the next group: finite {finite}, max_abs_err {err:.3e} "
+              f"(atol {BF16_ATOL:g})", flush=True)
+        check(finite and err <= BF16_ATOL, f"attention fwd {label} reads the next group")
+    check(wa.FWD_ROUTES == {"wgmma": 3, "fma": 0}, f"NaN-neighbour routes {wa.FWD_ROUTES}")
+    del q_, k_, v_, qkv_, vq, vk, vv, nan_bias
+    # A consumer warpgroup with no query tile in a work unit must still
+    # release the unit's K and V in step with the others: B2 at N = 100 (two
+    # tiles for three warpgroups) over 1024 items, and B1 at N = 144 and 150
+    # with a last wave in half-items (tiles 2 + 1), each CTA walking 3 or more
+    # units; each call three times against its plain version.
+    wa.reset_launch_counts()
+    idle_b = 3 * sms + sms // 2 - 6
+    qkv_ = torch.randn((8, 64, 100, 384), generator=nan_gen, device=dev).to(torch.bfloat16)
+    idle_bias = torch.randn((64, 2, 100, 100), generator=nan_gen, device=dev)
+    idle_bias[..., 1::3] = -1e9
+    idle_cases = [("B2 [8,64,100,384] H=2", 100, 8 * 64 * 2,
+                   lambda: wa.window_attention_fused_v2(qkv_, idle_bias, 2, 64 ** -0.5),
+                   wa.window_attention_v2_reference(qkv_, idle_bias, 2, 64 ** -0.5))]
+    for n_ in (144, 150):
+        q_, k_, v_ = (torch.randn((idle_b, n_, 128), generator=nan_gen, device=dev).to(torch.bfloat16)
+                      for _ in range(3))
+        idle_cases.append((f"B1 [{idle_b},{n_},128]x1", n_, idle_b,
+                           lambda q_=q_, k_=k_, v_=v_: wa.self_attention_fused(q_, k_, v_, 1, 128 ** -0.5),
+                           wa.self_attention_reference(q_, k_, v_, 1, 128 ** -0.5)))
+    for label, n_, items_, run, want in idle_cases:
+        grid_ = (ctypes.c_int * 2)()
+        check(bwd_lib.edrl_attention_fwd_grid(n_, items_, grid_) == 0, "grid query")
+        errs = [(run().float() - want.float()).abs().max().item() for _ in range(3)]
+        print(f"check attention fwd wgmma {label}, warpgroups without a tile: {items_} items as {grid_[1]} work "
+              f"units over {grid_[0]} CTAs, max_abs_err of three calls {errs} (atol {BF16_ATOL:g})", flush=True)
+        check(max(errs) <= BF16_ATOL, f"attention fwd {label}: {errs}")
+    check(wa.FWD_ROUTES == {"wgmma": 9, "fma": 0}, f"idle-warpgroup routes {wa.FWD_ROUTES}")
+    del qkv_, idle_bias, idle_cases, q_, k_, v_
     for label, n_bwd, with_dbias in (("B1, N=216", 216, 0), ("B2, N=144", 144, 1), ("B2 under B6, N=216", 216, 1)):
         occ = (ctypes.c_int * 4)()
         check(bwd_lib.edrl_attention_bwd_occupancy(1, n_bwd, 128, with_dbias, occ) == 0, "occupancy query")
@@ -1845,13 +1946,13 @@ def main() -> None:
     # strides: its kernels at the Swin stages' shape.
     occ = (ctypes.c_int * 4)()
     check(bwd_lib.edrl_attention_fwd_occupancy(1, 144, 128, 1, occ) == 0, "occupancy query")
-    print(f"  v1 fwd tensor cores, N=144, head_dim 128: {occ[0]} blocks of {occ[2]} warps per SM, {occ[1]} bytes of "
+    print(f"  v1 fwd wgmma, N=144, head_dim 128: {occ[0]} blocks of {occ[2]} warps per SM, {occ[1]} bytes of "
           f"shared memory per block", flush=True)
     check(bwd_lib.edrl_attention_bwd_occupancy(1, 144, 128, 1, occ) == 0, "occupancy query")
     print(f"  v1 bwd tensor cores, N=144, head_dim 128: dq kernel {occ[0]} blocks per SM, {occ[2]} bytes; dk/dv "
           f"kernel {occ[1]} blocks per SM, {occ[3]} bytes", flush=True)
     if log.exists():
-        for kernel in ("attention_fwd_tc_kernel", "attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel",
+        for kernel in ("attention_fwd_wgmma_kernel", "attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel",
                        "mmd_cluster_kernel", "mmd_bwd_kernel", "mmd_gram_partial_kernel"):
             found = sorted({r for e, r in regs.items() if kernel in e})
             check(bool(found), f"ptxas reported no {kernel}")
@@ -1974,7 +2075,7 @@ def main() -> None:
             "bwd": (wa.attention_bwd_route, bwd_lib.edrl_attention_bwd_route, wa.BWD_ROUTES),
         }[kind]
         route = py_route(dtype, n_, d_)
-        c_route = {1: "mma", 0: "fma"}[c_route(int(dtype == torch.bfloat16), n_, d_)]
+        c_route = {1: "wgmma" if kind == "fwd" else "mma", 0: "fma"}[c_route(int(dtype == torch.bfloat16), n_, d_)]
         check(route == c_route, f"{name} {label}: Python route {route}, C route {c_route}")
         wa.reset_launch_counts()
         out = launch()
@@ -2298,9 +2399,10 @@ def main() -> None:
     check(train_launches[MMD] == train_launches[MMD_BWD] == 0, "B3 is off in the shipped config")
 
     def check_routes(label, routes, launches, kind="backward"):
-        print(f"{label}: {kind} launches by route {routes} (expected {launches} on the tensor cores, "
+        tensor_cores = "wgmma" if kind == "forward" else "mma"
+        print(f"{label}: {kind} launches by route {routes} (expected {launches} on {tensor_cores}, "
               f"none on the CUDA cores)", flush=True)
-        check(routes == {"mma": launches, "fma": 0}, f"{label}: {kind} routes {routes}")
+        check(routes == {tensor_cores: launches, "fma": 0}, f"{label}: {kind} routes {routes}")
 
     check_routes(f"train, {TRAIN_STEPS} steps", train_routes, 2 * per_step * TRAIN_STEPS)
     check_routes(f"train, {TRAIN_STEPS} steps", train_fwd_routes, 2 * per_step * TRAIN_STEPS, "forward")
@@ -2573,6 +2675,23 @@ def main() -> None:
 
     single = {SA: [0.0, 0.0], V2: [0.0, 0.0]}
 
+    def fwd_times(name, label, calls, timed):
+        """B1's and B2's forward rows: runs of 10 calls of the kernel, its
+        plain version and SDPA (the rows' ms, plain_ms and library_ms, as in
+        every earlier run), and beside them the device-only times (CUDA
+        graphs of 10 calls; the rows' device_only_* keys) and the kernel's
+        host enqueue per call: the host is slower than B1's forward on the
+        card, so B1's runs of 10 read the host's time."""
+        tg = {k_: graph_ms(f) for k_, f in timed.items()}
+        tr = {k_: runs_ms(f) for k_, f in timed.items()}
+        both = lambda t: ", ".join(f"{k_} {v_:.4f}" for k_, v_ in t.items())  # noqa: E731
+        print(f"  {name} {label} ms per call: runs of 10 {both(tr)}; device-only (CUDA graphs) {both(tg)}; "
+              f"the kernel's host enqueue {enqueue_ms(timed['kernel']):.4f} [{card}]", flush=True)
+        for key, who in (("device_only_ms", "kernel"), ("device_only_plain_ms", "plain"),
+                         ("device_only_library_ms", "SDPA")):
+            totals[name][key] = totals[name].get(key, 0.0) + calls * tg[who]
+        return tr["kernel"], tr["plain"], tr["SDPA"]
+
     def single_call(name, calls, kernel_fn, library_fn):
         """The forward timed one call between two events, as chip_smoke.py
         timed every kernel before it timed runs of launches: the host's
@@ -2588,9 +2707,10 @@ def main() -> None:
     q, k, v, do = vit_inputs(s, torch.bfloat16) + (normal((bsz, n, c), torch.bfloat16),)
     split = lambda x: x.view(bsz, n, heads, hd).transpose(1, 2)  # noqa: E731
     with torch.no_grad():
-        tk = runs_ms(lambda: wa.self_attention_fused(q, k, v, heads, scale))
-        tp = runs_ms(lambda: wa.self_attention_reference(q, k, v, heads, scale))
-        tl = runs_ms(lambda: F.scaled_dot_product_attention(split(q), split(k), split(v), scale=scale))
+        tk, tp, tl = fwd_times(SA, f"[{bsz},{n},{c}]x{heads} bf16", 2 * s["calls"], {
+            "kernel": lambda: wa.self_attention_fused(q, k, v, heads, scale),
+            "plain": lambda: wa.self_attention_reference(q, k, v, heads, scale),
+            "SDPA": lambda: F.scaled_dot_product_attention(split(q), split(k), split(v), scale=scale)})
         single_call(SA, 2 * s["calls"], lambda: wa.self_attention_fused(q, k, v, heads, scale),
                     lambda: F.scaled_dot_product_attention(split(q), split(k), split(v), scale=scale))
     elems = bsz * n * c
@@ -2616,9 +2736,10 @@ def main() -> None:
         mask = bias.to(torch.bfloat16)[None].expand(bsz, w, heads, n, n).reshape(bsz * w, heads, n, n)
         label = f"{list(qkv.shape)} H={heads} bf16"
         with torch.no_grad():
-            tk = runs_ms(lambda: wa.window_attention_fused_v2(qkv, bias, heads, scale))
-            tp = runs_ms(lambda: wa.window_attention_v2_reference(qkv, bias, heads, scale))
-            tl = runs_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale))
+            tk, tp, tl = fwd_times(V2, label, 2 * s["calls"], {
+                "kernel": lambda: wa.window_attention_fused_v2(qkv, bias, heads, scale),
+                "plain": lambda: wa.window_attention_v2_reference(qkv, bias, heads, scale),
+                "SDPA": lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale)})
             single_call(V2, 2 * s["calls"], lambda: wa.window_attention_fused_v2(qkv, bias, heads, scale),
                         lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale))
         elems = bsz * w * n * c
@@ -3232,7 +3353,7 @@ def main() -> None:
     # dbias are the same bit for bit over two runs.
     v1_args = v1_inputs(*v1_train[1][:5], torch.bfloat16, *v1_train[1][5:])
     v1_kernels = pv.kernels_of(lambda: pv.v1_step(*v1_args), attempts=PROFILE_ATTEMPTS)
-    v1_own = ("attention_fwd_tc_kernel", "attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel",
+    v1_own = ("attention_fwd_wgmma_kernel", "attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel",
               "column_sum_kernel")
     print(f"v1 forward + backward {list(v1_args[0].shape)} bf16, device kernels per call (torch.profiler): "
           + ", ".join(f"{name[:60]} x{n_:g}" for name, (n_, _) in v1_kernels.items()), flush=True)
@@ -3936,7 +4057,7 @@ def main() -> None:
     tc_bwd = {k: (v - tc_bwd0.get(k, 0)) // (TRAIN_STEPS + 1) for k, v in wa.BWD_ROUTES.items()}
     print(f"Trans_cross per train step: forward routes {tc_fwd}, backward routes {tc_bwd}; launches over "
           f"{TRAIN_STEPS + 1} steps {dict((k, v) for k, v in tc_launches.items() if v)}", flush=True)
-    check(tc_fwd == {"mma": 2 * per_step, "fma": 0} and tc_bwd == {"mma": 2 * per_step, "fma": 0},
+    check(tc_fwd == {"wgmma": 2 * per_step, "fma": 0} and tc_bwd == {"mma": 2 * per_step, "fma": 0},
           f"Trans_cross routes per step {tc_fwd} {tc_bwd}")
     for kname, bar in ((SA, BWD_BAR["bf16"]), (SA_BWD, BWD_BAR["bf16"]), (V2, BWD_BAR["bf16"]),
                        (V2_BWD, BWD_BAR["bf16"]), ("dbias", BWD_BAR["f32"])):
@@ -4062,12 +4183,18 @@ def main() -> None:
             "bound_ms": bms,
             "bound_by": by,
             "library_ms": None if name in (MMD, MMD_BWD, MLP, MLP_BWD, B6, B6_BWD, LN_RES) else t["library_ms"],
+            "device_route": DEVICE_ROUTE.get(name),
+            **{key: t[key] for key in ("device_only_ms", "device_only_plain_ms", "device_only_library_ms")
+               if key in t},
         })
     print("kernels: ms / plain_ms / library_ms / bound_ms are the device time of the launches one "
           f"batch-{bt} train step makes (sum over its shapes; B3 runs once each way, with use_pallas_mmd; B4 and B5 "
-          f"in the use_fused_ln + use_fused_mlp config, B4's three rows, B3's two and v1's (ms, plain_ms and "
-          f"library_ms alike) the device-only time of CUDA graphs of 10 calls, every other row runs of 10 calls "
-          f"between CUDA events, which count the host where it is slower than the card; B4's residual form, B6's "
+          f"in the use_fused_ln + use_fused_mlp config, B4's three rows, B3's two and v1's "
+          f"(ms, plain_ms and library_ms alike) the device-only time of CUDA graphs of 10 calls, every other row "
+          f"runs of 10 calls "
+          f"between CUDA events, which count the host where it is slower than the card (B1's and B2's forwards "
+          f"add device_only_ms, device_only_plain_ms and device_only_library_ms, CUDA graphs of 10 calls); B4's "
+          f"residual form, B6's "
           f"LayerNorm backward, in the "
           f"use_fused_block_attention config; B6 its forward and backward launches in the "
           f"use_fused_block_attention config, the backward's row the whole composition of B2's kernels, the two "

@@ -108,8 +108,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     signatures = {
         # is_bf16, n, d, with_bias -> dynamic shared memory of the forward's route
         "edrl_attention_fwd_smem_bytes": (i64, [i32, i32, i32, i32]),
-        # is_bf16, n, d -> 1 for the tensor-core route, 0 for the CUDA-core route
+        # is_bf16, n, d -> 1 for the wgmma route, 0 for the CUDA-core route
         "edrl_attention_fwd_route": (i32, [i32, i32, i32]),
+        # d, heads, n, groups, head / row / group stride, box rows, out[11]: the wgmma route's tensor map
+        "edrl_attention_fwd_map_plan": (i32, [i32, i32, i32, i32, i64, i32, i64, i32, ptr]),
+        # n, items, out[2]: the wgmma route's CTAs and work units
+        "edrl_attention_fwd_grid": (i32, [i32, i32, ptr]),
         # is_bf16, n, d, with_bias, out[3]: blocks per SM, smem bytes, warps per block
         "edrl_attention_fwd_occupancy": (i32, [i32, i32, i32, i32, ptr]),
         "edrl_attention_bwd_smem_bytes": (i64, [i32, i32, i32]),

@@ -13,21 +13,51 @@
 // (13 us), and in practice by the latency each block hides.
 //
 // What the design does about it (attention_fwd.cuh): q, k and v are read
-// in place from their packed layout (no transposes in the wrapper), by
-// 16-byte cp.async into a ring of 16-key chunks that is filled two chunks
-// ahead of the products; the softmax is online, so no score row is kept;
-// 2 query tiles of 7 warps cover the 216 rows (224 computed); bf16 inputs
-// run both products on the tensor cores (mma.sync, ldmatrix fragments).
-// f32 inputs (used for exact comparisons) take the CUDA-core kernel.
-// The choice is exposed as edrl_attention_fwd_route.
+// in place from their packed layout (no transposes in the wrapper) by TMA
+// through 4-D tensor maps over (column, head, token, group); one CTA per SM
+// walks the (b, h) pairs, loads the head's whole K and V into shared memory
+// once, and two consumer warpgroups take the four 64-row query tiles (256
+// rows computed for 216), each s = q k^T (wgmma, 224 keys) with the whole
+// row's softmax in registers, then o = p v (wgmma, p from registers).  f32
+// inputs (used for exact comparisons) take the CUDA-core kernel.  The
+// choice is exposed as edrl_attention_fwd_route.
 
 #include "attention_fwd.cuh"
 
-// 1 if a forward call of this dtype and shape takes the tensor-core route, 0
-// if it takes the CUDA-core route (kernels/window_attention.py mirrors this
-// as attention_fwd_route).
+// 1 if a forward call of this dtype and shape takes the wgmma route, 0 if it
+// takes the CUDA-core route (kernels/window_attention.py mirrors this as
+// attention_fwd_route).
 extern "C" int edrl_attention_fwd_route(int is_bf16, int n, int d) {
-  return attention_fwd_route_mma(is_bf16 != 0, n, d) ? 1 : 0;
+  return attention_fwd_route_wgmma(is_bf16 != 0, n, d) ? 1 : 0;
+}
+
+// The tensor map the wgmma route reads an operand through
+// (attention_map_plan): dims in out[0..3], byte strides in out[4..6], box
+// in out[7..10]; returns 0, or cudaErrorMisalignedAddress for a stride that
+// is not a whole number of 16 bytes.
+extern "C" int edrl_attention_fwd_map_plan(int d, int heads, int n, int groups, long long head_stride, int row_stride,
+                                           long long group_stride, int box_rows, long long* out) {
+  AttnMapPlan plan;
+  if (!attention_map_plan(d, heads, n, groups, head_stride, row_stride, group_stride, box_rows, &plan)) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  for (int i = 0; i < 4; ++i) out[i] = (long long)plan.dims[i];
+  for (int i = 0; i < 3; ++i) out[4 + i] = (long long)plan.strides[i];
+  for (int i = 0; i < 4; ++i) out[7 + i] = (long long)plan.box[i];
+  return 0;
+}
+
+// The wgmma route's persistent grid for a call of `items` (group, head)
+// items of n tokens on the current device (attention_fwd_grid): CTAs in
+// out[0], work units in out[1] (the items walked whole, then two halves of
+// each other one); returns the CUDA error.
+extern "C" int edrl_attention_fwd_grid(int n, int items, int* out) {
+  unsigned ctas = 0;
+  int whole = 0;
+  const cudaError_t err = attention_fwd_grid(n, items, &ctas, &whole);
+  out[0] = (int)ctas;
+  out[1] = 2 * items - whole;
+  return (int)err;
 }
 
 // Dynamic shared memory one block of the forward's route takes at (n, d),

@@ -20,18 +20,20 @@
 // latency-bound.
 //
 // What the design does about it (attention_fwd.cuh): q, k and v are read in
-// place from the qkv projection output, and o is written straight into
-// [B, W, N, C], so the attention path has no layout copy.  bf16 streams the
-// keys, values and the block's f32 bias rows in 16-key chunks through a
-// cp.async ring two chunks ahead of the products, takes the softmax online
-// and runs both products on the tensor cores (mma.sync).  The bias is the
-// only operand that repeats across the batch; the TPU kernel reused it by
+// place from the qkv projection output by TMA through 4-D tensor maps over
+// (column, head, token, group), whose out-of-bounds fill zeroes the tokens
+// past N of a group, and o is written straight into [B, W, N, C], so the
+// attention path has no layout copy.  One CTA per SM walks the (b, w, h)
+// items with the head's whole K and V resident (two buffers at N = 144, so
+// the next item's load runs under this one's products) and three consumer
+// warpgroups, one per 64-row query tile: s = q k^T (wgmma, 144 keys), the
+// bias read in the accumulator's layout and the whole row's softmax in
+// registers, o = p v (wgmma, p from registers).  The bias is the only
+// operand that repeats across the batch; the TPU kernel reused it by
 // looping a block over batch rows, and here the per-stage bias (5.3 MB at
-// stage 0, less later) stays in the 50 MB L2 while the batch rows' blocks
-// read it, so device memory sees it about once.  A block per (b, w, h,
-// 48-query tile) gives 6144 blocks of 3 warps at stage 0 and 768 at stage 3
-// of a batch-32 step, with no padded rows.  f32 inputs take the CUDA-core
-// kernel.
+// stage 0, less later) stays in the 50 MB L2 while the batch rows' items
+// read it, so device memory sees it about once.  f32 inputs take the
+// CUDA-core kernel.
 
 #include "attention_fwd.cuh"
 

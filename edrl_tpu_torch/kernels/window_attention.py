@@ -38,8 +38,11 @@ Each kernel wrapper counts its launches in :data:`LAUNCHES`, so that a run
 can show that its main path went through the kernels.  The forward and the
 backward kernels each take one of two routes, chosen from the dtype and
 shape in the C entry points and mirrored by :func:`attention_fwd_route` and
-:func:`attention_bwd_route`: ``"mma"`` (bf16, head_dim % 16 == 0, N <= 224:
-tensor cores) or ``"fma"`` (f32, and the other bf16 shapes: CUDA cores).
+:func:`attention_bwd_route`.  bf16 with head_dim % 16 == 0 and N <= 224
+takes the tensor cores: the forward's ``"wgmma"`` (TMA loads through 4-D
+tensor maps over (column, head, token, group), ``wgmma`` products) and the
+backward's ``"mma"`` (``mma.sync``); f32 and the other bf16 shapes take
+``"fma"`` (CUDA cores).
 Each forward launch also counts under its route in :data:`FWD_ROUTES` (the
 fused attention sublayer's attention phase and v1's included), each
 backward launch in :data:`BWD_ROUTES`.  Under tensor parallelism
@@ -70,7 +73,7 @@ LAUNCHES = {SELF_ATTENTION: 0, WINDOW_ATTENTION_V2: 0, SELF_ATTENTION_BWD: 0, WI
             WINDOW_ATTENTION_V1: 0, WINDOW_ATTENTION_V1_BWD: 0}
 # Forward launches (B1, B2, v1 and B6's attention phase) and backward
 # launches (B1, B2 and v1) since the last reset, by route.
-FWD_ROUTES = {"mma": 0, "fma": 0}
+FWD_ROUTES = {"wgmma": 0, "fma": 0}
 BWD_ROUTES = {"mma": 0, "fma": 0}
 # B1's and B2's launches under tensor parallelism, by "<wrapper name>/<route>".
 TP_ROUTE_NAMES = ("head_local", "gathered")
@@ -79,7 +82,7 @@ TP_ROUTES = {f"{name}/{route}": 0 for name in (SELF_ATTENTION, SELF_ATTENTION_BW
 _TP_ROUTE: contextvars.ContextVar = contextvars.ContextVar("edrl_tpu_torch_tp_route", default=None)
 MAX_HEAD_DIM = 128
 MAX_BWD_TOKENS = 256  # the CUDA-core backward keeps [32, N] f32 score rows per block in shared memory
-MMA_MAX_TOKENS = 224  # the tensor-core routes, forward and backward, take the same calls
+MMA_MAX_TOKENS = 224  # the tensor-core routes, forward (wgmma) and backward (mma), take the same calls
 _SMEM_LIMIT = 232448 - 4 * 64  # opt-in per-block limit, less the 64 static f32 row sums
 _BWD_QUERY_TILE = {"mma": 64, "fma": 32}  # queries per dq block of each route
 _DQ_BLOCKS_PER_SM: dict = {}  # (device index, dtype, n, d) -> resident dq blocks per SM with dbias
@@ -112,28 +115,34 @@ def _count_tp_route(name: str) -> None:
         TP_ROUTES[key] += 1
 
 
-def attention_fwd_route(dtype, n: int, d: int) -> str:
-    """The forward kernel's route for a call: ``"mma"`` (tensor cores) for
-    bf16 with head_dim % 16 == 0 and N <= 224, else ``"fma"`` (CUDA cores).
+def _tensor_cores(dtype, n: int, d: int) -> bool:
+    return dtype == torch.bfloat16 and d % 16 == 0 and n <= MMA_MAX_TOKENS
 
-    Mirrors ``attention_fwd_route_mma`` in ``csrc/attention_fwd.cuh``, which
-    picks the route before the launch (``edrl_attention_fwd_route`` exposes
-    it).  Shapes the kernels refuse altogether (head_dim % 8) are checked
-    elsewhere.
+
+def attention_fwd_route(dtype, n: int, d: int) -> str:
+    """The forward kernel's route for a call: ``"wgmma"`` (TMA and ``wgmma``
+    on the tensor cores) for bf16 with head_dim % 16 == 0 and N <= 224, else
+    ``"fma"`` (CUDA cores).
+
+    Mirrors ``attention_fwd_route_wgmma`` in ``csrc/attention_fwd.cuh``,
+    which picks the route before the launch (``edrl_attention_fwd_route``
+    exposes it).  Shapes the kernels refuse altogether (head_dim % 8) are
+    checked elsewhere.
     """
-    return "mma" if dtype == torch.bfloat16 and d % 16 == 0 and n <= MMA_MAX_TOKENS else "fma"
+    return "wgmma" if _tensor_cores(dtype, n, d) else "fma"
 
 
 def attention_bwd_route(dtype, n: int, d: int) -> str:
-    """The backward kernels' route for a call: the forward's
-    (:func:`attention_fwd_route`).
+    """The backward kernels' route for a call: ``"mma"`` (``mma.sync`` on the
+    tensor cores) for the calls whose forward takes ``"wgmma"``, else
+    ``"fma"``.
 
     Mirrors ``attention_bwd_route_mma`` in ``csrc/attention_bwd.cuh``, which
     picks the route before the launch (``edrl_attention_bwd_route`` exposes
     it).  Shapes the kernels refuse altogether (head_dim % 8, N > 256) are
     checked elsewhere.
     """
-    return attention_fwd_route(dtype, n, d)
+    return "mma" if _tensor_cores(dtype, n, d) else "fma"
 
 
 # ---------------------------------------------------------------------------
@@ -293,9 +302,10 @@ def _grad_output(dout, like):
 
 def _aligned_operands(route: str, tensors):
     """A kernel's inputs as its route takes them: the tensor-core routes
-    stage rows by 16-byte copies, so a view that starts off a 16-byte
-    boundary is copied (a fresh allocation is aligned)."""
-    if route != "mma":
+    read rows by TMA (forward) or 16-byte copies (backward), so a view that
+    starts off a 16-byte boundary is copied (a fresh allocation is
+    aligned)."""
+    if route == "fma":
         return tuple(tensors)
     return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors)
 

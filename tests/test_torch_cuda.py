@@ -6,7 +6,9 @@ imports no JAX, so it also runs on a card machine that has none:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
 Shapes: the main-path ones, plus odd ones that take the CUDA-core kernel in
-bf16 (head_dim 8 or 24, N above 224) and ragged tails.  B6 (the fused attention sublayer) and v1
+bf16 (head_dim 8 or 24, N above 224) and ragged tails; the bf16 forward's
+wgmma route against NaN in the group after a view's last, and where a
+consumer warpgroup has no query tile.  B6 (the fused attention sublayer) and v1
 (window attention in its own [B, W, H, N, D] layout) are held at the bars
 of the backwards below, forward and backward.  Tolerances: forwards bf16 atol 3e-2, f32
 atol 1e-4.  Backwards, relative to the largest magnitude of the plain
@@ -173,7 +175,120 @@ def test_fwd_route_mirrors_the_entry_points(cuda):
             for d in (8, 16, 24, 32, 64, 128):
                 want = wa.attention_fwd_route(dtype, n, d)
                 got = lib.edrl_attention_fwd_route(int(dtype == torch.bfloat16), n, d)
-                assert {1: "mma", 0: "fma"}[got] == want, (dtype, n, d)
+                assert {1: "wgmma", 0: "fma"}[got] == want, (dtype, n, d)
+
+
+# The wgmma route's tensor maps (edrl_attention_fwd_map_plan) at the layouts
+# it reads: dims (d, heads, n, groups), byte strides of a head, a token and a
+# group, boxes of 64 columns x box rows (64 for q, the keys held for k and v).
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,heads,groups,strides,box,want", [
+    # B1's packed q/k/v [32, 216, 768], 6 heads: head stride D, row stride C.
+    (216, 128, 6, 32, wa.attention_strides(216, 128, 6, 768), 224,
+     (128, 6, 216, 32, 256, 1536, 331776, 64, 1, 224, 1)),
+    (216, 128, 6, 32, wa.attention_strides(216, 128, 6, 768), 64,
+     (128, 6, 216, 32, 256, 1536, 331776, 64, 1, 64, 1)),
+    # B2's packed qkv [32, 64, 144, 3 * 128] at Swin stage 0, one head: row 3C.
+    (144, 128, 1, 32 * 64, wa.attention_strides(144, 128, 1, 384), 144,
+     (128, 1, 144, 2048, 256, 768, 110592, 64, 1, 144, 1)),
+    # v1's [B, W, H, N, D]: a head is a block of N rows.
+    (144, 128, 2, 32 * 16, wa.attention_strides(144, 128, 2), 64,
+     (128, 2, 144, 512, 36864, 256, 73728, 64, 1, 64, 1)),
+    # A head-local tensor-parallel shard: 2 of 4 heads of C = 512 on a rank,
+    # the rank's packed qkv rows 3C / 2 = 768 wide.
+    (144, 128, 2, 32 * 4, wa.attention_strides(144, 128, 2, 768), 144,
+     (128, 2, 144, 128, 256, 1536, 221184, 64, 1, 144, 1)),
+])
+def test_fwd_tma_plan_of_each_layout(cuda, n, d, heads, groups, strides, box, want):
+    import ctypes
+
+    out = (ctypes.c_longlong * 11)()
+    group, head, row = strides
+    assert build.load_library().edrl_attention_fwd_map_plan(d, heads, n, groups, head, row, group, box, out) == 0
+    assert tuple(out) == want
+
+
+# TMA takes strides in whole 16 bytes: a row, head or group stride that is
+# not a multiple of 8 bf16 elements is refused (cudaErrorMisalignedAddress).
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,head,row", [(216 * 770, 128, 770), (216 * 768, 124, 768), (216 * 768 + 4, 128, 768)])
+def test_fwd_tma_plan_refuses_a_misaligned_stride(cuda, group, head, row):
+    import ctypes
+
+    out = (ctypes.c_longlong * 11)()
+    assert build.load_library().edrl_attention_fwd_map_plan(128, 6, 216, 32, head, row, group, 224, out) != 0
+
+
+def _nan_after(shape, dtype, gen, device):
+    """A tensor of shape[0] + 1 entries along the first axis, the last one NaN."""
+    t = torch.randn((shape[0] + 1, *shape[1:]), generator=gen, device=device).to(dtype)
+    t[shape[0]] = float("nan")
+    return t
+
+
+# The wgmma forward reads through 4-D tensor maps, so the rows past N of a
+# group's last query tile and its keys past N come from TMA's zero fill:
+# with NaN in the group after the last, a view of the first groups (same
+# strides) must give a finite o within the bar.  B1's packed layout at N =
+# 216 (the tail tile's rows 216-255, keys 216-223), B2's at N = 144 with a
+# bias (rows 144-191), v1's [B, W, H, N, D].
+@pytest.mark.cuda
+def test_wgmma_fwd_reads_no_neighbouring_group(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    b, n, c, heads = 4, 216, 768, 6
+    q, k, v = (_nan_after((b, n, c), torch.bfloat16, gen, cuda) for _ in range(3))
+    wa.reset_launch_counts()
+    got = wa.self_attention_fused(q[:b], k[:b], v[:b], heads, 128 ** -0.5)
+    want = wa.self_attention_reference(q[:b], k[:b], v[:b], heads, 128 ** -0.5)
+    assert torch.isfinite(got).all() and (got.float() - want.float()).abs().max().item() <= 3e-2
+
+    b, w, n, c, heads = 2, 4, 144, 256, 2
+    qkv = _nan_after((b, w, n, 3 * c), torch.bfloat16, gen, cuda)
+    bias = torch.randn((w, heads, n, n), generator=gen, device=cuda)
+    bias[..., 1::3] = -1e9
+    got = wa.window_attention_fused_v2(qkv[:b], bias, heads, 128 ** -0.5)
+    want = wa.window_attention_v2_reference(qkv[:b], bias, heads, 128 ** -0.5)
+    assert torch.isfinite(got).all() and (got.float() - want.float()).abs().max().item() <= 3e-2
+
+    b, w, h, n, d = 2, 3, 2, 144, 128
+    q, k, v = (_nan_after((b, w, h, n, d), torch.bfloat16, gen, cuda) for _ in range(3))
+    got = wa.window_attention_v1_fwd_kernel(q[:b], k[:b], v[:b], bias[:w, :h].contiguous())
+    want = wa.window_attention_reference(q[:b], k[:b], v[:b], bias[:w, :h].contiguous())
+    assert torch.isfinite(got).all() and (got.float() - want.float()).abs().max().item() <= 3e-2
+    assert wa.FWD_ROUTES == {"wgmma": 3, "fma": 0}
+
+
+# A consumer warpgroup with no query tile in a work unit (the third at N <=
+# 128; one of a half-item's, when the last wave is at most half the CTAs)
+# must release the unit's K and V in step with the others, or the next load
+# overwrites them under their products.  Each case has each CTA walk 3 or
+# more units; three calls each against the plain version.
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["B2 N=100 d=64", "B1 N=144 halves", "B1 N=150 halves"])
+def test_wgmma_fwd_with_warpgroups_without_a_tile(cuda, case):
+    import ctypes
+
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if case.startswith("B2"):
+        n, items = 100, 8 * 64 * 2
+        qkv = torch.randn((8, 64, n, 384), generator=gen, device=cuda).to(torch.bfloat16)
+        bias = torch.randn((64, 2, n, n), generator=gen, device=cuda)
+        bias[..., 1::3] = -1e9
+        run = lambda: wa.window_attention_fused_v2(qkv, bias, 2, 64 ** -0.5)  # noqa: E731
+        want = wa.window_attention_v2_reference(qkv, bias, 2, 64 ** -0.5)
+    else:
+        n, items = int(case.split("=")[1].split()[0]), 3 * sms + sms // 2 - 6
+        q, k, v = (torch.randn((items, n, 128), generator=gen, device=cuda).to(torch.bfloat16) for _ in range(3))
+        run = lambda: wa.self_attention_fused(q, k, v, 1, 128 ** -0.5)  # noqa: E731
+        want = wa.self_attention_reference(q, k, v, 1, 128 ** -0.5)
+    grid = (ctypes.c_int * 2)()
+    assert build.load_library().edrl_attention_fwd_grid(n, items, grid) == 0
+    assert grid[1] >= 3 * grid[0], tuple(grid)
+    wa.reset_launch_counts()
+    for _ in range(3):
+        assert (run().float() - want.float()).abs().max().item() <= 3e-2
+    assert wa.FWD_ROUTES == {"wgmma": 3, "fma": 0}
 
 
 # The forward at the backward's shapes: the train shapes and both routes' edges.
@@ -695,6 +810,26 @@ def test_v1_adapter_matches_plain(cuda, dtype, b, w, h, n, d):
     want = wa.window_attention_bwd_reference(q, k, v, bias, do)
     for leaf, w_, bar in zip(leaves, want, (_bwd_bar(dtype),) * 3 + (1e-4,)):
         assert leaf.grad.dtype == w_.dtype and _rel_err(leaf.grad, w_) <= bar
+
+
+# v1's bar is the one above (1e-2 of the largest magnitude), not the
+# forwards' atol 3e-2: at the batch-32 shape with an unscaled q (a sharp
+# softmax, o close to one key's v) some |o| reach 4, where one bf16 ulp is
+# 2^-5 = 3.125e-2, and the kernel's o (p rounded to bf16 before p v) and the
+# plain version's (f32 p) round to neighbours now and then.  Every element
+# lies within 3e-2 or one bf16 ulp of the plain value.
+@pytest.mark.cuda
+def test_v1_fwd_at_the_batch32_shape_within_one_bf16_ulp(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    b, w, h, n, d = 32, 16, 2, 144, 128
+    q, k, v = (torch.randn((b, w, h, n, d), generator=gen, device=cuda).to(torch.bfloat16) for _ in range(3))
+    bias = torch.randn((w, h, n, n), generator=gen, device=cuda)
+    bias[..., 1::3] = -1e9
+    got = wa.window_attention_v1_fwd_kernel(q, k, v, bias).float()
+    want = wa.window_attention_reference(q, k, v, bias).float()
+    ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+    assert ((got - want).abs() <= ulp.clamp_min(3e-2)).all()
+    assert _rel_err(got, want) <= _bwd_bar(torch.bfloat16)
 
 
 @pytest.mark.cuda
