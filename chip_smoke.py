@@ -10,17 +10,19 @@ Phases (any failed check raises, so the exit code is nonzero):
 1. Require CUDA; print the card's name and power limit; turn TF32 off.
 2. Build the CUDA kernels from ``edrl_tpu_torch/kernels/csrc`` (one nvcc per
    source, in parallel) and print the build time and the compiler's
-   register/shared-memory report; for the attention's tensor-core kernels,
-   forward (wgmma, which must not spill) and backward (mma.sync),
-   registers, spills, shared memory and resident blocks per SM at the
-   main-path shapes (N = 144 and 216, head_dim 128), and the forward's
-   CTAs and waves at each batch-32 call and its tensor maps (the C plan
-   held to the layouts' dims and strides); the forward at B1's, B2's and
-   v1's layouts on a view whose next group holds NaN (the tail tile's rows
-   and keys past N come from TMA's zero fill: o finite, within the bf16
-   bar), and at shapes where a consumer warpgroup has no query tile in a
-   work unit (N = 100; half-items at N = 144 and 150), CTAs walking 3 or
-   more units, within the bf16 bar three calls running;
+   register/shared-memory report; for the attention's wgmma kernels,
+   forward and backward (the rows and keys kernels; none may spill),
+   registers at launch and after setmaxnreg, spills, shared memory and
+   resident blocks per SM at the main-path shapes (N = 144 and 216,
+   head_dim 128), and their CTAs and waves at each batch-32 call, and the
+   forward's tensor maps (the C plan held to the layouts' dims and
+   strides); the forward and the backward at B1's, B2's and v1's layouts on
+   a view whose next group holds NaN (the tail tile's rows and keys past N
+   come from TMA's zero fill: finite results within the bf16 bars), and at
+   shapes where a consumer warpgroup has no tile in a work unit (forward:
+   N = 100, half-items at N = 144 and 150; backward: B2 N = 100 over 1024
+   items, B1 N = 150 and 17), CTAs walking 3 or more units, within the bf16
+   bars three calls running;
    the same for B5's and B6's wgmma kernels, which must not spill; for B4's
    row kernels (forward, backward, residual form) at every width of the
    train step, registers, local memory, shared memory and CTAs per SM, which
@@ -64,7 +66,7 @@ Phases (any failed check raises, so the exit code is nonzero):
    batch 32, seeded weights) on ready-made f32 views from numpy seed 0, and
    check finite losses, changed parameters and BN statistics, and 24
    launches per step of each attention kernel, forward and backward, every
-   forward launch on the wgmma route and every backward one on mma.  Then
+   forward and backward launch on the wgmma route.  Then
    one step with ``use_pallas_mmd`` against the same step with the plain
    MMD, in bf16 and in f32: B3's forward and backward launched once each,
    the MMD and the loss agree (rtol 1e-4), and in f32 every gradient at
@@ -400,6 +402,9 @@ LN, LN_BWD, MLP, MLP_BWD = "fused_layer_norm", "fused_layer_norm_bwd", "fused_ml
 LN_RES = "fused_layer_norm_bwd_residual"
 B6, B6_BWD = "attention_sublayer_fused", "attention_sublayer_fused_bwd"
 V1, V1_BWD = "window_attention_fused", "window_attention_fused_bwd"
+# The attention backward's wgmma route (B1, B2, v1, B2 under B6): the rows
+# kernel (dq, the row statistics, dbias) and the keys kernel (dk, dv).
+ATTENTION_BWD_KERNELS = ("attention_bwd_rows_kernel", "attention_bwd_keys_kernel")
 # B5's bf16 (wgmma) route: the mainloop's product kernel, the fused forward
 # (C = 128) and the backward's hidden kernel.
 B5_WGMMA_KERNELS = ("wgmma_gemm_kernel", "mlp_fwd_fused_wgmma_kernel", "mlp_bwd_hidden_wgmma_kernel")
@@ -426,8 +431,8 @@ KERNEL_SOURCE = {
 }
 # The route each row's bf16 main-path launches take on the card (the routes'
 # counts are checked where the main path runs); rows with one route: None.
-DEVICE_ROUTE = {SA: "wgmma", V2: "wgmma", SA_BWD: "mma", V2_BWD: "mma", MLP: "wgmma", MLP_BWD: "wgmma",
-                B6: "wgmma", B6_BWD: "wgmma", V1: "wgmma forward, mma backward", MMD: "cluster"}
+DEVICE_ROUTE = {SA: "wgmma", V2: "wgmma", SA_BWD: "wgmma", V2_BWD: "wgmma", MLP: "wgmma", MLP_BWD: "wgmma",
+                B6: "wgmma", B6_BWD: "wgmma", V1: "wgmma", MMD: "cluster"}
 KERNEL_REPLACES = {
     SA: "edrl_tpu/kernels/window_attention.py:571",
     V2: "edrl_tpu/kernels/window_attention.py:363",
@@ -1789,6 +1794,7 @@ def main() -> None:
     from edrl_tpu_torch.ops.mmd import mk_mmd, mk_mmd_bwd_reference, mk_mmd_grad_d2
     from edrl_tpu_torch.serve.predictor import Predictor
     from edrl_tpu_torch.tools import mlp_replay as mr
+    from edrl_tpu_torch.tools import profile_attention_fwd as pa
     from edrl_tpu_torch.tools import profile_layer_norm as pln
     from edrl_tpu_torch.tools import profile_sublayer as psl
     from edrl_tpu_torch.tools import profile_v1_mmd as pv
@@ -1825,14 +1831,15 @@ def main() -> None:
               f"{len(spills)} spill", flush=True)
         for line in spills:
             print(f"  ptxas spill: {line}")
-        for kernel in ("attention_fwd_wgmma_kernel", "attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel",
-                       *B5_WGMMA_KERNELS):
+        for kernel in ("attention_fwd_wgmma_kernel", *ATTENTION_BWD_KERNELS, *B5_WGMMA_KERNELS):
             found = [r for e, r in regs.items() if kernel in e]
             print(f"  ptxas {kernel}: registers {found}, "
                   f"spilling: {[line for line in spills if kernel in line] or 'none'}", flush=True)
         check(not [line for line in spills for k in B5_WGMMA_KERNELS if k in line], "B5's wgmma kernels spill")
         check(not [line for line in spills if "attention_fwd_wgmma_kernel" in line],
               "the attention forward's wgmma kernel spills")
+        check(not [line for line in spills for k in ATTENTION_BWD_KERNELS if k in line],
+              "the attention backward's wgmma kernels spill")
         for epilogue in B6_EPILOGUES:
             found = [r for e, r in regs.items() if "wgmma_gemm_kernel" in e and epilogue in e]
             print(f"  ptxas B6 wgmma_gemm_kernel<{epilogue}>: registers {found}, spilling: "
@@ -1936,12 +1943,105 @@ def main() -> None:
         check(max(errs) <= BF16_ATOL, f"attention fwd {label}: {errs}")
     check(wa.FWD_ROUTES == {"wgmma": 9, "fma": 0}, f"idle-warpgroup routes {wa.FWD_ROUTES}")
     del qkv_, idle_bias, idle_cases, q_, k_, v_
-    for label, n_bwd, with_dbias in (("B1, N=216", 216, 0), ("B2, N=144", 144, 1), ("B2 under B6, N=216", 216, 1)):
+
+    def bwd_held(label, got, want, dbias=None):
+        """A backward's results finite and within the bars (bf16 1e-2 of the
+        plain result's largest magnitude, dbias 1e-4); returns the worst."""
+        pairs = [(g_, w_, BWD_BAR["bf16"]) for g_, w_ in zip(got, want)]
+        if dbias is not None:
+            pairs.append((*dbias, BWD_BAR["f32"]))
+        finite = all(bool(torch.isfinite(g_).all()) for g_, _, _ in pairs)
+        rels = [(g_.float() - w_.float()).abs().max().item() / max(w_.float().abs().max().item(), 1e-30)
+                for g_, w_, _ in pairs]
+        check(finite and all(r_ <= bar for r_, (_, _, bar) in zip(rels, pairs)), f"attention bwd {label}: {rels}")
+        return max(rels)
+
+    # The backward reads q, k, v and do through the same 4-D maps: with NaN
+    # in the group after a view's last, dq, dk, dv and dbias are finite and
+    # within the bars (B1's packed layout at N = 216, B2's at N = 144 with a
+    # bias, v1's [B, W, H, N, D]).
+    nan_bias = torch.randn((4, 2, 144, 144), generator=nan_gen, device=dev)
+    nan_bias[..., 1::3] = -1e9
+    wa.reset_launch_counts()
+    q_, k_, v_, do_ = (nan_after((4, 216, 768)) for _ in range(4))
+    worst = [("B1 [4,216,768]x6", bwd_held("B1 NaN", wa.self_attention_bwd_kernel(
+        q_[:4], k_[:4], v_[:4], do_[:4], 6, 128 ** -0.5), wa.self_attention_bwd_reference(
+        q_[:4], k_[:4], v_[:4], do_[:4], 6, 128 ** -0.5)))]
+    qkv_, do_ = nan_after((2, 4, 144, 768)), nan_after((2, 4, 144, 256))
+    got_ = wa.window_attention_v2_bwd_kernel(qkv_[:2], nan_bias, do_[:2], 2, 128 ** -0.5)
+    want_ = wa.window_attention_v2_bwd_reference(qkv_[:2], nan_bias, do_[:2], 2, 128 ** -0.5)
+    worst.append(("B2 [2,4,144,768] H=2", bwd_held("B2 NaN", got_[:1], want_[:1], (got_[1], want_[1]))))
+    vq, vk, vv, vdo = (nan_after((2, 3, 2, 144, 128)) for _ in range(4))
+    v1_bias = nan_bias[:3].contiguous()
+    got_ = wa.window_attention_v1_bwd_kernel(vq[:2], vk[:2], vv[:2], v1_bias, vdo[:2])
+    want_ = wa.window_attention_bwd_reference(vq[:2], vk[:2], vv[:2], v1_bias, vdo[:2])
+    worst.append(("v1 [2,3,2,144,128]", bwd_held("v1 NaN", got_[:3], want_[:3], (got_[3], want_[3]))))
+    print("check attention bwd wgmma, NaN in the next group: finite, worst relative errors "
+          + ", ".join(f"{label} {r_:.3e}" for label, r_ in worst)
+          + f" (bars {BWD_BAR['bf16']:g} / dbias {BWD_BAR['f32']:g})", flush=True)
+    check(wa.BWD_ROUTES == {"wgmma": 3, "fma": 0}, f"NaN-neighbour backward routes {wa.BWD_ROUTES}")
+    del q_, k_, v_, do_, qkv_, vq, vk, vv, vdo, got_, want_
+    # Units where a consumer warpgroup has no key to work on (the rows
+    # kernel's second half of the keys past N: N = 17 holds 64 keys, N =
+    # 100 and 150 hold 160) or a pipeline no unit, each CTA walking 3 or more
+    # units: B2 at N = 100 over 1024 items, B1 at N = 150 and 17; each call
+    # three times against its plain version.
+    wa.reset_launch_counts()
+    qkv_ = torch.randn((8, 64, 100, 384), generator=nan_gen, device=dev).to(torch.bfloat16)
+    do_ = torch.randn((8, 64, 100, 128), generator=nan_gen, device=dev).to(torch.bfloat16)
+    idle_bias = torch.randn((64, 2, 100, 100), generator=nan_gen, device=dev)
+    idle_bias[..., 1::3] = -1e9
+    want_ = wa.window_attention_v2_bwd_reference(qkv_, idle_bias, do_, 2, 64 ** -0.5)
+    errs = [bwd_held("B2 N=100", got_[:1], want_[:1], (got_[1], want_[1])) for got_ in
+            (wa.window_attention_v2_bwd_kernel(qkv_, idle_bias, do_, 2, 64 ** -0.5) for _ in range(3))]
+    grid_ = (ctypes.c_int * 7)()
+    check(bwd_lib.edrl_attention_bwd_grid(100, 8, 64, 2, 1, grid_) == 0, "grid query")
+    print(f"check attention bwd wgmma B2 [8,64,100,384] H=2, 1024 items (rows kernel {grid_[1]}+ units over "
+          f"{grid_[0]} CTAs, keys kernel {grid_[3]} over {grid_[2]}): worst relative error of three calls {errs}",
+          flush=True)
+    del qkv_, do_, idle_bias, want_
+    idle_b = 6 * sms + sms // 2 - 6  # keys kernel units at N = 17: three or more a pipeline
+    for n_ in (150, 17):
+        q_, k_, v_, do_ = (torch.randn((idle_b, n_, 128), generator=nan_gen, device=dev).to(torch.bfloat16)
+                           for _ in range(4))
+        want_ = wa.self_attention_bwd_reference(q_, k_, v_, do_, 1, 128 ** -0.5)
+        errs = [bwd_held(f"B1 N={n_}", wa.self_attention_bwd_kernel(q_, k_, v_, do_, 1, 128 ** -0.5), want_)
+                for _ in range(3)]
+        check(bwd_lib.edrl_attention_bwd_grid(n_, idle_b, 1, 1, 1, grid_) == 0, "grid query")
+        print(f"check attention bwd wgmma B1 [{idle_b},{n_},128]x1 ({grid_[4]} keys held; rows kernel {grid_[1]} "
+              f"units over {grid_[0]} CTAs, keys kernel {grid_[3]} over {grid_[2]}): worst relative error of three "
+              f"calls {errs}", flush=True)
+        check(grid_[1] >= 3 * grid_[0] and grid_[3] >= 3 * 2 * grid_[2], f"B1 N={n_}: {tuple(grid_)}")
+    check(wa.BWD_ROUTES == {"wgmma": 9, "fma": 0}, f"idle-warpgroup backward routes {wa.BWD_ROUTES}")
+    del q_, k_, v_, do_, want_
+    # The backward's wgmma kernels (rows: dq, the row statistics and dbias;
+    # keys: dk and dv) at each batch-32 call: resident CTAs per SM (the
+    # occupancy calculator), dynamic shared memory, registers of a consumer
+    # thread after setmaxnreg (at launch: ptxas's, above), and the persistent
+    # grids' CTAs, units and waves (the rows kernel's units walk the batch
+    # chunks dbias_chunking plans; B1's one entry each).
+    for label, n_bwd, with_dbias, calls_ in (
+            ("B1, N=216", 216, 0, ((32, 1, 6),)),
+            ("B2, N=144, Swin stages 0-3", 144, 1, ((32, 64, 1), (32, 16, 2), (32, 4, 4), (32, 1, 8))),
+            ("B2 under B6, N=216", 216, 1, ((32, 1, 6),))):
         occ = (ctypes.c_int * 4)()
         check(bwd_lib.edrl_attention_bwd_occupancy(1, n_bwd, 128, with_dbias, occ) == 0, "occupancy query")
-        print(f"  attention bwd tensor cores, {label}, head_dim 128: dq kernel {occ[0]} blocks per SM "
-              f"({4 * occ[0]} warps), {occ[2]} bytes of shared memory; dk/dv kernel {occ[1]} blocks per SM "
-              f"({4 * occ[1]} warps), {occ[3]} bytes", flush=True)
+        check(occ[0] >= 1 and occ[1] >= 1, f"attention bwd {label}: a kernel fits no CTA on an SM")
+        plans = []
+        for b_, w_, h_ in calls_:
+            per_block = 1
+            if with_dbias:
+                per_block, _ = wa.dbias_chunking(b_, w_ * h_ * -(-n_bwd // 64), occ[0] * sms,
+                                                 wa.dbias_chunk_cost("wgmma", w_, h_, n_bwd, 128, sms))
+            grid_ = (ctypes.c_int * 7)()
+            check(bwd_lib.edrl_attention_bwd_grid(n_bwd, b_, w_, h_, per_block, grid_) == 0, "grid query")
+            plans.append((per_block, *grid_))
+        print(f"  attention bwd wgmma, {label}, head_dim 128: rows kernel {occ[0]} CTA per SM, {occ[2]} bytes of "
+              f"dynamic shared memory, {plans[0][5]} keys held, consumers at {plans[0][6]} registers after "
+              f"setmaxnreg; keys kernel {occ[1]} CTA per SM, {occ[3]} bytes, consumers at {plans[0][7]}; per call: "
+              + "; ".join(f"rows {g[2]} units of {g[0]} batch entries over {g[1]} CTAs ({-(-g[2] // g[1])} waves), "
+                          f"keys {g[4]} units over {g[3]} CTAs of two pipelines ({-(-g[4] // (2 * g[3]))} waves)"
+                          for g in plans), flush=True)
     # v1 runs the same device code through B2's entry points with its own
     # strides: its kernels at the Swin stages' shape.
     occ = (ctypes.c_int * 4)()
@@ -1949,10 +2049,10 @@ def main() -> None:
     print(f"  v1 fwd wgmma, N=144, head_dim 128: {occ[0]} blocks of {occ[2]} warps per SM, {occ[1]} bytes of "
           f"shared memory per block", flush=True)
     check(bwd_lib.edrl_attention_bwd_occupancy(1, 144, 128, 1, occ) == 0, "occupancy query")
-    print(f"  v1 bwd tensor cores, N=144, head_dim 128: dq kernel {occ[0]} blocks per SM, {occ[2]} bytes; dk/dv "
-          f"kernel {occ[1]} blocks per SM, {occ[3]} bytes", flush=True)
+    print(f"  v1 bwd wgmma, N=144, head_dim 128: rows kernel {occ[0]} CTA per SM, {occ[2]} bytes; keys kernel "
+          f"{occ[1]} CTA per SM, {occ[3]} bytes", flush=True)
     if log.exists():
-        for kernel in ("attention_fwd_wgmma_kernel", "attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel",
+        for kernel in ("attention_fwd_wgmma_kernel", "attention_bwd_rows_kernel", "attention_bwd_keys_kernel",
                        "mmd_cluster_kernel", "mmd_bwd_kernel", "mmd_gram_partial_kernel"):
             found = sorted({r for e, r in regs.items() if kernel in e})
             check(bool(found), f"ptxas reported no {kernel}")
@@ -2075,7 +2175,7 @@ def main() -> None:
             "bwd": (wa.attention_bwd_route, bwd_lib.edrl_attention_bwd_route, wa.BWD_ROUTES),
         }[kind]
         route = py_route(dtype, n_, d_)
-        c_route = {1: "wgmma" if kind == "fwd" else "mma", 0: "fma"}[c_route(int(dtype == torch.bfloat16), n_, d_)]
+        c_route = {1: "wgmma", 0: "fma"}[c_route(int(dtype == torch.bfloat16), n_, d_)]
         check(route == c_route, f"{name} {label}: Python route {route}, C route {c_route}")
         wa.reset_launch_counts()
         out = launch()
@@ -2293,6 +2393,14 @@ def main() -> None:
                     torch.zeros((1, h_vit, mc.oct_tokens, mc.oct_tokens), device=dev), h_vit, dtype,
                     f"[{bt},1,{mc.oct_tokens},{3 * c_vit}] H={h_vit} zero bias (B6's ViT)", main_path=True)
         torch.cuda.empty_cache()
+        # A head-local tensor-parallel shard of each (phase 28's layout at
+        # M = 2): B1's 3 of 6 heads, B2's one of Swin stage 1's two.
+        sa_bwd_case((bt, mc.oct_tokens, c_vit // 2), h_vit // 2, dtype)
+        shard = train_swin[1]
+        v2_bwd_case(normal((bt, (shard["grid"] // shard["window"]) ** 2, shard["window"] ** 2,
+                            3 * shard["c"] // 2), dtype),
+                     swin_bias(shard["grid"], shard["window"], shard["heads"] // 2, shard["shifted"]),
+                     shard["heads"] // 2, dtype, "Swin stage 1, a head-local shard of 1 of 2 heads")
         for shape, heads in sa_edges:
             sa_bwd_case(shape, heads, dtype)
         for shape, heads in v2_edges:
@@ -2399,10 +2507,9 @@ def main() -> None:
     check(train_launches[MMD] == train_launches[MMD_BWD] == 0, "B3 is off in the shipped config")
 
     def check_routes(label, routes, launches, kind="backward"):
-        tensor_cores = "wgmma" if kind == "forward" else "mma"
-        print(f"{label}: {kind} launches by route {routes} (expected {launches} on {tensor_cores}, "
+        print(f"{label}: {kind} launches by route {routes} (expected {launches} on wgmma, "
               f"none on the CUDA cores)", flush=True)
-        check(routes == {tensor_cores: launches, "fma": 0}, f"{label}: {kind} routes {routes}")
+        check(routes == {"wgmma": launches, "fma": 0}, f"{label}: {kind} routes {routes}")
 
     check_routes(f"train, {TRAIN_STEPS} steps", train_routes, 2 * per_step * TRAIN_STEPS)
     check_routes(f"train, {TRAIN_STEPS} steps", train_fwd_routes, 2 * per_step * TRAIN_STEPS, "forward")
@@ -2665,13 +2772,23 @@ def main() -> None:
               f"bound {bms:.4f} ms ({by}) per call, x{calls} per train step [{card}]", flush=True)
         add(name, calls, ms, plain_ms, library_ms, nbytes, flops)
 
-    def sdpa_bwd_ms(q4, k4, v4, do4, mask=None):
-        leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
-        if mask is not None:
-            mask = mask.detach().requires_grad_()
-            leaves.append(mask)
-        out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=mask)
-        return runs_ms(lambda: torch.autograd.grad(out, leaves, do4, retain_graph=True))
+    def bwd_times(name, label, calls, kernel_fn, plain_fn, sdpa):
+        """B1's and B2's backward rows: runs of 10 calls of the kernel, its
+        plain version and SDPA's backward (the rows' ms, plain_ms and
+        library_ms, as in every earlier run), and beside them the
+        device-only times (CUDA graphs of 10 calls; SDPA's backward a graph
+        of its forward and backward less its forward's: pa.sdpa_backward;
+        the rows' device_only_* keys)."""
+        tr = {"kernel": runs_ms(kernel_fn), "plain": runs_ms(plain_fn), "SDPA": runs_ms(sdpa["runs"])}
+        tg = {"kernel": graph_ms(kernel_fn), "plain": graph_ms(plain_fn),
+              "SDPA": graph_ms(sdpa["graph"]) - graph_ms(sdpa["less"])}
+        both = lambda t: ", ".join(f"{k_} {v_:.4f}" for k_, v_ in t.items())  # noqa: E731
+        print(f"  {name} {label} ms per call: runs of 10 {both(tr)}; device-only (CUDA graphs) {both(tg)}; "
+              f"the kernel's host enqueue {enqueue_ms(kernel_fn):.4f} [{card}]", flush=True)
+        for key, who in (("device_only_ms", "kernel"), ("device_only_plain_ms", "plain"),
+                         ("device_only_library_ms", "SDPA")):
+            totals[name][key] = totals[name].get(key, 0.0) + calls * tg[who]
+        return tr["kernel"], tr["plain"], tr["SDPA"]
 
     single = {SA: [0.0, 0.0], V2: [0.0, 0.0]}
 
@@ -2716,9 +2833,10 @@ def main() -> None:
     elems = bsz * n * c
     report(SA, f"[{bsz},{n},{c}]x{heads} bf16", 2 * s["calls"], tk, tp, tl, 4 * elems * 2,
            4.0 * bsz * heads * n * n * hd)
-    tk = runs_ms(lambda: wa.self_attention_bwd_kernel(q, k, v, do, heads, scale))
-    tp = runs_ms(lambda: wa.self_attention_bwd_reference(q, k, v, do, heads, scale))
-    tl = sdpa_bwd_ms(split(q), split(k), split(v), split(do))
+    tk, tp, tl = bwd_times(SA_BWD, f"[{bsz},{n},{c}]x{heads} bf16", 2 * s["calls"],
+                           lambda: wa.self_attention_bwd_kernel(q, k, v, do, heads, scale),
+                           lambda: wa.self_attention_bwd_reference(q, k, v, do, heads, scale),
+                           pa.sdpa_backward(split(q), split(k), split(v), split(do), scale=scale))
     report(SA_BWD, f"[{bsz},{n},{c}]x{heads} bf16", 2 * s["calls"], tk, tp, tl, 7 * elems * 2,
            10.0 * bsz * heads * n * n * hd)
 
@@ -2746,9 +2864,10 @@ def main() -> None:
         bias_bytes = w * heads * n * n * 4
         flops = 1.0 * bsz * w * heads * n * n * hd
         report(V2, label, 2 * s["calls"], tk, tp, tl, 4 * elems * 2 + bias_bytes, 4 * flops)
-        tk = runs_ms(lambda: wa.window_attention_v2_bwd_kernel(qkv, bias, do, heads, scale))
-        tp = runs_ms(lambda: wa.window_attention_v2_bwd_reference(qkv, bias, do, heads, scale))
-        tl = sdpa_bwd_ms(q4, k4, v4, do4, mask)
+        tk, tp, tl = bwd_times(V2_BWD, label, 2 * s["calls"],
+                               lambda: wa.window_attention_v2_bwd_kernel(qkv, bias, do, heads, scale),
+                               lambda: wa.window_attention_v2_bwd_reference(qkv, bias, do, heads, scale),
+                               pa.sdpa_backward(q4, k4, v4, do4, mask, scale))
         report(V2_BWD, label, 2 * s["calls"], tk, tp, tl, 7 * elems * 2 + 2 * bias_bytes, 10 * flops)
         del qkv, bias, do, mask
         torch.cuda.empty_cache()
@@ -3347,14 +3466,15 @@ def main() -> None:
             torch.cuda.empty_cache()
         v1_case(v1_inputs(3, 2, 2, 16, 16, dtype), dtype, "[3,2,2,16,16] (odd)", False)
     # v1 reads and writes its own layout: forward and backward at a Swin
-    # train shape launch its forward, dq, dk/dv and dbias column-sum kernels
-    # and nothing else (no copy, permute or cat; the launch counts are held
+    # train shape launch its forward, bias-tiles, rows (dq), keys (dk/dv)
+    # and dbias column-sum kernels and nothing else (no copy, permute or
+    # cat; the launch counts are held
     # in phase 22, the profiler now and then misses an event); dq, dk, dv and
     # dbias are the same bit for bit over two runs.
     v1_args = v1_inputs(*v1_train[1][:5], torch.bfloat16, *v1_train[1][5:])
     v1_kernels = pv.kernels_of(lambda: pv.v1_step(*v1_args), attempts=PROFILE_ATTEMPTS)
-    v1_own = ("attention_fwd_wgmma_kernel", "attention_bwd_dq_mma_kernel", "attention_bwd_dkv_mma_kernel",
-              "column_sum_kernel")
+    v1_own = ("attention_fwd_wgmma_kernel", "attention_bwd_bias_tiles_kernel", "attention_bwd_rows_kernel",
+              "attention_bwd_keys_kernel", "column_sum_kernel")
     print(f"v1 forward + backward {list(v1_args[0].shape)} bf16, device kernels per call (torch.profiler): "
           + ", ".join(f"{name[:60]} x{n_:g}" for name, (n_, _) in v1_kernels.items()), flush=True)
     found = sorted(k for name in v1_kernels for k in v1_own if k in name)
@@ -4057,7 +4177,7 @@ def main() -> None:
     tc_bwd = {k: (v - tc_bwd0.get(k, 0)) // (TRAIN_STEPS + 1) for k, v in wa.BWD_ROUTES.items()}
     print(f"Trans_cross per train step: forward routes {tc_fwd}, backward routes {tc_bwd}; launches over "
           f"{TRAIN_STEPS + 1} steps {dict((k, v) for k, v in tc_launches.items() if v)}", flush=True)
-    check(tc_fwd == {"wgmma": 2 * per_step, "fma": 0} and tc_bwd == {"mma": 2 * per_step, "fma": 0},
+    check(tc_fwd == {"wgmma": 2 * per_step, "fma": 0} and tc_bwd == {"wgmma": 2 * per_step, "fma": 0},
           f"Trans_cross routes per step {tc_fwd} {tc_bwd}")
     for kname, bar in ((SA, BWD_BAR["bf16"]), (SA_BWD, BWD_BAR["bf16"]), (V2, BWD_BAR["bf16"]),
                        (V2_BWD, BWD_BAR["bf16"]), ("dbias", BWD_BAR["f32"])):
@@ -4193,7 +4313,8 @@ def main() -> None:
           f"(ms, plain_ms and library_ms alike) the device-only time of CUDA graphs of 10 calls, every other row "
           f"runs of 10 calls "
           f"between CUDA events, which count the host where it is slower than the card (B1's and B2's forwards "
-          f"add device_only_ms, device_only_plain_ms and device_only_library_ms, CUDA graphs of 10 calls); B4's "
+          f"and backwards add device_only_ms, device_only_plain_ms and device_only_library_ms, CUDA graphs of 10 "
+          f"calls; SDPA's backward a graph of its forward and backward less its forward's); B4's "
           f"residual form, B6's "
           f"LayerNorm backward, in the "
           f"use_fused_block_attention config; B6 its forward and backward launches in the "

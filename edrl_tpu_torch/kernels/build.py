@@ -117,10 +117,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # is_bf16, n, d, with_bias, out[3]: blocks per SM, smem bytes, warps per block
         "edrl_attention_fwd_occupancy": (i32, [i32, i32, i32, i32, ptr]),
         "edrl_attention_bwd_smem_bytes": (i64, [i32, i32, i32]),
-        # is_bf16, n, d -> 1 for the tensor-core route, 0 for the CUDA-core route
+        # is_bf16, n, d -> 1 for the wgmma route, 0 for the CUDA-core route
         "edrl_attention_bwd_route": (i32, [i32, i32, i32]),
-        # is_bf16, n, d, with_dbias, out[4]: dq and dk/dv kernels' blocks per SM, then their smem bytes
+        # is_bf16, n, d, with_dbias, out[4]: rows (dq) and keys (dk/dv) kernels' blocks per SM, then
+        # their smem bytes
         "edrl_attention_bwd_occupancy": (i32, [i32, i32, i32, i32, ptr]),
+        # n, batch, windows, heads, batch_per_block, out[7]: the wgmma route's rows kernel CTAs and
+        # units, keys kernel CTAs and units, keys held, rows and keys consumer registers (setmaxnreg)
+        "edrl_attention_bwd_grid": (i32, [i32, i32, i32, i32, i32, ptr]),
         "edrl_self_attention_fwd": (i32, [ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, i32, ptr]),
         # q, k, v, bias, o, batch, windows, heads, n, d, q/k/v's group / head / row stride, o's,
         # scale, is_bf16, stream
@@ -128,11 +132,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # q, k, v, dout, dq, dk, dv, stats, batch, n, c, heads, scale, is_bf16, stream
         "edrl_self_attention_bwd": (
             i32, [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, i32, ptr]),
-        # q, k, v, bias, dout, dq, dk, dv, dbias_partial, dbias, stats, batch, windows, heads, n, d,
-        # q/k/v's (and dq/dk/dv's) group / head / row stride, dout's, batch_per_block, scale, is_bf16,
-        # stream
+        # q, k, v, bias, bias_tiles, dout, dq, dk, dv, dbias_partial, dbias, stats, batch, windows,
+        # heads, n, d, q/k/v's (and dq/dk/dv's) group / head / row stride, dout's, batch_per_block,
+        # scale, is_bf16, stream
         "edrl_window_attention_bwd": (
-            i32, [ptr] * 11 + [i32] * 5 + [i64, i64, i32] * 2 + [i32, f32, i32, ptr]),
+            i32, [ptr] * 12 + [i32] * 5 + [i64, i64, i32] * 2 + [i32, f32, i32, ptr]),
         # n -> 1 for the cluster route, 0 for the split route
         "edrl_mk_mmd_route": (i32, [i32]),
         "edrl_mk_mmd_scratch_floats": (i64, [i32, i32]),

@@ -1,6 +1,6 @@
 // Shared backward attention kernels for the backward entry points in this
-// folder: self_attention_bwd.cu (B1) and window_attention_v2_bwd.cu (B2 and
-// v1).
+// folder: self_attention_bwd.cu (B1) and window_attention_v2_bwd.cu (B2, v1,
+// and B2 inside the fused attention sublayer's backward, B6).
 //
 // For one (group, head) with o = softmax(s) v, s = (q k^T) * scale + bias,
 // and the output's cotangent do, they compute what the Pallas backward
@@ -21,49 +21,90 @@
 // The TPU kernel runs one program per (b, w, h) and accumulates dbias[w, h]
 // across the batch in an output block that its sequential grid revisits.
 // CUDA blocks run in no order, so each route splits the work in two kernels
-// launched in this order on one stream: a dq kernel per query tile, which
-// also writes the row statistics (max, sum, delta) and sums ds over its
-// chunk of the batch in shared memory into the chunk's partial dbias; then a
-// dk/dv kernel per key tile, which recomputes p and ds from those
-// statistics.  column_sum_kernel sums the partials in a fixed order.  No
-// atomics anywhere, so dq, dk, dv and dbias are the same bit for bit from
-// run to run, and the [N, N] probabilities never reach device memory.
+// launched in this order on one stream: a rows kernel per query tile, which
+// computes dq, writes the row statistics (max, sum, delta) and sums ds over
+// its chunk of the batch into the chunk's partial dbias; then a keys kernel
+// per block of keys, which recomputes p and ds from those statistics and
+// accumulates dk and dv.  column_sum_kernel sums the partials in a fixed
+// order.  No atomics anywhere, so dq, dk, dv and dbias are the same bit for
+// bit from run to run, and the [N, N] probabilities never reach device
+// memory.
 //
 // Two routes, chosen per call from the dtype and shape before the launch
-// (attention_bwd_route_mma; the wrapper's attention_bwd_route mirrors it):
+// (attention_bwd_route_wgmma; the wrapper's attention_bwd_route mirrors it):
 //
-// - Tensor cores: bf16, head_dim % 16 == 0, N <= 224 (every main-path call:
-//   N = 144 and 216, head_dim 128), the calls the forward's tensor-core
-//   kernel takes.  What bounded the CUDA-core route on the H100 was f32 FMA
-//   with every operand read from shared memory as f32 (~10 TFLOP/s, 7
-//   products).  Here every product is mma.sync m16n8k16 (bf16 in, f32
-//   accumulate) on fragments that ldmatrix reads from bf16 tiles, staged by
-//   cp.async ahead of the products that use them, in a shared-memory layout
-//   whose strides are compile-time constants (the first version's runtime
-//   strides and a kernel unrolled over all N put 47,000 instructions, most
-//   of them integer address arithmetic, into the dq kernel).  Blocks of 4
-//   warps, 16 rows a warp; s, p, dp and ds live in registers in f32, a
-//   32-wide chunk at a time.  p is rounded to bf16 where it enters the dv
-//   product as an A operand (as the forward's tensor-core kernel rounds it
-//   before its value product); ds enters the dq and dk products as two bf16
-//   parts, hi + lo (frag_a_split: with one rounding, B1's backward on a
-//   train step's own tensors was off by 3.6% of its largest magnitude);
-//   dbias sums the f32 ds.
-//   1. attention_bwd_dq_mma_kernel: one block per (64 queries, window, head,
-//      batch chunk), two walks over the keys per batch entry: the row
-//      statistics and delta online, then ds, dbias and dq.  6 products.
-//   2. attention_bwd_dkv_mma_kernel: one block per (group, head, 64 keys),
-//      keys and values resident, a walk over the queries in chunks of 32;
-//      recomputes s^T and dp^T and accumulates dv and dk in registers.  5
-//      products.
-//   Registers per thread, shared memory per block and blocks per SM at the
-//   main-path shapes: chip_smoke.py phase 2 prints them, PERF.md keeps them.
-// - CUDA cores: f32 inputs (the exact path that the f32 bars of 1e-4 hold)
-//   and bf16 shapes outside the tensor-core route (head_dim % 16 != 0,
-//   224 < N <= 256).  256 threads; q, k, v and do upcast to f32 in shared
-//   memory, products as f32 FMA.  attention_bwd_dq_kernel keeps [32, N] f32
-//   score and dp rows per 32-query tile (so N <= 256) and recomputes s and dp
-//   in attention_bwd_dkv_kernel (32-key tiles).
+// - "wgmma": bf16, head_dim % 16 == 0, N <= 224, the calls the forward's
+//   wgmma route takes; every main-path call (N = 144 and 216, head_dim 128).
+//
+//   What bounds it on the H100: the bytes.  A call reads q, k, v and do and
+//   writes dq, dk and dv once (B1 at [32, 216, 768]: 74 MB, 22 us at 3.35
+//   TB/s; B2 at Swin stage 0 of a batch-32 step: 529 MB of qkv, do and dqkv
+//   plus the f32 bias and dbias), against 5 products of 2 N^2 D a (group,
+//   head), 7 with ds as hi + lo (B1: 16.0 GFLOP, 16 us at the bf16 peak).
+//   The route before this one (mma.sync m16n8k16 on ldmatrix fragments,
+//   cp.async-staged 32-row chunks, 4-warp blocks at 2 an SM) issued 11
+//   products a (group, head) and reached 7-9 % of the bf16 peak: the dq
+//   kernel walked the keys twice (online statistics, then ds) and every
+//   16-key step waited on its copy and a barrier for a few tiny products.
+//
+//   This design (attention_bwd_rows_kernel, attention_bwd_keys_kernel):
+//   * one CTA of 384 threads per SM (a persistent grid): two consumer
+//     warpgroups and a producer warpgroup that issues every load by TMA
+//     through 4-D tensor maps over (column, head, token, group) with the
+//     call's strides (attention_map_plan, make_attention_map, shared with
+//     the forward), so a box reads zeros past D, past N and past the last
+//     group, never the next group's tokens.  The producer gives its
+//     registers to the consumers (setmaxnreg 24 and 240; the launch's cap is
+//     168 a thread at 12 warps an SM);
+//   * the rows kernel: a unit is (query tile of 64 rows, window, head,
+//     chunk of the batch); for each batch entry of the chunk the head's
+//     whole K and V are resident (keys padded to NK = 64, 160 or 224,
+//     attention_bwd_keys) beside the tile's q and do.  The two warpgroups
+//     split the keys, NK / 2 each (a multiple of 16: the dq product's
+//     depth), and run one pass over the row: dp = do v^T and s = q k^T on
+//     wgmma (m64n{NK/2}k16, both operands from shared memory); scale, bias
+//     and -inf past N in f32; the row max, then the row sum l and a =
+//     rowsum(e dp) of e = 2^((x - m) log2 e), each exchanged between the two
+//     warpgroups through shared memory (max of the two; sums in warpgroup
+//     order); p = e (1 / l), delta = a (1 / l), ds = p (dp - delta) into the f32
+//     dbias accumulator in registers, and dq = ds k with ds as bf16 hi + lo
+//     register A operands (m64n128k16, K an MN-major operand).  Each
+//     warpgroup then sends the dq columns the other stores through shared
+//     memory (f32, added in a fixed order) and stores 64 columns.  4
+//     products a tile, no second walk; the statistics go to device memory
+//     in tiles of 64 rows (m, 1 / l, delta: 768 bytes).  A unit's entries
+//     share one bias: at NK <= 160 each thread reads its 40 values once a
+//     unit into registers (at 224, the B2 call under B6, once an entry);
+//   * the keys kernel: each consumer warpgroup with one producer warp is a
+//     pipeline of its own over (item, 64-key block) units: its block's K
+//     and V resident, the item's q and do tiles and their statistics
+//     streamed through a two-stage ring (one cp.async.bulk for the
+//     statistics); per tile s^T = k q^T and dp^T = v do^T (m64n64k16, shared
+//     memory), p^T and ds^T from the statistics, dv += p^T do with p rounded
+//     to bf16 and dk += ds^T q with ds as hi + lo (m64n128k16, register A).
+//     dk and dv stay in registers (128 f32 a thread) until the store.  5
+//     products a tile.  The bias comes from a copy in the keys kernel's
+//     order (attention_bwd_bias_tiles_kernel, one launch more a call, the
+//     bias's bytes once more): each thread reads its 32 values a tile as 8
+//     coalesced float4s, prefetched into L1 under the products (read where
+//     they fall, 32 scattered floats a tile, they dominated the kernel's
+//     time at Swin stage 0);
+//   * a warpgroup's stores go through its warps' 16 x 32 staging blocks as
+//     16-byte row segments (the forward's);
+//   * shared memory (dynamic, with 1024 bytes of alignment slack): the rows
+//     kernel holds K and V (2 * NK * 256 bytes), q and do (32 KB) and the dq
+//     exchange (32 KB): 99,328 / 148,480 / 181,248 bytes at NK = 64 / 160 /
+//     224, and 11,808 static (barriers, the row partials, 10,240 of
+//     staging); the keys kernel two pipelines of K and V (32 KB) and a ring
+//     of two 33,792-byte stages: 201,728 bytes, and 10,336 static.
+//   Registers, shared memory, CTAs per SM and waves at the main-path shapes:
+//   chip_smoke.py phase 2 prints them; PERF.md keeps them and the times.
+// - "fma": f32 inputs (the exact path that the f32 bars of 1e-4 hold) and
+//   bf16 shapes outside the wgmma route (head_dim % 16 != 0, 224 < N <=
+//   256).  256 threads; q, k, v and do upcast to f32 in shared memory,
+//   products as f32 FMA.  attention_bwd_dq_kernel keeps [32, N] f32 score
+//   and dp rows per 32-query tile (so N <= 256) and recomputes s and dp in
+//   attention_bwd_dkv_kernel (32-key tiles).
 //
 // The tail keys past N get p = 0 and ds = 0, so they reach neither dbias
 // nor dk/dv; the tail queries compute on zeros and are never stored.
@@ -72,11 +113,9 @@
 
 #include <type_traits>
 
-#include "attention_common.cuh"
-#include "mma_common.cuh"
+#include "attention_fwd.cuh"
 
 namespace {
-
 constexpr int kBwdThreads = 256;
 constexpr int kBwdWarps = kBwdThreads / 32;
 constexpr int kBwdRows = 4;                       // rows (queries or keys) per warp
@@ -96,6 +135,7 @@ struct AttnBwdParams {
   void* dk;
   void* dv;
   const float* bias;   // [windows, heads, n, n] f32, or nullptr
+  float* bias_tiles;   // wgmma route: the bias in the keys kernel's order (attention_bwd_bias_tiles_floats)
   float* dbias;        // [batch_chunks, windows, heads, n, n] partial sums, or nullptr
   float* row_m;        // [groups, heads, n] softmax row max
   float* row_l;        // [groups, heads, n] softmax row sum
@@ -449,567 +489,624 @@ __global__ void __launch_bounds__(kBwdThreads) attention_bwd_dkv_kernel(AttnBwdP
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core route (bf16).
+// The wgmma route (bf16): TMA loads, wgmma products.
 // ---------------------------------------------------------------------------
 
-constexpr int kTcWarps = 4;
-constexpr int kTcThreads = kTcWarps * 32;
-constexpr int kTcRows = kTcWarps * 16;          // queries of a dq block, keys of a dkv block
-constexpr int kTcStep = 32;                     // keys (dq) or queries (dkv) per staged chunk
-constexpr int kTcDqStages = 3;                  // the dq kernel's ring of staged key chunks
-constexpr int kTcMaxKeys = 224;                 // the forward's tensor-core route takes the same calls
-constexpr int kTcLd = kAttnLd;                  // bf16 row stride of every staged tile
-constexpr int kTcKSteps = kBwdMaxHeadDim / 16;  // 16-deep steps over the head dim
-constexpr int kTcVecs = kBwdMaxHeadDim / 8;     // 16-byte vectors per staged row
-constexpr int kTcBiasLd = kTcRows + 4;          // dkv kernel's staged bias rows: conflict-free reads
-constexpr int kTcStage = 2 * kTcStep * kTcLd;   // bf16 elements of one dq stage (keys, values)
-constexpr float kLog2e = 1.4426950408889634f;   // p = 2^((x - m) log2 e) / l
+constexpr int kBwdTileRows = 64;                     // a query tile (rows kernel), a key block (keys kernel)
+constexpr int kBwdStatFloats = 3 * kBwdTileRows;     // a query tile's m, 1 / l and delta
+constexpr uint32_t kBwdStatBytes = kBwdStatFloats * 4;
+constexpr int kBwdCtaThreads = 384;                  // two consumer warpgroups and a producer warpgroup
+// setmaxnreg: the producer warpgroup gives its registers to the consumers,
+// the CTA's total staying the launch's 168 a thread.  The rows kernel's
+// producer is one thread; the keys kernel's two (one a pipeline) need more.
+constexpr int kBwdRowsProducerRegs = 24, kBwdRowsConsumerRegs = 240;
+constexpr int kBwdKeysProducerRegs = 40, kBwdKeysConsumerRegs = 232;
+constexpr int kBwdRing = 2;                          // the keys kernel's (q, do, statistics) stages
+constexpr uint32_t kBwdKeysStageBytes = 2 * kQTileBytes + 1024;  // q, do, statistics, 1024-aligned
+constexpr uint32_t kBwdPipeBytes = 2 * kQTileBytes + kBwdRing * kBwdKeysStageBytes;  // K, V, the ring
+constexpr size_t kBwdKeysSmem = 2 * (size_t)kBwdPipeBytes + 1024;
+constexpr float kLog2e = 1.4426950408889634f;        // e = 2^((x - m) log2 e)
 
 // The route of a call; the caller has checked d % 8 == 0, d <= kBwdMaxHeadDim
-// and 1 <= n <= kBwdMaxKeys.
-inline bool attention_bwd_route_mma(bool is_bf16, int n, int d) {
-  return is_bf16 && d % 16 == 0 && n <= kTcMaxKeys;
+// and 1 <= n <= kBwdMaxKeys.  The forward's wgmma route takes the same calls.
+inline bool attention_bwd_route_wgmma(bool is_bf16, int n, int d) { return attention_fwd_route_wgmma(is_bf16, n, d); }
+
+// The keys the rows kernel holds for a head of n tokens, split in two halves
+// of a multiple of 16 (the depth of the dq product's steps).
+inline int attention_bwd_keys(int n) { return n <= 64 ? 64 : (n <= 160 ? 160 : 224); }
+
+__host__ __device__ inline int bwd_tiles(int n) { return (n + kBwdTileRows - 1) / kBwdTileRows; }
+
+// The rows kernel at NK keys: K and V, each two regions of NK rows x 128
+// bytes (columns 0-63, then 64-127), the tile's q and do (64 rows each), and
+// the dq exchange (32 f32 a thread of each warpgroup, for the other).
+template <int NK>
+struct BwdRowsShape {
+  static constexpr int kHalf = NK / 2;                 // keys of a consumer warpgroup
+  static constexpr uint32_t kRegionBytes = NK * 128;
+  static constexpr uint32_t kKBytes = 2 * kRegionBytes;
+  static constexpr uint32_t kK = 0, kV = kKBytes, kQ = 2 * kKBytes, kDo = kQ + kQTileBytes, kX = kDo + kQTileBytes;
+  static constexpr uint32_t kXBytes = 2 * 32 * 128 * 4;
+  static constexpr size_t kSmem = (size_t)kX + kXBytes + 1024;
+};
+
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
+
+// `bytes` (a multiple of 16) from global src into shared dst, completing
+// bar's transaction count; both 16-byte aligned.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
 }
 
-// Row stride of the dq kernel's f32 dbias accumulator: keys rounded up to
-// 32, plus 8 so that a warp's float2 updates hit every bank once.
-__host__ __device__ inline int tc_dbias_ld(int n) { return (n + kTcStep - 1) / kTcStep * kTcStep + 8; }
-
-inline size_t attention_bwd_dq_mma_smem_bytes(int n, bool with_dbias) {
-  return (size_t)kTcDqStages * kTcStage * sizeof(__nv_bfloat16) +
-         (with_dbias ? (size_t)kTcRows * tc_dbias_ld(n) * sizeof(float) : 0);
+__device__ __forceinline__ void prefetch_l1(const void* ptr) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(ptr));
 }
 
-inline size_t attention_bwd_dkv_mma_smem_bytes(bool with_bias) {
-  return (size_t)(2 * kTcRows + 4 * kTcStep) * kTcLd * sizeof(__nv_bfloat16) +
-         2 * (3 + (with_bias ? kTcBiasLd : 0)) * kTcStep * sizeof(float);
+// The floats of the bias in the keys kernel's order
+// (attention_bwd_bias_tiles_kernel).
+__host__ __device__ inline size_t attention_bwd_bias_tiles_floats(int windows, int heads, int n) {
+  return (size_t)windows * heads * bwd_tiles(n) * bwd_tiles(n) * 4096;
 }
 
-// Rows [row0, row0 + ROWS) of one head (d bf16 each) into shared rows of
-// stride kTcLd by cp.async, 16 bytes per thread and step: thread i copies
-// column (i % 16) * 8 of rows i / 16, i / 16 + 8, ...  Rows past n are zero,
-// columns past d are left alone.  The caller commits and waits.
-template <int ROWS>
-__device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                int row_stride, int row0, int n, int d) {
-  constexpr int kRowsPerStep = kTcThreads / kTcVecs;
-  static_assert(ROWS % kRowsPerStep == 0, "whole steps");
-  const int r = threadIdx.x / kTcVecs;
-  const int c = (threadIdx.x % kTcVecs) * 8;
-  if (c >= d) return;
-  const __nv_bfloat16* s = src + (size_t)(row0 + r) * row_stride + c;
-  __nv_bfloat16* o = dst + r * kTcLd + c;
+// The bias in the keys kernel's order, so that its threads read it in
+// coalesced float4s rather than 32 scattered floats a tile: for each
+// (window, head), key block kb and query tile t, in that order, 1024
+// float4s; float4 v of consumer thread tid (warp tid / 32 of its warpgroup,
+// lane 4 g + t4), at v * 128 + tid, holds the thread's values 4 v .. 4 v + 3
+// in the order of its loop (8 kk + i): query 64 t + 16 kk + 8 (i / 4) + 2 t4
+// + i % 2, key 64 kb + 16 (tid / 32) + g + 8 ((i / 2) % 2); 0 past n.  One
+// read of the bias and one write of its tiles a call.
+__global__ void __launch_bounds__(256)
+    attention_bwd_bias_tiles_kernel(const float* bias, float4* out, int n, int tiles, long long total) {
+  const long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (idx >= total) return;
+  const int tid = (int)(idx & 127), v = (int)((idx >> 7) & 7);
+  const long long tile = idx >> 10;
+  const int t = (int)(tile % tiles), kb = (int)(tile / tiles % tiles);
+  const float* b = bias + tile / ((long long)tiles * tiles) * n * n;
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  float x[4];
 #pragma unroll
-  for (int it = 0; it < ROWS / kRowsPerStep; ++it) {
-    const bool valid = row0 + r + it * kRowsPerStep < n;
-    cp_async16(o + it * kRowsPerStep * kTcLd, valid ? s + (size_t)it * kRowsPerStep * row_stride : src,
-               valid);
+  for (int c = 0; c < 4; ++c) {
+    const int kk = (4 * v + c) >> 3, i = (4 * v + c) & 7;
+    const int row = kBwdTileRows * t + 16 * kk + 8 * (i >> 2) + 2 * t4 + (i & 1);
+    const int key = kBwdTileRows * kb + 16 * (tid >> 5) + g + 8 * ((i >> 1) & 1);
+    x[c] = row < n && key < n ? b[(size_t)row * n + key] : 0.0f;
   }
+  out[idx] = make_float4(x[0], x[1], x[2], x[3]);
 }
 
-// The A fragment that frag_a_from_c makes, as two bf16 parts, hi rounding
-// the f32 values and lo rounding what hi leaves: hi + lo carries ~16
-// significant bits.  ds goes to
-// the dq and dk products so: those sums cancel (ds sums to 0 over a row), and
-// on a train step's own tensors one bf16 rounding of ds put B1's backward
-// 3.6% of its largest magnitude off, hi + lo 0.6% (PERF.md).
-__device__ __forceinline__ void frag_a_split(uint32_t (&hi)[4], uint32_t (&lo)[4], const float (&c0)[4],
-                                             const float (&c1)[4]) {
-  const float v[8] = {c0[0], c0[1], c0[2], c0[3], c1[0], c1[1], c1[2], c1[3]};
+// The A fragment of a 16-deep step (the accumulator's 8 values x = acc + 8
+// kk: columns 16 kk .. 16 kk + 15 of rows g and g + 8) as two bf16 parts: hi
+// rounds the f32 values, lo rounds what hi leaves, so hi + lo carries ~16
+// significant bits.  ds goes to the
+// dq and dk products so: their sums cancel (ds sums to 0 over a row), and one
+// bf16 rounding of ds put B1's backward on a train step's own tensors 3.6 %
+// of its largest magnitude off (PERF.md).
+__device__ __forceinline__ void split_bf16(uint32_t (&hi)[4], uint32_t (&lo)[4], const float* x) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
     hi[i] = *reinterpret_cast<const uint32_t*>(&h);
-    lo[i] = pack_bf16(v[2 * i] - __low2float(h), v[2 * i + 1] - __high2float(h));
+    lo[i] = pack_bf16(x[2 * i] - __low2float(h), x[2 * i + 1] - __high2float(h));
   }
 }
 
-// acc[0..3] = the 16 rows whose A fragments `a` holds times rows 0 .. 31 of
-// the staged tile b_s transposed, over depth d.
-__device__ __forceinline__ void product_nt32(float (&acc)[4][4], const uint32_t (&a)[kTcKSteps][4],
-                                             const __nv_bfloat16* b_s, int d) {
+// The rows kernel's dq, whose two warpgroups each hold the sum over their
+// half of the keys: the warpgroup that stores columns 2 kKeep .. 2 kKeep +
+// 63 (its accumulator's values kKeep .. kKeep + 31) sends the other 32 values
+// a thread through xbuf (f32; the other warpgroup's thread of the same
+// index holds the same rows and columns), adds the 32 it receives in place
+// and stores its columns < d of rows < n, times scale.  The two sums are
+// added in one order (f32 addition commutes): the same bits in both.
+template <int kKeep>
+__device__ __forceinline__ void store_dq_half(float (&dq)[kBwdMaxHeadDim / 2], float* xbuf, __nv_bfloat16* stage,
+                                              __nv_bfloat16* dqg, int ld, float scale, int row_lo, int n, int d) {
+  constexpr int kSend = 32 - kKeep, kWg = kKeep / 32;
+  const int tid = threadIdx.x & 127;
+  float* out = xbuf + (1 - kWg) * 32 * 128 + tid;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  for (int i = 0; i < 32; ++i) out[i * 128] = dq[kSend + i];
+  consumers_sync();
+  const float* in = xbuf + kWg * 32 * 128 + tid;
 #pragma unroll
-  for (int kk = 0; kk < kTcKSteps; ++kk) {
-    if (16 * kk < d) {
+  for (int i = 0; i < 32; ++i) dq[kKeep + i] += in[i * 128];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        uint32_t b[4];
-        frag_b_nk(b, b_s, 16 * half, 16 * kk);
-        mma_bf16_16816(acc[2 * half], a[kk], b[0], b[1]);
-        mma_bf16_16816(acc[2 * half + 1], a[kk], b[2], b[3]);
+  for (int q2 = 0; q2 < 2; ++q2) {
+    const int col0 = 2 * kKeep + 32 * q2;
+    if (col0 < d) store_warp_block(stage, dqg, ld, dq + kKeep + 16 * q2, scale, scale, row_lo, n, col0, d);
+  }
+}
+
+// Work unit u of the rows kernel: query tile *t (fastest, so that the CTAs
+// reading one head's K and V run together), window *w, head *h, batch chunk
+// *bc.
+__device__ __forceinline__ void bwd_rows_unit(const AttnBwdParams& p, int u, int* t, int* w, int* h, int* bc) {
+  *t = u % p.tiles;
+  u /= p.tiles;
+  *h = u % p.heads;
+  u /= p.heads;
+  *w = u % p.windows;
+  *bc = u / p.windows;
+}
+
+// A consumer warpgroup of attention_bwd_rows_kernel: keys [wg NK / 2, (wg +
+// 1) NK / 2) of every unit the CTA walks.
+template <int NK, bool kBias>
+__device__ __forceinline__ void consume_bwd_rows(const AttnBwdParams& p, uint32_t base, float* xbuf,
+                                                 uint64_t* qvd_full, uint64_t* k_full, uint64_t* qvd_empty,
+                                                 uint64_t* k_empty, float (*row_x)[3][kBwdTileRows],
+                                                 __nv_bfloat16* stage) {
+  using Shape = BwdRowsShape<NK>;
+  using bf16 = __nv_bfloat16;
+  constexpr int kHalf = Shape::kHalf, kAcc = kHalf / 2, kSteps = kHalf / 16;
+  constexpr bool kBiasRegs = kBias && NK <= 160;
+  const int n = p.n, d = p.d;
+  const float scale = p.scale;
+  const int units = p.tiles * p.windows * p.heads * p.batch_chunks;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int r_lo = 16 * warp + g, r_hi = r_lo + 8;  // the thread's rows of the tile
+  const int key0 = wg * kHalf;
+  const uint32_t q_s = base + Shape::kQ, do_s = base + Shape::kDo;
+  const uint32_t k_s = base + Shape::kK + key0 * 128, v_s = base + Shape::kV + key0 * 128;
+  int e = 0;  // batch entries walked: the barriers' phases
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    int t, w, h, bc;
+    bwd_rows_unit(p, u, &t, &w, &h, &bc);
+    const int row_lo = t * kBwdTileRows + r_lo, row_hi = row_lo + 8;
+    const float* bias = kBias ? p.bias + ((size_t)w * p.heads + h) * (size_t)n * n : nullptr;
+    float db[kAcc];  // this chunk's dbias at the thread's (row, key) pairs
+    zero_acc(db);
+    // Every entry of the unit reads the same bias: at NK <= 160 it is read
+    // once into registers (at 224 they would not hold it beside s, dp and
+    // db; each entry reads it from L2 there).
+    float bb[kBiasRegs ? kAcc : 1];
+    if (kBiasRegs) {
+#pragma unroll
+      for (int j = 0; j < kHalf / 8; ++j) {
+        const float2 b_lo = bias_pair(bias, row_lo, key0 + 8 * j + 2 * t4, n);
+        const float2 b_hi = bias_pair(bias, row_hi, key0 + 8 * j + 2 * t4, n);
+        bb[4 * j] = b_lo.x;
+        bb[4 * j + 1] = b_lo.y;
+        bb[4 * j + 2] = b_hi.x;
+        bb[4 * j + 3] = b_hi.y;
       }
     }
-  }
-}
-
-// One block per (64 queries, window, head, batch chunk), 4 warps of 16
-// queries.  A warp keeps its q and do rows as A fragments in registers and
-// its dq in f32.  Per batch entry the block walks the keys twice in chunks
-// of 32 (keys and values staged by cp.async two chunks ahead in a ring of
-// three), and the second walk recomputes the chunk's scores and dp rather
-// than keeping a [16, N] f32 row of either, so that the walks stay short
-// loops of independent products and the kernel small:
-//   1. s = q k^T and dp = do v^T; the row max m, the row sum l and delta =
-//      rowsum(dp * p), online;
-//   2. s, p and dp again; ds = p * (dp - delta) into the f32 dbias
-//      accumulator, and dq += ds k with ds as bf16 hi + lo.
-// 6 tensor-core products (s and dp twice, dq twice).
-__global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_dq_mma_kernel(AttnBwdParams p) {
-  using bf16 = __nv_bfloat16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int d = p.d;
-  const int n = p.n;
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [kTcDqStages][keys, values][kTcStep][kTcLd]
-  float* dbias_acc = reinterpret_cast<float*>(ring + kTcDqStages * kTcStage);  // [kTcRows][ldb]
-  const int ldb = tc_dbias_ld(n);
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int tile = blockIdx.x % p.tiles;
-  const int rest = blockIdx.x / p.tiles;
-  const int w = rest % p.windows;
-  const int bc = rest / p.windows;
-  const int h = blockIdx.y;
-  const int q0 = tile * kTcRows;
-  const int r0 = warp * 16;
-  const bool live = q0 + r0 < n;  // the warp owns a query row
-  const int row_lo = q0 + r0 + g;
-  const int row_hi = row_lo + 8;
-  const int chunks = (n + kTcStep - 1) / kTcStep;
-  const int b_begin = bc * p.batch_per_block;
-  const int b_end = min(p.batch, b_begin + p.batch_per_block);
-  const float* bias = p.bias ? p.bias + ((size_t)w * p.heads + h) * (size_t)n * n : nullptr;
-  const float* bias_lo = bias + (size_t)row_lo * n;  // read only where row_lo < n
-  const float* bias_hi = bias + (size_t)row_hi * n;
-  float* dbias_lo = dbias_acc + (r0 + g) * ldb + 2 * t;  // this lane's accumulator, row g, key 2t
-  float* dbias_hi = dbias_lo + 8 * ldb;
-
-  if (p.dbias) {
-    for (int i = threadIdx.x; i < kTcRows * ldb; i += kTcThreads) dbias_acc[i] = 0.0f;
-  }
-
-  for (int b = b_begin; b < b_end; ++b) {
-    const size_t grp = (size_t)b * p.windows + w;
-    const size_t in_off = grp * p.group_stride_in + (size_t)h * p.head_stride_in;
-    const bf16* qg = static_cast<const bf16*>(p.q) + in_off;
-    const bf16* kg = static_cast<const bf16*>(p.k) + in_off;
-    const bf16* vg = static_cast<const bf16*>(p.v) + in_off;
-    const bf16* dog = static_cast<const bf16*>(p.dout) + grp * p.group_stride_dout + (size_t)h * p.head_stride_dout;
-    bf16* dqg = static_cast<bf16*>(p.dq) + grp * p.group_stride_grad + (size_t)h * p.head_stride_grad;
-    const size_t stat0 = (grp * p.heads + h) * (size_t)n;
-
-    // Step j of the two walks stages key chunk j % chunks (its keys and
-    // values) into stage j % kTcDqStages: one cp.async group per step.
-    auto issue = [&](int j) {
-      if (j >= 2 * chunks) return;
-      const int k0 = (j >= chunks ? j - chunks : j) * kTcStep;
-      bf16* stage = ring + (j % kTcDqStages) * kTcStage;
-      stage_rows_bf16<kTcStep>(stage, kg, p.row_stride_in, k0, n, d);
-      stage_rows_bf16<kTcStep>(stage + kTcStep * kTcLd, vg, p.row_stride_in, k0, n, d);
-    };
-    // Start of step j: wait for its chunk (step j + 1 may be in flight),
-    // then, every warp being past step j - 1, stage step j + 2 into the
-    // stage step j - 1 used.  Returns step j's keys; its values follow them.
-    auto begin = [&](int j) {
-      cp_async_wait<1>();
-      __syncthreads();
-      issue(j + 2);
-      cp_async_commit();
-      return static_cast<const bf16*>(ring + (j % kTcDqStages) * kTcStage);
-    };
-
-    // The tile's q and do rows through stages 1 and 2 into the warps' A
-    // fragments, key chunk 0 into stage 0 meanwhile; then chunk 1 into
-    // stage 1.
-    __syncthreads();  // the previous batch entry's stages are consumed
-    stage_rows_bf16<kTcRows>(ring + kTcStage, qg, p.row_stride_in, q0, n, d);
-    stage_rows_bf16<kTcRows>(ring + 2 * kTcStage, dog, p.row_stride_dout, q0, n, d);
-    issue(0);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    uint32_t qa[kTcKSteps][4], da[kTcKSteps][4];
-    if (live) {
+    const int b_end = min(p.batch, (bc + 1) * p.batch_per_block);
+    for (int b = bc * p.batch_per_block; b < b_end; ++b, ++e) {
+      const size_t grp = (size_t)b * p.windows + w, item = grp * p.heads + h;
+      const uint32_t par = e & 1;
+      // dp = do v^T, then s = q k^T, over this warpgroup's keys.
+      mbar_wait(qvd_full, par);
+      float dp[kAcc], s[kAcc];
+      zero_acc(dp);
+      zero_acc(s);
+      fence_acc(dp);
+      fence_acc(s);
+      wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kTcKSteps; ++kk) {
+      for (int kk = 0; kk < kBwdMaxHeadDim / 16; ++kk) {
         if (16 * kk < d) {
-          frag_a(qa[kk], ring + kTcStage, r0, 16 * kk);
-          frag_a(da[kk], ring + 2 * kTcStage, r0, 16 * kk);
+          Wgmma<kHalf>::template ss<0, 0>(dp, sw128_desc(do_s + (kk >> 2) * kBoxBytes + 32 * (kk & 3), 16, 1024),
+                                          sw128_desc(v_s + (kk >> 2) * Shape::kRegionBytes + 32 * (kk & 3), 16, 1024));
         }
       }
-    }
-    __syncthreads();
-    issue(1);
-    cp_async_commit();
+      wgmma_commit();
+      mbar_wait(k_full, par);
+#pragma unroll
+      for (int kk = 0; kk < kBwdMaxHeadDim / 16; ++kk) {
+        if (16 * kk < d) {
+          Wgmma<kHalf>::template ss<0, 0>(s, sw128_desc(q_s + (kk >> 2) * kBoxBytes + 32 * (kk & 3), 16, 1024),
+                                          sw128_desc(k_s + (kk >> 2) * Shape::kRegionBytes + 32 * (kk & 3), 16, 1024));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dp);
+      fence_acc(s);
+      mbar_arrive(qvd_empty);  // q, do and V are done with
 
-    // x = s * scale + bias for key chunk c: -inf past n, 0 in the tail rows.
-    // Lane (g, t) holds rows g and g + 8, keys 32c + 8jj + 2t (+ 1).
-    auto scores = [&](float (&x)[4][4], const bf16* k_c, int c) {
-      product_nt32(x, qa, k_c, d);
+      // x = s * scale + bias, -inf past n; the rows' max over both halves.
+      float m_lo = -INFINITY, m_hi = -INFINITY;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool hi = e >= 2;
-          const int row = hi ? row_hi : row_lo;
-          const int key = kTcStep * c + 8 * jj + 2 * t + (e & 1);
-          const float bv = bias != nullptr && row < n && key < n ? __ldg((hi ? bias_hi : bias_lo) + key) : 0.0f;
-          const float v = row < n ? x[jj][e] * p.scale + bv : 0.0f;
-          x[jj][e] = key < n ? v : -INFINITY;
+      for (int j = 0; j < kHalf / 8; ++j) {
+        const int key = key0 + 8 * j + 2 * t4;
+        float2 b_lo = make_float2(0.0f, 0.0f), b_hi = b_lo;
+        if (kBiasRegs) {
+          b_lo = make_float2(bb[4 * j], bb[4 * j + 1]);
+          b_hi = make_float2(bb[4 * j + 2], bb[4 * j + 3]);
+        } else if (kBias) {
+          b_lo = bias_pair(bias, row_lo, key, n);
+          b_hi = bias_pair(bias, row_hi, key, n);
         }
+        s[4 * j] = key < n ? fmaf(s[4 * j], scale, b_lo.x) : -INFINITY;
+        s[4 * j + 1] = key + 1 < n ? fmaf(s[4 * j + 1], scale, b_lo.y) : -INFINITY;
+        s[4 * j + 2] = key < n ? fmaf(s[4 * j + 2], scale, b_hi.x) : -INFINITY;
+        s[4 * j + 3] = key + 1 < n ? fmaf(s[4 * j + 3], scale, b_hi.y) : -INFINITY;
+        m_lo = fmaxf(m_lo, fmaxf(s[4 * j], s[4 * j + 1]));
+        m_hi = fmaxf(m_hi, fmaxf(s[4 * j + 2], s[4 * j + 3]));
       }
-    };
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, off));
+        m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, off));
+      }
+      if (t4 == 0) {
+        row_x[wg][0][r_lo] = m_lo;
+        row_x[wg][0][r_hi] = m_hi;
+      }
+      consumers_sync();
+      m_lo = fmaxf(row_x[0][0][r_lo], row_x[1][0][r_lo]);
+      m_hi = fmaxf(row_x[0][0][r_hi], row_x[1][0][r_hi]);
 
-    // 1. Row max m, row sum l and delta = rowsum(dp * p), online: with e =
-    //    2^((x - m) log2 e), l = sum(e) and a = sum(e * dp), each chunk
-    //    rescaling the lane's partial sums to the quad's new max; then
-    //    delta = a / l.
-    float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.0f, l_hi = 0.0f, a_lo = 0.0f, a_hi = 0.0f;
-    for (int c = 0; c < chunks; ++c) {
-      const bf16* k_c = begin(c);
-      if (live) {
-        float x[4][4], dp[4][4];
-        scores(x, k_c, c);
-        product_nt32(dp, da, k_c + kTcStep * kTcLd, d);
-        float cm_lo = m_lo, cm_hi = m_hi;
+      // e = 2^((x - m) log2 e) in place of x; l = rowsum(e), a = rowsum(e dp).
+      float l_lo = 0.0f, l_hi = 0.0f, a_lo = 0.0f, a_hi = 0.0f;
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          cm_lo = fmaxf(cm_lo, fmaxf(x[jj][0], x[jj][1]));
-          cm_hi = fmaxf(cm_hi, fmaxf(x[jj][2], x[jj][3]));
-        }
+      for (int j = 0; j < kHalf / 8; ++j) {
 #pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          cm_lo = fmaxf(cm_lo, __shfl_xor_sync(0xffffffffu, cm_lo, off));
-          cm_hi = fmaxf(cm_hi, __shfl_xor_sync(0xffffffffu, cm_hi, off));
-        }
-        const float r_lo = exp2f((m_lo - cm_lo) * kLog2e);  // 2^-inf = 0 on the first chunk
-        const float r_hi = exp2f((m_hi - cm_hi) * kLog2e);
-        l_lo *= r_lo;
-        a_lo *= r_lo;
-        l_hi *= r_hi;
-        a_hi *= r_hi;
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float ex = exp2f((x[jj][e] - (e < 2 ? cm_lo : cm_hi)) * kLog2e);
-            if (e < 2) {
-              l_lo += ex;
-              a_lo += ex * dp[jj][e];
-            } else {
-              l_hi += ex;
-              a_hi += ex * dp[jj][e];
-            }
-          }
-        }
-        m_lo = cm_lo;
-        m_hi = cm_hi;
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-      a_lo += __shfl_xor_sync(0xffffffffu, a_lo, off);
-      a_hi += __shfl_xor_sync(0xffffffffu, a_hi, off);
-    }
-    const float il_lo = __frcp_rn(l_lo);
-    const float il_hi = __frcp_rn(l_hi);
-    const float dl_lo = a_lo * il_lo;
-    const float dl_hi = a_hi * il_hi;
-    if (t == 0) {
-      if (row_lo < n) {
-        p.row_m[stat0 + row_lo] = m_lo;
-        p.row_l[stat0 + row_lo] = l_lo;
-        p.row_delta[stat0 + row_lo] = dl_lo;
-      }
-      if (row_hi < n) {
-        p.row_m[stat0 + row_hi] = m_hi;
-        p.row_l[stat0 + row_hi] = l_hi;
-        p.row_delta[stat0 + row_hi] = dl_hi;
-      }
-    }
-
-    // p = 2^((x - m) log2 e) / l for a chunk, from its scores (as the dkv
-    // kernel forms it from the saved statistics).
-    auto probs = [&](float (&x)[4][4]) {
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        x[jj][0] = exp2f((x[jj][0] - m_lo) * kLog2e) * il_lo;
-        x[jj][1] = exp2f((x[jj][1] - m_lo) * kLog2e) * il_lo;
-        x[jj][2] = exp2f((x[jj][2] - m_hi) * kLog2e) * il_hi;
-        x[jj][3] = exp2f((x[jj][3] - m_hi) * kLog2e) * il_hi;
-      }
-    };
-
-    // 2. ds = p * (dp - delta) into the dbias accumulator, and dq += ds k
-    //    with ds as bf16 hi + lo A operands.
-    float dq[kBwdMaxHeadDim / 8][4];
-#pragma unroll
-    for (int dn = 0; dn < kBwdMaxHeadDim / 8; ++dn) dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.0f;
-    for (int c = 0; c < chunks; ++c) {
-      const bf16* k_c = begin(chunks + c);
-      if (live) {
-        float ds[4][4], dp[4][4];
-        scores(ds, k_c, c);
-        product_nt32(dp, da, k_c + kTcStep * kTcLd, d);
-        probs(ds);
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          ds[jj][0] *= dp[jj][0] - dl_lo;
-          ds[jj][1] *= dp[jj][1] - dl_lo;
-          ds[jj][2] *= dp[jj][2] - dl_hi;
-          ds[jj][3] *= dp[jj][3] - dl_hi;
-          if (p.dbias) {
-            float2* lo = reinterpret_cast<float2*>(dbias_lo + kTcStep * c + 8 * jj);
-            float2* hi = reinterpret_cast<float2*>(dbias_hi + kTcStep * c + 8 * jj);
-            lo->x += ds[jj][0];
-            lo->y += ds[jj][1];
-            hi->x += ds[jj][2];
-            hi->y += ds[jj][3];
-          }
-        }
-#pragma unroll
-        for (int ks = 0; ks < 2; ++ks) {
-          uint32_t a_hi[4], a_lo[4];
-          frag_a_split(a_hi, a_lo, ds[2 * ks], ds[2 * ks + 1]);
-#pragma unroll
-          for (int dn = 0; dn < kTcKSteps; ++dn) {
-            if (16 * dn < d) {
-              uint32_t kb[4];
-              frag_b_kn(kb, k_c, 16 * ks, 16 * dn);
-              mma_bf16_16816(dq[2 * dn], a_hi, kb[0], kb[1]);
-              mma_bf16_16816(dq[2 * dn + 1], a_hi, kb[2], kb[3]);
-              mma_bf16_16816(dq[2 * dn], a_lo, kb[0], kb[1]);
-              mma_bf16_16816(dq[2 * dn + 1], a_lo, kb[2], kb[3]);
-            }
+        for (int i = 0; i < 4; ++i) {
+          const float ex = exp2f((s[4 * j + i] - (i < 2 ? m_lo : m_hi)) * kLog2e);
+          s[4 * j + i] = ex;
+          if (i < 2) {
+            l_lo += ex;
+            a_lo = fmaf(ex, dp[4 * j + i], a_lo);
+          } else {
+            l_hi += ex;
+            a_hi = fmaf(ex, dp[4 * j + i], a_hi);
           }
         }
       }
-    }
 #pragma unroll
-    for (int dn = 0; dn < kBwdMaxHeadDim / 8; ++dn) {
-      if (8 * dn < d) {
-        const int c = 8 * dn + 2 * t;
-        if (row_lo < n) {
-          *reinterpret_cast<__nv_bfloat162*>(dqg + (size_t)row_lo * p.row_stride_grad + c) =
-              __floats2bfloat162_rn(dq[dn][0] * p.scale, dq[dn][1] * p.scale);
+      for (int off = 1; off < 4; off <<= 1) {
+        l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+        l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+        a_lo += __shfl_xor_sync(0xffffffffu, a_lo, off);
+        a_hi += __shfl_xor_sync(0xffffffffu, a_hi, off);
+      }
+      if (t4 == 0) {
+        row_x[wg][1][r_lo] = l_lo;
+        row_x[wg][1][r_hi] = l_hi;
+        row_x[wg][2][r_lo] = a_lo;
+        row_x[wg][2][r_hi] = a_hi;
+      }
+      consumers_sync();
+      l_lo = row_x[0][1][r_lo] + row_x[1][1][r_lo];
+      l_hi = row_x[0][1][r_hi] + row_x[1][1][r_hi];
+      const float il_lo = __frcp_rn(l_lo), il_hi = __frcp_rn(l_hi);
+      const float dl_lo = (row_x[0][2][r_lo] + row_x[1][2][r_lo]) * il_lo;
+      const float dl_hi = (row_x[0][2][r_hi] + row_x[1][2][r_hi]) * il_hi;
+      if (wg == 0 && t4 == 0) {
+        float* st = p.row_m + (item * p.tiles + t) * kBwdStatFloats;
+        st[r_lo] = m_lo;
+        st[r_hi] = m_hi;
+        st[kBwdTileRows + r_lo] = il_lo;
+        st[kBwdTileRows + r_hi] = il_hi;
+        st[2 * kBwdTileRows + r_lo] = dl_lo;
+        st[2 * kBwdTileRows + r_hi] = dl_hi;
+      }
+
+      // ds = e / l * (dp - delta) into dbias, then as bf16 hi + lo A operands.
+      uint32_t ah[kSteps][4], al[kSteps][4];
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        float* x = s + 8 * kk;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const bool hi = (i & 2) != 0;
+          x[i] = x[i] * (hi ? il_hi : il_lo) * (dp[8 * kk + i] - (hi ? dl_hi : dl_lo));
+          if (kBias) db[8 * kk + i] += x[i];
         }
-        if (row_hi < n) {
-          *reinterpret_cast<__nv_bfloat162*>(dqg + (size_t)row_hi * p.row_stride_grad + c) =
-              __floats2bfloat162_rn(dq[dn][2] * p.scale, dq[dn][3] * p.scale);
+        split_bf16(ah[kk], al[kk], x);
+      }
+
+      // dq = ds k over the 16-key steps that hold a key < n.
+      float dq[kBwdMaxHeadDim / 2];
+      zero_acc(dq);
+      fence_regs(ah);
+      fence_regs(al);
+      fence_acc(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        if (key0 + 16 * kk < n) {
+          const uint64_t kd = sw128_desc(k_s + 2048u * kk, Shape::kRegionBytes, 1024);
+          Wgmma<kBwdMaxHeadDim>::template rs<1>(dq, ah[kk], kd);
+          Wgmma<kBwdMaxHeadDim>::template rs<1>(dq, al[kk], kd);
         }
       }
-    }
-  }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(ah);
+      fence_regs(al);
+      fence_acc(dq);
+      mbar_arrive(k_empty);
 
-  // 3. This chunk's partial dbias for the tile's rows.
-  if (p.dbias) {
-    __syncthreads();
-    float* out = p.dbias + (((size_t)bc * p.windows + w) * p.heads + h) * (size_t)n * n;
-    for (int i = threadIdx.x; i < kTcRows * n; i += kTcThreads) {
-      const int r = i / n;
-      const int key = i - r * n;
-      const int row = q0 + r;
-      if (row < n) out[(size_t)row * n + key] = dbias_acc[r * ldb + key];
-    }
-  }
-}
-
-// One block per (group, head, 64 keys), 4 warps of 16 keys, the keys and
-// values resident.  It walks the queries in chunks of 32 (queries, dout,
-// their row statistics and their bias rows at the block's keys, staged by
-// cp.async one chunk ahead), recomputes s^T and dp^T, forms p^T and ds^T
-// from the saved statistics with the dq kernel's f32 operations, and
-// accumulates dv += p^T do and dk += ds^T q in registers.  4 products.
-__global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_dkv_mma_kernel(AttnBwdParams p) {
-  using bf16 = __nv_bfloat16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int d = p.d;
-  const int n = p.n;
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [kTcRows][kTcLd] this block's keys
-  bf16* v_s = k_s + kTcRows * kTcLd;              // [kTcRows][kTcLd] and values
-  bf16* qd_s = v_s + kTcRows * kTcLd;             // [2 stages][queries, dout][kTcStep][kTcLd]
-  float* st_s = reinterpret_cast<float*>(qd_s + 4 * kTcStep * kTcLd);  // [2][max, sum, delta][kTcStep]
-  float* bias_s = st_s + 2 * 3 * kTcStep;         // [2][kTcStep][kTcBiasLd] if p.bias
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int tile = blockIdx.x % p.tiles;
-  const size_t grp = blockIdx.x / p.tiles;
-  const int h = blockIdx.y;
-  const int w = (int)(grp % p.windows);
-  const int k0 = tile * kTcRows;
-  const int r0 = warp * 16;
-  const bool live = k0 + r0 < n;  // the warp owns a key
-  const int key_lo = k0 + r0 + g;
-  const int key_hi = key_lo + 8;
-  const int chunks = (n + kTcStep - 1) / kTcStep;
-  const size_t in_off = grp * p.group_stride_in + (size_t)h * p.head_stride_in;
-  const size_t grad_off = grp * p.group_stride_grad + (size_t)h * p.head_stride_grad;
-  const bf16* qg = static_cast<const bf16*>(p.q) + in_off;
-  const bf16* kg = static_cast<const bf16*>(p.k) + in_off;
-  const bf16* vg = static_cast<const bf16*>(p.v) + in_off;
-  const bf16* dog = static_cast<const bf16*>(p.dout) + grp * p.group_stride_dout + (size_t)h * p.head_stride_dout;
-  const float* bias = p.bias ? p.bias + ((size_t)w * p.heads + h) * (size_t)n * n : nullptr;
-  const size_t stat0 = (grp * p.heads + h) * (size_t)n;
-  const bool bias16 = n % 4 == 0;  // bias rows at the block's keys are 16-byte aligned
-
-  // Query chunk c (queries, dout, their row statistics and their bias rows
-  // at this block's keys) into stage c & 1.
-  auto issue = [&](int c) {
-    if (c >= chunks) return;
-    const int qc0 = c * kTcStep;
-    bf16* stage = qd_s + (c & 1) * 2 * kTcStep * kTcLd;
-    stage_rows_bf16<kTcStep>(stage, qg, p.row_stride_in, qc0, n, d);
-    stage_rows_bf16<kTcStep>(stage + kTcStep * kTcLd, dog, p.row_stride_dout, qc0, n, d);
-    if (threadIdx.x < 3 * kTcStep) {
-      const int which = threadIdx.x / kTcStep;
-      const int qi = threadIdx.x - which * kTcStep;
-      const float* src = which == 0 ? p.row_m : (which == 1 ? p.row_l : p.row_delta);
-      const bool valid = qc0 + qi < n;
-      cp_async4(st_s + (c & 1) * 3 * kTcStep + threadIdx.x, src + stat0 + (valid ? qc0 + qi : 0), valid);
-    }
-    if (bias) {
-      float* bst = bias_s + (c & 1) * kTcStep * kTcBiasLd;
-      if (bias16) {
-#pragma unroll
-        for (int it = 0; it < kTcStep * kTcRows / 4 / kTcThreads; ++it) {
-          const int i = threadIdx.x + it * kTcThreads;
-          const int qi = i / (kTcRows / 4);
-          const int kj = (i % (kTcRows / 4)) * 4;
-          const bool valid = qc0 + qi < n && k0 + kj < n;
-          cp_async16(bst + qi * kTcBiasLd + kj, bias + (valid ? (size_t)(qc0 + qi) * n + k0 + kj : 0), valid);
-        }
+      // Warpgroup wg stores columns 64 wg .. 64 wg + 63 (its accumulator's
+      // values 32 wg ..): it sends the other half of its dq to the other
+      // warpgroup and adds what that one sends, in place.
+      bf16* dqg = static_cast<bf16*>(p.dq) + grp * p.group_stride_grad + (size_t)h * p.head_stride_grad;
+      if (wg == 0) {
+        store_dq_half<0>(dq, xbuf, stage, dqg, p.row_stride_grad, scale, row_lo, n, d);
       } else {
-#pragma unroll 4
-        for (int it = 0; it < kTcStep * kTcRows / kTcThreads; ++it) {
-          const int i = threadIdx.x + it * kTcThreads;
-          const int qi = i / kTcRows;
-          const int kj = i % kTcRows;
-          const bool valid = qc0 + qi < n && k0 + kj < n;
-          cp_async4(bst + qi * kTcBiasLd + kj, bias + (valid ? (size_t)(qc0 + qi) * n + k0 + kj : 0), valid);
+        store_dq_half<32>(dq, xbuf, stage, dqg, p.row_stride_grad, scale, row_lo, n, d);
+      }
+    }
+    if (kBias) {
+      // This chunk's partial dbias at the thread's rows < n and keys < n.
+      float* out = p.dbias + (((size_t)bc * p.windows + w) * p.heads + h) * (size_t)n * n;
+#pragma unroll
+      for (int j = 0; j < kHalf / 8; ++j) {
+        const int key = key0 + 8 * j + 2 * t4;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = i < 2 ? row_lo : row_hi, kc = key + (i & 1);
+          if (row < n && kc < n) out[(size_t)row * n + kc] = db[4 * j + i];
         }
       }
     }
-  };
-
-  stage_rows_bf16<kTcRows>(k_s, kg, p.row_stride_in, k0, n, d);
-  stage_rows_bf16<kTcRows>(v_s, vg, p.row_stride_in, k0, n, d);
-  issue(0);
-  cp_async_commit();
-
-  float dk[kBwdMaxHeadDim / 8][4];
-  float dv[kBwdMaxHeadDim / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < kBwdMaxHeadDim / 8; ++dn) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dn][e] = dv[dn][e] = 0.0f;
   }
+}
 
-  for (int c = 0; c < chunks; ++c) {
-    // Wait for chunk c; then, every warp being past chunk c - 1, stage
-    // chunk c + 1 into the stage chunk c - 1 used.
-    cp_async_wait<0>();
-    __syncthreads();
-    issue(c + 1);
-    cp_async_commit();
-    if (live) {
-      const int qc0 = c * kTcStep;
-      const bf16* q_c = qd_s + (c & 1) * 2 * kTcStep * kTcLd;
-      const bf16* do_c = q_c + kTcStep * kTcLd;
-      const float* st = st_s + (c & 1) * 3 * kTcStep;
-      const float* bst = bias_s + (c & 1) * kTcStep * kTcBiasLd;
+// One CTA per SM walks the units (bwd_rows_unit) blockIdx.x, blockIdx.x +
+// gridDim.x, ...; kBias: the call has a bias and a dbias (B2, v1).  For each
+// batch entry of a unit the producer warpgroup's first thread loads the
+// tile's q and do and the head's V (qvd_full), then its K (k_full), by TMA;
+// the consumers release q, do and V once s and dp are done (qvd_empty), and
+// K once the dq product is (k_empty), so the next entry's loads run under
+// this entry's softmax, dq product and stores.
+template <int NK, bool kBias>
+__global__ void __launch_bounds__(kBwdCtaThreads, 1)
+    attention_bwd_rows_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap do_map,
+                              const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
+                              const AttnBwdParams p) {
+  using Shape = BwdRowsShape<NK>;
+  extern __shared__ unsigned char bwd_smem[];
+  __shared__ uint64_t qvd_full, k_full, qvd_empty, k_empty;
+  __shared__ float row_x[2][3][kBwdTileRows];  // each consumer warpgroup's row max, sum and rowsum(e dp)
+  __shared__ __align__(16) __nv_bfloat16 stage[8][kStageElems];  // each consumer warp's store staging
+  const uint32_t raw = smem_u32(bwd_smem), base = (raw + 1023u) & ~1023u;
+  if (threadIdx.x == 0) {
+    mbar_init(&qvd_full, 1);
+    mbar_init(&k_full, 1);
+    mbar_init(&qvd_empty, 256);
+    mbar_init(&k_empty, 256);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kBwdRowsProducerRegs));
+    if (threadIdx.x != 256) return;
+    const int units = p.tiles * p.windows * p.heads * p.batch_chunks;
+    int e = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      int t, w, h, bc;
+      bwd_rows_unit(p, u, &t, &w, &h, &bc);
+      const int b_end = min(p.batch, (bc + 1) * p.batch_per_block);
+      for (int b = bc * p.batch_per_block; b < b_end; ++b, ++e) {
+        const int grp = b * p.windows + w, row0 = t * kBwdTileRows;
+        if (e > 0) mbar_wait(&qvd_empty, (e - 1) & 1);
+        mbar_expect_tx(&qvd_full, 2 * kQTileBytes + Shape::kKBytes);
+        tma_load_4d(base + Shape::kQ, &q_map, &qvd_full, 0, h, row0, grp);
+        tma_load_4d(base + Shape::kQ + kBoxBytes, &q_map, &qvd_full, 64, h, row0, grp);
+        tma_load_4d(base + Shape::kDo, &do_map, &qvd_full, 0, h, row0, grp);
+        tma_load_4d(base + Shape::kDo + kBoxBytes, &do_map, &qvd_full, 64, h, row0, grp);
+        tma_load_4d(base + Shape::kV, &v_map, &qvd_full, 0, h, 0, grp);
+        tma_load_4d(base + Shape::kV + Shape::kRegionBytes, &v_map, &qvd_full, 64, h, 0, grp);
+        if (e > 0) mbar_wait(&k_empty, (e - 1) & 1);
+        mbar_expect_tx(&k_full, Shape::kKBytes);
+        tma_load_4d(base + Shape::kK, &k_map, &k_full, 0, h, 0, grp);
+        tma_load_4d(base + Shape::kK + Shape::kRegionBytes, &k_map, &k_full, 64, h, 0, grp);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kBwdRowsConsumerRegs));
+    float* xbuf = reinterpret_cast<float*>(bwd_smem + (base - raw) + Shape::kX);
+    consume_bwd_rows<NK, kBias>(p, base, xbuf, &qvd_full, &k_full, &qvd_empty, &k_empty, row_x,
+                                stage[threadIdx.x >> 5]);
+  }
+}
 
-      // s^T = k q^T and dp^T = v do^T for the warp's 16 keys and the
-      // chunk's 32 queries: lane (g, t) holds keys g and g + 8, queries
-      // 8j + 2t and 8j + 2t + 1.
-      float sc[4][4] = {};
-      float dpt[4][4] = {};
+// A consumer warpgroup of attention_bwd_keys_kernel: pipeline `pipe`'s units
+// u = 2 blockIdx.x + pipe, + 2 gridDim.x, ...: (item u / tiles, key block u
+// % tiles).
+template <bool kBias>
+__device__ __forceinline__ void consume_bwd_keys(const AttnBwdParams& p, uint32_t pipe_base,
+                                                 const unsigned char* pipe_ptr, uint64_t* kv_full,
+                                                 uint64_t* kv_empty, uint64_t* full, uint64_t* empty,
+                                                 __nv_bfloat16* stage) {
+  using bf16 = __nv_bfloat16;
+  const int n = p.n, d = p.d, tiles = p.tiles;
+  const float scale = p.scale;
+  const int units = p.batch * p.windows * p.heads * tiles;
+  const int pipe = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const uint32_t k_s = pipe_base, v_s = pipe_base + kQTileBytes, ring = pipe_base + 2 * kQTileBytes;
+  int it = 0, stage_i = 0;
+  uint32_t phase = 0;
+  for (int u = 2 * blockIdx.x + pipe; u < units; u += 2 * gridDim.x, ++it) {
+    const int item = u / tiles, kb = u - item * tiles;
+    const int grp = item / p.heads, h = item - grp * p.heads;
+    const int key_lo = kb * kBwdTileRows + 16 * warp + g, key_hi = key_lo + 8;
+    // This unit's bias tiles (attention_bwd_bias_tiles_kernel): tile t's 16 KB
+    // at bias_tiles + t * 1024, thread tid's float4 v at v * 128 + tid.
+    const float4* bias_tiles = kBias ? reinterpret_cast<const float4*>(p.bias_tiles) +
+                                           (((size_t)(grp % p.windows) * p.heads + h) * tiles + kb) * tiles * 1024
+                                     : nullptr;
+    mbar_wait(kv_full, it & 1);
+    float dk[kBwdMaxHeadDim / 2], dv[kBwdMaxHeadDim / 2];
+    zero_acc(dk);
+    zero_acc(dv);
+    for (int t = 0; t < tiles; ++t) {
+      const float4* bt = kBias ? bias_tiles + t * 1024 + (threadIdx.x & 127) : nullptr;
+      if (kBias) prefetch_l1(bias_tiles + t * 1024 + 8 * (threadIdx.x & 127));  // the tile's 128 lines, one a thread
+      mbar_wait(&full[stage_i], phase);
+      const uint32_t q_s = ring + stage_i * kBwdKeysStageBytes, do_s = q_s + kQTileBytes;
+      const float* st = reinterpret_cast<const float*>(pipe_ptr + 2 * kQTileBytes + stage_i * kBwdKeysStageBytes +
+                                                       2 * kQTileBytes);
+      // s^T = k q^T and dp^T = v do^T: thread (warp, g, t4) holds keys
+      // key_lo and key_hi, queries 8j + 2 t4 (+ 1) of the tile.
+      float sT[32], dpT[32];
+      zero_acc(sT);
+      zero_acc(dpT);
+      fence_acc(sT);
+      fence_acc(dpT);
+      wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kTcKSteps; ++kk) {
+      for (int kk = 0; kk < kBwdMaxHeadDim / 16; ++kk) {
         if (16 * kk < d) {
-          uint32_t ka[4], va[4], b[4];
-          frag_a(ka, k_s, r0, 16 * kk);
-          frag_a(va, v_s, r0, 16 * kk);
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            frag_b_nk(b, q_c, 16 * half, 16 * kk);
-            mma_bf16_16816(sc[2 * half], ka, b[0], b[1]);
-            mma_bf16_16816(sc[2 * half + 1], ka, b[2], b[3]);
-            frag_b_nk(b, do_c, 16 * half, 16 * kk);
-            mma_bf16_16816(dpt[2 * half], va, b[0], b[1]);
-            mma_bf16_16816(dpt[2 * half + 1], va, b[2], b[3]);
-          }
+          const uint32_t at = (kk >> 2) * kBoxBytes + 32 * (kk & 3);
+          Wgmma<64>::template ss<0, 0>(sT, sw128_desc(k_s + at, 16, 1024), sw128_desc(q_s + at, 16, 1024));
+          Wgmma<64>::template ss<0, 0>(dpT, sw128_desc(v_s + at, 16, 1024), sw128_desc(do_s + at, 16, 1024));
         }
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sT);
+      fence_acc(dpT);
+      if (t == tiles - 1) mbar_arrive(kv_empty);  // the unit's K and V are done with
 
-      // p^T and ds^T from the saved row statistics, with the dq kernel's f32
-      // operations; 0 past n.
+      // p^T = 2^((x - m) log2 e) * (1 / l) and ds^T = p^T (dp^T - delta), 0
+      // at keys or queries past n; as A operands: p in bf16, ds as hi + lo.
+      // Per 16-query step kk: its p^T and ds^T as A operands (p in bf16, ds
+      // as hi + lo), then its dv += p^T do and dk += ds^T q products on the
+      // steps that hold a query < n, issued while the next step's operands
+      // are formed; one step's group stays in flight, so two steps'
+      // fragments are live at a time.
+      uint32_t frag[2][3][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = e < 2 ? key_lo : key_hi;
-          const int qi = 8 * j + 2 * t + (e & 1);
-          const bool in = key < n && qc0 + qi < n;
-          const float x = sc[j][e] * p.scale + (bias ? bst[qi * kTcBiasLd + key - k0] : 0.0f);
-          const float pv = exp2f((x - st[qi]) * kLog2e) * __frcp_rn(st[kTcStep + qi]);
-          sc[j][e] = in ? pv : 0.0f;
-          dpt[j][e] = in ? pv * (dpt[j][e] - st[2 * kTcStep + qi]) : 0.0f;
+      for (int kk = 0; kk < 4; ++kk) {
+        float4 b4[2] = {make_float4(0.0f, 0.0f, 0.0f, 0.0f), make_float4(0.0f, 0.0f, 0.0f, 0.0f)};
+        if (kBias) {
+          b4[0] = __ldg(bt + (2 * kk) * 128);
+          b4[1] = __ldg(bt + (2 * kk + 1) * 128);
         }
+        const float bv8[8] = {b4[0].x, b4[0].y, b4[0].z, b4[0].w, b4[1].x, b4[1].y, b4[1].z, b4[1].w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int key = (i & 2) ? key_hi : key_lo;
+          const int qi = 16 * kk + 8 * (i >> 2) + 2 * t4 + (i & 1), row = t * kBwdTileRows + qi;
+          const bool in = key < n && row < n;
+          const float x = fmaf(sT[8 * kk + i], scale, bv8[i]);
+          const float pv = in ? exp2f((x - st[qi]) * kLog2e) * st[kBwdTileRows + qi] : 0.0f;
+          sT[8 * kk + i] = pv;
+          dpT[8 * kk + i] = in ? pv * (dpT[8 * kk + i] - st[2 * kBwdTileRows + qi]) : 0.0f;
+        }
+        uint32_t(&fr)[3][4] = frag[kk & 1];
+        const float* x = sT + 8 * kk;
+        fr[0][0] = pack_bf16(x[0], x[1]);
+        fr[0][1] = pack_bf16(x[2], x[3]);
+        fr[0][2] = pack_bf16(x[4], x[5]);
+        fr[0][3] = pack_bf16(x[6], x[7]);
+        split_bf16(fr[1], fr[2], dpT + 8 * kk);
+        fence_regs(fr);
+        fence_acc(dv);
+        fence_acc(dk);
+        wgmma_fence();
+        if (t * kBwdTileRows + 16 * kk < n) {
+          Wgmma<kBwdMaxHeadDim>::template rs<1>(dv, fr[0], sw128_desc(do_s + 2048u * kk, kBoxBytes, 1024));
+          const uint64_t qd = sw128_desc(q_s + 2048u * kk, kBoxBytes, 1024);
+          Wgmma<kBwdMaxHeadDim>::template rs<1>(dk, fr[1], qd);
+          Wgmma<kBwdMaxHeadDim>::template rs<1>(dk, fr[2], qd);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // step kk - 1's group is done: its fragments are free for step kk + 1
+        fence_regs(frag[(kk + 1) & 1]);
       }
+      wgmma_wait<0>();
+      fence_regs(frag[0]);
+      fence_regs(frag[1]);
+      fence_acc(dv);
+      fence_acc(dk);
+      mbar_arrive(&empty[stage_i]);
+      if (++stage_i == kBwdRing) {
+        stage_i = 0;
+        phase ^= 1u;
+      }
+    }
 
-      // dv += p^T do with p rounded to bf16, and dk += ds^T q with ds as
-      // bf16 hi + lo, as A operands.
+    // dk * scale and dv for the keys < n, the columns < d.
+    const size_t grad_off = (size_t)grp * p.group_stride_grad + (size_t)h * p.head_stride_grad;
+    bf16* dkg = static_cast<bf16*>(p.dk) + grad_off;
+    bf16* dvg = static_cast<bf16*>(p.dv) + grad_off;
 #pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        uint32_t pa[4], da_hi[4], da_lo[4];
-        frag_a_from_c(pa, sc[2 * ks], sc[2 * ks + 1]);
-        frag_a_split(da_hi, da_lo, dpt[2 * ks], dpt[2 * ks + 1]);
-#pragma unroll
-        for (int dn = 0; dn < kTcKSteps; ++dn) {
-          if (16 * dn < d) {
-            uint32_t b[4];
-            frag_b_kn(b, do_c, 16 * ks, 16 * dn);
-            mma_bf16_16816(dv[2 * dn], pa, b[0], b[1]);
-            mma_bf16_16816(dv[2 * dn + 1], pa, b[2], b[3]);
-            frag_b_kn(b, q_c, 16 * ks, 16 * dn);
-            mma_bf16_16816(dk[2 * dn], da_hi, b[0], b[1]);
-            mma_bf16_16816(dk[2 * dn + 1], da_hi, b[2], b[3]);
-            mma_bf16_16816(dk[2 * dn], da_lo, b[0], b[1]);
-            mma_bf16_16816(dk[2 * dn + 1], da_lo, b[2], b[3]);
-          }
-        }
+    for (int q4 = 0; q4 < kBwdMaxHeadDim / 32; ++q4) {
+      if (32 * q4 < d) {
+        store_warp_block(stage, dkg, p.row_stride_grad, dk + 16 * q4, scale, scale, key_lo, n, 32 * q4, d);
+        store_warp_block(stage, dvg, p.row_stride_grad, dv + 16 * q4, 1.0f, 1.0f, key_lo, n, 32 * q4, d);
       }
     }
   }
+}
 
-  bf16* dkg = static_cast<bf16*>(p.dk) + grad_off;
-  bf16* dvg = static_cast<bf16*>(p.dv) + grad_off;
-#pragma unroll
-  for (int dn = 0; dn < kBwdMaxHeadDim / 8; ++dn) {
-    if (8 * dn < d) {
-      const int c = 8 * dn + 2 * t;
-      if (key_lo < n) {
-        *reinterpret_cast<__nv_bfloat162*>(dkg + (size_t)key_lo * p.row_stride_grad + c) =
-            __floats2bfloat162_rn(dk[dn][0] * p.scale, dk[dn][1] * p.scale);
-        *reinterpret_cast<__nv_bfloat162*>(dvg + (size_t)key_lo * p.row_stride_grad + c) =
-            __floats2bfloat162_rn(dv[dn][0], dv[dn][1]);
-      }
-      if (key_hi < n) {
-        *reinterpret_cast<__nv_bfloat162*>(dkg + (size_t)key_hi * p.row_stride_grad + c) =
-            __floats2bfloat162_rn(dk[dn][2] * p.scale, dk[dn][3] * p.scale);
-        *reinterpret_cast<__nv_bfloat162*>(dvg + (size_t)key_hi * p.row_stride_grad + c) =
-            __floats2bfloat162_rn(dv[dn][2], dv[dn][3]);
+// Two pipelines per CTA, one CTA per SM: consumer warpgroup w and producer
+// warp w (lane 0 issues) walk units u = 2 blockIdx.x + w, + 2 gridDim.x, ...
+// of (item, 64-key block), the key block fastest, so that the pipelines
+// reading one item's q and do run together.  Per unit the producer loads the
+// block's K and V (kv_full; released after the last tile's s^T and dp^T,
+// kv_empty), then every query tile's q, do and statistics into the ring
+// (full / empty per stage).  kBias: the call has a bias (B2, v1).
+template <bool kBias>
+__global__ void __launch_bounds__(kBwdCtaThreads, 1)
+    attention_bwd_keys_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap do_map,
+                              const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
+                              const AttnBwdParams p) {
+  extern __shared__ unsigned char bwd_smem[];
+  __shared__ uint64_t kv_full[2], kv_empty[2], full[2][kBwdRing], empty[2][kBwdRing];
+  __shared__ __align__(16) __nv_bfloat16 stage[8][kStageElems];
+  const uint32_t raw = smem_u32(bwd_smem), base = (raw + 1023u) & ~1023u;
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(&kv_full[w], 1);
+      mbar_init(&kv_empty[w], 128);
+      for (int s = 0; s < kBwdRing; ++s) {
+        mbar_init(&full[w][s], 1);
+        mbar_init(&empty[w][s], 128);
       }
     }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kBwdKeysProducerRegs));
+    const int pipe = (threadIdx.x >> 5) & 3;
+    if (pipe >= 2 || (threadIdx.x & 31) != 0) return;
+    const uint32_t kv = base + pipe * kBwdPipeBytes, ring = kv + 2 * kQTileBytes;
+    uint32_t loads = 0;  // tiles loaded: stage loads % kBwdRing, phase loads / kBwdRing
+    int it = 0;
+    for (int u = 2 * blockIdx.x + pipe; u < p.batch * p.windows * p.heads * p.tiles; u += 2 * gridDim.x, ++it) {
+      const int item = u / p.tiles, row0 = (u - item * p.tiles) * kBwdTileRows;
+      const int grp = item / p.heads, h = item - grp * p.heads;
+      if (it > 0) mbar_wait(&kv_empty[pipe], (it - 1) & 1);
+      mbar_expect_tx(&kv_full[pipe], 2 * kQTileBytes);
+      tma_load_4d(kv, &k_map, &kv_full[pipe], 0, h, row0, grp);
+      tma_load_4d(kv + kBoxBytes, &k_map, &kv_full[pipe], 64, h, row0, grp);
+      tma_load_4d(kv + kQTileBytes, &v_map, &kv_full[pipe], 0, h, row0, grp);
+      tma_load_4d(kv + kQTileBytes + kBoxBytes, &v_map, &kv_full[pipe], 64, h, row0, grp);
+      const float* st = p.row_m + (size_t)item * p.tiles * kBwdStatFloats;
+      for (int t = 0; t < p.tiles; ++t, ++loads) {
+        const uint32_t stage = loads % kBwdRing;
+        mbar_wait(&empty[pipe][stage], ((loads / kBwdRing) & 1) ^ 1u);
+        uint64_t* bar = &full[pipe][stage];
+        const uint32_t q_s = ring + stage * kBwdKeysStageBytes;
+        mbar_expect_tx(bar, 2 * kQTileBytes + kBwdStatBytes);
+        tma_load_4d(q_s, &q_map, bar, 0, h, t * kBwdTileRows, grp);
+        tma_load_4d(q_s + kBoxBytes, &q_map, bar, 64, h, t * kBwdTileRows, grp);
+        tma_load_4d(q_s + kQTileBytes, &do_map, bar, 0, h, t * kBwdTileRows, grp);
+        tma_load_4d(q_s + kQTileBytes + kBoxBytes, &do_map, bar, 64, h, t * kBwdTileRows, grp);
+        bulk_load(q_s + 2 * kQTileBytes, st + t * kBwdStatFloats, kBwdStatBytes, bar);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kBwdKeysConsumerRegs));
+    const uint32_t pipe_base = base + wg * kBwdPipeBytes;
+    const unsigned char* pipe_ptr = bwd_smem + (pipe_base - raw);
+    consume_bwd_keys<kBias>(p, pipe_base, pipe_ptr, &kv_full[wg], &kv_empty[wg], full[wg], empty[wg],
+                            stage[threadIdx.x >> 5]);
   }
 }
 
@@ -1017,17 +1114,85 @@ __global__ void __launch_bounds__(kTcThreads, 2) attention_bwd_dkv_mma_kernel(At
 // Launch.
 // ---------------------------------------------------------------------------
 
-// Dynamic shared memory the largest backward kernel of the call's route takes
-// (a call with dbias has a bias).
-inline size_t attention_bwd_smem_bytes(bool is_bf16, int n, int d, bool with_dbias) {
-  if (attention_bwd_route_mma(is_bf16, n, d)) {
-    const size_t dq = attention_bwd_dq_mma_smem_bytes(n, with_dbias);
-    const size_t dkv = attention_bwd_dkv_mma_smem_bytes(with_dbias);
-    return dq > dkv ? dq : dkv;
+// Calls f(NK, kBias) with the call's keys (attention_bwd_keys) and whether
+// it has a bias as compile-time constants (std::integral_constant).
+template <class F>
+auto with_bwd_rows_kernel(int n, bool with_bias, F&& f) {
+  using std::integral_constant;
+  switch (attention_bwd_keys(n) + with_bias) {
+    case 64:
+      return f(integral_constant<int, 64>(), std::false_type());
+    case 65:
+      return f(integral_constant<int, 64>(), std::true_type());
+    case 160:
+      return f(integral_constant<int, 160>(), std::false_type());
+    case 161:
+      return f(integral_constant<int, 160>(), std::true_type());
+    case 224:
+      return f(integral_constant<int, 224>(), std::false_type());
+    default:
+      return f(integral_constant<int, 224>(), std::true_type());
   }
-  const size_t dq = attention_bwd_dq_smem_bytes(n, d, with_dbias);
-  const size_t dkv = attention_bwd_dkv_smem_bytes(d);
-  return dq > dkv ? dq : dkv;
+}
+
+// The wgmma route's persistent grids: the rows kernel's units (query tiles x
+// windows x heads x batch chunks) over at most one CTA an SM, the keys
+// kernel's (items x key blocks) over two pipelines a CTA.  out: rows CTAs,
+// rows units, keys CTAs, keys units.
+inline cudaError_t attention_bwd_grid(int n, int batch, int windows, int heads, int batch_per_block, int* out) {
+  const int chunks = (batch + batch_per_block - 1) / batch_per_block;
+  out[1] = bwd_tiles(n) * windows * heads * chunks;
+  out[3] = batch * windows * heads * bwd_tiles(n);
+  unsigned ctas = 0;
+  cudaError_t err = persistent_ctas(out[1], 1, &ctas);
+  out[0] = (int)ctas;
+  if (err != cudaSuccess) return err;
+  err = persistent_ctas((out[3] + 1) / 2, 1, &ctas);
+  out[2] = (int)ctas;
+  return err;
+}
+
+template <int NK, bool kBias>
+cudaError_t launch_attention_bwd_wgmma(AttnBwdParams p, cudaStream_t stream) {
+  using Shape = BwdRowsShape<NK>;
+  p.tiles = bwd_tiles(p.n);
+  const int groups = p.batch * p.windows;
+  // q, do (boxes of 64 rows), k and v (64 rows for the keys kernel, NK for
+  // the rows kernel).
+  const void* bases[6] = {p.q, p.dout, p.k, p.v, p.k, p.v};
+  CUtensorMap maps[6];
+  for (int i = 0; i < 6; ++i) {
+    AttnMapPlan plan;
+    const bool dout = i == 1;
+    if (!attention_map_plan(p.d, p.heads, p.n, groups, dout ? p.head_stride_dout : p.head_stride_in,
+                            dout ? p.row_stride_dout : p.row_stride_in,
+                            dout ? p.group_stride_dout : p.group_stride_in, i < 4 ? kBwdTileRows : NK, &plan)) {
+      return cudaErrorMisalignedAddress;
+    }
+    const cudaError_t err = make_attention_map(&maps[i], bases[i], plan);
+    if (err != cudaSuccess) return err;
+  }
+  int grid[4];
+  cudaError_t err = attention_bwd_grid(p.n, p.batch, p.windows, p.heads, p.batch_per_block, grid);
+  if (err != cudaSuccess) return err;
+  auto rows = attention_bwd_rows_kernel<NK, kBias>;
+  err = allow_smem(rows, Shape::kSmem);
+  if (err != cudaSuccess) return err;
+  rows<<<grid[0], kBwdCtaThreads, Shape::kSmem, stream>>>(maps[0], maps[1], maps[4], maps[5], p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (kBias) {
+    const long long total = (long long)attention_bwd_bias_tiles_floats(p.windows, p.heads, p.n) / 4;
+    attention_bwd_bias_tiles_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+        p.bias, reinterpret_cast<float4*>(p.bias_tiles), p.n, p.tiles, total);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  auto keys = attention_bwd_keys_kernel<kBias>;
+  err = allow_smem(keys, kBwdKeysSmem);
+  if (err != cudaSuccess) return err;
+  keys<<<grid[2], kBwdCtaThreads, kBwdKeysSmem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -1050,35 +1215,34 @@ cudaError_t launch_attention_bwd_fma(AttnBwdParams p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-inline cudaError_t launch_attention_bwd_mma(AttnBwdParams p, cudaStream_t stream) {
-  p.tiles = (p.n + kTcRows - 1) / kTcRows;
-  const size_t dq_smem = attention_bwd_dq_mma_smem_bytes(p.n, p.dbias != nullptr);
-  cudaError_t err = allow_smem(attention_bwd_dq_mma_kernel, dq_smem);
-  if (err != cudaSuccess) return err;
-  const dim3 dq_grid((unsigned)(p.batch_chunks * p.windows * p.tiles), (unsigned)p.heads);
-  attention_bwd_dq_mma_kernel<<<dq_grid, kTcThreads, dq_smem, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const size_t dkv_smem = attention_bwd_dkv_mma_smem_bytes(p.bias != nullptr);
-  err = allow_smem(attention_bwd_dkv_mma_kernel, dkv_smem);
-  if (err != cudaSuccess) return err;
-  const dim3 dkv_grid((unsigned)((size_t)p.batch * p.windows * p.tiles), (unsigned)p.heads);
-  attention_bwd_dkv_mma_kernel<<<dkv_grid, kTcThreads, dkv_smem, stream>>>(p);
-  return cudaGetLastError();
+// Dynamic shared memory the largest backward kernel of the call's route takes
+// (a call with dbias has a bias).
+inline size_t attention_bwd_smem_bytes(bool is_bf16, int n, int d, bool with_dbias) {
+  if (attention_bwd_route_wgmma(is_bf16, n, d)) {
+    const size_t rows =
+        with_bwd_rows_kernel(n, with_dbias, [](auto nk, auto) { return BwdRowsShape<decltype(nk)::value>::kSmem; });
+    return rows > kBwdKeysSmem ? rows : kBwdKeysSmem;
+  }
+  const size_t dq = attention_bwd_dq_smem_bytes(n, d, with_dbias);
+  const size_t dkv = attention_bwd_dkv_smem_bytes(d);
+  return dq > dkv ? dq : dkv;
 }
 
-// The route's dq and dk/dv kernels at (n, d): resident blocks per SM from the
-// occupancy calculator (registers, shared memory, threads) in out[0] and
-// out[1], dynamic shared memory per block in out[2] and out[3].
+// The route's rows (dq) and keys (dk/dv) kernels at (n, d): resident blocks
+// per SM from the occupancy calculator (registers, shared memory, threads)
+// in out[0] and out[1], dynamic shared memory per block in out[2] and out[3].
 inline cudaError_t attention_bwd_occupancy(bool is_bf16, int n, int d, bool with_dbias, int* out) {
   cudaError_t err;
-  if (attention_bwd_route_mma(is_bf16, n, d)) {
-    out[2] = (int)attention_bwd_dq_mma_smem_bytes(n, with_dbias);
-    out[3] = (int)attention_bwd_dkv_mma_smem_bytes(with_dbias);
-    err = blocks_per_sm(attention_bwd_dq_mma_kernel, kTcThreads, out[2], &out[0]);
+  if (attention_bwd_route_wgmma(is_bf16, n, d)) {
+    out[3] = (int)kBwdKeysSmem;
+    err = with_bwd_rows_kernel(n, with_dbias, [&](auto nk, auto bias) {
+      out[2] = (int)BwdRowsShape<decltype(nk)::value>::kSmem;
+      return blocks_per_sm(attention_bwd_rows_kernel<decltype(nk)::value, decltype(bias)::value>, kBwdCtaThreads,
+                           out[2], &out[0]);
+    });
     if (err != cudaSuccess) return err;
-    return blocks_per_sm(attention_bwd_dkv_mma_kernel, kTcThreads, out[3], &out[1]);
+    return with_dbias ? blocks_per_sm(attention_bwd_keys_kernel<true>, kBwdCtaThreads, out[3], &out[1])
+                      : blocks_per_sm(attention_bwd_keys_kernel<false>, kBwdCtaThreads, out[3], &out[1]);
   }
   out[2] = (int)attention_bwd_dq_smem_bytes(n, d, with_dbias);
   out[3] = (int)attention_bwd_dkv_smem_bytes(d);
@@ -1092,27 +1256,33 @@ inline cudaError_t attention_bwd_occupancy(bool is_bf16, int n, int d, bool with
   return blocks_per_sm(attention_bwd_dkv_kernel<float>, kBwdThreads, out[3], &out[1]);
 }
 
-// Launches the dq kernel, the dkv kernel and, when p.dbias holds more than one
-// chunk, the dbias reduction into dbias_out, in that order on `stream`, on
-// the route attention_bwd_route_mma picks.  The caller has checked the shapes
-// (d % 8 == 0, d <= kBwdMaxHeadDim, 1 <= n <= kBwdMaxKeys) and sized the
-// scratch.  The tensor-core route takes 16-byte aligned q, k, v, dout and
-// bias and 4-byte aligned dq, dk and dv (packed bf16 pairs), and returns
-// cudaErrorMisalignedAddress, launching nothing, for others.
+// Launches the rows (dq) kernel, the keys (dk/dv) kernel and, when p.dbias
+// holds more than one chunk, the dbias reduction into dbias_out, in that
+// order on `stream`, on the route attention_bwd_route_wgmma picks.  The
+// caller has checked the shapes (d % 8 == 0, d <= kBwdMaxHeadDim, 1 <= n <=
+// kBwdMaxKeys) and sized the scratch: p.row_m holds 3 * items * round_up(n,
+// 64) floats (the wgmma route's statistics, in tiles of 64 rows), and with a
+// bias p.bias_tiles attention_bwd_bias_tiles_floats (the wgmma route's).
+// A call with a bias makes one launch more on that route (its bias tiles).  The wgmma
+// route reads by TMA and stores in 16-byte row segments: it takes 16-byte
+// aligned q, k, v, dout, bias, dq, dk and dv with strides of whole 16-byte
+// vectors, and returns cudaErrorMisalignedAddress, launching nothing, for
+// others.
 template <typename T>
 cudaError_t launch_attention_bwd(AttnBwdParams p, float* dbias_out, cudaStream_t stream) {
   p.batch_chunks = (p.batch + p.batch_per_block - 1) / p.batch_per_block;
   cudaError_t err;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (attention_bwd_route_mma(true, p.n, p.d)) {
-      if (!aligned16(p.q) || !aligned16(p.k) || !aligned16(p.v) || !aligned16(p.dout) ||
-          !aligned16(p.bias) || !aligned4(p.dq) || !aligned4(p.dk) || !aligned4(p.dv) ||
-          (p.group_stride_in | p.head_stride_in | p.row_stride_in | p.group_stride_dout |
-           p.head_stride_dout | p.row_stride_dout) % 8 != 0 ||
-          (p.group_stride_grad | p.head_stride_grad | p.row_stride_grad) % 2 != 0) {
+    if (attention_bwd_route_wgmma(true, p.n, p.d)) {
+      if (!aligned16(p.q) || !aligned16(p.k) || !aligned16(p.v) || !aligned16(p.dout) || !aligned16(p.bias) ||
+          !aligned16(p.bias_tiles) || !aligned16(p.dq) || !aligned16(p.dk) || !aligned16(p.dv) ||
+          (p.group_stride_in | p.head_stride_in | p.row_stride_in | p.group_stride_dout | p.head_stride_dout |
+           p.row_stride_dout | p.group_stride_grad | p.head_stride_grad | p.row_stride_grad) % 8 != 0) {
         return cudaErrorMisalignedAddress;
       }
-      err = launch_attention_bwd_mma(p, stream);
+      err = with_bwd_rows_kernel(p.n, p.bias != nullptr, [&](auto nk, auto bias) {
+        return launch_attention_bwd_wgmma<decltype(nk)::value, decltype(bias)::value>(p, stream);
+      });
     } else {
       err = launch_attention_bwd_fma<T>(p, stream);
     }

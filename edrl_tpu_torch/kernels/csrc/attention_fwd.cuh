@@ -366,6 +366,36 @@ __device__ __forceinline__ float2 bias_pair(const float* bias, int row, int key,
   return make_float2(at[0], key + 1 < n ? at[1] : 0.0f);
 }
 
+// A warp's 16 rows x 32 columns to rows < n of dst (row stride ld), columns
+// col0 .. min(col0 + 32, d): o holds the thread's accumulator values of
+// those columns (rows row_lo and row_lo + 8, columns 8 jj + 2 t4 and + 1 of
+// o + 4 jj), multiplied by mul_lo and mul_hi and rounded to bf16; the warp
+// stages them in shared memory and stores 16-byte row segments (a store
+// instruction covers 8 rows x 64 bytes, not 8 x 16).
+__device__ __forceinline__ void store_warp_block(__nv_bfloat16* stage, __nv_bfloat16* dst, int ld, const float* o,
+                                                 float mul_lo, float mul_hi, int row_lo, int n, int col0, int d) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const float* oj = o + 4 * jj;
+    *reinterpret_cast<__nv_bfloat162*>(stage + g * kStageLd + 8 * jj + 2 * t4) =
+        __floats2bfloat162_rn(oj[0] * mul_lo, oj[1] * mul_lo);
+    *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * kStageLd + 8 * jj + 2 * t4) =
+        __floats2bfloat162_rn(oj[2] * mul_hi, oj[3] * mul_hi);
+  }
+  __syncwarp();
+  const int c = col0 + 8 * t4;
+  if (row_lo < n && c < d) {
+    *reinterpret_cast<uint4*>(dst + (size_t)row_lo * ld + c) =
+        *reinterpret_cast<const uint4*>(stage + g * kStageLd + 8 * t4);
+  }
+  if (row_lo + 8 < n && c < d) {
+    *reinterpret_cast<uint4*>(dst + (size_t)(row_lo + 8) * ld + c) =
+        *reinterpret_cast<const uint4*>(stage + (g + 8) * kStageLd + 8 * t4);
+  }
+  __syncwarp();
+}
+
 // Work unit u of a wgmma forward call: its item (group, head) and its query
 // tiles [*t0, *t1).  Units below whole_items are items whole; the rest halve
 // the last items' tiles (the first ceil(tiles / 2), then the others), so
@@ -491,9 +521,7 @@ __device__ __forceinline__ void consume_fwd(const AttnParams& p, uint32_t kv_bas
       fence_regs(pa);
       fence_acc(o);
 
-      // o / l for the rows < n, the columns < d: the warp stages 16 rows x
-      // 32 columns at a time and stores them in 16-byte row segments (a
-      // store instruction covers 8 rows x 64 bytes, not 8 x 16).
+      // o / l for the rows < n, the columns < d.
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
         l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
@@ -502,29 +530,7 @@ __device__ __forceinline__ void consume_fwd(const AttnParams& p, uint32_t kv_bas
       const float il_lo = 1.0f / l_lo, il_hi = 1.0f / l_hi;
 #pragma unroll
       for (int q = 0; q < kMaxHeadDim / 32; ++q) {
-        if (32 * q < d) {
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            const float* oj = o + 4 * (4 * q + jj);
-            *reinterpret_cast<__nv_bfloat162*>(stage + g * kStageLd + 8 * jj + 2 * t4) =
-                __floats2bfloat162_rn(oj[0] * il_lo, oj[1] * il_lo);
-            *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * kStageLd + 8 * jj + 2 * t4) =
-                __floats2bfloat162_rn(oj[2] * il_hi, oj[3] * il_hi);
-          }
-          __syncwarp();
-          const int c = 32 * q + 8 * t4;
-          if (c < d) {
-            if (row_lo < n) {
-              *reinterpret_cast<uint4*>(og + (size_t)row_lo * p.row_stride_out + c) =
-                  *reinterpret_cast<const uint4*>(stage + g * kStageLd + 8 * t4);
-            }
-            if (row_hi < n) {
-              *reinterpret_cast<uint4*>(og + (size_t)row_hi * p.row_stride_out + c) =
-                  *reinterpret_cast<const uint4*>(stage + (g + 8) * kStageLd + 8 * t4);
-            }
-          }
-          __syncwarp();
-        }
+        if (32 * q < d) store_warp_block(stage, og, p.row_stride_out, o + 16 * q, il_lo, il_hi, row_lo, n, 32 * q, d);
       }
     }
     // kv_empty counts every consumer thread once a use.  A warpgroup with no

@@ -1,5 +1,6 @@
 // Hopper building blocks of the bf16 routes of the fused MLP (B5), the
-// fused attention sublayer (B6) and the attention forward (attention_fwd.cuh):
+// fused attention sublayer (B6) and the attention forward and backward
+// (attention_fwd.cuh, attention_bwd.cuh):
 // TMA tensor maps and loads (2-D and 4-D), mbarrier rings, warpgroup MMA
 // (wgmma) and the mainloop that every B5 and B6 product runs on.
 //
@@ -328,6 +329,70 @@ struct Wgmma<224> {
           "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
           "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
+        : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA), "n"(kTransB));
+  }
+};
+
+// The attention backward's split-key products (attention_bwd.cuh): each of
+// the rows kernel's two consumer warpgroups takes half the keys held, 32,
+// 80 or 112.
+template <>
+struct Wgmma<32> {
+  template <int kTransA, int kTransB>
+  __device__ static __forceinline__ void ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, "
+        "%16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA), "n"(kTransB));
+  }
+};
+
+template <>
+struct Wgmma<80> {
+  template <int kTransA, int kTransB>
+  __device__ static __forceinline__ void ss(float (&d)[40], uint64_t desc_a, uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39"
+        "}, "
+        "%40, %41, p, 1, 1, %43, %44;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA), "n"(kTransB));
+  }
+};
+
+template <>
+struct Wgmma<112> {
+  template <int kTransA, int kTransB>
+  __device__ static __forceinline__ void ss(float (&d)[56], uint64_t desc_a, uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55"
+        "}, "
+        "%56, %57, p, 1, 1, %59, %60;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
         : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA), "n"(kTransB));
   }
 };

@@ -39,10 +39,9 @@ can show that its main path went through the kernels.  The forward and the
 backward kernels each take one of two routes, chosen from the dtype and
 shape in the C entry points and mirrored by :func:`attention_fwd_route` and
 :func:`attention_bwd_route`.  bf16 with head_dim % 16 == 0 and N <= 224
-takes the tensor cores: the forward's ``"wgmma"`` (TMA loads through 4-D
-tensor maps over (column, head, token, group), ``wgmma`` products) and the
-backward's ``"mma"`` (``mma.sync``); f32 and the other bf16 shapes take
-``"fma"`` (CUDA cores).
+takes ``"wgmma"`` on the tensor cores, forward and backward (TMA loads
+through 4-D tensor maps over (column, head, token, group), ``wgmma``
+products); f32 and the other bf16 shapes take ``"fma"`` (CUDA cores).
 Each forward launch also counts under its route in :data:`FWD_ROUTES` (the
 fused attention sublayer's attention phase and v1's included), each
 backward launch in :data:`BWD_ROUTES`.  Under tensor parallelism
@@ -74,7 +73,7 @@ LAUNCHES = {SELF_ATTENTION: 0, WINDOW_ATTENTION_V2: 0, SELF_ATTENTION_BWD: 0, WI
 # Forward launches (B1, B2, v1 and B6's attention phase) and backward
 # launches (B1, B2 and v1) since the last reset, by route.
 FWD_ROUTES = {"wgmma": 0, "fma": 0}
-BWD_ROUTES = {"mma": 0, "fma": 0}
+BWD_ROUTES = {"wgmma": 0, "fma": 0}
 # B1's and B2's launches under tensor parallelism, by "<wrapper name>/<route>".
 TP_ROUTE_NAMES = ("head_local", "gathered")
 TP_ROUTES = {f"{name}/{route}": 0 for name in (SELF_ATTENTION, SELF_ATTENTION_BWD, WINDOW_ATTENTION_V2,
@@ -82,9 +81,9 @@ TP_ROUTES = {f"{name}/{route}": 0 for name in (SELF_ATTENTION, SELF_ATTENTION_BW
 _TP_ROUTE: contextvars.ContextVar = contextvars.ContextVar("edrl_tpu_torch_tp_route", default=None)
 MAX_HEAD_DIM = 128
 MAX_BWD_TOKENS = 256  # the CUDA-core backward keeps [32, N] f32 score rows per block in shared memory
-MMA_MAX_TOKENS = 224  # the tensor-core routes, forward (wgmma) and backward (mma), take the same calls
+WGMMA_MAX_TOKENS = 224  # the wgmma routes, forward and backward, take the same calls
 _SMEM_LIMIT = 232448 - 4 * 64  # opt-in per-block limit, less the 64 static f32 row sums
-_BWD_QUERY_TILE = {"mma": 64, "fma": 32}  # queries per dq block of each route
+_BWD_QUERY_TILE = {"wgmma": 64, "fma": 32}  # queries per unit of each route's dq (rows) kernel
 _DQ_BLOCKS_PER_SM: dict = {}  # (device index, dtype, n, d) -> resident dq blocks per SM with dbias
 
 
@@ -116,7 +115,7 @@ def _count_tp_route(name: str) -> None:
 
 
 def _tensor_cores(dtype, n: int, d: int) -> bool:
-    return dtype == torch.bfloat16 and d % 16 == 0 and n <= MMA_MAX_TOKENS
+    return dtype == torch.bfloat16 and d % 16 == 0 and n <= WGMMA_MAX_TOKENS
 
 
 def attention_fwd_route(dtype, n: int, d: int) -> str:
@@ -133,16 +132,16 @@ def attention_fwd_route(dtype, n: int, d: int) -> str:
 
 
 def attention_bwd_route(dtype, n: int, d: int) -> str:
-    """The backward kernels' route for a call: ``"mma"`` (``mma.sync`` on the
-    tensor cores) for the calls whose forward takes ``"wgmma"``, else
+    """The backward kernels' route for a call: ``"wgmma"`` (TMA and ``wgmma``
+    on the tensor cores) for the calls whose forward takes ``"wgmma"``, else
     ``"fma"``.
 
-    Mirrors ``attention_bwd_route_mma`` in ``csrc/attention_bwd.cuh``, which
+    Mirrors ``attention_bwd_route_wgmma`` in ``csrc/attention_bwd.cuh``, which
     picks the route before the launch (``edrl_attention_bwd_route`` exposes
     it).  Shapes the kernels refuse altogether (head_dim % 8, N > 256) are
     checked elsewhere.
     """
-    return "mma" if _tensor_cores(dtype, n, d) else "fma"
+    return "wgmma" if _tensor_cores(dtype, n, d) else "fma"
 
 
 # ---------------------------------------------------------------------------
@@ -301,10 +300,9 @@ def _grad_output(dout, like):
 
 
 def _aligned_operands(route: str, tensors):
-    """A kernel's inputs as its route takes them: the tensor-core routes
-    read rows by TMA (forward) or 16-byte copies (backward), so a view that
-    starts off a 16-byte boundary is copied (a fresh allocation is
-    aligned)."""
+    """A kernel's inputs as its route takes them: the wgmma routes read
+    rows by TMA, so a view that starts off a 16-byte boundary is copied (a
+    fresh allocation is aligned)."""
     if route == "fma":
         return tuple(tensors)
     return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors)
@@ -326,23 +324,54 @@ def _fwd_smem(lib, dtype, n: int, d: int, with_bias: bool) -> int:
     return lib.edrl_attention_fwd_smem_bytes(int(dtype == torch.bfloat16), n, d, int(with_bias))
 
 
-def dbias_chunking(b: int, base: int, slots: int) -> tuple[int, int]:
+def dbias_chunking(b: int, base: int, slots: int, chunk_cost: float = 0.0) -> tuple[int, int]:
     """``(batch entries per dq block, chunks)`` for the B2 backward's dbias.
 
-    A dq block walks over its chunk of the batch one entry after another and
-    writes the chunk's partial dbias; ``base`` blocks (query tiles x windows
-    x heads) take each chunk, and ``slots`` blocks fit on the card at once.
-    The kernel then takes about ceil(base * chunks / slots) * per_block
-    entries' time: the smallest such time, and of those the fewest chunks
-    (the fewest partials to add).
+    A dq block (a unit of the persistent rows kernel) walks over its chunk
+    of the batch one entry after another and writes the chunk's partial
+    dbias; ``base`` units (query tiles x windows x heads) take each chunk,
+    and ``slots`` run on the card at once.  The kernel then takes about
+    ceil(base * chunks / slots) * per_block entries' time, and each chunk's
+    partial costs ``chunk_cost`` more (its write and its read by the column
+    sum, in entries' time): the smallest such time, and of those the fewest
+    chunks (the fewest partials to add).
     """
     best = None
     for per_block in range(1, b + 1):
         chunks = -(-b // per_block)
-        key = (-(-base * chunks // slots) * per_block, chunks)
+        key = (-(-base * chunks // slots) * per_block + chunk_cost * chunks, chunks)
         if best is None or key < best[0]:
             best = (key, per_block, chunks)
     return best[1], best[2]
+
+
+def dbias_chunk_cost(route: str, windows: int, heads: int, n: int, d: int, sms: int) -> float:
+    """A dbias chunk's partial (``windows * heads * n * n`` f32, written by
+    the rows kernel and read by the column sum) in the wgmma rows kernel's
+    entries' time: its bytes at the card's rate against the bytes one entry
+    of a unit moves (K, V, the tile's q and do and its dq: ``(2 n + 3 * 64)
+    * d`` bf16) at one SM's share.  The CUDA-core route's blocks take 0."""
+    if route != "wgmma":
+        return 0.0
+    return windows * heads * n * n * 8 / (sms * (2 * n + 3 * 64) * d * 2)
+
+
+def _stats(items: int, n: int, device):
+    """Scratch for the backward's row statistics on either route: the
+    CUDA-core one's rows of max, sum and delta (``3 * items * n`` f32), the
+    wgmma one's tiles of 64 rows of max, 1 / sum and delta."""
+    tile = _BWD_QUERY_TILE["wgmma"]
+    return torch.empty(3 * items * -(-n // tile) * tile, dtype=torch.float32, device=device)
+
+
+def _bias_tiles(route: str, windows: int, heads: int, n: int, device):
+    """Scratch for the wgmma backward's bias in its keys kernel's order
+    (``attention_bwd_bias_tiles_floats``: 4096 f32 for each (window, head),
+    key block and query tile of 64), or None on the CUDA-core route."""
+    if route != "wgmma":
+        return None
+    tiles = -(-n // _BWD_QUERY_TILE["wgmma"])
+    return torch.empty(windows * heads * tiles * tiles * 4096, dtype=torch.float32, device=device)
 
 
 def _dq_blocks_per_sm(lib, device, dtype, n: int, d: int) -> int:
@@ -394,7 +423,7 @@ def self_attention_bwd_kernel(q, k, v, dout, num_heads: int, scale: float):
         return dq, dk, dv
     route = attention_bwd_route(q.dtype, n, d)
     q, k, v, dout = _aligned_operands(route, (q, k, v, dout))
-    stats = torch.empty((3, b * num_heads * n), dtype=torch.float32, device=q.device)
+    stats = _stats(b * num_heads, n, q.device)
     _launch_bwd(
         SELF_ATTENTION_BWD, route, lib.edrl_self_attention_bwd, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -516,15 +545,19 @@ def window_attention_v2_bwd_kernel(qkv, bias, dout, num_heads: int, scale: float
         return dqkv, dbias.zero_()
     route = attention_bwd_route(qkv.dtype, n, d)
     qkv, bias, dout = _aligned_operands(route, (qkv, bias, dout))
-    stats = torch.empty((3, b * w * num_heads * n), dtype=torch.float32, device=qkv.device)
+    stats = _stats(b * w * num_heads, n, qkv.device)
     # Batch entries one dq block sums ds over (dbias_chunking).
-    slots = _dq_blocks_per_sm(lib, qkv.device, qkv.dtype, n, d) * build.sm_count(qkv.device)
-    per_block, chunks = dbias_chunking(b, w * num_heads * -(-n // _BWD_QUERY_TILE[route]), slots)
+    sms = build.sm_count(qkv.device)
+    slots = _dq_blocks_per_sm(lib, qkv.device, qkv.dtype, n, d) * sms
+    per_block, chunks = dbias_chunking(b, w * num_heads * -(-n // _BWD_QUERY_TILE[route]), slots,
+                                       dbias_chunk_cost(route, w, num_heads, n, d, sms))
     partial = dbias if chunks == 1 else torch.empty(
         (chunks, *bias.shape), dtype=torch.float32, device=qkv.device)
+    tiles = _bias_tiles(route, w, num_heads, n, qkv.device)
     _launch_bwd(
         name, route, lib.edrl_window_attention_bwd, qkv.device,
-        *_packed_qkv(qkv, c), bias.data_ptr(), dout.data_ptr(), *_packed_qkv(dqkv, c), partial.data_ptr(),
+        *_packed_qkv(qkv, c), bias.data_ptr(), None if tiles is None else tiles.data_ptr(), dout.data_ptr(),
+        *_packed_qkv(dqkv, c), partial.data_ptr(),
         dbias.data_ptr(), stats.data_ptr(), b, w, num_heads, n, d,
         *attention_strides(n, d, num_heads, 3 * c), *attention_strides(n, d, num_heads, c),
         per_block, float(scale), int(qkv.dtype == torch.bfloat16),
@@ -673,14 +706,18 @@ def window_attention_v1_bwd_kernel(q, k, v, bias, dout):
         return dq, dk, dv, dbias.zero_()
     route = attention_bwd_route(q.dtype, n, d)
     q, k, v, bias, dout = _aligned_operands(route, (q, k, v, bias, dout))
-    stats = torch.empty((3, b * w * h * n), dtype=torch.float32, device=q.device)
-    slots = _dq_blocks_per_sm(lib, q.device, q.dtype, n, d) * build.sm_count(q.device)
-    per_block, chunks = dbias_chunking(b, w * h * -(-n // _BWD_QUERY_TILE[route]), slots)
+    stats = _stats(b * w * h, n, q.device)
+    sms = build.sm_count(q.device)
+    slots = _dq_blocks_per_sm(lib, q.device, q.dtype, n, d) * sms
+    per_block, chunks = dbias_chunking(b, w * h * -(-n // _BWD_QUERY_TILE[route]), slots,
+                                       dbias_chunk_cost(route, w, h, n, d, sms))
     partial = dbias if chunks == 1 else torch.empty((chunks, *bias.shape), dtype=torch.float32, device=q.device)
     strides = attention_strides(n, d, h)
+    tiles = _bias_tiles(route, w, h, n, q.device)
     _launch_bwd(
         WINDOW_ATTENTION_V1_BWD, route, lib.edrl_window_attention_bwd, q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), dout.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), None if tiles is None else tiles.data_ptr(),
+        dout.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), partial.data_ptr(), dbias.data_ptr(), stats.data_ptr(),
         b, w, h, n, d, *strides, *strides, per_block, 1.0, int(q.dtype == torch.bfloat16),
     )

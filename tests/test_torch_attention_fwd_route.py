@@ -4,7 +4,7 @@
 launch (``csrc/attention_fwd.cuh``, ``attention_fwd_route_wgmma``): bf16
 with head_dim % 16 == 0 and N <= 224 takes TMA and ``wgmma`` ("wgmma"),
 everything else the CUDA cores ("fma"); the backward takes the same calls
-to its tensor-core route ("mma").  ``tests/test_torch_cuda.py`` holds the
+to its own "wgmma" route.  ``tests/test_torch_cuda.py`` holds the
 Python mirror to the C one on a card, and there tests the 4-D tensor maps
 the wgmma route reads q, k and v through (``edrl_attention_fwd_map_plan``).
 
@@ -68,14 +68,12 @@ def test_route_at_main_path_shapes_and_edges(dtype, n, d, route):
 
 
 def test_forward_and_backward_take_the_same_route():
-    """Every call the forward sends to wgmma the backward sends to its
-    tensor-core route (mma), and every other call both send to the CUDA
-    cores (fma)."""
-    pair = {"wgmma": "mma", "fma": "fma"}
+    """Every call the forward sends to wgmma the backward sends to wgmma,
+    and every other call both send to the CUDA cores (fma)."""
     for dtype in (BF16, F32):
         for n in range(1, wa.MAX_BWD_TOKENS + 1):
             for d in (8, 16, 24, 32, 64, 96, 128):
-                assert pair[wa.attention_fwd_route(dtype, n, d)] == wa.attention_bwd_route(dtype, n, d)
+                assert wa.attention_fwd_route(dtype, n, d) == wa.attention_bwd_route(dtype, n, d)
 
 
 def test_route_counts_reset_with_the_launch_counts():

@@ -83,17 +83,19 @@ def _bwd_bar(dtype):
     return 1e-2 if dtype == torch.bfloat16 else 1e-4
 
 
-# Backward shapes: the batch-32 train shapes, and the edges of the two
-# routes (bf16 takes the tensor cores at head_dim % 16 == 0 and N <= 224):
-# N = 224 (tensor cores) and 225 (CUDA cores), N = 1, 17 and 145 (ragged
-# tails), head_dim 16 (tensor cores), head_dim 8 and 24 (CUDA cores), and
-# N = 240 (CUDA cores).
-SA_BWD_SHAPES = [(32, 216, 768, 6), (2, 224, 128, 1), (2, 225, 128, 1), (2, 1, 32, 2), (3, 17, 32, 2),
-                 (2, 145, 256, 2), (3, 16, 32, 2), (2, 70, 64, 1), (2, 40, 16, 2), (2, 40, 48, 2),
+# Backward shapes: the batch-32 train shapes, a head-local tensor-parallel
+# shard of each (B1's 3 of 6 heads, B2's 1 of Swin stage 1's 2), and the
+# edges of the two routes (bf16 takes wgmma at head_dim % 16 == 0 and N <=
+# 224): N = 224 (wgmma) and 225 (CUDA cores), N = 1, 17 and 145 (ragged
+# tails), head_dim 16 (wgmma), head_dim 8 and 24 (CUDA cores), and N = 240
+# (CUDA cores).
+SA_BWD_SHAPES = [(32, 216, 768, 6), (32, 216, 384, 3), (2, 224, 128, 1), (2, 225, 128, 1), (2, 1, 32, 2),
+                 (3, 17, 32, 2), (2, 145, 256, 2), (3, 16, 32, 2), (2, 70, 64, 1), (2, 40, 16, 2), (2, 40, 48, 2),
                  (2, 240, 128, 1)]
 V2_BWD_SHAPES = [(32, 64, 144, 128, 1), (32, 16, 144, 256, 2), (32, 4, 144, 512, 4), (32, 1, 144, 1024, 8),
-                 (32, 1, 216, 768, 6), (2, 1, 224, 128, 1), (2, 1, 225, 128, 1), (2, 3, 1, 32, 2),
-                 (3, 2, 17, 32, 2), (2, 2, 145, 128, 1), (3, 2, 16, 32, 2), (2, 2, 16, 16, 2), (2, 1, 240, 48, 2)]
+                 (32, 1, 216, 768, 6), (32, 16, 144, 128, 1), (2, 1, 224, 128, 1), (2, 1, 225, 128, 1),
+                 (2, 3, 1, 32, 2), (3, 2, 17, 32, 2), (2, 2, 145, 128, 1), (3, 2, 16, 32, 2), (2, 2, 16, 16, 2),
+                 (2, 1, 240, 48, 2)]
 
 
 @pytest.mark.cuda
@@ -161,7 +163,105 @@ def test_bwd_route_mirrors_the_entry_points(cuda):
             for d in (8, 16, 24, 32, 64, 128):
                 want = wa.attention_bwd_route(dtype, n, d)
                 got = lib.edrl_attention_bwd_route(int(dtype == torch.bfloat16), n, d)
-                assert {1: "mma", 0: "fma"}[got] == want, (dtype, n, d)
+                assert {1: "wgmma", 0: "fma"}[got] == want, (dtype, n, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,heads", [(32, 216, 768, 6), (3, 17, 32, 2)])
+def test_self_attention_bwd_is_deterministic(cuda, b, n, c, heads):
+    """dq, dk and dv the same bit for bit over two launches of the wgmma route."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    q, k, v, do = (torch.randn((b, n, c), generator=gen, device=cuda).to(torch.bfloat16) for _ in range(4))
+    first = wa.self_attention_bwd_kernel(q, k, v, do, heads, 0.09)
+    second = wa.self_attention_bwd_kernel(q, k, v, do, heads, 0.09)
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_wgmma_bwd_kernels_do_not_spill(cuda):
+    """The rows and keys kernels keep to their registers after setmaxnreg
+    (ptxas reports no spill for any of their instances) and fit a CTA on
+    an SM at the main-path shapes."""
+    import ctypes
+
+    lib = build.load_library()
+    entry, found, spills = None, set(), []
+    for line in build.build_library().with_suffix(".log").read_text().splitlines():
+        if "Compiling entry" in line:
+            entry = line.split("'")[1]
+        elif entry and ("attention_bwd_rows_kernel" in entry or "attention_bwd_keys_kernel" in entry):
+            found.add("rows" if "rows" in entry else "keys")
+            if "spill stores" in line and int(line.split(" bytes spill stores")[0].split()[-1]):
+                spills.append((entry, line))
+    assert found == {"rows", "keys"} and not spills, spills
+    occ = (ctypes.c_int * 4)()
+    for n, with_dbias in ((216, 0), (144, 1), (216, 1)):
+        assert lib.edrl_attention_bwd_occupancy(1, n, 128, with_dbias, occ) == 0
+        assert occ[0] >= 1 and occ[1] >= 1, (n, with_dbias, tuple(occ))
+
+
+# The wgmma backward reads q, k, v and do through 4-D tensor maps: with NaN
+# in the group after a view's last, dq, dk, dv and dbias are finite and within
+# the bars (B1's packed layout at N = 216, B2's at N = 144 with a bias, v1's).
+@pytest.mark.cuda
+def test_wgmma_bwd_reads_no_neighbouring_group(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    bias = torch.randn((4, 2, 144, 144), generator=gen, device=cuda)
+    bias[..., 1::3] = -1e9
+    wa.reset_launch_counts()
+    q, k, v, do = (_nan_after((4, 216, 768), torch.bfloat16, gen, cuda) for _ in range(4))
+    got = wa.self_attention_bwd_kernel(q[:4], k[:4], v[:4], do[:4], 6, 128 ** -0.5)
+    want = wa.self_attention_bwd_reference(q[:4], k[:4], v[:4], do[:4], 6, 128 ** -0.5)
+    assert all(torch.isfinite(g).all() and _rel_err(g, w) <= 1e-2 for g, w in zip(got, want))
+
+    qkv, do = _nan_after((2, 4, 144, 768), torch.bfloat16, gen, cuda), _nan_after((2, 4, 144, 256), torch.bfloat16,
+                                                                                   gen, cuda)
+    dqkv, dbias = wa.window_attention_v2_bwd_kernel(qkv[:2], bias, do[:2], 2, 128 ** -0.5)
+    want_dqkv, want_dbias = wa.window_attention_v2_bwd_reference(qkv[:2], bias, do[:2], 2, 128 ** -0.5)
+    assert torch.isfinite(dqkv).all() and _rel_err(dqkv, want_dqkv) <= 1e-2
+    assert torch.isfinite(dbias).all() and _rel_err(dbias, want_dbias) <= 1e-4
+
+    q, k, v, do = (_nan_after((2, 3, 2, 144, 128), torch.bfloat16, gen, cuda) for _ in range(4))
+    got = wa.window_attention_v1_bwd_kernel(q[:2], k[:2], v[:2], bias[:3].contiguous(), do[:2])
+    want = wa.window_attention_bwd_reference(q[:2], k[:2], v[:2], bias[:3].contiguous(), do[:2])
+    assert all(torch.isfinite(g).all() and _rel_err(g, w) <= 1e-2 for g, w in zip(got[:3], want[:3]))
+    assert _rel_err(got[3], want[3]) <= 1e-4
+    assert wa.BWD_ROUTES == {"wgmma": 3, "fma": 0}
+
+
+# Units where one of the rows kernel's consumer warpgroups has no key below N
+# (N = 17 holds 64 keys, 32 a warpgroup) or few (N = 100 and 150 hold 160),
+# and pipelines of the keys kernel with 3 or more units each; three calls
+# each against the plain version.
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["B2 N=100 d=64", "B1 N=150", "B1 N=17"])
+def test_wgmma_bwd_with_warpgroups_without_a_tile(cuda, case):
+    import ctypes
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    grid = (ctypes.c_int * 7)()
+    wa.reset_launch_counts()
+    if case.startswith("B2"):
+        qkv = torch.randn((8, 64, 100, 384), generator=gen, device=cuda).to(torch.bfloat16)
+        do = torch.randn((8, 64, 100, 128), generator=gen, device=cuda).to(torch.bfloat16)
+        bias = torch.randn((64, 2, 100, 100), generator=gen, device=cuda)
+        bias[..., 1::3] = -1e9
+        want = wa.window_attention_v2_bwd_reference(qkv, bias, do, 2, 64 ** -0.5)
+        for _ in range(3):
+            got = wa.window_attention_v2_bwd_kernel(qkv, bias, do, 2, 64 ** -0.5)
+            assert _rel_err(got[0], want[0]) <= 1e-2 and _rel_err(got[1], want[1]) <= 1e-4
+        assert build.load_library().edrl_attention_bwd_grid(100, 8, 64, 2, 1, grid) == 0
+    else:
+        n, b = int(case.split("=")[1]), 6 * sms + sms // 2 - 6
+        q, k, v, do = (torch.randn((b, n, 128), generator=gen, device=cuda).to(torch.bfloat16) for _ in range(4))
+        want = wa.self_attention_bwd_reference(q, k, v, do, 1, 128 ** -0.5)
+        for _ in range(3):
+            got = wa.self_attention_bwd_kernel(q, k, v, do, 1, 128 ** -0.5)
+            assert all(_rel_err(g, w) <= 1e-2 for g, w in zip(got, want))
+        assert build.load_library().edrl_attention_bwd_grid(n, b, 1, 1, 1, grid) == 0
+        assert grid[1] >= 3 * grid[0] and grid[3] >= 6 * grid[2], tuple(grid)
+    assert wa.BWD_ROUTES == {"wgmma": 3, "fma": 0}
 
 
 @pytest.mark.cuda

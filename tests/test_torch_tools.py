@@ -107,7 +107,8 @@ _WGMMA = "void (anonymous namespace)::wgmma_gemm_kernel<(anonymous namespace)::{
     (_WGMMA.format("ResidualEpilogue", "true"), psl.FWD_PHASES, "proj product"),
     ("void (anonymous namespace)::attention_fwd_tc_kernel<7>(AttnParams)", psl.BWD_PHASES,
      "B2 forward (o recomputed)"),
-    ("void (anonymous namespace)::attention_bwd_dkv_mma_kernel<true>(AttnBwdParams)", psl.BWD_PHASES, "B2 backward"),
+    ("void (anonymous namespace)::attention_bwd_keys_kernel<true>(CUtensorMap, CUtensorMap, CUtensorMap, "
+     "CUtensorMap, AttnBwdParams)", psl.BWD_PHASES, "B2 backward"),
     (_WGMMA.format("StoreEpilogue", "false"), psl.BWD_PHASES, "do and dxln products"),
     (_WGMMA.format("StoreF32Epilogue", "false"), psl.BWD_PHASES, "do and dxln products"),
     (_WGMMA.format("WgradEpilogue", "true"), psl.BWD_PHASES, "weight gradients"),
