@@ -348,6 +348,20 @@ shipped config at full width made f32 (the bars of a step's results):
     1 epoch at batch 16, ``--scan_batches 4`` against ``0``: the CSV rows
     and the ``best`` checkpoint bit-equal.
 
+Then the accuracy study (ROADMAP A8):
+
+30. ``tools.ablation_study`` (the port's ``scripts/ablation_study.py``) on
+    the fusion protocol at full width, cut in depth: full EDRL, seed 0, one
+    epoch of 32 train and 16 val samples at batch 16, warmup 100, sigmas 0
+    and 0.5, into a temporary directory under ``build/``, with the JAX
+    package's table as the parity rows (no row has this protocol).  Checked:
+    one row with the JAX rows' keys, its sweep the 3 modalities x 2 sigmas
+    cells of 16 samples with finite metrics, per-epoch histories, B1's and
+    B2's launches in ``fit`` (2 steps and one val batch) and in the sweep
+    all on "wgmma", no B3, B4, B5 or B6 launch; a second call trains
+    nothing (the row cached, the file unchanged, no launch).  Printed: the
+    step's ms, ``fit``'s seconds and the phase's.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX
 and nothing of the JAX package.
@@ -1764,6 +1778,76 @@ def zoo_tensor_parallel_path(card) -> None:
         shutil.rmtree(work, ignore_errors=True)
     check(not work.exists(), "phase 29's temporary directory is removed")
     print(f"wall s: phase 29 {time.perf_counter() - t_phase:.1f} (the ranks {t_ranks:.1f}) [{card}]", flush=True)
+
+
+ABLATION_ARGS = ["--protocol", "fusion", "--epochs", "1", "--warmup_steps", "100", "--train_samples", "32",
+                 "--val_samples", "16", "--batch_size", "16", "--lr", "3e-5", "--sigmas", "0", "0.5",
+                 "--seeds", "0"]
+
+
+def ablation_path(card, reset_counts, counts) -> None:
+    """Phase 30: the ablation study on the card (see the module docstring)."""
+    import math
+    import shutil
+    import tempfile
+
+    from edrl_tpu_torch.kernels import window_attention as wa
+    from edrl_tpu_torch.tools import ablation_study as ab
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="edrl_ablation_", dir=REPO / "build"))
+    out = work / "STUDY.md"
+    jsonl = Path(f"{out}.jsonl")
+    argv = ABLATION_ARGS + ["--variants", ab.FULL, "--output", str(out),
+                            "--parity_jsonl", str(REPO / "ABLATION_FUSION_DEFAULT.md.jsonl")]
+    try:
+        buf = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(buf):
+            check(ab.main(argv) == 0, "ablation_study exit code")
+        launches = counts()
+        rows = [json.loads(line) for line in jsonl.read_text().splitlines()]
+        check(len(rows) == 1, f"ablation rows {len(rows)}")
+        r = rows[0]
+        jax_keys = set(json.loads((REPO / "ABLATION_FUSION_DEFAULT.md.jsonl").read_text().splitlines()[0]))
+        check(jax_keys <= set(r), f"row keys: {jax_keys - set(r)} missing")
+        cells = [(m, s, c) for m, by in r["sweep"].items() for s, c in by.items()]
+        check(sorted((m, s) for m, s, _ in cells) == sorted((m, s) for m in ab.MODALITIES for s in ("0.0", "0.5"))
+              and all(c["num_samples"] == 16 and all(math.isfinite(c[k]) for k in ("loss", "accuracy", "auc"))
+                      for _, _, c in cells), f"sweep cells {[(m, s) for m, s, _ in cells]}")
+        check(r["sweep"]["both"]["0.0"]["loss"] != r["sweep"]["both"]["0.5"]["loss"], "the sweep's sigmas differ")
+        check(len(r["train_loss_history"]) == len(r["val_acc_history"]) == 1
+              and math.isfinite(r["final_train_loss"]) and r["card"] == card, f"row {r['card']}")
+        fit_l, sweep_l = r["launches"]["fit"], r["launches"]["sweep"]
+        # Two steps of two forwards (12 B1 + 12 B2 each) and their backwards,
+        # one val batch of 12 + 12 forwards; the sweep one batch a cell (a
+        # missing modality's input is zeroed and its backbone still runs).
+        check(fit_l["forward"] == {"wgmma": 2 * 48 + 24, "fma": 0} and fit_l["backward"] == {"wgmma": 2 * 48, "fma": 0},
+              f"fit's attention launches by route {fit_l}")
+        check(sweep_l["forward"] == {"wgmma": 2 * 3 * 24, "fma": 0} and sweep_l["backward"] == {"wgmma": 0, "fma": 0},
+              f"the sweep's attention launches by route {sweep_l}")
+        attention = (wa.SELF_ATTENTION, wa.WINDOW_ATTENTION_V2, wa.SELF_ATTENTION_BWD, wa.WINDOW_ATTENTION_V2_BWD)
+        check(all(launches[k] > 0 and launches[k] == fit_l["kernels"][k] + sweep_l["kernels"][k] for k in attention)
+              and not any(v for k, v in launches.items() if k not in attention), f"phase 30 launches {launches}")
+        md = out.read_text()
+        check(all(h in md for h in ("## Fusion advantage", "## Paired per seed", "## Runs", "## Parity")),
+              "the study's markdown")
+        before = jsonl.read_text()
+        reset_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(ab.main(argv) == 0, "ablation_study exit code, cached")
+        check("(cached)" in buf.getvalue() and jsonl.read_text() == before and not any(counts().values()),
+              "a second call trains nothing")
+        print(f"ablation study, full EDRL seed 0, 1 epoch of 32 + 16 samples at full width: best val acc "
+              f"{r['best_val_acc']:.4f}, train loss {r['final_train_loss']:.4f}, fit {r['train_time_s']} s (its "
+              f"first epoch {r['first_epoch_s']:.1f} s, {r['step_ms']:.1f} ms a step), B1/B2 launches by route: "
+              f"fit {fit_l['forward']} / {fit_l['backward']}, sweep {sweep_l['forward']}; sweep cells "
+              f"{len(cells)}; a second call cached [{card}]", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(not work.exists(), "phase 30's temporary directory is removed")
+    print(f"wall s: phase 30 {time.perf_counter() - t_phase:.1f} [{card}]", flush=True)
 
 
 def main() -> None:
@@ -4283,8 +4367,12 @@ def main() -> None:
     # -- 29. the baseline zoo over a (1, 2) mesh, chunked serving there, scan_batches
     zoo_tensor_parallel_path(card)
     t_end = time.perf_counter()
-    print(f"wall s: phases 26-29 {t_end - t_real:.1f}, the script {t_end - t_start:.1f} (its kernels' builds "
-          f"included) [{card}]", flush=True)
+    print(f"wall s: phases 26-29 {t_end - t_real:.1f} [{card}]", flush=True)
+
+    # -- 30. the ablation study at full width, cut in depth --------------------
+    ablation_path(card, reset_counts, counts)
+    print(f"wall s: the script {time.perf_counter() - t_start:.1f} (its kernels' builds included) [{card}]",
+          flush=True)
 
     kernels = []
     for name in KERNEL_SOURCE:
